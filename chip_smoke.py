@@ -1,0 +1,593 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
+
+1. device: the card's name and power limit, TF32 off;
+2. build: the hand-written CUDA kernels, compiled from `ome_tpu_torch/ops/
+   csrc/` with nvcc for sm_90a (one nvcc per source, in parallel);
+3. kernels: each kernel against its plain PyTorch version (fp32, same
+   inputs) at the Llama-3-8B attention shapes, in bf16 and fp32, with the
+   kernel's median time, the plain version's, the card's lower bound for
+   the same work and, as a yardstick only, one
+   `scaled_dot_product_attention` call;
+4. serve: the OpenAI HTTP server from `ome_tpu_torch.engine.serve.
+   build_server` at the Llama-3-8B shape (random bf16 weights from a
+   seed), answering concurrent completions, a stream, a prefix-cache hit
+   and a repeated prompt, with the kernel launch counters read around it.
+
+Prints one `{"kernels": [...]}` line, then the card's name and power limit,
+then `{"ok": true, "device": {...}}` as the last line. Any failed phase
+exits non-zero without that line. Longer per-case results go to
+`chiprun_out/chip_smoke.json`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core bf16
+              "fp32": 67e12}       # fp32 outside the tensor cores
+ATOL = {"bf16": 2e-2, "fp32": 2e-4}
+OUT_DIR = "chiprun_out"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+# -- timing -------------------------------------------------------------------
+
+
+class Timer:
+    """Median device time of a kernel-sized callable, L2 flushed before
+    each run.
+
+    Each run is queued behind a spin kernel (`torch.cuda._sleep`, ~2 ms
+    at H100 clocks) that outlasts the host's enqueueing of the callable,
+    so the start event fires with the callable's kernels already
+    queued: the events time the device work, not the Python that
+    launches it. (A callable that waits on the host inside would wait
+    for the spin too; whole engine steps are timed with the profiler.)"""
+
+    SPIN_CYCLES = 4_000_000
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        # larger than the H100's 50 MB L2: written between timed runs so
+        # each run reads its inputs from device memory, as a decode step
+        # reading one layer's cache does
+        self.flush_buf = torch.empty(96 << 20, dtype=torch.uint8,
+                                     device=device)
+
+    def ms(self, fn, iters: int = 15, warmup: int = 2) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            self.flush_buf.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+# -- phase 1: device ------------------------------------------------------------
+
+
+def phase_device(torch):
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a "
+             "CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0].strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[device] nvidia-smi: {card}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    log(f"[device] matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    return card
+
+
+# -- phase 2: build -------------------------------------------------------------
+
+
+def phase_build():
+    from ome_tpu_torch.ops import _build
+    secs = _build.build()
+    log(f"[build] nvcc sm_90a build of {sorted(_build.SOURCES)}: "
+        f"{secs:.1f} s")
+    for name, text in sorted(_build.build_logs.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    return secs
+
+
+# -- phase 3: kernels against their plain versions -----------------------------
+
+
+def _inputs(torch, gen, B, Sq, S, H, K, D, dtype, device):
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device,
+                           dtype=torch.float32).to(dtype)
+    return randn(B, Sq, H, D), randn(B, S, K, D), randn(B, S, K, D)
+
+
+def _sdpa(torch, q, k, v, mask):
+    """One scaled_dot_product_attention call computing the same
+    function (yardstick only; the port never calls it)."""
+    F = torch.nn.functional
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+    def fn():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    try:
+        fn()
+    except TypeError:  # torch without enable_gqa: no yardstick
+        return None
+    return fn
+
+
+def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
+                softcap=None, B=8, S=4096, H=32, K=8, D=128):
+    from ome_tpu_torch.ops import flash
+    dev = torch.device("cuda")
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    q, k, v = _inputs(torch, gen, B, 1, S, H, K, D, dtype, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    pos = (lens - 1).clamp(min=0)
+    hi = torch.minimum(pos + 1, lens)
+    lo = (pos - window + 1).clamp(min=0) if window else \
+        torch.zeros_like(pos)
+    scale = D ** -0.5
+    out = flash.flash_decode(q, k, v, lo, hi, scale, softcap)
+    ref = flash.flash_decode_ref(q.float(), k.float(), v.float(), lo, hi,
+                                 scale, softcap)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        fail(f"flash_decode {dtype_name}: non-finite output")
+    err = (out.float() - ref).abs().max().item()
+    ms = timer.ms(lambda: flash.flash_decode(q, k, v, lo, hi, scale,
+                                             softcap))
+    plain_ms = timer.ms(lambda: flash.flash_decode_ref(
+        q.float(), k.float(), v.float(), lo, hi, scale, softcap), iters=5)
+    lib_ms = None
+    if not softcap:
+        col = torch.arange(S, device=dev)
+        mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None])
+                )[:, None, None, :]
+        fn = _sdpa(torch, q, k, v, mask)
+        if fn is not None:
+            lib_ms = timer.ms(fn)
+    rows = int((hi - lo).clamp(min=0).sum())
+    esize = q.element_size()
+    nbytes = 2 * rows * K * D * esize + 2 * q.numel() * esize + 2 * B * 4
+    flops = 4 * D * H * rows
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return {"case": f"decode {dtype_name} B={B} S={S} H={H} K={K} D={D} "
+                    f"lengths={lengths} window={window} softcap={softcap}",
+            "max_abs_err": err, "atol": ATOL[dtype_name],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
+                 softcap=None, B=1, H=32, K=8, D=128):
+    from ome_tpu_torch.ops import flash
+    dev = torch.device("cuda")
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    q, k, v = _inputs(torch, gen, B, Sq, S, H, K, D, dtype, dev)
+    base_t = torch.full((B,), base, dtype=torch.int32, device=dev)
+    kv_hi = torch.full((B,), base + Sq, dtype=torch.int32, device=dev)
+    scale = D ** -0.5
+    out = flash.flash_prefill(q, k, v, base_t, kv_hi, scale, softcap,
+                              window)
+    ref = flash.flash_prefill_ref(q.float(), k.float(), v.float(), base_t,
+                                  kv_hi, scale, softcap, window)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        fail(f"flash_prefill {dtype_name}: non-finite output")
+    err = (out.float() - ref).abs().max().item()
+    ms = timer.ms(lambda: flash.flash_prefill(q, k, v, base_t, kv_hi,
+                                              scale, softcap, window))
+    plain_ms = timer.ms(lambda: flash.flash_prefill_ref(
+        q.float(), k.float(), v.float(), base_t, kv_hi, scale, softcap,
+        window), iters=3)
+    lib_ms = None
+    if not softcap:
+        col = torch.arange(S, device=dev)[None, :]
+        pos = (base + torch.arange(Sq, device=dev))[:, None]
+        mask = (col <= pos) & (col < base + Sq)
+        if window:
+            mask = mask & (col > pos - window)
+        fn = _sdpa(torch, q, k, v, mask[None, None])
+        if fn is not None:
+            lib_ms = timer.ms(fn)
+    pos = base + torch.arange(Sq)
+    hi = torch.clamp(pos + 1, max=base + Sq)
+    lo = (pos - window + 1).clamp(min=0) if window else \
+        torch.zeros_like(pos)
+    pairs = int((hi - lo).clamp(min=0).sum()) * B
+    flops = 4 * D * H * pairs
+    esize = q.element_size()
+    nbytes = (2 * q.numel() + 2 * B * (base + Sq) * K * D) * esize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return {"case": f"prefill {dtype_name} B={B} Sq={Sq} S={S} base={base} "
+                    f"H={H} K={K} D={D} window={window} softcap={softcap}",
+            "max_abs_err": err, "atol": ATOL[dtype_name],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def phase_kernels(torch):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    timer = Timer(torch, torch.device("cuda"))
+    lengths = [0, 1, 17, 128, 300, 1023, 2049, 4095]
+    cases = {"flash_decode": [], "flash_prefill": []}
+    for dt in ("bf16", "fp32"):
+        cases["flash_decode"].append(
+            decode_case(torch, timer, gen, dt, lengths))
+    cases["flash_decode"].append(decode_case(
+        torch, timer, gen, "bf16", lengths, window=256, softcap=30.0))
+    for dt in ("bf16", "fp32"):
+        cases["flash_prefill"].append(
+            prefill_case(torch, timer, gen, dt, 2048, 2048, 0))
+        cases["flash_prefill"].append(
+            prefill_case(torch, timer, gen, dt, 512, 2048, 1024))
+    cases["flash_prefill"].append(prefill_case(
+        torch, timer, gen, "bf16", 2048, 2048, 0, window=512,
+        softcap=50.0))
+    bad = []
+    for name, rows in cases.items():
+        for c in rows:
+            ok = c["max_abs_err"] <= c["atol"]
+            lib = ("null" if c["library_ms"] is None
+                   else f"{c['library_ms']:.4f}")
+            log(f"[kernels] {name} {c['case']}: max_abs_err "
+                f"{c['max_abs_err']:.3e} (tol {c['atol']:g}) "
+                f"{'ok' if ok else 'FAIL'}; ms {c['ms']:.4f} plain_ms "
+                f"{c['plain_ms']:.4f} bound_ms {c['bound_ms']:.4f} "
+                f"({c['bound_by']}) library_ms {lib}")
+            if not ok:
+                bad.append(f"{name}: {c['case']}")
+    if bad:
+        fail("kernel disagrees with its plain version: " + "; ".join(bad))
+    return cases
+
+
+# -- phase 4: serve ---------------------------------------------------------------
+
+
+def _hf_config(cfg) -> dict:
+    return {"architectures": ["LlamaForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "num_key_value_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim,
+            "intermediate_size": cfg.intermediate_size,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+            "max_position_embeddings": cfg.max_seq_len,
+            "tie_word_embeddings": cfg.tie_word_embeddings}
+
+
+def _post(url: str, body: dict, timeout: float = 600):
+    import urllib.request
+    req = urllib.request.Request(
+        url + "/v1/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def _completion(status, raw, max_tokens, what):
+    if status != 200:
+        fail(f"serve: {what}: HTTP {status}")
+    doc = json.loads(raw)
+    n = doc["usage"]["completion_tokens"]
+    reason = doc["choices"][0]["finish_reason"]
+    if not 1 <= n <= max_tokens or (n != max_tokens and reason != "stop"):
+        fail(f"serve: {what}: {n} completion tokens "
+             f"(max_tokens {max_tokens}, finish_reason {reason})")
+    return doc
+
+
+def _device_profile(torch, fn, iters: int):
+    """Summed device time per call of `fn` and its five costliest
+    device operations (ms per call, launches per call, name), from
+    torch.profiler's CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    # device-side events only (kernels, copies, fills): the CPU ops that
+    # launched them carry the same time again
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / iters / 1e3, ev.count // iters, ev.key))
+    rows.sort(reverse=True)
+    return sum(r[0] for r in rows), rows[:5]
+
+
+def _step_times(torch, engine, prompt, iters: int = 10):
+    """Wall time of one engine decode step (8 slots, all armed) and of
+    one cold 2048-token prefill, with the scheduler and server stopped,
+    and the device time inside each from torch.profiler: 1 - device /
+    wall is the share of the step the device sits idle waiting for the
+    host."""
+    import numpy as np
+    dev = torch.device("cuda")
+    state = engine.new_state()
+    for slot in range(engine.max_slots):
+        tok, kv, n, bucket = engine.prefill(prompt(64 + 300 * slot))
+        state = engine.insert(state, kv, slot, n, tok, bucket)
+    # device-resident sampling params, as the scheduler passes them
+    greedy = (torch.zeros(engine.max_slots, device=dev),
+              torch.zeros(engine.max_slots, dtype=torch.int32, device=dev),
+              torch.ones(engine.max_slots, device=dev))
+    box = [state]
+
+    def decode():
+        box[0], toks = engine.decode(box[0], *greedy)
+        np.asarray(toks)
+
+    long_prompt = prompt(2048)
+    engine.prefix_cache.capacity_bytes = 0  # time cold prefills
+
+    def prefill():
+        engine.prefill(long_prompt)
+
+    res = {}
+    for name, fn in (("decode", decode), ("prefill_2048", prefill)):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        wall = statistics.median(times)
+        busy, top = _device_profile(torch, fn, 3)
+        res[name] = {"wall_ms": wall, "device_ms": busy or None,
+                     "idle_share": 1 - busy / wall if busy else None,
+                     "top": top}
+        if busy:
+            log(f"[serve] engine {name} step: wall {wall:.2f} ms, device "
+                f"busy {busy:.2f} ms (torch.profiler), idle share "
+                f"{1 - busy / wall:.2f}")
+            for ms, count, key in top:
+                log(f"[serve]   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+        else:
+            log(f"[serve] engine {name} step: wall {wall:.2f} ms, device "
+                f"time not measured (the profiler saw no device activity)")
+    return res
+
+
+def phase_serve(torch, seed: int = 0):
+    import concurrent.futures
+    import random
+    import tempfile
+    import urllib.request
+
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.ops import flash
+
+    cfg = llama3_8b()
+    rng = random.Random(seed)
+
+    def prompt(n):
+        return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(_hf_config(cfg), f)
+        reqlog = os.path.join(tmp, "requests.jsonl")
+        t0 = time.monotonic()
+        server, sched, engine = serve.build_server(
+            ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
+             "--max-slots", "8", "--max-seq", "4096", "--port", "0",
+             "--host", "127.0.0.1", "--request-log", reqlog])
+        torch.cuda.synchronize()
+        out["startup_s"] = time.monotonic() - t0
+        log(f"[serve] Llama-3-8B shape, random bf16 weights (seed {seed}), "
+            f"{cfg.num_layers} layers, slots 8, max_seq 4096: server up "
+            f"in {out['startup_s']:.1f} s; device memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+        url = f"http://127.0.0.1:{server.port}"
+        # every Request the server builds, read back in process
+        seen = []
+        submit = sched.submit
+
+        def recording_submit(req):
+            seen.append(req)
+            return submit(req)
+        sched.submit = recording_submit
+        try:
+            flash.reset_launches()
+            t_batch = time.monotonic()
+            lengths = [16, 100, 400, 800, 1500, 2200, 2600, 3000]
+            twin = prompt(24)
+            bodies = [{"prompt": prompt(n), "max_tokens": 32,
+                       "temperature": 0.0} for n in lengths]
+            bodies += [{"prompt": list(twin), "max_tokens": 32,
+                        "temperature": 0.0} for _ in range(2)]
+            with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
+                futs = [ex.submit(_post, url, b) for b in bodies]
+                docs = [_completion(*f.result(), 32, f"request {i}")
+                        for i, f in enumerate(futs)]
+            out["batch_s"] = time.monotonic() - t_batch
+            out["batch_completion_tokens"] = sum(
+                d["usage"]["completion_tokens"] for d in docs)
+            twins = [r for r in seen if r.prompt_ids == twin]
+            if len(twins) != 2 or twins[0].output_ids != twins[1].output_ids:
+                fail("serve: the twin prompts gave different outputs")
+            log(f"[serve] {len(bodies)} concurrent completions (prompt "
+                f"lengths {lengths} + 2 x 24-token twins): all 200, "
+                f"{out['batch_completion_tokens']} tokens in "
+                f"{out['batch_s']:.2f} s; twins identical")
+
+            # prefix cache: the second prompt shares the first's
+            # 1024-token prefix and is sent after the first finished
+            shared = prompt(1024)
+            hits0 = engine.prefix_cache.hits
+            _completion(*_post(url, {"prompt": shared + prompt(200),
+                                     "max_tokens": 32}), 32, "prefix 1")
+            pre0 = flash.LAUNCHES["flash_prefill"]
+            _completion(*_post(url, {"prompt": shared + prompt(150),
+                                     "max_tokens": 32}), 32, "prefix 2")
+            out["prefix_hits"] = engine.prefix_cache.hits - hits0
+            if out["prefix_hits"] < 1:
+                fail("serve: the shared-prefix request missed the "
+                     "prefix cache")
+            if flash.LAUNCHES["flash_prefill"] <= pre0:
+                fail("serve: the prefix-suffix prefill launched no "
+                     "flash_prefill kernel")
+            log(f"[serve] shared 1024-token prefix: {out['prefix_hits']} "
+                f"prefix-cache hit(s); suffix prefill went through "
+                f"flash_prefill")
+
+            status, raw = _post(url, {"prompt": prompt(64),
+                                      "max_tokens": 32, "stream": True})
+            events = [ln[6:] for ln in raw.decode().splitlines()
+                      if ln.startswith("data: ")]
+            if status != 200 or events[-1] != "[DONE]":
+                fail("serve: the SSE stream did not end with [DONE]")
+            final = json.loads(events[-2])
+            n = final["usage"]["completion_tokens"]
+            if not 1 <= n <= 32:
+                fail(f"serve: stream gave {n} completion tokens")
+            log(f"[serve] SSE stream: {n} tokens, ended with [DONE]")
+
+            with urllib.request.urlopen(url + "/health", timeout=30) as r:
+                health = json.loads(r.read())
+            if health.get("status") != "ok":
+                fail(f"serve: /health says {health}")
+            torch.cuda.synchronize()
+            launches = dict(flash.LAUNCHES)
+        finally:
+            server.stop()
+        out["step"] = _step_times(torch, engine, prompt)
+        with open(reqlog) as f:
+            recs = [json.loads(line) for line in f]
+    out["launches"] = launches
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"serve: kernel {name} was never launched while serving")
+    ttft = sorted(r["ttft_s"] for r in recs if r.get("ttft_s") is not None)
+    tpot = sorted(r["tpot_s"] for r in recs if r.get("tpot_s"))
+    out["requests"] = [{k: r.get(k) for k in ("prompt_tokens",
+                                             "output_tokens", "ttft_s",
+                                             "tpot_s", "finish_reason")}
+                       for r in recs]
+    out["ttft_median_s"] = statistics.median(ttft)
+    out["tpot_median_s"] = statistics.median(tpot)
+    log(f"[serve] {len(recs)} requests: TTFT median "
+        f"{out['ttft_median_s'] * 1e3:.1f} ms (max {ttft[-1] * 1e3:.1f}); "
+        f"decode per request median {1 / out['tpot_median_s']:.1f} tok/s "
+        f"(TPOT {out['tpot_median_s'] * 1e3:.2f} ms); concurrent phase "
+        f"{out['batch_completion_tokens'] / out['batch_s']:.1f} tok/s")
+    log(f"[serve] kernel launches while serving: {launches}")
+    return out
+
+
+# -- main -----------------------------------------------------------------------
+
+
+SOURCES = {
+    "flash_decode": ("ome_tpu_torch/ops/csrc/flash_decode.cu",
+                     "ome_tpu/ops/flash.py:148"),
+    "flash_prefill": ("ome_tpu_torch/ops/csrc/flash_prefill.cu",
+                      "ome_tpu/ops/flash.py:340"),
+}
+
+
+def main() -> int:
+    t0 = time.monotonic()
+    import torch
+    card = phase_device(torch)
+    try:
+        import ome_tpu_torch  # noqa: F401
+    except ImportError as e:
+        fail(f"the ome_tpu_torch package is not importable here ({e}); "
+             "run from the root of the repository")
+    report = {"card": card, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
+    report["build_s"] = phase_build()
+    report["kernel_cases"] = phase_kernels(torch)
+    report["serve"] = phase_serve(torch)
+    report["total_s"] = time.monotonic() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    log(f"[done] {report['total_s']:.1f} s")
+    kernels = []
+    for name, (source, replaces) in SOURCES.items():
+        main_case = report["kernel_cases"][name][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": report["serve"]["launches"][name],
+            "max_abs_err": main_case["max_abs_err"],
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,19 @@
+"""PyTorch/CUDA port of the ome_tpu serving engine.
+
+`ome_tpu_torch` mirrors `ome_tpu`'s module paths and names
+(`ome_tpu_torch/ops/flash.py` is the port of `ome_tpu/ops/flash.py`).
+It imports torch, numpy and the standard library, and nothing of JAX
+or of `ome_tpu`: what it needs from the reference package is copied
+here. Entry points run on a CUDA device unless the caller asks for the
+CPU (`device="cpu"`, `--device cpu`); every Pallas kernel on the served
+path is a CUDA kernel written by hand for Hopper (`ops/csrc/`).
+
+This slice covers the default serving path: `engine/serve.py` ->
+`engine/server.py` -> `engine/scheduler.py` -> `engine/core.py` ->
+`models/llama.py` -> `ops/attention.py` -> `ops/flash.py` ->
+`engine/sampling.py`, dense bf16 KV cache, prefix cache on.
+"""
+
+from .device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,287 @@
+"""Dense Llama-family decoder in PyTorch (port of ome_tpu/models/llama.py).
+
+The dense GQA RMSNorm subset of the reference: RMSNorm in fp32,
+rotate-half RoPE with default/linear/llama3 frequency scaling, the SiLU
+gated MLP, GQA attention through `ops.attention`, and fp32 logits.
+
+Layout follows the reference so the tests compare like with like:
+parameters are a nested dict with the reference's leaf names and the
+layer tensors stacked on a leading [L, ...] axis; activations are
+[B, S, ...]; the KV cache is [L, B, S_max, K, Dh]. Ops are plain
+functions on tensors. `lax.scan` over the stacked layers becomes a
+Python loop over layer indices. `Llama` is the nn.Module that holds one
+model's stacked tensors and its RoPE table on a device.
+
+The reference's jitted programs donate the cache buffers so XLA updates
+them in place; here the forward writes the new K/V rows into the cache
+tensors in place (`_write_rows`), which is the same memory behaviour
+without the donation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention
+from .config import ModelConfig
+from .params import Params, check_supported
+
+IndexLike = Union[int, torch.Tensor]
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Fixed-capacity per-layer KV cache (counterpart of llama.KVCache).
+
+    k, v: [L, B, S_max, K, Dh]; index: next write position — a Python
+    int shared by the whole batch (chunked prefill) or a [B] int tensor
+    of per-slot write positions (the serving engine's decode, where
+    every slot is at a different length)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: IndexLike
+
+    @classmethod
+    def create(cls, cfg: ModelConfig, batch: int,
+               max_seq: Optional[int] = None, dtype=None, *,
+               device: Union[str, torch.device]) -> "KVCache":
+        S = max_seq or cfg.max_seq_len
+        dtype = dtype or cfg.dtype
+        shape = (cfg.num_layers, batch, S, cfg.kv_cache_heads)
+        return cls(k=torch.zeros(shape + (cfg.kv_cache_k_dim,),
+                                 dtype=dtype, device=device),
+                   v=torch.zeros(shape + (cfg.kv_cache_v_dim,),
+                                 dtype=dtype, device=device),
+                   index=0)
+
+
+# -- building blocks -------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_frequencies(cfg: ModelConfig,
+                     device: Union[str, torch.device]) -> torch.Tensor:
+    """[head_dim / 2] fp32 inverse frequencies (reference
+    `_rope_frequencies`), with linear and llama3 (Llama-3.1 NTK-by-parts)
+    scaling."""
+    half = cfg.head_dim // 2
+    freqs = 1.0 / cfg.rope_theta ** (
+        torch.arange(half, dtype=torch.float32, device=device) / half)
+    sc = cfg.rope_scaling
+    rtype = sc.get("rope_type", sc.get("type")) if sc else None
+    if rtype not in (None, "default", "llama3", "linear"):
+        raise NotImplementedError(
+            f"rope_scaling type {rtype!r} is not ported yet")
+    if rtype == "linear":
+        freqs = freqs / sc.get("factor", 1.0)
+    if rtype == "llama3":
+        factor = sc.get("factor", 8.0)
+        lo = sc.get("low_freq_factor", 1.0)
+        hi = sc.get("high_freq_factor", 4.0)
+        orig = sc.get("original_max_position_embeddings", 8192)
+        wavelen = 2 * math.pi / freqs
+        ramp = ((orig / wavelen - lo) / (hi - lo)).clamp(0.0, 1.0)
+        smoothed = freqs * (ramp + (1 - ramp) / factor)
+        freqs = torch.where(wavelen < orig / hi, freqs,
+                            torch.where(wavelen > orig / lo,
+                                        freqs / factor, smoothed))
+    return freqs
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               freqs: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE (HF Llama convention). x: [B, S, N, Dh];
+    positions: [B, S]."""
+    angles = positions[..., None].float() * freqs  # [B, S, half]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, out_dims=None,
+          flatten: int = 1) -> torch.Tensor:
+    """Contract x's trailing `flatten` dims with weight `w` in the
+    weights' dtype (bf16 weights: bf16 product, fp32 accumulation)."""
+    lead = x.shape[:x.dim() - flatten]
+    K = math.prod(x.shape[len(lead):])
+    y = x.reshape(*lead, K) @ w.reshape(K, -1)
+    if out_dims:
+        y = y.reshape(*y.shape[:-1], *out_dims)
+    return y
+
+
+def dense_mlp(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    gate = _proj(x, p["w_gate"])
+    up = _proj(x, p["w_up"])
+    return _proj(F.silu(gate) * up, p["w_down"])
+
+
+# -- forward ---------------------------------------------------------------
+
+
+def _write_rows(cache: torch.Tensor, new: torch.Tensor,
+                index: IndexLike) -> None:
+    """Write new rows [B, U, K, D] into cache [B, S_max, K, D] in place
+    at `index` (int, or [B] per-slot). Like the reference's
+    dynamic_update_slice, a start past S_max - U is clamped so the write
+    stays inside the cache."""
+    S, U = cache.shape[1], new.shape[1]
+    new = new.to(cache.dtype)
+    if isinstance(index, torch.Tensor) and index.dim() == 1:
+        start = index.to(torch.long).clamp(min=0, max=S - U)
+        rows = start[:, None] + torch.arange(U, device=cache.device)
+        batch = torch.arange(cache.shape[0], device=cache.device)[:, None]
+        cache[batch, rows] = new
+    else:
+        start = min(max(int(index), 0), S - U)
+        cache[:, start:start + U] = new
+
+
+def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
+         positions: torch.Tensor):
+    q = _proj(h, lp["wq"], out_dims=(cfg.num_heads, cfg.head_dim))
+    k = _proj(h, lp["wk"], out_dims=(cfg.num_kv_heads, cfg.head_dim))
+    v = _proj(h, lp["wv"], out_dims=(cfg.num_kv_heads, cfg.head_dim))
+    return (apply_rope(q, positions, freqs),
+            apply_rope(k, positions, freqs), v)
+
+
+def _mha(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
+         positions: torch.Tensor, kv_len: Optional[torch.Tensor],
+         cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
+         cache_index: Optional[IndexLike]) -> torch.Tensor:
+    """GQA attention on the pre-normed input; with a cache the new K/V
+    rows are written into it in place and attention spans the cache."""
+    q, k, v = _qkv(h, lp, cfg, freqs, positions)
+    if cache_kv is not None:
+        ck, cv = cache_kv
+        _write_rows(ck, k, cache_index)
+        _write_rows(cv, v, cache_index)
+        k, v = ck, cv
+    attn = attention(q, k, v, positions=positions, kv_len=kv_len,
+                     sliding_window=cfg.sliding_window,
+                     scale=cfg.query_scale,
+                     logit_softcap=cfg.attn_logit_softcap)
+    return _proj(attn, lp["wo"], flatten=2)
+
+
+def _layer(x: torch.Tensor, lp, cfg: ModelConfig, freqs, positions,
+           kv_len, cache_kv, cache_index) -> torch.Tensor:
+    h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+    x = x + _mha(h, lp, cfg, freqs, positions, kv_len, cache_kv,
+                 cache_index)
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    return x + dense_mlp(h, lp)
+
+
+def _final_logits(params: Params, cfg: ModelConfig,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Final norm + LM head with fp32 logits (the reference's einsum
+    with preferred_element_type=float32): on a card the bf16 product
+    writes fp32 directly; elsewhere the product runs in fp32."""
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].t()
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda and x2.dtype != torch.float32:
+        logits = torch.mm(x2, head, out_dtype=torch.float32)
+    else:
+        logits = x2.float() @ head.float()
+    return logits.reshape(*lead, -1)
+
+
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            positions: Optional[torch.Tensor] = None,
+            cache: Optional[KVCache] = None,
+            rows: Optional[torch.Tensor] = None,
+            freqs: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Run the decoder.
+
+    tokens: [B, S] int. positions: [B, S] (defaults to arange, offset by
+    cache.index). With `cache`, K/V are written into it in place at
+    cache.index and attention spans the cache; without, plain causal
+    prefill. `rows` ([B] int) computes the logits of one position per
+    sequence only (a prefill needs just its last real token's).
+    Returns (logits [B, S or 1, vocab] fp32, cache with index + S, or
+    None)."""
+    B, S = tokens.shape
+    dev = tokens.device
+    index = cache.index if cache is not None else None
+    if positions is None:
+        base = torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+        if cache is not None:
+            base = base + (index[:, None] if isinstance(index, torch.Tensor)
+                           and index.dim() == 1 else index)
+        positions = base.expand(B, S)
+    if freqs is None:
+        freqs = rope_frequencies(cfg, dev)
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    kv_len = None
+    if cache is not None:
+        if isinstance(index, torch.Tensor):
+            kv_len = torch.broadcast_to(index + S, (B,))
+        else:
+            kv_len = torch.full((B,), index + S, dtype=torch.int32,
+                                device=dev)
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = {name: t[i] for name, t in layers.items()}
+        cache_kv = (cache.k[i], cache.v[i]) if cache is not None else None
+        x = _layer(x, lp, cfg, freqs, positions, kv_len, cache_kv, index)
+    if rows is not None:
+        x = x[torch.arange(B, device=dev), rows.to(dev).long()][:, None]
+    new_cache = None
+    if cache is not None:
+        new_cache = KVCache(k=cache.k, v=cache.v, index=index + S)
+    return _final_logits(params, cfg, x), new_cache
+
+
+class Llama(nn.Module):
+    """One model's stacked [L, ...] weights and RoPE table on a device.
+
+    Buffers mirror the parameter tree: `embed`, `final_norm`,
+    `lm_head` and `layers.<leaf>`; `params` gives the tree back for the
+    plain functions above."""
+
+    def __init__(self, cfg: ModelConfig, params: Params):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.layers = nn.Module()
+        for name, t in params["layers"].items():
+            self.layers.register_buffer(name, t)
+        for name in ("embed", "final_norm", "lm_head"):
+            if name in params:
+                self.register_buffer(name, params[name])
+        self.register_buffer("freqs", rope_frequencies(
+            cfg, params["embed"].device), persistent=False)
+
+    @property
+    def params(self) -> Params:
+        tree = {name: getattr(self, name)
+                for name in ("embed", "final_norm", "lm_head")
+                if hasattr(self, name)}
+        tree["layers"] = dict(self.layers.named_buffers())
+        return tree
+
+    def forward(self, tokens, positions=None, cache=None, rows=None):
+        return forward(self.params, self.cfg, tokens, positions, cache,
+                       rows, freqs=self.freqs)

@@ -1,0 +1,96 @@
+"""The PyTorch port stands alone: no JAX, no ome_tpu, no build at import.
+
+Every module of `ome_tpu_torch/` and `chip_smoke.py` is parsed and its
+imports checked: nothing of `jax`, `jaxlib` or `ome_tpu` (the package
+`ome_tpu_torch` itself is of course allowed). Importing the port — the
+kernel module included — must neither build a kernel nor pull in JAX.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "ome_tpu_torch").rglob("*.py")) + \
+    [REPO / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "ome_tpu"}
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_files_found():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for must in ("ome_tpu_torch/ops/flash.py", "ome_tpu_torch/engine/core.py",
+                 "ome_tpu_torch/engine/serve.py", "chip_smoke.py"):
+        assert must in names
+
+
+def test_checker_tells_the_packages_apart(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import ome_tpu_torch.ops\nfrom ome_tpu_torch import x\n"
+                   "import ome_tpu.engine\nfrom jax import numpy\n")
+    roots = [r for r, _ in _imported_roots(src)]
+    assert [r for r in roots if r in FORBIDDEN] == ["ome_tpu", "jax"]
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=lambda p: p.relative_to(REPO).as_posix())
+def test_no_jax_or_reference_import(path):
+    bad = [(root, line) for root, line in _imported_roots(path)
+           if root in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    env["PYTHONPATH"] = str(REPO)
+    return subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_importing_the_port_builds_nothing_and_loads_no_jax():
+    code = (
+        "import os, sys\n"
+        "from ome_tpu_torch.ops import _build\n"
+        "before = sorted(os.listdir(_build.BUILD_DIR)) "
+        "if os.path.isdir(_build.BUILD_DIR) else []\n"
+        "import ome_tpu_torch.ops.flash, ome_tpu_torch.ops.attention\n"
+        "import ome_tpu_torch.engine.serve, ome_tpu_torch.engine.server\n"
+        "import ome_tpu_torch.engine.scheduler, ome_tpu_torch.engine.core\n"
+        "after = sorted(os.listdir(_build.BUILD_DIR)) "
+        "if os.path.isdir(_build.BUILD_DIR) else []\n"
+        "assert before == after, (before, after)\n"
+        "assert not _build._loaded and not _build.build_logs\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ome_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_chip_smoke_refuses_without_a_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the refusal needs a host "
+                    "without one")
+    proc = _run("import runpy, sys; sys.argv = ['chip_smoke.py']; "
+                "runpy.run_path('chip_smoke.py', run_name='__main__')")
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
