@@ -11,11 +11,28 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    inputs) at the Llama-3-8B attention shapes, in bf16 and fp32, with the
    kernel's median time, the plain version's, the card's lower bound for
    the same work and, as a yardstick only, one
-   `scaled_dot_product_attention` call;
+   `scaled_dot_product_attention` call. The paged decode kernel (B3)
+   runs over a bf16, an fp32 and an int8 pool (random block table) and
+   with a free slot's all-trash table row; the int8 dense decode (B5)
+   runs on the same kernel;
 4. serve: the OpenAI HTTP server from `ome_tpu_torch.engine.serve.
    build_server` at the Llama-3-8B shape (random bf16 weights from a
    seed), answering concurrent completions, a stream, a prefix-cache hit
-   and a repeated prompt, with the kernel launch counters read around it.
+   and a repeated prompt, with the kernel launch counters read around it;
+   then the engine's decode and prefill step times;
+5. paged bf16: the same server with `--kv-block 128 --max-slots 16
+   --kv-blocks 129` (a quarter of the dense-equivalent pool): concurrent
+   completions filling 3/4 of the pool, twins, a burst larger than the
+   pool (admission backpressure, preemption), the pool conserved at
+   idle, B3 launched and B1 not;
+6. paged int8: `--kv-dtype int8` with the same seed: first tokens equal
+   the bf16 server's, B3's int8 branch launched, pool conserved;
+7. step times: the dense, paged bf16 and paged int8 engines' decode
+   steps over one set of weights, timed in turns;
+8. stream identity: fp32 at the Llama-3-8B widths, 4 layers, through
+   the engine API: dense decode (B1) and paged decode over fp32 pools
+   (B3) give identical 32-token greedy streams; the int8 pool's drift
+   from the fp32 pool over the same streams is reported.
 
 Prints one `{"kernels": [...]}` line, then the card's name and power limit,
 then `{"ok": true, "device": {...}}` as the last line. Any failed phase
@@ -255,6 +272,127 @@ def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
             "bytes": nbytes, "flops": flops}
 
 
+def _bound(nbytes, flops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def paged_case(torch, timer, gen, pool_name, lengths, trash_slot=None,
+               B=8, H=32, K=8, D=128, bs=128, M=32, N=257):
+    """B3 over a pool of N blocks with a random permutation table (no
+    two sequences share a block; block 0 stays the trash block). A
+    `trash_slot` gets an all-zero table row, as a free engine slot has,
+    and a length past M * bs: its output must be finite."""
+    from ome_tpu_torch.ops import flash, paged
+    dev = torch.device("cuda")
+    qdt = torch.float32 if pool_name == "fp32" else torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.float32).to(qdt)
+    q, kp, vp = randn(B, 1, H, D), randn(N, bs, K, D), randn(N, bs, K, D)
+    ks = vs = None
+    if pool_name == "int8":
+        # the port's own quantizer; an [N, bs, K, D] pool is a
+        # [B, S, K, D] slab with S = bs, so its scales come out [N, K, bs]
+        kp, ks = flash.quantize_kv_block(kp)
+        vp, vs = flash.quantize_kv_block(vp)
+    perm = torch.randperm(N - 1, generator=gen, device=dev) + 1
+    table = perm[:B * M].reshape(B, M).to(torch.int32)
+    kv_len = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if trash_slot is not None:
+        table[trash_slot] = 0
+    scale = D ** -0.5
+
+    def kernel():
+        return paged.paged_flash_decode(q, kp, vp, table, kv_len, scale,
+                                        k_scale=ks, v_scale=vs)
+
+    def plain():
+        return paged.flash_paged_decode_ref(
+            q.float(), kp if ks is not None else kp.float(),
+            vp if vs is not None else vp.float(), table,
+            torch.zeros_like(kv_len), kv_len, scale, k_scale=ks,
+            v_scale=vs)
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        fail(f"flash_paged_decode {pool_name}: non-finite output")
+    err = (out.float() - ref).abs().max().item()
+    ms = timer.ms(kernel)
+    plain_ms = timer.ms(plain, iters=5)
+    rows = int(kv_len.clamp(max=M * bs).sum())
+    esize = kp.element_size()
+    nbytes = (2 * rows * K * D * esize + 2 * q.numel() * q.element_size()
+              + B * M * 4 + B * 4)
+    if ks is not None:
+        nbytes += 2 * rows * K * 4
+    dt = "fp32" if pool_name == "fp32" else "bf16"
+    return {"case": f"paged {pool_name} B={B} H={H} K={K} D={D} bs={bs} "
+                    f"M={M} N={N} lengths={lengths} trash_slot={trash_slot}",
+            "max_abs_err": err, "atol": ATOL[dt], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            **_bound(nbytes, 4 * D * H * rows, dt)}
+
+
+def quantized_case(torch, timer, gen, lengths, window=256, softcap=30.0,
+                   B=8, S=4096, H=32, K=8, D=128):
+    """B5: decode over a dense int8 cache quantized by the port's own
+    quantize_kv_block, with a sliding window and a softcap."""
+    from ome_tpu_torch.ops import flash
+    dev = torch.device("cuda")
+    q, k, v = _inputs(torch, gen, B, 1, S, H, K, D, torch.bfloat16, dev)
+    kq, ks = flash.quantize_kv_block(k)
+    vq, vs = flash.quantize_kv_block(v)
+    del k, v
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    pos = (lens - 1).clamp(min=0)[:, None]
+    scale = D ** -0.5
+    lo, hi = flash._decode_limits(pos, lens, S, window)
+
+    def kernel():
+        return flash.flash_decode_quantized(
+            q, kq, vq, ks, vs, pos, lens, sliding_window=window,
+            scale=scale, logit_softcap=softcap)
+
+    def plain():
+        return flash.flash_decode_quantized_ref(
+            q.float(), kq, vq, ks, vs, lo, hi, scale, softcap)
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        fail("flash_decode_quantized: non-finite output")
+    err = (out.float() - ref).abs().max().item()
+    ms = timer.ms(kernel)
+    plain_ms = timer.ms(plain, iters=5)
+    rows = int((hi - lo).clamp(min=0).sum())
+    nbytes = (2 * rows * K * (D + 4) + 2 * q.numel() * q.element_size()
+              + B * 4)
+    return {"case": f"int8 dense B={B} S={S} H={H} K={K} D={D} "
+                    f"lengths={lengths} window={window} softcap={softcap}",
+            "max_abs_err": err, "atol": ATOL["bf16"], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            **_bound(nbytes, 4 * D * H * rows, "bf16")}
+
+
+def phase_paged_kernels(torch, timer, gen):
+    """B3 in its three pool dtypes and with a trash-table slot, and B5,
+    each against its plain version."""
+    lengths = [1, 17, 128, 300, 1023, 2049, 4095, 4096]
+    cases = {"flash_paged_decode": [], "flash_decode_quantized": []}
+    for pool_name in ("bf16", "fp32", "int8"):
+        cases["flash_paged_decode"].append(
+            paged_case(torch, timer, gen, pool_name, lengths))
+    cases["flash_paged_decode"].append(paged_case(
+        torch, timer, gen, "bf16", lengths[:7] + [5000], trash_slot=7))
+    cases["flash_decode_quantized"].append(quantized_case(
+        torch, timer, gen, [0, 1, 17, 128, 300, 1023, 2049, 4095]))
+    return cases
+
+
 def phase_kernels(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -274,6 +412,7 @@ def phase_kernels(torch):
     cases["flash_prefill"].append(prefill_case(
         torch, timer, gen, "bf16", 2048, 2048, 0, window=512,
         softcap=50.0))
+    cases.update(phase_paged_kernels(torch, timer, gen))
     bad = []
     for name, rows in cases.items():
         for c in rows:
@@ -332,7 +471,9 @@ def _completion(status, raw, max_tokens, what):
 def _device_profile(torch, fn, iters: int):
     """Summed device time per call of `fn` and its five costliest
     device operations (ms per call, launches per call, name), from
-    torch.profiler's CUDA activity."""
+    torch.profiler's CUDA activity; and on the host side, the top-level
+    aten operators per call and the five with the most self CPU time
+    (ms per call, calls per call, name)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -340,11 +481,14 @@ def _device_profile(torch, fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    rows = []
-    # device-side events only (kernels, copies, fills): the CPU ops that
-    # launched them carry the same time again
+    rows, host = [], []
+    # device-side events (kernels, copies, fills) for the device time:
+    # the CPU ops that launched them carry the same time again
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
+            if ev.key.startswith("aten::"):
+                host.append((ev.self_cpu_time_total / iters / 1e3,
+                             ev.count // iters, ev.key))
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -352,15 +496,23 @@ def _device_profile(torch, fn, iters: int):
         if us > 0:
             rows.append((us / iters / 1e3, ev.count // iters, ev.key))
     rows.sort(reverse=True)
-    return sum(r[0] for r in rows), rows[:5]
+    host.sort(reverse=True)
+    return sum(r[0] for r in rows), rows[:5], host[:5]
 
 
-def _step_times(torch, engine, prompt, iters: int = 10):
-    """Wall time of one engine decode step (8 slots, all armed) and of
-    one cold 2048-token prefill, with the scheduler and server stopped,
-    and the device time inside each from torch.profiler: 1 - device /
-    wall is the share of the step the device sits idle waiting for the
-    host."""
+def kv_label(engine) -> str:
+    if not engine.kv_block:
+        return "dense"
+    return f"paged {'int8' if engine.kv_quantized else 'bf16'}"
+
+
+def _step_times(torch, engine, prompt, iters: int = 10,
+                with_prefill: bool = True):
+    """Wall time of one engine decode step (8 slots, all armed, lengths
+    64-2164) and, `with_prefill`, of one cold 2048-token prefill, with
+    the scheduler and server stopped, and the device time inside each
+    from torch.profiler: 1 - device / wall is the share of the step the
+    device sits idle waiting for the host."""
     import numpy as np
     dev = torch.device("cuda")
     state = engine.new_state()
@@ -384,7 +536,10 @@ def _step_times(torch, engine, prompt, iters: int = 10):
         engine.prefill(long_prompt)
 
     res = {}
-    for name, fn in (("decode", decode), ("prefill_2048", prefill)):
+    what = kv_label(engine)
+    steps = (("decode", decode), ("prefill_2048", prefill)) \
+        if with_prefill else (("decode", decode),)
+    for name, fn in steps:
         fn()
         torch.cuda.synchronize()
         times = []
@@ -394,19 +549,23 @@ def _step_times(torch, engine, prompt, iters: int = 10):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
         wall = statistics.median(times)
-        busy, top = _device_profile(torch, fn, 3)
+        busy, top, host = _device_profile(torch, fn, 3)
         res[name] = {"wall_ms": wall, "device_ms": busy or None,
                      "idle_share": 1 - busy / wall if busy else None,
-                     "top": top}
+                     "top": top, "host_top": host}
         if busy:
-            log(f"[serve] engine {name} step: wall {wall:.2f} ms, device "
-                f"busy {busy:.2f} ms (torch.profiler), idle share "
+            log(f"[serve] {what} engine {name} step: wall {wall:.2f} ms, "
+                f"device busy {busy:.2f} ms (torch.profiler), idle share "
                 f"{1 - busy / wall:.2f}")
             for ms, count, key in top:
                 log(f"[serve]   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+            for ms, count, key in host:
+                log(f"[serve]   host {ms:8.3f} ms self CPU  x{count:<4d} "
+                    f"{key[:70]}")
         else:
-            log(f"[serve] engine {name} step: wall {wall:.2f} ms, device "
-                f"time not measured (the profiler saw no device activity)")
+            log(f"[serve] {what} engine {name} step: wall {wall:.2f} ms, "
+                f"device time not measured (the profiler saw no device "
+                f"activity)")
     return res
 
 
@@ -519,8 +678,8 @@ def phase_serve(torch, seed: int = 0):
         with open(reqlog) as f:
             recs = [json.loads(line) for line in f]
     out["launches"] = launches
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("flash_decode", "flash_prefill"):
+        if launches[name] <= 0:
             fail(f"serve: kernel {name} was never launched while serving")
     ttft = sorted(r["ttft_s"] for r in recs if r.get("ttft_s") is not None)
     tpot = sorted(r["tpot_s"] for r in recs if r.get("tpot_s"))
@@ -539,6 +698,300 @@ def phase_serve(torch, seed: int = 0):
     return out
 
 
+def _free_device(torch, what: str) -> None:
+    """Drop a finished phase's server, engine and weights from the card
+    before the next 8B model is built."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[serve] after {what}: device memory allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+
+def _wait_idle(sched, timeout: float = 120.0) -> None:
+    t0 = time.monotonic()
+    while not sched.drain_idle():
+        if time.monotonic() - t0 > timeout:
+            fail("serve: the scheduler did not go idle")
+        time.sleep(0.01)
+
+
+def _first_token_prompts(seed: int, vocab: int):
+    """Prompts sent to both paged servers, alone, so their first tokens
+    can be compared (prefill never reads the pool)."""
+    import random
+    rng = random.Random(seed + 1000)
+    return [[rng.randrange(3, vocab) for _ in range(length)]
+            for length in (40, 333, 777, 1500)]
+
+
+def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
+                      first_tokens=None):
+    """The paged server at the Llama-3-8B shape: `--kv-block 128
+    --max-slots 16 --max-seq 4096 --kv-blocks 129` (128 usable blocks,
+    16384 rows: a quarter of the dense-equivalent 512 blocks), in bf16
+    or int8. bf16: 16 concurrent completions whose prompts fill about
+    3/4 of the pool plus two twins, then a burst larger than the pool
+    (admission backpressure, preemption); int8: the first-token
+    prompts, whose first tokens must equal the bf16 server's."""
+    import concurrent.futures
+    import random
+    import tempfile
+
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.ops import flash
+
+    cfg = llama3_8b()
+    rng = random.Random(seed + 1)
+
+    def prompt(n):
+        return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+
+    out = {"kv_dtype": kv_dtype}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(_hf_config(cfg), f)
+        t0 = time.monotonic()
+        server, sched, engine = serve.build_server(
+            ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
+             "--max-slots", "16", "--max-seq", "4096", "--kv-block", "128",
+             "--kv-blocks", "129", "--kv-dtype", kv_dtype, "--port", "0",
+             "--host", "127.0.0.1"])
+        torch.cuda.synchronize()
+        out["startup_s"] = time.monotonic() - t0
+        out["device_gib_after_startup"] = torch.cuda.memory_allocated() / 2**30
+        log(f"[paged {kv_dtype}] Llama-3-8B shape, seed {seed}, slots 16, "
+            f"max_seq 4096, kv_block 128, kv_blocks 129 "
+            f"({engine.kv_row_bytes()} bytes per cached token): server up "
+            f"in {out['startup_s']:.1f} s; device memory "
+            f"{out['device_gib_after_startup']:.1f} GiB")
+        want = torch.int8 if kv_dtype == "int8" else torch.bfloat16
+        if sched.state.k.dtype != want:
+            fail(f"paged {kv_dtype}: the pool is {sched.state.k.dtype}")
+        url = f"http://127.0.0.1:{server.port}"
+        seen = []
+        submit = sched.submit
+
+        def recording_submit(req):
+            seen.append(req)
+            return submit(req)
+        sched.submit = recording_submit
+
+        def post_all(bodies, what):
+            with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
+                futs = [ex.submit(_post, url, b) for b in bodies]
+                return [_completion(*f.result(), b["max_tokens"],
+                                    f"{what} {i}")
+                        for i, (f, b) in enumerate(zip(futs, bodies))]
+        try:
+            flash.reset_launches()
+            firsts = []
+            for ids in _first_token_prompts(seed, cfg.vocab_size):
+                n0 = len(seen)
+                _completion(*_post(url, {"prompt": ids, "max_tokens": 4,
+                                         "temperature": 0.0}), 4,
+                            "first-token prompt")
+                firsts.append(seen[n0].output_ids[0])
+            out["first_tokens"] = firsts
+            if first_tokens is not None and firsts != first_tokens:
+                fail(f"paged {kv_dtype}: first tokens {firsts} differ from "
+                     f"the paged bf16 server's {first_tokens}")
+            if kv_dtype == "bf16":
+                lengths = [16, 40, 100, 180, 260, 350, 450, 560, 680, 800,
+                           930, 1070, 1220, 1380, 1560, 2400]
+                twin = prompt(24)
+                bodies = [{"prompt": prompt(n), "max_tokens": 32,
+                           "temperature": 0.0} for n in lengths]
+                bodies += [{"prompt": list(twin), "max_tokens": 32,
+                            "temperature": 0.0} for _ in range(2)]
+                t_batch = time.monotonic()
+                docs = post_all(bodies, "request")
+                out["batch_s"] = time.monotonic() - t_batch
+                out["batch_completion_tokens"] = sum(
+                    d["usage"]["completion_tokens"] for d in docs)
+                twins = [r for r in seen if r.prompt_ids == twin]
+                if len(twins) != 2 or \
+                        twins[0].output_ids != twins[1].output_ids:
+                    fail("paged serve: the twin prompts gave different "
+                         "outputs")
+                log(f"[paged bf16] 16 concurrent completions (prompts "
+                    f"{sum(lengths)} tokens, 3/4 of the pool's 16384 rows) "
+                    f"+ 2 twins: all 200, "
+                    f"{out['batch_completion_tokens']} tokens in "
+                    f"{out['batch_s']:.2f} s; twins identical")
+                # 2040-token prompts take 16 blocks each and need a 17th
+                # at their 9th token: with the pool full of them, decode
+                # growth has to preempt
+                burst = [{"prompt": prompt(2040), "max_tokens": 32,
+                          "temperature": 0.0} for _ in range(12)]
+                t_burst = time.monotonic()
+                post_all(burst, "burst request")
+                out["burst_s"] = time.monotonic() - t_burst
+                log(f"[paged bf16] burst of 12 x 2040-token prompts (24480 "
+                    f"rows > the pool's 16384): all 200 in "
+                    f"{out['burst_s']:.2f} s")
+            _wait_idle(sched)
+            torch.cuda.synchronize()
+            launches = dict(flash.LAUNCHES)
+            ok, owned = engine.kv_conservation()
+            free = engine.kv_pool_stats["kv_blocks_free"]
+            out.update(kv_conservation=ok, kv_blocks_free=free,
+                       preemptions=sched.stats["preemptions_total"],
+                       kv_requeues=sched.stats["kv_requeues_total"])
+        finally:
+            server.stop()
+    out["launches"] = launches
+    log(f"[paged {kv_dtype}] idle: kv_conservation {ok} (owned {owned}), "
+        f"free blocks {free} of {engine.kv_blocks}; preemptions "
+        f"{out['preemptions']}, requeues {out['kv_requeues']}; launches "
+        f"{launches}")
+    if not ok or free != engine.kv_blocks - 1:
+        fail(f"paged {kv_dtype}: the pool is not conserved at idle "
+             f"(ok {ok}, free {free} of {engine.kv_blocks})")
+    for name in ("flash_paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            fail(f"paged {kv_dtype}: kernel {name} was never launched "
+                 "while serving")
+    if launches["flash_decode"]:
+        fail(f"paged {kv_dtype}: the dense decode kernel launched "
+             f"{launches['flash_decode']} times during paged decode")
+    return out
+
+
+def phase_step_turns(torch, seed: int = 0, rounds: int = 2):
+    """The decode step of the dense, paged bf16 and paged int8 engines
+    over one set of Llama-3-8B weights (8 slots armed at lengths
+    64-2164, max_seq 4096, kv_block 128), timed in turns (A B C C B A):
+    the step is host-bound, so only times taken side by side in one run
+    compare."""
+    import random
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.models.params import init_params
+
+    cfg = llama3_8b().replace(dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"))
+    rng = random.Random(seed + 3)
+
+    def prompt(n):
+        return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+    kinds = {"dense": {}, "paged bf16": {"kv_block": 128},
+             "paged int8": {"kv_block": 128, "kv_dtype": "int8"}}
+    engines = {name: InferenceEngine(params, cfg, max_slots=8,
+                                     max_seq=4096, device="cuda",
+                                     seed=seed, **kw)
+               for name, kw in kinds.items()}
+    order = list(kinds) + list(kinds)[::-1]
+    runs = {name: [] for name in kinds}
+    for _ in range(rounds // 2):
+        for name in order:
+            runs[name].append(_step_times(torch, engines[name], prompt,
+                                          with_prefill=False)["decode"])
+    out = {}
+    for name, rs in runs.items():
+        out[name] = {"wall_ms": [r["wall_ms"] for r in rs],
+                     "device_ms": [r["device_ms"] for r in rs],
+                     "idle_share": [r["idle_share"] for r in rs],
+                     "top": rs[-1]["top"], "host_top": rs[-1]["host_top"]}
+        walls = ", ".join(f"{x:.2f}" for x in out[name]["wall_ms"])
+        busy = ", ".join(f"{x:.2f}" for x in out[name]["device_ms"] if x)
+        log(f"[steps] {name} decode step, runs in turns: wall {walls} ms; "
+            f"device busy {busy} ms")
+    del engines, params
+    return out
+
+
+def phase_stream_identity(torch, seed: int = 0, n_layers: int = 4,
+                          steps: int = 32):
+    """fp32 at the Llama-3-8B widths, `n_layers` deep: the dense engine
+    (B1) and the paged engine with fp32 pools (B3) give identical
+    greedy streams for 4 prompts, driven through the engine API. The
+    paged engine with int8 pools runs the same prompts too: its drift
+    from the fp32 pool (first differing step, the fp32 top-2 logit gap
+    there) is reported, not required to be zero."""
+    import random
+
+    import numpy as np
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.ops import flash
+
+    cfg = llama3_8b().replace(num_layers=n_layers, dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"))
+    rng = random.Random(seed + 2)
+    prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+               for n in (37, 200, 515, 1000)]
+    streams, gaps = {}, {}
+    flash.reset_launches()
+    for name, kw in (("dense", {}), ("paged", {"kv_block": 128}),
+                     ("paged int8", {"kv_block": 128, "kv_dtype": "int8"})):
+        eng = InferenceEngine(params, cfg, max_slots=4, max_seq=2048,
+                              device="cuda", seed=seed, **kw)
+        top2 = []
+        sample = eng._sample
+
+        def recording_sample(logits, *a, _sample=sample, _top2=top2):
+            _top2.append(torch.topk(logits.float(), 2).values)
+            return _sample(logits, *a)
+        eng._sample = recording_sample
+        state = eng.new_state()
+        out = [[] for _ in prompts]
+        for slot, ids in enumerate(prompts):
+            tok, kv, n, bucket = eng.prefill(ids)
+            state = eng.insert(state, kv, slot, n, tok, bucket)
+            out[slot].append(tok)
+        top2.clear()  # keep the decode steps' logits only
+        greedy = (np.zeros(4, np.float32), np.zeros(4, np.int32),
+                  np.ones(4, np.float32))
+        for _ in range(steps - 1):
+            state, toks = eng.decode(state, *greedy)
+            for slot, t in enumerate(np.asarray(toks)):
+                out[slot].append(int(t))
+        streams[name] = out
+        gaps[name] = [(t[:, 0] - t[:, 1]).cpu() for t in top2]
+        del eng, state
+    launches = dict(flash.LAUNCHES)
+    if launches["flash_decode"] <= 0 or launches["flash_paged_decode"] <= 0:
+        fail(f"stream identity: a decode kernel did not run ({launches})")
+    for slot in range(len(prompts)):
+        a, b = streams["dense"][slot], streams["paged"][slot]
+        if a != b:
+            step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            gap = float(gaps["dense"][step - 1][slot]) if step else None
+            fail(f"stream identity: prompt {slot} differs at step {step} "
+                 f"(dense {a[step]}, paged {b[step]}; dense top-2 logit "
+                 f"gap there {gap})")
+    min_gap = min(float(g.min()) for g in gaps["dense"])
+    log(f"[identity] fp32, Llama-3-8B widths, {n_layers} layers: dense "
+        f"(flash_decode) and paged fp32 pool (flash_paged_decode) give "
+        f"identical {steps}-token greedy streams for {len(prompts)} "
+        f"prompts (smallest top-2 logit gap {min_gap:.3e})")
+    int8_drift = []
+    for slot in range(len(prompts)):
+        a, b = streams["paged"][slot], streams["paged int8"][slot]
+        step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        gap = float(gaps["paged"][step - 1][slot]) if step else None
+        int8_drift.append({"first_diff_step": step, "top2_gap": gap})
+    log(f"[identity] paged int8 pool against the paged fp32 pool, "
+        f"{steps} greedy steps per prompt (first differing step, fp32 "
+        f"top-2 logit gap there; None = identical): "
+        f"{[(d['first_diff_step'], d['top2_gap']) for d in int8_drift]}")
+    del params
+    return {"streams_identical": True, "steps": steps,
+            "prompts": len(prompts), "min_top2_gap": min_gap,
+            "int8_drift": int8_drift, "launches": launches}
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -547,6 +1000,11 @@ SOURCES = {
                      "ome_tpu/ops/flash.py:148"),
     "flash_prefill": ("ome_tpu_torch/ops/csrc/flash_prefill.cu",
                       "ome_tpu/ops/flash.py:340"),
+    "flash_paged_decode": ("ome_tpu_torch/ops/csrc/flash_paged_decode.cu",
+                           "ome_tpu/ops/paged.py:155"),
+    "flash_decode_quantized": (
+        "ome_tpu_torch/ops/csrc/flash_paged_decode.cu",
+        "ome_tpu/ops/flash.py:221"),
 }
 
 
@@ -564,18 +1022,32 @@ def main() -> int:
     report["build_s"] = phase_build()
     report["kernel_cases"] = phase_kernels(torch)
     report["serve"] = phase_serve(torch)
+    _free_device(torch, "the dense server")
+    report["paged_bf16"] = phase_serve_paged(torch, "bf16")
+    _free_device(torch, "the paged bf16 server")
+    report["paged_int8"] = phase_serve_paged(
+        torch, "int8", first_tokens=report["paged_bf16"]["first_tokens"])
+    _free_device(torch, "the paged int8 server")
+    report["step_turns"] = phase_step_turns(torch)
+    _free_device(torch, "the step-time engines")
+    report["stream_identity"] = phase_stream_identity(torch)
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(f"[done] {report['total_s']:.1f} s")
+    # launches on each kernel's main path: the dense server for B1/B2,
+    # the paged bf16 server for B3 and B5 (B5 is not wired into serving,
+    # so that run counts 0 for it)
+    launches = dict(report["serve"]["launches"])
+    for name in ("flash_paged_decode", "flash_decode_quantized"):
+        launches[name] = report["paged_bf16"]["launches"][name]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         main_case = report["kernel_cases"][name][0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": report["serve"]["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

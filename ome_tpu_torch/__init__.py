@@ -8,10 +8,12 @@ here. Entry points run on a CUDA device unless the caller asks for the
 CPU (`device="cpu"`, `--device cpu`); every Pallas kernel on the served
 path is a CUDA kernel written by hand for Hopper (`ops/csrc/`).
 
-This slice covers the default serving path: `engine/serve.py` ->
+The port covers the default serving path: `engine/serve.py` ->
 `engine/server.py` -> `engine/scheduler.py` -> `engine/core.py` ->
 `models/llama.py` -> `ops/attention.py` -> `ops/flash.py` ->
-`engine/sampling.py`, dense bf16 KV cache, prefix cache on.
+`engine/sampling.py`, dense bf16 KV cache, prefix cache on; and the
+paged KV cache of `--kv-block` (bf16 or `--kv-dtype int8` pools), whose
+decode goes `models/llama.py::forward_paged` -> `ops/paged.py`.
 """
 
 from .device import resolve_device

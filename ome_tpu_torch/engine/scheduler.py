@@ -25,10 +25,18 @@ consecutive attempts, after which the scheduler goes permanently dead.
 Status is tri-state: `ok`, `degraded` (recovering — requests queue),
 `dead`.
 
+Paged KV: admission checks the block pool before a prefill — a request
+whose worst case exceeds the whole pool is refused (`_fits_pool`), one
+whose prompt does not fit the free blocks waits in the requeue
+(`_pool_ready`), and an insert that still finds the pool short
+(KVPoolExhausted) is requeued. Decode-time growth preempts victims
+ranked by `_preempt_rank`; their generated tokens fold into the prompt
+of the requeued request. `/metrics` carries the pool gauges.
+
 Not in this slice (the serve flags that would need them refuse):
 speculative verify, multi-token chunks, grammar masks, the request
-journal, PD and cross-replica prefix fetches, paged-KV pool checks and
-the program cost ledger / HBM accountant gauges.
+journal, PD and cross-replica prefix fetches and the program cost
+ledger / HBM accountant gauges.
 """
 
 from __future__ import annotations
@@ -48,13 +56,14 @@ import numpy as np
 import torch
 
 from .. import faults
-from ..priority import DEFAULT_PRIORITY, PRIORITY_CLASSES
+from ..priority import CLASS_LEVEL, DEFAULT_PRIORITY, PRIORITY_CLASSES
 from ..priority import class_wait_caps as _wait_caps_table
 from ..priority import class_weights as _weights_table
 from ..telemetry import Registry
 from ..telemetry.flight import FlightRecorder
 from ..telemetry.tracing import Span, coerce_span_log, new_trace
-from .core import DecodeState, InferenceEngine, UnknownAdapterError
+from .core import (DecodeState, InferenceEngine, KVPoolExhausted,
+                   UnknownAdapterError)
 
 _ids = itertools.count()
 
@@ -74,6 +83,10 @@ _COUNTER_HELP = {
     "prefill_total": "Prefill forwards executed",
     "decode_steps_total": "Batched decode steps executed",
     "preemptions_total": "Sequences preempted by KV pool pressure",
+    "kv_requeues_total": "Requests held back at admission by KV pool "
+                         "backpressure (prompt does not fit the free "
+                         "blocks, or the insert found the pool short), "
+                         "each counted once",
     "timeouts_total": "Requests finished with finish_reason=timeout",
     "rejected_total": "Requests rejected at admission (429)",
     "engine_faults_total": "Engine-step faults (crash recovery runs)",
@@ -262,6 +275,9 @@ class Request:
     scheduled_at: Optional[float] = None
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+    # set when KV pool backpressure first requeued the request, so the
+    # requeue counter counts requests, not admission retries
+    pool_requeued: bool = False
     # one-shot observer the scheduler installs at submit(); must not
     # block or take scheduler locks (finish() may run under them)
     on_finish: Optional[object] = None
@@ -364,6 +380,13 @@ class Scheduler:
         self.pending: ClassQueues = ClassQueues(
             max_pending, weights=self.class_weights,
             enabled=self.priority_scheduling)
+        # class-aware KV-pressure preemption: the engine picks victims
+        # through this rank hook (over-quota classes first, then lowest
+        # class; the engine's own least-progress tie-break preserves
+        # the single-class victim choice)
+        setr = getattr(engine, "set_preempt_rank", None)
+        if callable(setr):
+            setr(self._preempt_rank)
         self.slots: List[Optional[Request]] = [None] * engine.max_slots
         B = engine.max_slots
         self.overlap = overlap
@@ -421,7 +444,8 @@ class Scheduler:
             "requests_total": 0, "tokens_generated_total": 0,
             "prefill_total": 0, "decode_steps_total": 0,
             "queue_depth": 0, "active_slots": 0,
-            "preemptions_total": 0, "timeouts_total": 0,
+            "preemptions_total": 0, "kv_requeues_total": 0,
+            "timeouts_total": 0,
             "rejected_total": 0, "engine_faults_total": 0,
             "restarts_total": 0,
         }
@@ -575,6 +599,32 @@ class Scheduler:
         return cls if cls in self._c_class_requests else \
             DEFAULT_PRIORITY
 
+    def _preempt_rank(self, slot: int):
+        """Victim-ranking hook installed on the engine (lower sorts
+        first): over-quota classes — holding more decode slots than
+        their weight share of the active batch — are preempted before
+        in-quota ones, then lowest class first. The engine breaks the
+        remaining tie by least progress. Runs on the scheduler thread
+        (inside the decode dispatch that grows KV blocks), so reading
+        self.slots needs no lock."""
+        if not self.priority_scheduling:
+            return (1, 1)
+        req = self.slots[slot] if 0 <= slot < len(self.slots) else None
+        if req is None:
+            return (1, len(PRIORITY_CLASSES))
+        cls = self._class_of(req)
+        counts: Dict[str, int] = {}
+        for r in self.slots:
+            if r is not None:
+                c = self._class_of(r)
+                counts[c] = counts.get(c, 0) + 1
+        total = sum(counts.values())
+        wsum = sum(self.class_weights[c] for c in counts)
+        fair = (total * self.class_weights[cls] / wsum) if wsum \
+            else float(total)
+        over = counts.get(cls, 0) > fair + 1e-9
+        return (0 if over else 1, CLASS_LEVEL.get(cls, 1))
+
     def _observe_finish(self, req: Request):
         """One-shot per-request latency observations. Runs on whatever
         thread called finish() — touches only leaf-locked histograms."""
@@ -720,7 +770,7 @@ class Scheduler:
                           "committed_tokens": len(req.output_ids),
                           "adapter": req.adapter,
                           "class": req.priority})
-        return {
+        state = {
             "status": self._status,
             "draining": self._draining,
             "queue_depth": self.pending.qsize(),
@@ -735,6 +785,10 @@ class Scheduler:
             "slots": slots,
             "flight": self.flight.state(),
         }
+        pool = getattr(self.engine, "kv_pool_stats", None)
+        if pool and pool.get("kv_block_tokens"):
+            state["kv_pool"] = dict(pool)
+        return state
 
     def update_gauges(self):
         """Refresh point-in-time gauges (called by /metrics scrapes)."""
@@ -758,6 +812,28 @@ class Scheduler:
                 if delta > 0:
                     counter.inc(delta)
             self._g_pc_bytes.set(pc.bytes)
+        pool = getattr(self.engine, "kv_pool_stats", None)
+        if pool and pool.get("kv_block_tokens"):  # paged engines only
+            total = pool.get("kv_blocks", 0)
+            free = pool.get("kv_blocks_free", 0)
+            self.registry.gauge(
+                "ome_engine_kv_blocks_free",
+                "Free paged-KV blocks").set(free)
+            self.registry.gauge(
+                "ome_engine_kv_block_utilization_ratio",
+                "Occupied fraction of the paged-KV pool").set(
+                (total - free) / total if total else 0.0)
+            ok, owned = self.engine.kv_conservation()
+            self.registry.gauge(
+                "ome_engine_kv_blocks_owned",
+                "Paged-KV blocks held by live slots").set(owned)
+            # authoritative at quiescence; a concurrent insert/free can
+            # briefly read as 0 mid-scrape
+            self.registry.gauge(
+                "ome_engine_kv_conservation_ok",
+                "1 when free + owned blocks account for the whole pool "
+                "(checked per scrape; authoritative when idle)").set(
+                1 if ok else 0)
 
     # -- public --------------------------------------------------------
 
@@ -1000,6 +1076,16 @@ class Scheduler:
                 if self._shed_if_expired(req):
                     self._free_slots.release()
                     continue
+                if not self._fits_pool(req):
+                    req.finish("error")
+                    self._free_slots.release()
+                    continue
+                if not self._pool_ready(req):
+                    # saturated pool: back off instead of re-prefilling
+                    self._requeue_for_pool(req)
+                    self._free_slots.release()
+                    time.sleep(0.01)
+                    continue
                 self._mark_scheduled(req)
                 pspan = self._begin_prefill_span(req)
                 t0 = time.monotonic()
@@ -1065,6 +1151,13 @@ class Scheduler:
             try:
                 self.state = self.engine.insert(
                     self.state, kv, slot, true_len, tok, bucket, **ikw)
+            except KVPoolExhausted:
+                # paged-KV backpressure: requeue until running streams
+                # free blocks (the prefilled KV is dropped — the
+                # request re-prefills on its next turn)
+                self._requeue_for_pool(req)
+                self._free_slots.release()
+                continue
             except UnknownAdapterError:
                 req.finish("error")
                 self._free_slots.release()
@@ -1094,6 +1187,14 @@ class Scheduler:
                 break
             self._admitting += 1
             try:
+                if not self._fits_pool(req):
+                    req.finish("error")
+                    continue
+                if not self._pool_ready(req):
+                    # pool saturated: retry next step WITHOUT burning a
+                    # prefill forward that insert would just bounce
+                    self._requeue_for_pool(req)
+                    break
                 self._mark_scheduled(req)
                 pspan = self._begin_prefill_span(req)
                 t0 = time.monotonic()
@@ -1106,6 +1207,11 @@ class Scheduler:
                     self.state = self.engine.insert(
                         self.state, kv, slot, true_len, tok, bucket,
                         **ikw)
+                except KVPoolExhausted:
+                    # paged-KV backpressure: retry next step, after
+                    # running streams have freed blocks
+                    self._requeue_for_pool(req)
+                    break
                 except UnknownAdapterError:
                     req.finish("error")
                     continue
@@ -1263,6 +1369,43 @@ class Scheduler:
             kw["adapter"] = req.adapter
         return self.engine.prefill(req.prompt_ids, req.temperature,
                                    req.top_k, req.top_p, **kw)
+
+    def _requeue_for_pool(self, req: Request) -> None:
+        """Put `req` back at the head of the queue until the KV pool
+        has room; counted once per request, however many admission
+        turns it waits."""
+        self._requeue.appendleft(req)
+        if not req.pool_requeued:
+            req.pool_requeued = True
+            self._inc("kv_requeues_total")
+
+    def _fits_pool(self, req: Request) -> bool:
+        """Paged KV only: a request whose worst-case footprint exceeds
+        the whole pool can never finish — preempting it would livelock
+        (it is always its own cheapest victim), so reject upfront. A
+        preempted request's generated tokens already moved into
+        prompt_ids, so the remaining-output term shrinks by what was
+        produced (no double count)."""
+        kvb = getattr(self.engine, "kv_block", 0)
+        if not kvb:
+            return True
+        usable = (self.engine.kv_blocks - 1) * kvb
+        remaining = max(req.max_new_tokens - len(req.output_ids), 0)
+        worst = min(min(len(req.prompt_ids), self.engine.max_seq)
+                    + remaining + 1, self.engine.max_seq)
+        return worst <= usable
+
+    def _pool_ready(self, req: Request) -> bool:
+        """Cheap pre-prefill check: enough free blocks for this
+        request's PROMPT — avoids re-running a full prefill forward on
+        every retry while the pool is saturated (the insert would just
+        bounce with KVPoolExhausted again)."""
+        kvb = getattr(self.engine, "kv_block", 0)
+        if not kvb:
+            return True
+        need = self.engine.blocks_needed(
+            min(len(req.prompt_ids), self.engine.max_seq))
+        return self.engine.kv_pool_stats["kv_blocks_free"] >= need
 
     def _maybe_finish(self, slot: int, tok: int):
         req = self.slots[slot]

@@ -6,10 +6,14 @@ and the OpenAI-compatible HTTP surface, then serves until SIGTERM (first
 signal drains, a second forces). Runs on CUDA unless `--device cpu`.
 
     python -m ome_tpu_torch.engine.serve --model-dir DIR --random-weights \\
-        [--device cpu]
+        [--device cpu] [--kv-block 128 [--kv-blocks N] [--kv-dtype int8]]
 
 `--random-weights` draws the weights from `--seed` for the shape in
 DIR/config.json (loading a safetensors checkpoint is not ported yet).
+`--kv-block` serves from a paged KV pool (bf16, or int8 with
+`--kv-dtype int8`) whose decode attention runs the paged CUDA kernel;
+a model or block size that kernel does not take exits with the
+engine's message — there is no silent fall back to the dense cache.
 `build_server(argv)` does everything `main` does except block, so a
 caller (chip_smoke.py, the tests) drives the same code in process.
 
@@ -68,6 +72,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefix-cache-mb", type=int, default=256,
                    help="device byte budget (MiB) for the radix prompt-"
                         "prefix KV cache (0 disables)")
+    p.add_argument("--kv-block", type=int, default=0,
+                   help="paged KV cache block size in tokens (0 = "
+                        "dense per-slot cache); pool-allocated device "
+                        "memory sized by tokens in flight, not "
+                        "slots x max-seq (GQA models)")
+    p.add_argument("--kv-blocks", type=int, default=None,
+                   help="paged KV pool size in blocks (default: "
+                        "dense-equivalent capacity)")
+    p.add_argument("--kv-dtype", choices=("bf16", "int8"),
+                   default="bf16",
+                   help="paged KV block pool storage dtype: int8 "
+                        "halves pool memory per cached token (per-row-"
+                        "per-head scales, quantize on append, "
+                        "dequantize in the attention kernel) so the "
+                        "same budget holds ~2x the sequences; needs "
+                        "--kv-block")
     p.add_argument("--max-restarts", type=int, default=3,
                    help="consecutive engine-fault recovery attempts "
                         "before the scheduler goes permanently dead")
@@ -110,7 +130,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--quantization", default="none")
     p.add_argument("--task", default="generate")
-    p.add_argument("--kv-dtype", default="bf16")
     p.add_argument("--prefix-cache-host-mb", type=int, default=0)
     p.add_argument("--disaggregation-mode", default="none")
     p.add_argument("--spec-tokens", type=int, default=0)
@@ -122,7 +141,7 @@ def build_parser() -> argparse.ArgumentParser:
 # flag -> the only value this slice serves
 _SLICE_DEFAULTS = {
     "tp": 1, "quantization": "none", "task": "generate",
-    "kv_dtype": "bf16", "prefix_cache_host_mb": 0,
+    "prefix_cache_host_mb": 0,
     "disaggregation_mode": "none", "spec_tokens": 0,
     "steps_per_dispatch": 1, "ledger_mode": "off",
 }
@@ -138,6 +157,12 @@ def check_slice(args, env=None) -> None:
             raise SystemExit(
                 f"{flag} {got}: not supported by the PyTorch engine yet "
                 f"(this slice serves only {flag} {want})")
+    if args.kv_block < 0:
+        raise SystemExit(f"--kv-block {args.kv_block}: must be 0 (dense "
+                         "cache) or a positive block size in tokens")
+    if args.kv_dtype == "int8" and not args.kv_block:
+        raise SystemExit("--kv-dtype int8 quantizes the paged block pool; "
+                         "enable paged KV (--kv-block) to use it")
     env = os.environ if env is None else env
     if env.get(_MULTIHOST_ENV[0]) and \
             int(env.get(_MULTIHOST_ENV[1], "1") or 1) > 1:
@@ -166,7 +191,7 @@ def load_engine(args):
     --seed on --device."""
     from ..device import resolve_device
     from ..models.params import init_params, param_count
-    from .core import InferenceEngine
+    from .core import InferenceEngine, PagedKVUnsupported
 
     device = resolve_device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -178,10 +203,17 @@ def load_engine(args):
     log.info("initialized random weights: %.2fM params on %s in %.1fs",
              param_count(params) / 1e6, device, time.monotonic() - t0)
     max_seq = args.max_seq or min(cfg.max_seq_len, 8192)
-    return InferenceEngine(params, cfg, max_slots=args.max_slots,
-                           max_seq=max_seq,
-                           prefix_cache_bytes=args.prefix_cache_mb << 20,
-                           device=device, seed=args.seed)
+    try:
+        return InferenceEngine(
+            params, cfg, max_slots=args.max_slots, max_seq=max_seq,
+            prefix_cache_bytes=args.prefix_cache_mb << 20,
+            kv_block=args.kv_block, kv_blocks=args.kv_blocks,
+            kv_dtype=args.kv_dtype if args.kv_block else None,
+            device=device, seed=args.seed)
+    except PagedKVUnsupported as e:
+        # the paged guards (model family, the CUDA kernel's coverage):
+        # exit with the engine's reason instead of serving another cache
+        raise SystemExit(f"--kv-block {args.kv_block}: {e}")
 
 
 class DrainController:
@@ -315,9 +347,10 @@ def build_server(argv=None):
                           model_name=name, host=args.host, port=args.port,
                           request_log=args.request_log,
                           debug_endpoints=args.debug_endpoints)
-    log.info("serving %s on %s:%d (device=%s slots=%d max_seq=%d)", name,
-             args.host, server.port, engine.device, engine.max_slots,
-             engine.max_seq)
+    log.info("serving %s on %s:%d (device=%s slots=%d max_seq=%d "
+             "kv_block=%d kv_dtype=%s)", name, args.host, server.port,
+             engine.device, engine.max_slots, engine.max_seq,
+             engine.kv_block, args.kv_dtype if engine.kv_block else "-")
     server.start()
     return server, scheduler, engine
 

@@ -7,15 +7,17 @@ gated MLP, GQA attention through `ops.attention`, and fp32 logits.
 Layout follows the reference so the tests compare like with like:
 parameters are a nested dict with the reference's leaf names and the
 layer tensors stacked on a leading [L, ...] axis; activations are
-[B, S, ...]; the KV cache is [L, B, S_max, K, Dh]. Ops are plain
+[B, S, ...]; the dense KV cache is [L, B, S_max, K, Dh] and the paged
+one a block pool [L, N, block, K, Dh] with a block table (`forward_paged`,
+the engine's `--kv-block` decode). Ops are plain
 functions on tensors. `lax.scan` over the stacked layers becomes a
 Python loop over layer indices. `Llama` is the nn.Module that holds one
 model's stacked tensors and its RoPE table on a device.
 
 The reference's jitted programs donate the cache buffers so XLA updates
 them in place; here the forward writes the new K/V rows into the cache
-tensors in place (`_write_rows`), which is the same memory behaviour
-without the donation.
+tensors in place (`_write_rows`, `_append`), which is the same memory
+behaviour without the donation.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..ops.flash import quantize_rows
+from ..ops.paged import paged_attention
 from .config import ModelConfig
 from .params import Params, check_supported
 
@@ -60,6 +64,51 @@ class KVCache:
                    v=torch.zeros(shape + (cfg.kv_cache_v_dim,),
                                  dtype=dtype, device=device),
                    index=0)
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Block-pool KV cache for the engine's paged decode (counterpart of
+    llama.PagedKVCache).
+
+    k, v: [L, N, block, K, Dh] POOLS of N fixed-size blocks shared by
+    every decode slot; `table`: [B, M] int32 block table mapping each
+    slot's sequence block j to a pool block id (0 is the reserved trash
+    block: unallocated entries point there and kv_len masking keeps it
+    out of every live slot's window); `index`: [B] per-slot lengths.
+    int8 pools carry per-(row, head) f32 scales `k_scale`, `v_scale`
+    [L, N, K, block] (S-minor); None for bf16/fp32 pools."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    index: torch.Tensor
+    table: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @classmethod
+    def create(cls, cfg: ModelConfig, batch: int, n_blocks: int,
+               block: int, max_blocks: int, dtype=None, *,
+               device: Union[str, torch.device]) -> "PagedKVCache":
+        dtype = dtype or cfg.dtype
+        K, Dk, Dv = (cfg.kv_cache_heads, cfg.kv_cache_k_dim,
+                     cfg.kv_cache_v_dim)
+        L = cfg.num_layers
+
+        def scale():
+            # one buffer per plane: the two are written independently
+            return (torch.zeros((L, n_blocks, K, block),
+                                dtype=torch.float32, device=device)
+                    if dtype == torch.int8 else None)
+        return cls(k=torch.zeros((L, n_blocks, block, K, Dk), dtype=dtype,
+                                 device=device),
+                   v=torch.zeros((L, n_blocks, block, K, Dv), dtype=dtype,
+                                 device=device),
+                   index=torch.zeros((batch,), dtype=torch.int32,
+                                     device=device),
+                   table=torch.zeros((batch, max_blocks), dtype=torch.int32,
+                                     device=device),
+                   k_scale=scale(), v_scale=scale())
 
 
 # -- building blocks -------------------------------------------------------
@@ -254,6 +303,75 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return _final_logits(params, cfg, x), new_cache
 
 
+def _append(pool: torch.Tensor, scale_pool: Optional[torch.Tensor],
+            rows: torch.Tensor, blk: torch.Tensor, off: torch.Tensor
+            ) -> None:
+    """Write one fresh [B, K, D] row per slot into `pool` [N, bs, K, D]
+    at (blk[b], off[b]), in place: one advanced-index assignment per
+    pool, which replaces the reference's scatter into a donated buffer.
+    int8 pools quantize per (row, head) on the way in
+    (`flash.quantize_rows`, the reference's amax/127 rule) and store the
+    f32 scale at the same (block, offset) of `scale_pool` [N, K, bs].
+    Free slots all write into the trash block; which duplicate lands is
+    unordered, and harmless because no live slot's window reads it."""
+    if scale_pool is not None:
+        rows, sc = quantize_rows(rows)
+        scale_pool[blk, :, off] = sc
+    pool[blk, off] = rows.to(pool.dtype)
+
+
+def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                  cache: PagedKVCache,
+                  freqs: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, PagedKVCache]:
+    """One decode step over a paged (block-pool) KV cache.
+
+    tokens: [B, 1]. Slot b writes its new K/V row into pool block
+    `table[b, index[b] // block]` at offset `index[b] % block` (the
+    engine allocates the covering block beforehand), then attends its
+    block chain through `ops.paged.paged_attention`. Standard GQA
+    models only (the engine guards). Returns (logits [B, 1, vocab]
+    fp32, cache with index + 1); the pools are updated in place."""
+    B, S = tokens.shape
+    if S != 1:
+        raise NotImplementedError(
+            "forward_paged: multi-token steps (the speculative verify "
+            "forward) are not ported yet; S must be 1")
+    dev = tokens.device
+    bs = cache.k.shape[2]
+    M = cache.table.shape[1]
+    if freqs is None:
+        freqs = rope_frequencies(cfg, dev)
+    positions = cache.index[:, None].to(torch.int32)
+    kv_len = cache.index + 1
+    rows = torch.arange(B, device=dev)
+    pos = positions[:, 0].long()
+    # the clamp keeps a free slot whose length outgrew its table row
+    # inside the pool: its row points at the trash block by then
+    blk = cache.table[rows, (pos // bs).clamp(max=M - 1)].long()
+    off = pos % bs
+    quantized = cache.k_scale is not None
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = {name: t[i] for name, t in layers.items()}
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(h, lp, cfg, freqs, positions)
+        ksp = cache.k_scale[i] if quantized else None
+        vsp = cache.v_scale[i] if quantized else None
+        _append(cache.k[i], ksp, k[:, 0], blk, off)
+        _append(cache.v[i], vsp, v[:, 0], blk, off)
+        attn = paged_attention(q, cache.k[i], cache.v[i], cache.table,
+                               kv_len, scale=cfg.query_scale,
+                               logit_softcap=cfg.attn_logit_softcap,
+                               k_scale=ksp, v_scale=vsp)
+        x = x + _proj(attn, lp["wo"], flatten=2)
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+        x = x + dense_mlp(h, lp)
+    new_cache = dataclasses.replace(cache, index=cache.index + 1)
+    return _final_logits(params, cfg, x), new_cache
+
+
 class Llama(nn.Module):
     """One model's stacked [L, ...] weights and RoPE table on a device.
 
@@ -285,3 +403,7 @@ class Llama(nn.Module):
     def forward(self, tokens, positions=None, cache=None, rows=None):
         return forward(self.params, self.cfg, tokens, positions, cache,
                        rows, freqs=self.freqs)
+
+    def forward_paged(self, tokens, cache: PagedKVCache):
+        return forward_paged(self.params, self.cfg, tokens, cache,
+                             freqs=self.freqs)

@@ -28,6 +28,7 @@ BUILD_DIR = os.path.join(
 SOURCES = {
     "flash_decode": "flash_decode.cu",
     "flash_prefill": "flash_prefill.cu",
+    "flash_paged_decode": "flash_paged_decode.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,6 +43,10 @@ _SIGNATURES = {
     "flash_prefill": ("ome_flash_prefill",
                       [_P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
+    "flash_paged_decode": ("ome_flash_paged_decode",
+                           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                            _P]),
 }
 
 _lock = threading.Lock()

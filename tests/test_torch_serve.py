@@ -4,8 +4,9 @@
 runs, minus the signal wait: a tiny config.json, `--device cpu
 --random-weights`, then an OpenAI completion, an SSE stream and the
 health/metrics surface over HTTP. Flags outside this slice of the port
-must exit with a message that names them, and asking for CUDA where
-there is no card must raise.
+(and values the port refuses, such as a negative `--kv-block` or
+`--kv-dtype int8` without one) must exit with a message that names
+them, and asking for CUDA where there is no card must raise.
 """
 
 import json
@@ -105,7 +106,7 @@ def test_health_metrics_and_refusals(served):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--tp", "2"], ["--quantization", "int4"], ["--kv-block", "128"],
+    ["--tp", "2"], ["--quantization", "int4"], ["--kv-block", "-16"],
     ["--kv-dtype", "int8"], ["--prefix-cache-host-mb", "64"],
     ["--disaggregation-mode", "decode"], ["--spec-tokens", "4"],
     ["--steps-per-dispatch", "4"], ["--journal", "/nonexistent"],
