@@ -14,7 +14,9 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    `scaled_dot_product_attention` call. The paged decode kernel (B3)
    runs over a bf16, an fp32 and an int8 pool (random block table) and
    with a free slot's all-trash table row; the int8 dense decode (B5)
-   runs on the same kernel;
+   runs on the same kernel; the int4 weight-only matmul (B4) runs at
+   the 8B projection shapes, beside `_weight_int4pack_mm` and a bf16
+   `torch.mm` over the dequantized weight as yardsticks;
 4. serve: the OpenAI HTTP server from `ome_tpu_torch.engine.serve.
    build_server` at the Llama-3-8B shape (random bf16 weights from a
    seed), answering concurrent completions, a stream, a prefix-cache hit
@@ -27,9 +29,17 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    idle, B3 launched and B1 not;
 6. paged int8: `--kv-dtype int8` with the same seed: first tokens equal
    the bf16 server's, B3's int8 branch launched, pool conserved;
-7. step times: the dense, paged bf16 and paged int8 engines' decode
+7. serve int4: the dense server again with `--quantization int4`
+   (weights quantized at load): the same requests, B4 launched by its
+   decode steps and short prefills, a prompt over 256 tokens through the
+   dequantizing route; weight bytes, memory and step times;
+8. step times: the dense, paged bf16 and paged int8 engines' decode
    steps over one set of weights, timed in turns;
-8. stream identity: fp32 at the Llama-3-8B widths, 4 layers, through
+9. weight quantization: the bf16, int8, fp8 and int4 engines over one
+   weight set, decode steps timed in turns, each quantized engine's
+   greedy drift from bf16, and the int4 engine's logits held against a
+   twin whose int4 weights are dequantized to bf16 (B4 end to end);
+10. stream identity: fp32 at the Llama-3-8B widths, 4 layers, through
    the engine API: dense decode (B1) and paged decode over fp32 pools
    (B3) give identical 32-token greedy streams; the int8 pool's drift
    from the fp32 pool over the same streams is reported.
@@ -393,6 +403,119 @@ def phase_paged_kernels(torch, timer, gen):
     return cases
 
 
+def _int4_library(torch, qt):
+    """`torch.ops.aten._weight_int4pack_mm` over the same weights
+    (yardstick only; the port never calls it): the nibbles repacked
+    unsigned (q + 8) by `_convert_weight_to_int4pack`, zero points 0,
+    the scales in bf16 (the op takes no f32 scales). Returns
+    (fn(x) -> y, None) or (None, why)."""
+    from ome_tpu_torch.ops import int4_matmul
+    qp2, s2, k, n, gsize = int4_matmul.flatten_qtensor(qt)
+    try:
+        q32 = qp2.to(torch.int32)
+        v = torch.cat([(q32 << 28) >> 28, q32 >> 4], dim=0)   # [K, N]
+        u = (v + 8).t().contiguous()                           # [N, K]
+        w_u8 = (u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8)
+        packed = torch.ops.aten._convert_weight_to_int4pack(w_u8, 8)
+        sz = torch.stack([s2, torch.zeros_like(s2)], dim=2).to(
+            torch.bfloat16).contiguous()                       # [K/G, N, 2]
+
+        def fn(x):
+            return torch.ops.aten._weight_int4pack_mm(x, packed, gsize, sz)
+        fn(torch.zeros(1, k, dtype=torch.bfloat16, device=qp2.device))
+        torch.cuda.synchronize()
+        return fn, None
+    except Exception as e:  # the op is missing or refuses this build
+        return None, f"{type(e).__name__}: {str(e)[:200]}"
+
+
+# tolerance of B4 against its plain version (fp32 output), relative to
+# max |y|: fp32 output differs only in summation order; bf16 output adds
+# the rounding of y to bf16 (half an ulp, at most 2^-8 of |y|) and can
+# land on either side of a rounding boundary: one ulp, 2^-7 of max |y|
+INT4_RTOL = {"fp32": 1e-4, "bf16": 2 ** -7}
+
+
+def int4_case(torch, timer, gen, weights, name, m, K, N, out_name="bf16"):
+    """B4 at one projection shape: x [m, K] bf16 (the serving dtype)
+    against a [K, N] weight quantized by the port's own
+    `quantize_tensor_int4` (std 0.02, as the model init), group 128;
+    `weights` caches each shape's weight and yardsticks across cases."""
+    from ome_tpu_torch.models.quant import quantize_tensor_int4
+    from ome_tpu_torch.ops import int4_matmul
+    dev = torch.device("cuda")
+    key = (K, N)
+    if key not in weights:
+        w = torch.randn(K, N, generator=gen, device=dev,
+                        dtype=torch.float32) * 0.02
+        qt = quantize_tensor_int4(w, (0,), group=128)
+        del w
+        weights[key] = {"qt": qt, "lib": _int4_library(torch, qt),
+                        "bf16": qt.dequant(torch.bfloat16)}
+    entry = weights[key]
+    qt = entry["qt"]
+    out_dtype = torch.bfloat16 if out_name == "bf16" else torch.float32
+    x = torch.randn(m, K, generator=gen, device=dev,
+                    dtype=torch.float32).to(torch.bfloat16)
+
+    def kernel():
+        return int4_matmul.int4_matmul(x, qt, out_dtype)
+
+    def plain():
+        return int4_matmul.int4_matmul_ref(x, qt, torch.float32)
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        fail(f"int4_matmul {name} m={m}: non-finite output")
+    err = (out.float() - ref).abs().max().item()
+    atol = INT4_RTOL[out_name] * ref.abs().max().item()
+    ms = timer.ms(kernel)
+    plain_ms = timer.ms(plain, iters=5)
+    lib_fn, lib_why = entry["lib"]
+    lib_ms = lib_err = None
+    if lib_fn is not None:
+        lib_ms = timer.ms(lambda: lib_fn(x))
+        lib_err = (lib_fn(x).float() - ref).abs().max().item()
+    wb = entry["bf16"]
+    bf16_mm_ms = timer.ms(lambda: torch.mm(x, wb))
+    nbytes = (K // 2 * N + K // 128 * N * 4 + m * K * 2
+              + m * N * out.element_size())
+    return {"case": f"int4 {name} m={m} K={K} N={N} G=128 out={out_name}",
+            "max_abs_err": err, "atol": atol, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_err": lib_err, "library_why": lib_why,
+            "bf16_mm_ms": bf16_mm_ms, **_bound(nbytes, 2 * m * K * N, "bf16")}
+
+
+def phase_int4_kernel(torch, timer, gen):
+    """B4 against its plain version at the Llama-3-8B projection shapes
+    it serves (K 4096; w_gate/w_up N 14336, wq N 4096, wk/wv N 1024) at
+    decode and short-prefill batch sizes; the main case, first, is
+    w_gate at m = 8."""
+    weights = {}
+    shapes = (("w_gate", 4096, 14336), ("wq", 4096, 4096),
+              ("wk", 4096, 1024))
+    cases = [int4_case(torch, timer, gen, weights, "w_gate", 8, 4096,
+                       14336)]
+    for name, K, N in shapes:
+        for m in (1, 5, 8, 16, 256):
+            if (name, m) != ("w_gate", 8):
+                cases.append(int4_case(torch, timer, gen, weights, name, m,
+                                       K, N))
+    cases.append(int4_case(torch, timer, gen, weights, "w_gate", 8, 4096,
+                           14336, out_name="fp32"))
+    why = weights[(4096, 14336)]["lib"][1]
+    if why:
+        log(f"[kernels] int4_matmul: no library_ms: "
+            f"torch.ops.aten._weight_int4pack_mm failed ({why})")
+    for c in cases:
+        log(f"[kernels] int4_matmul {c['case']}: bf16 torch.mm over the "
+            f"dequantized weight {c['bf16_mm_ms']:.4f} ms; "
+            f"_weight_int4pack_mm err {c['library_err']}")
+    del weights
+    return {"int4_matmul": cases}
+
+
 def phase_kernels(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -413,6 +536,7 @@ def phase_kernels(torch):
         torch, timer, gen, "bf16", 2048, 2048, 0, window=512,
         softcap=50.0))
     cases.update(phase_paged_kernels(torch, timer, gen))
+    cases.update(phase_int4_kernel(torch, timer, gen))
     bad = []
     for name, rows in cases.items():
         for c in rows:
@@ -420,7 +544,7 @@ def phase_kernels(torch):
             lib = ("null" if c["library_ms"] is None
                    else f"{c['library_ms']:.4f}")
             log(f"[kernels] {name} {c['case']}: max_abs_err "
-                f"{c['max_abs_err']:.3e} (tol {c['atol']:g}) "
+                f"{c['max_abs_err']:.3e} (tol {c['atol']:.3g}) "
                 f"{'ok' if ok else 'FAIL'}; ms {c['ms']:.4f} plain_ms "
                 f"{c['plain_ms']:.4f} bound_ms {c['bound_ms']:.4f} "
                 f"({c['bound_by']}) library_ms {lib}")
@@ -500,10 +624,25 @@ def _device_profile(torch, fn, iters: int):
     return sum(r[0] for r in rows), rows[:5], host[:5]
 
 
+def weight_label(params) -> str:
+    """The weight mode of a parameter tree: bf16 (or float32), int8,
+    fp8 or int4."""
+    import torch
+    from ome_tpu_torch.models.quant import QTensor
+    wq = params["layers"]["wq"]
+    if not isinstance(wq, QTensor):
+        return "bf16" if wq.dtype == torch.bfloat16 else str(wq.dtype)[6:]
+    if wq.bits == 4:
+        return "int4"
+    return "fp8" if wq.q.dtype == torch.float8_e4m3fn else "int8"
+
+
 def kv_label(engine) -> str:
+    weights = weight_label(engine.model.params)
+    suffix = "" if weights in ("bf16", "float32") else f" {weights}"
     if not engine.kv_block:
-        return "dense"
-    return f"paged {'int8' if engine.kv_quantized else 'bf16'}"
+        return "dense" + suffix
+    return f"paged {'int8' if engine.kv_quantized else 'bf16'}{suffix}"
 
 
 def _step_times(torch, engine, prompt, iters: int = 10,
@@ -569,7 +708,11 @@ def _step_times(torch, engine, prompt, iters: int = 10,
     return res
 
 
-def phase_serve(torch, seed: int = 0):
+def phase_serve(torch, seed: int = 0, quantization: str = "none"):
+    """The dense server at the Llama-3-8B shape, bf16 weights or
+    `--quantization int4` (whose decode steps and prefills of up to 256
+    tokens run B4, and whose longer prefills take the dequantizing
+    route)."""
     import concurrent.futures
     import random
     import tempfile
@@ -577,15 +720,17 @@ def phase_serve(torch, seed: int = 0):
 
     from ome_tpu_torch.engine import serve
     from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.models.quant import quantized_bytes
     from ome_tpu_torch.ops import flash
 
     cfg = llama3_8b()
     rng = random.Random(seed)
+    tag = "[serve]" if quantization == "none" else f"[serve {quantization}]"
 
     def prompt(n):
         return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
 
-    out = {}
+    out = {"quantization": quantization}
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "config.json"), "w") as f:
             json.dump(_hf_config(cfg), f)
@@ -594,13 +739,18 @@ def phase_serve(torch, seed: int = 0):
         server, sched, engine = serve.build_server(
             ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
              "--max-slots", "8", "--max-seq", "4096", "--port", "0",
-             "--host", "127.0.0.1", "--request-log", reqlog])
+             "--host", "127.0.0.1", "--request-log", reqlog,
+             "--quantization", quantization])
         torch.cuda.synchronize()
         out["startup_s"] = time.monotonic() - t0
-        log(f"[serve] Llama-3-8B shape, random bf16 weights (seed {seed}), "
+        out["device_gib_after_startup"] = torch.cuda.memory_allocated() / 2**30
+        out["weight_bytes"] = quantized_bytes(engine.model.params)
+        log(f"{tag} Llama-3-8B shape, random "
+            f"{weight_label(engine.model.params)} weights (seed {seed}), "
             f"{cfg.num_layers} layers, slots 8, max_seq 4096: server up "
-            f"in {out['startup_s']:.1f} s; device memory "
-            f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+            f"in {out['startup_s']:.1f} s; weights "
+            f"{out['weight_bytes'] / 1e9:.3f} GB; device memory "
+            f"{out['device_gib_after_startup']:.2f} GiB")
         url = f"http://127.0.0.1:{server.port}"
         # every Request the server builds, read back in process
         seen = []
@@ -629,7 +779,7 @@ def phase_serve(torch, seed: int = 0):
             twins = [r for r in seen if r.prompt_ids == twin]
             if len(twins) != 2 or twins[0].output_ids != twins[1].output_ids:
                 fail("serve: the twin prompts gave different outputs")
-            log(f"[serve] {len(bodies)} concurrent completions (prompt "
+            log(f"{tag} {len(bodies)} concurrent completions (prompt "
                 f"lengths {lengths} + 2 x 24-token twins): all 200, "
                 f"{out['batch_completion_tokens']} tokens in "
                 f"{out['batch_s']:.2f} s; twins identical")
@@ -650,7 +800,7 @@ def phase_serve(torch, seed: int = 0):
             if flash.LAUNCHES["flash_prefill"] <= pre0:
                 fail("serve: the prefix-suffix prefill launched no "
                      "flash_prefill kernel")
-            log(f"[serve] shared 1024-token prefix: {out['prefix_hits']} "
+            log(f"{tag} shared 1024-token prefix: {out['prefix_hits']} "
                 f"prefix-cache hit(s); suffix prefill went through "
                 f"flash_prefill")
 
@@ -664,7 +814,7 @@ def phase_serve(torch, seed: int = 0):
             n = final["usage"]["completion_tokens"]
             if not 1 <= n <= 32:
                 fail(f"serve: stream gave {n} completion tokens")
-            log(f"[serve] SSE stream: {n} tokens, ended with [DONE]")
+            log(f"{tag} SSE stream: {n} tokens, ended with [DONE]")
 
             with urllib.request.urlopen(url + "/health", timeout=30) as r:
                 health = json.loads(r.read())
@@ -678,9 +828,12 @@ def phase_serve(torch, seed: int = 0):
         with open(reqlog) as f:
             recs = [json.loads(line) for line in f]
     out["launches"] = launches
-    for name in ("flash_decode", "flash_prefill"):
+    needed = ["flash_decode", "flash_prefill"]
+    if quantization == "int4":
+        needed.append("int4_matmul")
+    for name in needed:
         if launches[name] <= 0:
-            fail(f"serve: kernel {name} was never launched while serving")
+            fail(f"{tag}: kernel {name} was never launched while serving")
     ttft = sorted(r["ttft_s"] for r in recs if r.get("ttft_s") is not None)
     tpot = sorted(r["tpot_s"] for r in recs if r.get("tpot_s"))
     out["requests"] = [{k: r.get(k) for k in ("prompt_tokens",
@@ -689,12 +842,12 @@ def phase_serve(torch, seed: int = 0):
                        for r in recs]
     out["ttft_median_s"] = statistics.median(ttft)
     out["tpot_median_s"] = statistics.median(tpot)
-    log(f"[serve] {len(recs)} requests: TTFT median "
+    log(f"{tag} {len(recs)} requests: TTFT median "
         f"{out['ttft_median_s'] * 1e3:.1f} ms (max {ttft[-1] * 1e3:.1f}); "
         f"decode per request median {1 / out['tpot_median_s']:.1f} tok/s "
         f"(TPOT {out['tpot_median_s'] * 1e3:.2f} ms); concurrent phase "
         f"{out['batch_completion_tokens'] / out['batch_s']:.1f} tok/s")
-    log(f"[serve] kernel launches while serving: {launches}")
+    log(f"{tag} kernel launches while serving: {launches}")
     return out
 
 
@@ -906,6 +1059,177 @@ def phase_step_turns(torch, seed: int = 0, rounds: int = 2):
     return out
 
 
+def _greedy_streams(torch, eng, prompts, steps: int):
+    """Greedy streams of `prompts` through the engine API: each prompt
+    prefilled into slot 0, 1, ..., then `steps - 1` decode steps of
+    every slot. Returns (streams, the top-2 logit gap of each slot at
+    each decode step, the first decode step's fp32 logits of the
+    prompts' slots)."""
+    import numpy as np
+    state = eng.new_state()
+    out = []
+    for slot, ids in enumerate(prompts):
+        tok, kv, n, bucket = eng.prefill(ids)
+        state = eng.insert(state, kv, slot, n, tok, bucket)
+        out.append([int(tok)])
+    top2, first = [], []
+    sample = eng._sample
+
+    def recording_sample(logits, *a):
+        lf = logits.float().reshape(eng.max_slots, -1)
+        top2.append(torch.topk(lf, 2).values)
+        if not first:
+            first.append(lf[:len(prompts)].clone())
+        return sample(logits, *a)
+    eng._sample = recording_sample
+    n = eng.max_slots
+    greedy = (np.zeros(n, np.float32), np.zeros(n, np.int32),
+              np.ones(n, np.float32))
+    try:
+        for _ in range(steps - 1):
+            state, toks = eng.decode(state, *greedy)
+            for slot, t in enumerate(np.asarray(toks)[:len(prompts)]):
+                out[slot].append(int(t))
+    finally:
+        del eng._sample
+    gaps = [(t[:, 0] - t[:, 1]).cpu() for t in top2]
+    return out, gaps, first[0]
+
+
+def _drift(ref_streams, ref_gaps, streams):
+    """Per prompt: the first step at which `streams` leaves the
+    reference's, and the reference's top-2 logit gap at that step (None
+    and None where the streams are identical)."""
+    drift = []
+    for slot, (a, b) in enumerate(zip(ref_streams, streams)):
+        step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                    None)
+        gap = float(ref_gaps[step - 1][slot]) if step else None
+        drift.append({"first_diff_step": step, "top2_gap": gap})
+    return drift
+
+
+def phase_quant_turns(torch, seed: int = 0, rounds: int = 2,
+                      steps: int = 32):
+    """Weight-only quantization at the Llama-3-8B shape, over one bf16
+    weight set and the port's `quantize_params` of it:
+
+    * the decode step of the bf16, int8, fp8 and int4 engines (dense
+      cache, 8 slots armed at lengths 64-2164, max_seq 4096), timed in
+      turns (A B C D D C B A) as phase_step_turns times the caches;
+    * each quantized engine's drift from bf16 over `steps`-token greedy
+      streams of 4 prompts (reported, not required to be zero);
+    * B4 end to end: in a bf16 model B4's operands are exactly those of
+      a bf16 `torch.mm` over the dequantized weight, so the int4
+      engine's first decode-step logits are held against a twin engine
+      whose int4 leaves are `dequant(bf16)` tensors. Each of the P = 7 x
+      32 + 1 projections in sequence rounds its output to bf16 once,
+      where B4 and the mm may land one ulp (2^-7 of the value) apart;
+      the tolerance lets those steps add up as a random walk: 2^-7 x
+      sqrt(P) of max |logits|."""
+    import math
+    import random
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.models.quant import (QTensor, quantize_params,
+                                            quantized_bytes)
+    from ome_tpu_torch.ops import flash
+
+    cfg = llama3_8b().replace(dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = {"bf16": init_params(cfg, gen, torch.device("cuda"))}
+    for mode in ("int8", "fp8", "int4"):
+        t0 = time.monotonic()
+        params[mode] = quantize_params(params["bf16"], mode=mode)
+        torch.cuda.synchronize()
+        log(f"[quant] quantize_params {mode} of the 8B bf16 weights on the "
+            f"card: {time.monotonic() - t0:.1f} s")
+    rng = random.Random(seed + 4)
+
+    def prompt(n):
+        return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+    engines = {name: InferenceEngine(p, cfg, max_slots=8, max_seq=4096,
+                                     device="cuda", seed=seed)
+               for name, p in params.items()}
+    out = {name: {"weight_bytes": quantized_bytes(p)}
+           for name, p in params.items()}
+    out["device_gib_all_engines"] = torch.cuda.memory_allocated() / 2**30
+    log(f"[quant] weight bytes: " + ", ".join(
+        f"{name} {out[name]['weight_bytes'] / 1e9:.3f} GB"
+        for name in engines) + f"; four engines built, device memory "
+        f"{out['device_gib_all_engines']:.2f} GiB")
+    order = list(engines) + list(engines)[::-1]
+    runs = {name: [] for name in engines}
+    for _ in range(rounds // 2):
+        for name in order:
+            runs[name].append(_step_times(torch, engines[name], prompt,
+                                          with_prefill=False)["decode"])
+    for name, rs in runs.items():
+        out[name].update(wall_ms=[r["wall_ms"] for r in rs],
+                         device_ms=[r["device_ms"] for r in rs],
+                         idle_share=[r["idle_share"] for r in rs],
+                         top=rs[-1]["top"], host_top=rs[-1]["host_top"])
+        walls = ", ".join(f"{x:.2f}" for x in out[name]["wall_ms"])
+        busy = ", ".join(f"{x:.2f}" for x in out[name]["device_ms"] if x)
+        log(f"[quant] {name} weights, decode step, runs in turns: wall "
+            f"{walls} ms; device busy {busy} ms")
+
+    prompts = [prompt(n) for n in (37, 200, 515, 1000)]
+    streams, gaps, first = {}, {}, {}
+    for name, eng in engines.items():
+        flash.reset_launches()
+        streams[name], gaps[name], first[name] = _greedy_streams(
+            torch, eng, prompts, steps)
+        if name == "int4" and flash.LAUNCHES["int4_matmul"] <= 0:
+            fail("quant: the int4 engine's streams launched no int4_matmul")
+    for name in ("int8", "fp8", "int4"):
+        out[name]["drift"] = _drift(streams["bf16"], gaps["bf16"],
+                                    streams[name])
+        log(f"[quant] {name} weights against bf16, {steps} greedy steps "
+            f"per prompt (first differing step, bf16 top-2 logit gap "
+            f"there; None = identical): "
+            f"{[(d['first_diff_step'], d['top2_gap']) for d in out[name]['drift']]}")
+
+    q4 = params["int4"]
+    del engines, params
+    twin_params = dict(q4, layers={
+        k: v.dequant(torch.bfloat16) if isinstance(v, QTensor) and v.bits == 4
+        else v for k, v in q4["layers"].items()})
+    twin = InferenceEngine(twin_params, cfg, max_slots=8, max_seq=4096,
+                           device="cuda", seed=seed)
+    flash.reset_launches()
+    twin_streams, _, twin_first = _greedy_streams(torch, twin, prompts, 2)
+    if flash.LAUNCHES["int4_matmul"]:
+        fail("quant: the twin engine launched int4_matmul")
+    same = [i for i in range(len(prompts))
+            if twin_streams[i][0] == streams["int4"][i][0]]
+    if not same:
+        fail("quant: every prefill token of the twin differs from the int4 "
+             "engine's")
+    ref, got = twin_first[same], first["int4"][same]
+    err = (got - ref).abs().max().item()
+    n_proj = 7 * cfg.num_layers + 1
+    tol = 2 ** -7 * math.sqrt(n_proj) * ref.abs().max().item()
+    argmax_same = int((got.argmax(-1) == ref.argmax(-1)).sum())
+    out["twin"] = {"max_abs_err": err, "atol": tol,
+                   "max_abs_logit": ref.abs().max().item(),
+                   "slots_compared": len(same),
+                   "argmax_equal": argmax_same}
+    log(f"[quant] B4 end to end: int4 engine vs its dequant(bf16) twin, "
+        f"first decode-step logits of {len(same)} prompts: max abs diff "
+        f"{err:.4g} (tol {tol:.4g} = 2^-7 x sqrt({n_proj}) x max |logit| "
+        f"{ref.abs().max().item():.4g}); argmax equal {argmax_same}/"
+        f"{len(same)}")
+    if not err <= tol:
+        fail(f"quant: the int4 engine's logits differ from the twin's by "
+             f"{err} (tol {tol})")
+    del twin, twin_params, q4
+    return out
+
+
 def phase_stream_identity(torch, seed: int = 0, n_layers: int = 4,
                           steps: int = 32):
     """fp32 at the Llama-3-8B widths, `n_layers` deep: the dense engine
@@ -915,8 +1239,6 @@ def phase_stream_identity(torch, seed: int = 0, n_layers: int = 4,
     from the fp32 pool (first differing step, the fp32 top-2 logit gap
     there) is reported, not required to be zero."""
     import random
-
-    import numpy as np
 
     from ome_tpu_torch.engine.core import InferenceEngine
     from ome_tpu_torch.models.config import llama3_8b
@@ -936,29 +1258,9 @@ def phase_stream_identity(torch, seed: int = 0, n_layers: int = 4,
                      ("paged int8", {"kv_block": 128, "kv_dtype": "int8"})):
         eng = InferenceEngine(params, cfg, max_slots=4, max_seq=2048,
                               device="cuda", seed=seed, **kw)
-        top2 = []
-        sample = eng._sample
-
-        def recording_sample(logits, *a, _sample=sample, _top2=top2):
-            _top2.append(torch.topk(logits.float(), 2).values)
-            return _sample(logits, *a)
-        eng._sample = recording_sample
-        state = eng.new_state()
-        out = [[] for _ in prompts]
-        for slot, ids in enumerate(prompts):
-            tok, kv, n, bucket = eng.prefill(ids)
-            state = eng.insert(state, kv, slot, n, tok, bucket)
-            out[slot].append(tok)
-        top2.clear()  # keep the decode steps' logits only
-        greedy = (np.zeros(4, np.float32), np.zeros(4, np.int32),
-                  np.ones(4, np.float32))
-        for _ in range(steps - 1):
-            state, toks = eng.decode(state, *greedy)
-            for slot, t in enumerate(np.asarray(toks)):
-                out[slot].append(int(t))
-        streams[name] = out
-        gaps[name] = [(t[:, 0] - t[:, 1]).cpu() for t in top2]
-        del eng, state
+        streams[name], gaps[name], _ = _greedy_streams(torch, eng, prompts,
+                                                       steps)
+        del eng
     launches = dict(flash.LAUNCHES)
     if launches["flash_decode"] <= 0 or launches["flash_paged_decode"] <= 0:
         fail(f"stream identity: a decode kernel did not run ({launches})")
@@ -975,13 +1277,8 @@ def phase_stream_identity(torch, seed: int = 0, n_layers: int = 4,
         f"(flash_decode) and paged fp32 pool (flash_paged_decode) give "
         f"identical {steps}-token greedy streams for {len(prompts)} "
         f"prompts (smallest top-2 logit gap {min_gap:.3e})")
-    int8_drift = []
-    for slot in range(len(prompts)):
-        a, b = streams["paged"][slot], streams["paged int8"][slot]
-        step = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                    None)
-        gap = float(gaps["paged"][step - 1][slot]) if step else None
-        int8_drift.append({"first_diff_step": step, "top2_gap": gap})
+    int8_drift = _drift(streams["paged"], gaps["paged"],
+                        streams["paged int8"])
     log(f"[identity] paged int8 pool against the paged fp32 pool, "
         f"{steps} greedy steps per prompt (first differing step, fp32 "
         f"top-2 logit gap there; None = identical): "
@@ -1005,6 +1302,8 @@ SOURCES = {
     "flash_decode_quantized": (
         "ome_tpu_torch/ops/csrc/flash_paged_decode.cu",
         "ome_tpu/ops/flash.py:221"),
+    "int4_matmul": ("ome_tpu_torch/ops/csrc/int4_matmul.cu",
+                    "ome_tpu/ops/int4_matmul.py:126"),
 }
 
 
@@ -1028,8 +1327,12 @@ def main() -> int:
     report["paged_int8"] = phase_serve_paged(
         torch, "int8", first_tokens=report["paged_bf16"]["first_tokens"])
     _free_device(torch, "the paged int8 server")
+    report["serve_int4"] = phase_serve(torch, quantization="int4")
+    _free_device(torch, "the int4 server")
     report["step_turns"] = phase_step_turns(torch)
     _free_device(torch, "the step-time engines")
+    report["quant_turns"] = phase_quant_turns(torch)
+    _free_device(torch, "the weight-quantization engines")
     report["stream_identity"] = phase_stream_identity(torch)
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1038,10 +1341,11 @@ def main() -> int:
     log(f"[done] {report['total_s']:.1f} s")
     # launches on each kernel's main path: the dense server for B1/B2,
     # the paged bf16 server for B3 and B5 (B5 is not wired into serving,
-    # so that run counts 0 for it)
+    # so that run counts 0 for it), the int4 server for B4
     launches = dict(report["serve"]["launches"])
     for name in ("flash_paged_decode", "flash_decode_quantized"):
         launches[name] = report["paged_bf16"]["launches"][name]
+    launches["int4_matmul"] = report["serve_int4"]["launches"]["int4_matmul"]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         main_case = report["kernel_cases"][name][0]

@@ -6,7 +6,8 @@ and the OpenAI-compatible HTTP surface, then serves until SIGTERM (first
 signal drains, a second forces). Runs on CUDA unless `--device cpu`.
 
     python -m ome_tpu_torch.engine.serve --model-dir DIR --random-weights \\
-        [--device cpu] [--kv-block 128 [--kv-blocks N] [--kv-dtype int8]]
+        [--device cpu] [--kv-block 128 [--kv-blocks N] [--kv-dtype int8]] \\
+        [--quantization int8|int4|fp8]
 
 `--random-weights` draws the weights from `--seed` for the shape in
 DIR/config.json (loading a safetensors checkpoint is not ported yet).
@@ -14,6 +15,9 @@ DIR/config.json (loading a safetensors checkpoint is not ported yet).
 `--kv-dtype int8`) whose decode attention runs the paged CUDA kernel;
 a model or block size that kernel does not take exits with the
 engine's message — there is no silent fall back to the dense cache.
+`--quantization` quantizes the weights at load as the reference does
+(`models/quant.quantize_params`); under int4 the eligible projections
+run the int4 CUDA kernel.
 `build_server(argv)` does everything `main` does except block, so a
 caller (chip_smoke.py, the tests) drives the same code in process.
 
@@ -122,13 +126,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="enable GET /debug/events and GET /debug/state")
     p.add_argument("--flight-events", type=int, default=2048,
                    metavar="N", help="flight-recorder ring capacity")
+    p.add_argument("--quantization",
+                   choices=("none", "int8", "int4", "fp8"),
+                   default="none",
+                   help="weight-only quantization at load time: int8 or "
+                        "fp8 (float8_e4m3fn) per output channel, one "
+                        "byte per weight; int4 groupwise (group 128) "
+                        "for wq/wk/wv/w_gate/w_up, whose decode "
+                        "projections run the int4 CUDA kernel, with the "
+                        "other matmul weights at int8")
     p.add_argument("--flight-dump-dir", default=None, metavar="DIR",
                    help="auto-dump the flight-recorder ring into DIR on "
                         "engine-fault recovery and permanent death")
     # flags of the reference kept for their default only: any other
     # value asks for a feature this port does not have yet
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--quantization", default="none")
     p.add_argument("--task", default="generate")
     p.add_argument("--prefix-cache-host-mb", type=int, default=0)
     p.add_argument("--disaggregation-mode", default="none")
@@ -140,7 +152,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 # flag -> the only value this slice serves
 _SLICE_DEFAULTS = {
-    "tp": 1, "quantization": "none", "task": "generate",
+    "tp": 1, "task": "generate",
     "prefix_cache_host_mb": 0,
     "disaggregation_mode": "none", "spec_tokens": 0,
     "steps_per_dispatch": 1, "ledger_mode": "off",
@@ -191,6 +203,7 @@ def load_engine(args):
     --seed on --device."""
     from ..device import resolve_device
     from ..models.params import init_params, param_count
+    from ..models.quant import quantize_params, quantized_bytes
     from .core import InferenceEngine, PagedKVUnsupported
 
     device = resolve_device(args.device)
@@ -202,6 +215,14 @@ def load_engine(args):
     params = init_params(cfg, gen, device)
     log.info("initialized random weights: %.2fM params on %s in %.1fs",
              param_count(params) / 1e6, device, time.monotonic() - t0)
+    if args.quantization != "none":
+        t0 = time.monotonic()
+        # leaf by leaf, dropping each bf16 leaf once quantized
+        params = quantize_params(params, mode=args.quantization,
+                                 consume=True)
+        log.info("quantized weights to %s (weight-only) in %.1fs: %.2f GB "
+                 "of weights", args.quantization, time.monotonic() - t0,
+                 quantized_bytes(params) / 1e9)
     max_seq = args.max_seq or min(cfg.max_seq_len, 8192)
     try:
         return InferenceEngine(
@@ -348,9 +369,10 @@ def build_server(argv=None):
                           request_log=args.request_log,
                           debug_endpoints=args.debug_endpoints)
     log.info("serving %s on %s:%d (device=%s slots=%d max_seq=%d "
-             "kv_block=%d kv_dtype=%s)", name, args.host, server.port,
-             engine.device, engine.max_slots, engine.max_seq,
-             engine.kv_block, args.kv_dtype if engine.kv_block else "-")
+             "kv_block=%d kv_dtype=%s quantization=%s)", name, args.host,
+             server.port, engine.device, engine.max_slots, engine.max_seq,
+             engine.kv_block, args.kv_dtype if engine.kv_block else "-",
+             args.quantization)
     server.start()
     return server, scheduler, engine
 

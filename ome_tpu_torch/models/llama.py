@@ -32,9 +32,11 @@ from torch import nn
 
 from ..ops.attention import attention
 from ..ops.flash import quantize_rows
+from ..ops.int4_matmul import int4_eligible, int4_matmul
 from ..ops.paged import paged_attention
 from .config import ModelConfig
 from .params import Params, check_supported
+from .quant import QTensor
 
 IndexLike = Union[int, torch.Tensor]
 
@@ -162,25 +164,45 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor, out_dims=None,
+def _proj(x: torch.Tensor, w, dtype, out_dims=None,
           flatten: int = 1) -> torch.Tensor:
-    """Contract x's trailing `flatten` dims with weight `w` in the
-    weights' dtype (bf16 weights: bf16 product, fp32 accumulation)."""
+    """Contract x's trailing `flatten` dims with weight `w` (reference
+    `_proj`). A plain tensor multiplies in the weights' dtype (bf16
+    weights: bf16 product, fp32 accumulation). A QTensor that
+    `int4_eligible` takes (int4, at most 256 flattened rows) goes
+    through the int4 kernel (B4) in the compute dtype `dtype`; every
+    other QTensor (int8, fp8, wo's flatten=2 layout, a prefill of more
+    than 256 rows) is dequantized to `dtype` and multiplied — the
+    reference's own dispatch (ome_tpu/models/llama.py:59-65)."""
     lead = x.shape[:x.dim() - flatten]
     K = math.prod(x.shape[len(lead):])
-    y = x.reshape(*lead, K) @ w.reshape(K, -1)
+    x2 = x.reshape(*lead, K)
+    if not isinstance(w, QTensor):
+        y = x2 @ w.reshape(K, -1)
+    elif w.bits == 4 and int4_eligible(tuple(x2.shape), w):
+        y = int4_matmul(x2, w, dtype)
+    else:
+        y = x2 @ w.dequant(dtype).reshape(K, -1)
     if out_dims:
         y = y.reshape(*y.shape[:-1], *out_dims)
     return y
 
 
-def dense_mlp(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    gate = _proj(x, p["w_gate"])
-    up = _proj(x, p["w_up"])
-    return _proj(F.silu(gate) * up, p["w_down"])
+def dense_mlp(x: torch.Tensor, p, dtype) -> torch.Tensor:
+    gate = _proj(x, p["w_gate"], dtype)
+    up = _proj(x, p["w_up"], dtype)
+    return _proj(F.silu(gate) * up, p["w_down"], dtype)
 
 
 # -- forward ---------------------------------------------------------------
+
+
+def _embed(emb, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Embedding lookup in the compute dtype; a quantized table
+    dequantizes only the rows it gathers (`QTensor.take`)."""
+    if isinstance(emb, QTensor):
+        return emb.take(tokens, dtype)
+    return emb[tokens.long()].to(dtype)
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor,
@@ -203,9 +225,12 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor,
 
 def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
          positions: torch.Tensor):
-    q = _proj(h, lp["wq"], out_dims=(cfg.num_heads, cfg.head_dim))
-    k = _proj(h, lp["wk"], out_dims=(cfg.num_kv_heads, cfg.head_dim))
-    v = _proj(h, lp["wv"], out_dims=(cfg.num_kv_heads, cfg.head_dim))
+    q = _proj(h, lp["wq"], cfg.dtype,
+              out_dims=(cfg.num_heads, cfg.head_dim))
+    k = _proj(h, lp["wk"], cfg.dtype,
+              out_dims=(cfg.num_kv_heads, cfg.head_dim))
+    v = _proj(h, lp["wv"], cfg.dtype,
+              out_dims=(cfg.num_kv_heads, cfg.head_dim))
     return (apply_rope(q, positions, freqs),
             apply_rope(k, positions, freqs), v)
 
@@ -226,7 +251,7 @@ def _mha(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
                      sliding_window=cfg.sliding_window,
                      scale=cfg.query_scale,
                      logit_softcap=cfg.attn_logit_softcap)
-    return _proj(attn, lp["wo"], flatten=2)
+    return _proj(attn, lp["wo"], cfg.dtype, flatten=2)
 
 
 def _layer(x: torch.Tensor, lp, cfg: ModelConfig, freqs, positions,
@@ -235,7 +260,7 @@ def _layer(x: torch.Tensor, lp, cfg: ModelConfig, freqs, positions,
     x = x + _mha(h, lp, cfg, freqs, positions, kv_len, cache_kv,
                  cache_index)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    return x + dense_mlp(h, lp)
+    return x + dense_mlp(h, lp, cfg.dtype)
 
 
 def _final_logits(params: Params, cfg: ModelConfig,
@@ -244,9 +269,12 @@ def _final_logits(params: Params, cfg: ModelConfig,
     with preferred_element_type=float32): on a card the bf16 product
     writes fp32 directly; elsewhere the product runs in fp32."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].t()
+    tied = "lm_head" not in params
+    head = params["embed" if tied else "lm_head"]
+    if isinstance(head, QTensor):  # int8 (or fp8) head: dequantized
+        head = head.dequant(cfg.dtype)
+    if tied:
+        head = head.t()
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x2.is_cuda and x2.dtype != torch.float32:
@@ -282,7 +310,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         positions = base.expand(B, S)
     if freqs is None:
         freqs = rope_frequencies(cfg, dev)
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = _embed(params["embed"], tokens, cfg.dtype)
     kv_len = None
     if cache is not None:
         if isinstance(index, torch.Tensor):
@@ -351,7 +379,7 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     blk = cache.table[rows, (pos // bs).clamp(max=M - 1)].long()
     off = pos % bs
     quantized = cache.k_scale is not None
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    x = _embed(params["embed"], tokens, cfg.dtype)
     layers = params["layers"]
     for i in range(cfg.num_layers):
         lp = {name: t[i] for name, t in layers.items()}
@@ -365,39 +393,64 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                kv_len, scale=cfg.query_scale,
                                logit_softcap=cfg.attn_logit_softcap,
                                k_scale=ksp, v_scale=vsp)
-        x = x + _proj(attn, lp["wo"], flatten=2)
+        x = x + _proj(attn, lp["wo"], cfg.dtype, flatten=2)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + dense_mlp(h, lp)
+        x = x + dense_mlp(h, lp, cfg.dtype)
     new_cache = dataclasses.replace(cache, index=cache.index + 1)
     return _final_logits(params, cfg, x), new_cache
+
+
+def _put(module: nn.Module, name: str, t) -> None:
+    """Register leaf `t` as buffer(s) of `module`: a QTensor as its two
+    planes `<name>_q` and `<name>_s`, its bits and axis in
+    `module.qmeta`."""
+    if isinstance(t, QTensor):
+        module.register_buffer(f"{name}_q", t.q)
+        module.register_buffer(f"{name}_s", t.s)
+        module.qmeta[name] = (t.bits, t.axis)
+    else:
+        module.register_buffer(name, t)
+
+
+def _get(module: nn.Module, name: str):
+    if name in module.qmeta:
+        bits, axis = module.qmeta[name]
+        return QTensor(q=getattr(module, f"{name}_q"),
+                       s=getattr(module, f"{name}_s"), bits=bits, axis=axis)
+    return getattr(module, name)
 
 
 class Llama(nn.Module):
     """One model's stacked [L, ...] weights and RoPE table on a device.
 
     Buffers mirror the parameter tree: `embed`, `final_norm`,
-    `lm_head` and `layers.<leaf>`; `params` gives the tree back for the
+    `lm_head` and `layers.<leaf>`; a quantized leaf is two buffers,
+    `<leaf>_q` and `<leaf>_s`, so `.to(device)` moves both planes.
+    `params` gives the tree back, QTensor leaves included, for the
     plain functions above."""
 
     def __init__(self, cfg: ModelConfig, params: Params):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.qmeta: Dict[str, Tuple[int, int]] = {}
         self.layers = nn.Module()
-        for name, t in params["layers"].items():
-            self.layers.register_buffer(name, t)
-        for name in ("embed", "final_norm", "lm_head"):
-            if name in params:
-                self.register_buffer(name, params[name])
+        self.layers.qmeta = {}
+        self.layer_names = list(params["layers"])
+        self.top_names = [n for n in ("embed", "final_norm", "lm_head")
+                          if n in params]
+        for name in self.layer_names:
+            _put(self.layers, name, params["layers"][name])
+        for name in self.top_names:
+            _put(self, name, params[name])
         self.register_buffer("freqs", rope_frequencies(
             cfg, params["embed"].device), persistent=False)
 
     @property
     def params(self) -> Params:
-        tree = {name: getattr(self, name)
-                for name in ("embed", "final_norm", "lm_head")
-                if hasattr(self, name)}
-        tree["layers"] = dict(self.layers.named_buffers())
+        tree = {name: _get(self, name) for name in self.top_names}
+        tree["layers"] = {name: _get(self.layers, name)
+                          for name in self.layer_names}
         return tree
 
     def forward(self, tokens, positions=None, cache=None, rows=None):

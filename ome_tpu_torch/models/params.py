@@ -7,9 +7,11 @@ tensors stacked on a leading [L, ...] axis (`layers["wq"]` is
 
 * `from_jax_params(tree, device)` takes that tree as numpy arrays (what
   `jax.tree.map(np.asarray, params)` gives) and returns torch tensors
-  with the same bytes; bf16 travels through a uint16 view, since numpy
-  has no bfloat16 of its own. The tests use it to run the JAX init's
-  weights through both packages.
+  with the same bytes; bf16 travels through a uint16 view and fp8
+  through a uint8 view, since numpy has neither of its own. A quantized
+  leaf (the reference's QTensor, with numpy `q` and `s`) becomes the
+  port's `QTensor`. The tests use it to run the JAX init's weights,
+  plain or quantized, through both packages.
 * `init_params(cfg, generator, device)` is the port's own random init
   for `--random-weights`: the same leaf names, shapes and dtypes, normal
   with std 0.02 (the residual output projections scaled by
@@ -26,19 +28,23 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .quant import QTensor
 
 Params = Dict[str, Any]
 
 
 def _leaf_from_numpy(a, device) -> torch.Tensor:
     if not isinstance(a, np.ndarray):
-        raise TypeError(f"expected a numpy array leaf, got {type(a).__name__}"
-                        " (quantized leaves are not ported yet)")
+        raise TypeError(f"expected a numpy array leaf, got {type(a).__name__}")
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # views of JAX buffers are read-only
         a = a.copy()
+    # numpy has no bf16 or fp8 of its own (ml_dtypes supplies them):
+    # they travel as raw bytes
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    elif a.dtype.name == "float8_e4m3fn":
+        t = torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn)
     else:
         t = torch.from_numpy(a)
     return t.to(device)
@@ -51,15 +57,23 @@ def from_jax_params(tree: Params,
     tensors on `device`, byte for byte."""
     if isinstance(tree, dict):
         return {k: from_jax_params(v, device) for k, v in tree.items()}
+    if all(hasattr(tree, a) for a in ("q", "s", "bits", "axis")):
+        # the reference's QTensor (read by attribute: the port does not
+        # import it) -> the port's, bytes, bits and axis unchanged
+        return QTensor(q=_leaf_from_numpy(tree.q, device),
+                       s=_leaf_from_numpy(tree.s, device),
+                       bits=int(tree.bits), axis=int(tree.axis))
     return _leaf_from_numpy(tree, device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor's bytes as numpy (bf16 as a uint16 view) — the inverse
-    of the bridge, for byte comparisons."""
+    """A tensor's bytes as numpy (bf16 as a uint16 view, fp8 as a uint8
+    view) — the inverse of the bridge, for byte comparisons."""
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).numpy()
     return t.numpy()
 
 
@@ -137,6 +151,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def param_count(params: Params) -> int:
+    """Logical weight count (a QTensor counts its unpacked size)."""
     if isinstance(params, dict):
         return sum(param_count(v) for v in params.values())
+    if isinstance(params, QTensor):
+        return params.size
     return params.numel()

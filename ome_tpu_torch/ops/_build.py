@@ -4,8 +4,9 @@ Each source under `ops/csrc/` is compiled by `nvcc` for Hopper
 (`sm_90a`) into its own shared library with a plain C interface, and
 loaded with `ctypes`. Nothing here runs at import time: the first
 launch of a kernel (or an explicit `build()`) compiles it into
-`ome_tpu_torch/_build/`, keyed by a hash of the source and the flags,
-so an edited source rebuilds and an unchanged one is loaded as is.
+`ome_tpu_torch/_build/`, keyed by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source or header
+rebuilds and an unchanged one is loaded as is.
 A failed compile raises with nvcc's stderr.
 """
 
@@ -29,6 +30,7 @@ SOURCES = {
     "flash_decode": "flash_decode.cu",
     "flash_prefill": "flash_prefill.cu",
     "flash_paged_decode": "flash_paged_decode.cu",
+    "int4_matmul": "int4_matmul.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,6 +49,9 @@ _SIGNATURES = {
                            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                             _P]),
+    "int4_matmul": ("ome_int4_matmul",
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P]),
 }
 
 _lock = threading.Lock()
@@ -67,9 +72,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(_CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Library path keyed by the source, every header under csrc/ (a
+    source may include any of them) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for fname in [SOURCES[name]] + headers:
+        with open(os.path.join(_CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -29,99 +29,9 @@
 // Built with nvcc into a shared library with a plain C interface (see
 // ome_tpu_torch/ops/_build.py) and called through ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr float kMInit = -1.0e30f;
-
-__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t u) {
-  // element 0 sits in the low half (little-endian memory order)
-  return make_float2(__uint_as_float(u << 16),
-                     __uint_as_float(u & 0xffff0000u));
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_row(const float* p, float (&o)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
-  } else {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    o[0] = t.x; o[1] = t.y;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_row(const uint16_t* p, float (&o)[VEC]) {
-  if constexpr (VEC == 4) {
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    const float2 a = bf16x2_to_float2(t.x), b = bf16x2_to_float2(t.y);
-    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-  } else {
-    const float2 a = bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(p));
-    o[0] = a.x; o[1] = a.y;
-  }
-}
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(uint16_t* p, float x) {
-  const __nv_bfloat16 h = __float2bfloat16_rn(x);
-  *p = *reinterpret_cast<const uint16_t*>(&h);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  // src_bytes 0 zero-fills the 16 destination bytes without reading
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void load_chunk(const float* p, float (&o)[N]) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
-}
-
-template <int N>
-__device__ __forceinline__ void load_chunk(const uint16_t* p, float (&o)[N]) {
-  const uint4 t = *reinterpret_cast<const uint4*>(p);
-  const float2 a = bf16x2_to_float2(t.x), b = bf16x2_to_float2(t.y);
-  const float2 c = bf16x2_to_float2(t.z), d = bf16x2_to_float2(t.w);
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-  o[4] = c.x; o[5] = c.y; o[6] = d.x; o[7] = d.y;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(uint16_t x) {
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 // Pass 1: one block per (split, kv head, sequence), one warp per query
 // head of the KV head (G warps). The block walks its rows in tiles of 32:
@@ -201,7 +111,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < D; c += EPC) {
       float kf[EPC];
-      load_chunk<EPC>(&Ks[buf][lane][c], kf);
+      load_chunk(&Ks[buf][lane][c], kf);
 #pragma unroll
       for (int e = 0; e < EPC; ++e) s = fmaf(qs[g][c + e], kf[e], s);
     }
@@ -236,25 +146,7 @@ decode_partial(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Pass 2: one block per (query head, sequence), one thread per dim.
-template <typename T, int D>
-__global__ void __launch_bounds__(D)
-decode_combine(const float* __restrict__ part_m,
-               const float* __restrict__ part_l,
-               const float* __restrict__ part_acc, T* __restrict__ out,
-               int H, int n_split) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const size_t base = ((size_t)b * H + h) * n_split;
-  float mx = kMInit;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, part_m[base + s]);
-  float lsum = 0.f, a = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float f = expf(part_m[base + s] - mx);
-    lsum += part_l[base + s] * f;
-    a += part_acc[(base + s) * D + d] * f;
-  }
-  store_out(out + ((size_t)b * H + h) * D + d, a / fmaxf(lsum, 1e-30f));
-}
+// Pass 2 is split_kv_combine (common.cuh).
 
 template <typename T, int D, int G>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lo,
@@ -267,7 +159,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lo,
       n_split, scale, softcap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine<T, D><<<dim3(H, B), D, 0, stream>>>(
+  split_kv_combine<T, D><<<dim3(H, B), D, 0, stream>>>(
       part_m, part_l, part_acc, static_cast<T*>(out), H, n_split);
   return cudaGetLastError();
 }

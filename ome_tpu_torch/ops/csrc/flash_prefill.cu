@@ -35,13 +35,10 @@
 // Built with nvcc into a shared library with a plain C interface (see
 // ome_tpu_torch/ops/_build.py) and called through ctypes.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr float kMInit = -1.0e30f;
 constexpr int kBM = 64;  // folded query rows per block (positions x G)
 
 // ---------------------------------------------------------------- bf16 ---
@@ -49,41 +46,6 @@ constexpr int kBM = 64;  // folded query rows per block (positions x G)
 constexpr int kBN = 64;  // KV rows per tile
 constexpr int kPad = 8;  // bf16 elements of row padding (bank spread)
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-__device__ __forceinline__ uint16_t to_bf16(float x) {
-  const __nv_bfloat16 h = __float2bfloat16_rn(x);
-  return *reinterpret_cast<const uint16_t*>(&h);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  // src_bytes 0 zero-fills the 16 destination bytes without reading
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of
 // matrix i, and lane t receives row t/4, columns 2(t%4), 2(t%4)+1 of each
@@ -102,16 +64,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
-}
-
-// D(16x8, f32) += A(16x16, bf16, row) * B(16x8, bf16, col)
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Grid (ceil(Sq / (64 / G)), K, B), 128 threads (4 warps x 16 rows),

@@ -51,7 +51,8 @@ M_INIT = -1.0e30  # finite lowest running max: exp(x - M_INIT) underflows to 0
 
 # kernel launches per wrapper; incremented only where a kernel launches
 LAUNCHES = {"flash_decode": 0, "flash_prefill": 0,
-            "flash_paged_decode": 0, "flash_decode_quantized": 0}
+            "flash_paged_decode": 0, "flash_decode_quantized": 0,
+            "int4_matmul": 0}
 
 _DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8, 16)  # query heads per KV head the decode kernels take

@@ -34,6 +34,8 @@ def _imported_roots(path: pathlib.Path):
 def test_port_files_found():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     for must in ("ome_tpu_torch/ops/flash.py", "ome_tpu_torch/ops/paged.py",
+                 "ome_tpu_torch/ops/int4_matmul.py",
+                 "ome_tpu_torch/models/quant.py",
                  "ome_tpu_torch/engine/core.py",
                  "ome_tpu_torch/engine/serve.py", "chip_smoke.py"):
         assert must in names
@@ -72,6 +74,7 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
         "if os.path.isdir(_build.BUILD_DIR) else []\n"
         "import ome_tpu_torch.ops.flash, ome_tpu_torch.ops.attention\n"
         "import ome_tpu_torch.ops.paged, ome_tpu_torch.models.llama\n"
+        "import ome_tpu_torch.ops.int4_matmul, ome_tpu_torch.models.quant\n"
         "import ome_tpu_torch.engine.serve, ome_tpu_torch.engine.server\n"
         "import ome_tpu_torch.engine.scheduler, ome_tpu_torch.engine.core\n"
         "after = sorted(os.listdir(_build.BUILD_DIR)) "

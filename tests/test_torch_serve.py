@@ -3,10 +3,12 @@
 `build_server` runs exactly what `python -m ome_tpu_torch.engine.serve`
 runs, minus the signal wait: a tiny config.json, `--device cpu
 --random-weights`, then an OpenAI completion, an SSE stream and the
-health/metrics surface over HTTP. Flags outside this slice of the port
-(and values the port refuses, such as a negative `--kv-block` or
-`--kv-dtype int8` without one) must exit with a message that names
-them, and asking for CUDA where there is no card must raise.
+health/metrics surface over HTTP; `--quantization int8|int4|fp8`
+servers answer too. Flags outside this slice of the port (and values
+the port refuses, such as `--quantization nf4`, a negative
+`--kv-block` or `--kv-dtype int8` without one) must exit with a message
+that names them, and asking for CUDA where there is no card must
+raise.
 """
 
 import json
@@ -106,7 +108,7 @@ def test_health_metrics_and_refusals(served):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--tp", "2"], ["--quantization", "int4"], ["--kv-block", "-16"],
+    ["--tp", "2"], ["--quantization", "nf4"], ["--kv-block", "-16"],
     ["--kv-dtype", "int8"], ["--prefix-cache-host-mb", "64"],
     ["--disaggregation-mode", "decode"], ["--spec-tokens", "4"],
     ["--steps-per-dispatch", "4"], ["--journal", "/nonexistent"],
@@ -121,6 +123,29 @@ def test_out_of_slice_flags_exit_naming_the_flag(model_dir, argv, capsys):
     message = f"{e.value.code} {capsys.readouterr().err}"
     assert e.value.code != 0
     assert argv[0] in message
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4", "fp8"])
+def test_quantized_server_answers(model_dir, mode):
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    server, _, engine = serve.build_server(
+        ["--model-dir", model_dir, "--random-weights", "--device", "cpu",
+         "--host", "127.0.0.1", "--port", "0", "--max-slots", "2",
+         "--max-seq", "128", "--quantization", mode])
+    try:
+        from ome_tpu_torch.models.quant import QTensor
+        wq = engine.model.params["layers"]["wq"]
+        assert isinstance(wq, QTensor) and wq.bits == (4 if mode == "int4"
+                                                       else 8)
+        status, body = _post(f"http://127.0.0.1:{server.port}",
+                             {"prompt": "quantized", "max_tokens": 4,
+                              "temperature": 0.0})
+        assert status == 200
+        assert 1 <= json.loads(body)["usage"]["completion_tokens"] <= 4
+    finally:
+        server.stop()
+        torch.set_num_threads(n)
 
 
 def test_multihost_env_and_checkpoints_refuse(model_dir):
