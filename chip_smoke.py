@@ -11,7 +11,12 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    inputs) at the Llama-3-8B attention shapes, in bf16 and fp32, with the
    kernel's median time, the plain version's, the card's lower bound for
    the same work and, as a yardstick only, one
-   `scaled_dot_product_attention` call. The paged decode kernel (B3)
+   `scaled_dot_product_attention` call. The prefill kernel (B2) runs
+   causal buckets of 64 to 4096 tokens, a suffix chunk, window +
+   softcap, G 1 and 8, head_dim 64, two sequences with their own bases
+   and a ragged chunk whose cache tail past kv_hi is NaN, each with its
+   share of the bound and, for the causal buckets, a second yardstick:
+   SDPA with is_causal and no mask. The paged decode kernel (B3)
    runs over a bf16, an fp32 and an int8 pool (random block table) and
    with a free slot's all-trash table row; the int8 dense decode (B5)
    runs on the same kernel; the int4 weight-only matmul (B4) runs at
@@ -60,6 +65,10 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+# device time of one cold 2048-token bf16 prefill of the 8B engine with
+# the mma.sync prefill kernel that the wgmma kernel replaced (NVIDIA
+# H100 80GB HBM3, 700 W), printed beside this run's
+PREFILL_2048_DEVICE_MS_BEFORE = 66.75
 PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core bf16
               "fp32": 67e12}       # fp32 outside the tensor cores
 ATOL = {"bf16": 2e-2, "fp32": 2e-4}
@@ -154,7 +163,7 @@ def phase_build():
         f"{secs:.1f} s")
     for name, text in sorted(_build.build_logs.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 log(f"[build] {name}: {line.strip()}")
     return secs
 
@@ -169,7 +178,7 @@ def _inputs(torch, gen, B, Sq, S, H, K, D, dtype, device):
     return randn(B, Sq, H, D), randn(B, S, K, D), randn(B, S, K, D)
 
 
-def _sdpa(torch, q, k, v, mask):
+def _sdpa(torch, q, k, v, mask, is_causal=False):
     """One scaled_dot_product_attention call computing the same
     function (yardstick only; the port never calls it)."""
     F = torch.nn.functional
@@ -177,6 +186,7 @@ def _sdpa(torch, q, k, v, mask):
 
     def fn():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=is_causal,
                                               enable_gqa=True)
     try:
         fn()
@@ -232,54 +242,113 @@ def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
 
 
 def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
-                 softcap=None, B=1, H=32, K=8, D=128):
+                 softcap=None, B=1, H=32, K=8, D=128, bases=None,
+                 kv_hi=None, nan_tail=False):
+    """B2 at one shape against flash_prefill_ref (fp32, same inputs).
+    `bases` gives each sequence its own base (default `base` for all);
+    kv_hi defaults to base + Sq. `nan_tail` fills every K/V row at or
+    past kv_hi with NaN: those rows are outside the function, so the
+    output must stay finite (the plain version runs on the clean
+    copy). Yardsticks: `library_ms`, one masked SDPA call; for causal
+    cases with base 0 and Sq == S == kv_hi, `library_causal_ms`, SDPA
+    with is_causal and no mask (free to take its flash backend)."""
     from ome_tpu_torch.ops import flash
     dev = torch.device("cuda")
     dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
     q, k, v = _inputs(torch, gen, B, Sq, S, H, K, D, dtype, dev)
-    base_t = torch.full((B,), base, dtype=torch.int32, device=dev)
-    kv_hi = torch.full((B,), base + Sq, dtype=torch.int32, device=dev)
+    bases = list(bases) if bases is not None else [base] * B
+    his = [min(b0 + Sq if kv_hi is None else kv_hi, S) for b0 in bases]
+    base_t = torch.tensor(bases, dtype=torch.int32, device=dev)
+    kv_hi_t = torch.tensor(his, dtype=torch.int32, device=dev)
     scale = D ** -0.5
-    out = flash.flash_prefill(q, k, v, base_t, kv_hi, scale, softcap,
-                              window)
     ref = flash.flash_prefill_ref(q.float(), k.float(), v.float(), base_t,
-                                  kv_hi, scale, softcap, window)
+                                  kv_hi_t, scale, softcap, window)
+    clean = (k, v)
+    if nan_tail:
+        k, v = k.clone(), v.clone()
+        for i, hi in enumerate(his):
+            k[i, hi:] = float("nan")
+            v[i, hi:] = float("nan")
+
+    def kernel():
+        return flash.flash_prefill(q, k, v, base_t, kv_hi_t, scale, softcap,
+                                   window)
+    out = kernel()
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
-        fail(f"flash_prefill {dtype_name}: non-finite output")
+        fail(f"flash_prefill {dtype_name} Sq={Sq} S={S}: non-finite output")
     err = (out.float() - ref).abs().max().item()
-    ms = timer.ms(lambda: flash.flash_prefill(q, k, v, base_t, kv_hi,
-                                              scale, softcap, window))
+    ms = timer.ms(kernel)
     plain_ms = timer.ms(lambda: flash.flash_prefill_ref(
-        q.float(), k.float(), v.float(), base_t, kv_hi, scale, softcap,
-        window), iters=3)
-    lib_ms = None
+        q.float(), clean[0].float(), clean[1].float(), base_t, kv_hi_t,
+        scale, softcap, window), iters=3)
+    lib_ms = lib_causal_ms = None
     if not softcap:
-        col = torch.arange(S, device=dev)[None, :]
-        pos = (base + torch.arange(Sq, device=dev))[:, None]
-        mask = (col <= pos) & (col < base + Sq)
+        col = torch.arange(S, device=dev)[None, None, :]
+        pos = (base_t[:, None] + torch.arange(Sq, device=dev)[None, :]
+               )[:, :, None]
+        mask = (col <= pos) & (col < kv_hi_t[:, None, None])
         if window:
             mask = mask & (col > pos - window)
-        fn = _sdpa(torch, q, k, v, mask[None, None])
+        fn = _sdpa(torch, q, clean[0], clean[1], mask[:, None])
         if fn is not None:
             lib_ms = timer.ms(fn)
-    pos = base + torch.arange(Sq)
-    hi = torch.clamp(pos + 1, max=base + Sq)
-    lo = (pos - window + 1).clamp(min=0) if window else \
-        torch.zeros_like(pos)
-    pairs = int((hi - lo).clamp(min=0).sum()) * B
-    flops = 4 * D * H * pairs
+        if not window and Sq == S and set(bases) == {0} and \
+                set(his) == {S}:
+            fn = _sdpa(torch, q, clean[0], clean[1], None, is_causal=True)
+            if fn is not None:
+                lib_causal_ms = timer.ms(fn)
+    pairs = rows = 0
+    for b0, hi in zip(bases, his):
+        pos = b0 + torch.arange(Sq)
+        top = torch.clamp(pos + 1, max=hi)
+        lo = (pos - window + 1).clamp(min=0) if window else \
+            torch.zeros_like(pos)
+        pairs += int((top - lo).clamp(min=0).sum())
+        rows += max(hi - (max(b0 - window + 1, 0) if window else 0), 0)
     esize = q.element_size()
-    nbytes = (2 * q.numel() + 2 * B * (base + Sq) * K * D) * esize
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return {"case": f"prefill {dtype_name} B={B} Sq={Sq} S={S} base={base} "
-                    f"H={H} K={K} D={D} window={window} softcap={softcap}",
+    nbytes = (2 * q.numel() + 2 * rows * K * D) * esize
+    return {"case": f"prefill {dtype_name} B={B} Sq={Sq} S={S} "
+                    f"base={bases if B > 1 else bases[0]} kv_hi="
+                    f"{his if B > 1 else his[0]} H={H} K={K} D={D} "
+                    f"window={window} softcap={softcap}"
+                    + (" nan_tail" if nan_tail else ""),
             "max_abs_err": err, "atol": ATOL[dtype_name],
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "library_causal_ms": lib_causal_ms,
+            **_bound(nbytes, 4 * D * H * pairs, dtype_name)}
+
+
+def phase_prefill_kernel(torch, timer, gen):
+    """B2 at the Llama-3-8B attention shape (H 32, K 8, D 128, B 1)
+    unless a case says otherwise; the main case, first, is the causal
+    2048-token prompt. Causal buckets 64 to 4096, a suffix chunk into a
+    filled cache, window + softcap, G 1 and 8, D 64, two sequences with
+    their own bases, a ragged chunk whose cache tail past kv_hi is NaN,
+    and the fp32 kernel's two cases."""
+    cases = [prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0)]
+    for n in (64, 256, 4096):
+        cases.append(prefill_case(torch, timer, gen, "bf16", n, n, 0))
+    cases += [
+        prefill_case(torch, timer, gen, "bf16", 512, 2048, 1024),
+        prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0, window=512,
+                     softcap=50.0),
+        prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0, K=32),
+        prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0, K=4),
+        prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0, D=64),
+        prefill_case(torch, timer, gen, "bf16", 1024, 2048, 0, B=2,
+                     bases=(0, 300)),
+        prefill_case(torch, timer, gen, "bf16", 1000, 1024, 0,
+                     nan_tail=True),
+        prefill_case(torch, timer, gen, "fp32", 2048, 2048, 0),
+        prefill_case(torch, timer, gen, "fp32", 512, 2048, 1024),
+    ]
+    for c in cases:
+        lc = c["library_causal_ms"]
+        log(f"[kernels] flash_prefill {c['case']}: share of bound "
+            f"{c['bound_ms'] / c['ms']:.3f}; library_causal_ms "
+            f"{'null' if lc is None else f'{lc:.4f}'}")
+    return {"flash_prefill": cases}
 
 
 def _bound(nbytes, flops, dtype_name):
@@ -521,22 +590,21 @@ def phase_kernels(torch):
     gen.manual_seed(0)
     timer = Timer(torch, torch.device("cuda"))
     lengths = [0, 1, 17, 128, 300, 1023, 2049, 4095]
-    cases = {"flash_decode": [], "flash_prefill": []}
+    cases = {"flash_decode": []}
     for dt in ("bf16", "fp32"):
         cases["flash_decode"].append(
             decode_case(torch, timer, gen, dt, lengths))
     cases["flash_decode"].append(decode_case(
         torch, timer, gen, "bf16", lengths, window=256, softcap=30.0))
-    for dt in ("bf16", "fp32"):
-        cases["flash_prefill"].append(
-            prefill_case(torch, timer, gen, dt, 2048, 2048, 0))
-        cases["flash_prefill"].append(
-            prefill_case(torch, timer, gen, dt, 512, 2048, 1024))
-    cases["flash_prefill"].append(prefill_case(
-        torch, timer, gen, "bf16", 2048, 2048, 0, window=512,
-        softcap=50.0))
+    cases.update(phase_prefill_kernel(torch, timer, gen))
     cases.update(phase_paged_kernels(torch, timer, gen))
     cases.update(phase_int4_kernel(torch, timer, gen))
+    return check_cases(cases)
+
+
+def check_cases(cases):
+    """Log every case of every kernel; fail if one disagrees with its
+    plain version."""
     bad = []
     for name, rows in cases.items():
         for c in rows:
@@ -693,9 +761,12 @@ def _step_times(torch, engine, prompt, iters: int = 10,
                      "idle_share": 1 - busy / wall if busy else None,
                      "top": top, "host_top": host}
         if busy:
+            before = (f" (mma.sync prefill kernel: "
+                      f"{PREFILL_2048_DEVICE_MS_BEFORE} ms)"
+                      if name == "prefill_2048" and what == "dense" else "")
             log(f"[serve] {what} engine {name} step: wall {wall:.2f} ms, "
-                f"device busy {busy:.2f} ms (torch.profiler), idle share "
-                f"{1 - busy / wall:.2f}")
+                f"device busy {busy:.2f} ms (torch.profiler){before}, idle "
+                f"share {1 - busy / wall:.2f}")
             for ms, count, key in top:
                 log(f"[serve]   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
             for ms, count, key in host:

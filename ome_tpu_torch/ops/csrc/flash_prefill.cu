@@ -7,277 +7,356 @@
 // columns c with c <= base[b] + i, c < kv_hi[b] and, with a sliding
 // window W, c > base[b] + i - W; the optional tanh softcap applies to the
 // scaled logits; the softmax state is fp32 with the finite M_INIT = -1e30
-// start and the l >= 1e-30 clamp.
+// start and the l >= 1e-30 clamp; P is rounded to bf16 before the PV
+// product, which accumulates in fp32; the output is bf16.
 //
-// What bounds it on an H100: tensor-core operations (a 2048-token prompt
-// does ~16 flops per byte of Q/K/V per head, and the causal QK^T and PV
-// products dominate). The design answers that bound as follows:
-//   * bf16 inputs run both products on the tensor cores with
-//     mma.sync.m16n8k16 (bf16 in, fp32 accumulate), FlashAttention-2
-//     style: each warp owns 16 query rows, keeps its Q fragments and its
-//     O accumulator in registers for the whole KV walk, and re-packs the
-//     fp32 probabilities straight from the QK^T accumulators into the A
-//     operand of the PV product, so S and P never touch shared memory;
-//     K and V tiles arrive by cp.async into two stages of shared memory
-//     (the next tile loads while this one is multiplied) and leave it by
-//     ldmatrix, transposed on the fly for V;
-//   * the G query heads of one KV head are folded into the rows of the
-//     block's 64-row tile (as _prefill_kernel folds them into the MXU
-//     rows), so each K/V tile staged in shared memory serves all G heads;
-//   * a block walks only the KV tiles between the window's first tile and
-//     min(causal frontier, kv_hi), the bounds _prefill_block_range
-//     computes: the upper triangle, the cache tail and the pre-window head
-//     are neither loaded nor computed.
-// fp32 inputs take a plain kernel with the same tiling and scalar FMA in
-// fp32 (tensor-core TF32 would not hold fp32 tolerances); fp32 is not on
-// the bf16 serving path. Neither kernel yet uses wgmma or TMA.
+// What bounds it on an H100: tensor-core operations. A causal 2048-token
+// prompt at 32 heads of 128 does 34.4 GFLOP of QK^T and PV against 25 MB
+// of Q, K, V and O: 0.035 ms at the 989 TFLOP/s bf16 peak. The bf16
+// kernel, prefill_wgmma, is built for that bound:
+//   * Both products run on wgmma, Hopper's warpgroup tensor-core
+//     instruction: S = Q K^T with Q and K both read from shared memory
+//     (the SS form), O += P V with P in registers (the RS form). Each
+//     consumer warpgroup owns one 64-row M tile; the fp32 S accumulators
+//     are turned into the bf16 A fragments of the PV product in place
+//     (the m64nN accumulator layout of two adjacent 8-column groups is
+//     the A layout of one k16 step), and O stays in registers for the
+//     whole KV walk. One wgmma reads each K/V tile once per warpgroup
+//     from shared memory, not once per warp.
+//   * The G query heads of a KV head are folded into the rows (64/G
+//     positions x G heads per warpgroup, as _prefill_kernel folds them
+//     into the MXU rows), and a block runs two consumer warpgroups: 128
+//     folded rows share every staged K/V tile, so K/V are staged half as
+//     often as with one 64-row tile. When that grid would not fill the
+//     SMs (the short buckets), a one-consumer instance of the same
+//     template runs instead.
+//   * Loads are off the math threads: a producer warpgroup (its
+//     registers cut to 24 by setmaxnreg, the consumers' raised to 240)
+//     has one thread start TMA copies into a ring of shared-memory
+//     stages. Each stage has a full mbarrier (the producer's
+//     arrive.expect_tx, completed by the TMA bytes) and an empty
+//     mbarrier (one arrival per consumer warp once its wgmma has read
+//     the stage), so no __syncthreads sits in the KV loop. Q arrives
+//     once per block by TMA, in the [position][G][D] folded order, with
+//     rows past Sq zero-filled by the copy. The 128-byte swizzle TMA
+//     writes is the layout the wgmma descriptors read.
+//   * The walk covers only the KV tiles between the window's first tile
+//     and min(causal frontier, kv_hi) (prefill_tile_plan in
+//     ops/flash.py states the rule), and masks only the tiles it does
+//     not find full.
+//   * Blocks are launched heaviest first: the q tile is the grid's
+//     slowest dimension, reversed, so the long causal rows start in the
+//     first wave and the short ones fill the tail.
+//   * TMA copies whole boxes, so a tile that straddles kv_hi holds cache
+//     rows past it, which may be anything (NaN included). Their logits
+//     are masked by a select, and their V rows are zeroed in shared
+//     memory before the PV product, since 0 x NaN is NaN.
+//   * The softmax keeps its arithmetic off the per-element path where it
+//     can: the scale folds into the exponent's FFMA, exp2 runs on the
+//     MUFU (ex2.approx.ftz), the softcap and the mask are whole-tile
+//     branches (a tanh selected per element would run on every tile),
+//     and the row sums are reduced across the quad once, at the end.
+// Within a warpgroup the tile's softmax still runs between its two
+// products; the tensor cores keep busy only as far as the other
+// consumer warpgroup is in a product meanwhile. That serial softmax is
+// what holds the kernel above its bound.
+// fp32 inputs take a plain kernel with scalar FMA in fp32 (tensor-core
+// TF32 would not hold fp32 tolerances); fp32 is not on the bf16 serving
+// path.
 //
 // Built with nvcc into a shared library with a plain C interface (see
-// ome_tpu_torch/ops/_build.py) and called through ctypes.
+// ome_tpu_torch/ops/_build.py) and called through ctypes. The tensor maps
+// are encoded on the host per launch by cuTensorMapEncodeTiled, fetched
+// through cudaGetDriverEntryPoint, so the library does not link libcuda.
+
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBM = 64;  // folded query rows per block (positions x G)
+constexpr int kBM = 64;  // folded query rows per warpgroup / fp32 block
 
 // ---------------------------------------------------------------- bf16 ---
 
-constexpr int kBN = 64;  // KV rows per tile
-constexpr int kPad = 8;  // bf16 elements of row padding (bank spread)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBN = 128;    // KV rows per tile
+constexpr int kStages = 2;  // K/V tiles in flight
 
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of
-// matrix i, and lane t receives row t/4, columns 2(t%4), 2(t%4)+1 of each
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// 2^x on the MUFU, flushing denormals (probabilities below 2^-126 are 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// the same, each matrix transposed: lane t receives rows 2(t%4) and
-// 2(t%4)+1 of column t/4
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// Shared memory of one block: Q as NC x D/64 boxes of 64 folded rows x 64
+// dims (128-byte rows, 8 KB each), then STAGES K tiles and STAGES V
+// tiles of D/64 boxes of BN rows x 64 dims; every box 1024-byte aligned
+// for the 128-byte swizzle.
+template <int D, int BN, int NC, int STAGES>
+struct Prefill {
+  static constexpr int kDB = D / 64;
+  static constexpr int kBoxQ = 64 * 128;
+  static constexpr int kBoxKV = BN * 128;
+  static constexpr int kStage = kDB * kBoxKV;
+  static constexpr int kQBytes = NC * kDB * kBoxQ;
+  static constexpr int kSmem = 1024 + kQBytes + 2 * STAGES * kStage;
+  static constexpr int kThreads = 128 * (NC + 1);
+};
+
+// S = Q K^T for one warpgroup's 64 rows and one BN-row K tile: D/16 k16
+// steps, +32 bytes inside a 64-dim box, the next box every 4 steps
+// (started, not waited for)
+template <int D, int BN, int kBoxQ, int kBoxKV>
+__device__ __forceinline__ void qk_async(float (&sacc)[BN / 2],
+                                         uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc)
+    wgmma_ss<BN>(sacc,
+                 sw128_desc(q_addr + (kc / 4) * kBoxQ + (kc % 4) * 32, 16,
+                            1024),
+                 sw128_desc(k_addr + (kc / 4) * kBoxKV + (kc % 4) * 32, 16,
+                            1024),
+                 kc > 0);
 }
 
-// Grid (ceil(Sq / (64 / G)), K, B), 128 threads (4 warps x 16 rows),
-// dynamic shared memory for two stages of K and V tiles.
-template <int D>
-constexpr int mma_smem_bytes() {
-  return 2 * 2 * kBN * (D + kPad) * 2;
+// O += P V: BN/16 k16 steps of 16 V rows (2 KB) each; V is MN-major, its
+// 64-dim boxes kBoxKV apart (started, not waited for)
+template <int D, int BN, int kBoxKV>
+__device__ __forceinline__ void pv_async(float (&o)[D / 2],
+                                         const uint32_t (&pf)[BN / 16][4],
+                                         uint32_t v_addr) {
+#pragma unroll
+  for (int kc = 0; kc < BN / 16; ++kc)
+    wgmma_rs_mn<D>(o, pf[kc], sw128_desc(v_addr + kc * 2048, kBoxKV, 1024));
 }
 
-template <int D>
-__global__ void __launch_bounds__(128)
-prefill_mma(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-            const uint16_t* __restrict__ v, const int* __restrict__ base_arr,
-            const int* __restrict__ kvhi_arr, uint16_t* __restrict__ out,
-            int Sq, int S, int H, int K, int G, float scale, float softcap,
-            int window) {
-  constexpr int RS = D + kPad;  // smem row stride (elements)
-  extern __shared__ __align__(16) uint16_t smem16[];
-  // [stage][row][RS] each
-  uint16_t* const Ks = smem16;
-  uint16_t* const Vs = smem16 + 2 * kBN * RS;
+// The fp32 probabilities in S's registers -> the bf16 A fragments of the
+// PV product: registers 8kc + 2r, +1 are row a (r even) or b (r odd),
+// columns 16kc + 8(r/2) + 2(t%4), +1: k step kc's a[r]
+template <int BN>
+__device__ __forceinline__ void to_a_frags(const float (&p)[BN / 2],
+                                           uint32_t (&pf)[BN / 16][4]) {
+#pragma unroll
+  for (int kc = 0; kc < BN / 16; ++kc)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pf[kc][r] = pack_bf16(p[8 * kc + 2 * r], p[8 * kc + 2 * r + 1]);
+}
 
-  const int qt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int BQ = kBM / G;
+// One tile's online softmax, in place: S (raw) -> fp32 probabilities.
+// S stays in raw units and the scale folds into the exponent's FFMA
+// (mult = scale log2 e); with a softcap the logits are capped and turned
+// into log2 units first (mult = 1). Masked pairs become -inf, whose
+// probability is exactly 0, as the reference's where(valid, p, 0); a
+// tile every row attends in full skips the mask. Updates the running
+// max m and this thread's partial sums l of its rows a and b, and
+// returns the factors al that rescale O.
+template <int BN>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[BN / 2], float& m_a, float& m_b, float& l_a, float& l_b,
+    float& al_a, float& al_b, bool tile_full, int c0, int tig, int pa,
+    int pb, int kv_hi, int window, float softcap, float scale,
+    float scale_log2) {
+  float mult = scale_log2;
+  if (softcap > 0.f) {
+    const float in = scale / softcap, outm = softcap * kLog2e;
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) s[j] = tanhf(s[j] * in) * outm;
+    mult = 1.f;
+  }
+  if (!tile_full) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      const int col = c0 + (j / 4) * 8 + tig * 2 + (j & 1);
+      const int p = (j & 2) ? pb : pa;
+      const bool ok =
+          col <= p && col < kv_hi && (window <= 0 || col > p - window);
+      s[j] = ok ? s[j] : __int_as_float(0xff800000u);  // -inf
+    }
+  }
+  float tmax_a = kMInit, tmax_b = kMInit;
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    if (j & 2) tmax_b = fmaxf(tmax_b, s[j]);
+    else tmax_a = fmaxf(tmax_a, s[j]);
+  }
+  tmax_a = fmaxf(tmax_a, __shfl_xor_sync(0xffffffffu, tmax_a, 1));
+  tmax_a = fmaxf(tmax_a, __shfl_xor_sync(0xffffffffu, tmax_a, 2));
+  tmax_b = fmaxf(tmax_b, __shfl_xor_sync(0xffffffffu, tmax_b, 1));
+  tmax_b = fmaxf(tmax_b, __shfl_xor_sync(0xffffffffu, tmax_b, 2));
+  const float mn_a = fmaxf(m_a, tmax_a), mn_b = fmaxf(m_b, tmax_b);
+  al_a = fast_exp2((m_a - mn_a) * mult);
+  al_b = fast_exp2((m_b - mn_b) * mult);
+  m_a = mn_a;
+  m_b = mn_b;
+  const float ms_a = mn_a * mult, ms_b = mn_b * mult;
+  float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) {
+    const float p = fast_exp2(fmaf(s[j], mult, (j & 2) ? -ms_b : -ms_a));
+    s[j] = p;
+    if (j & 2) rs_b += p;
+    else rs_a += p;
+  }
+  l_a = l_a * al_a + rs_a;
+  l_b = l_b * al_b + rs_b;
+}
+
+// Grid (K, B, ceil(Sq / (64 NC / G))), 128 (NC + 1) threads: NC consumer
+// warpgroups of 64 folded rows each, then one producer warpgroup.
+template <int D, int BN, int NC, int STAGES>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
+              const __grid_constant__ CUtensorMap tmk,
+              const __grid_constant__ CUtensorMap tmv,
+              const int* __restrict__ base_arr,
+              const int* __restrict__ kvhi_arr, uint16_t* __restrict__ out,
+              int Sq, int S, int H, int G, float scale, float softcap,
+              int window) {
+  using P = Prefill<D, BN, NC, STAGES>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
+  uint64_t* const full = bars;            // TMA landed in stage s
+  uint64_t* const empty = bars + STAGES;  // every consumer warp done with s
+  uint64_t* const qbar = bars + 2 * STAGES;
+  uint8_t* const Qs =
+      smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint8_t* const Ks = Qs + P::kQBytes;
+  uint8_t* const Vs = Ks + STAGES * P::kStage;
+
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // heaviest q tiles first
+  const int BQ = 64 * NC / G;                 // positions per block
   const int base = base_arr[b];
   const int kv_hi = min(kvhi_arr[b], S);
   const int q0 = qt * BQ;
   const int nq = min(BQ, Sq - q0);
+  // the KV tiles any row of the block can attend (prefill_tile_plan)
+  const int first = window > 0 ? max(base + q0 - window + 1, 0) : 0;
+  const int last = min(base + q0 + nq - 1, kv_hi - 1);
+  const int t0 = first / BN;
+  const int ntiles = last >= first ? last / BN - t0 + 1 : 0;
 
-  // this thread's two rows of the warp's 16: folded rows ra and ra + 8
-  const int ra = warp * 16 + gid, rb = ra + 8;
-  const bool va = ra / G < nq, vb = rb / G < nq;
-  const int qa = q0 + ra / G, qb = q0 + rb / G;
-  const int pa = base + qa, pb = base + qb;  // absolute positions
-  const size_t rowa = (((size_t)b * Sq + (va ? qa : 0)) * H + kh * G + ra % G) * D;
-  const size_t rowb = (((size_t)b * Sq + (vb ? qb : 0)) * H + kh * G + rb % G) * D;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + tig * 2;
-    qf[kc][0] = va ? ld32(q + rowa + c) : 0u;
-    qf[kc][1] = vb ? ld32(q + rowb + c) : 0u;
-    qf[kc][2] = va ? ld32(q + rowa + c + 8) : 0u;
-    qf[kc][3] = vb ? ld32(q + rowb + c + 8) : 0u;
+  const int wg = threadIdx.x / 128;
+  if (wg == NC) {
+    // ---- producer: one thread keeps the ring full -----------------------
+    if constexpr (NC > 1) setmaxnreg_dec<24>();
+    if (threadIdx.x == NC * 128) {
+      mbar_arrive_expect_tx(qbar, P::kQBytes);
+      for (int c = 0; c < NC; ++c)
+        for (int j = 0; j < P::kDB; ++j)
+          tma_load_4d(Qs + (c * P::kDB + j) * P::kBoxQ, &tmq, qbar, j * 64,
+                      kh * G, q0 + c * (64 / G), b);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], 2 * P::kStage);
+        const int c0 = (t0 + i) * BN;
+        for (int j = 0; j < P::kDB; ++j) {
+          tma_load_4d(Ks + s * P::kStage + j * P::kBoxKV, &tmk, &full[s],
+                      j * 64, kh, c0, b);
+          tma_load_4d(Vs + s * P::kStage + j * P::kBoxKV, &tmv, &full[s],
+                      j * 64, kh, c0, b);
+        }
+      }
+    }
+    return;
   }
 
-  float o[D / 8][4];
+  // ---- consumers: 64 folded rows each ------------------------------------
+  if constexpr (NC > 1) setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  // this thread's two folded rows of the block: ra and ra + 8
+  const int ra = wg * 64 + warp * 16 + gid, rb = ra + 8;
+  const int pa = base + q0 + ra / G, pb = base + q0 + rb / G;
+
+  float o[D / 2];
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-    o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-  // running max in log2 units: exp(x - m) = exp2(x log2(e) - m log2(e))
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  // running max in the units of S (raw, or log2 with a softcap: see
+  // softmax_tile); l is this thread's partial row sum, reduced over the
+  // quad at the end
   float m_a = kMInit, m_b = kMInit, l_a = 0.f, l_b = 0.f;
   const float scale_log2 = scale * kLog2e;
+  const uint32_t q_addr = smem_addr(Qs + wg * P::kDB * P::kBoxQ);
 
-  // KV columns any row of this tile can attend (_prefill_block_range)
-  const int last = min(base + q0 + nq - 1, kv_hi - 1);
-  const int first = window > 0 ? max(base + q0 - window + 1, 0) : 0;
-  const int t0 = first / kBN;
-  const int ntiles = (nq > 0 && last >= first) ? last / kBN - t0 + 1 : 0;
-
-  // rows past kv_hi are zero-filled, never read
-  auto load_tile = [&](int i, int buf) {
-    const int c0 = (t0 + i) * kBN;
-    for (int idx = threadIdx.x; idx < kBN * (D / 8); idx += 128) {
-      const int r = idx / (D / 8), ch = (idx % (D / 8)) * 8;
-      const int row = c0 + r;
-      const bool ok = row < kv_hi;
-      const size_t g = (((size_t)b * S + (ok ? row : 0)) * K + kh) * D + ch;
-      const int dst = (buf * kBN + r) * RS + ch;
-      cp_async16(Ks + dst, k + g, ok ? 16 : 0);
-      cp_async16(Vs + dst, v + g, ok ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
-  // ldmatrix row addresses: lane l feeds row l % 8 of matrix l / 8
-  const int lm_row = lane & 7, lm_mat = lane >> 3;
-
-  if (ntiles > 0) load_tile(0, 0);
+  mbar_wait(qbar, 0);
   for (int i = 0; i < ntiles; ++i) {
-    const int buf = i & 1;
-    const int c0 = (t0 + i) * kBN;
-    if (i + 1 < ntiles) {
-      load_tile(i + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // tile i landed for every thread
-    const uint16_t* Kt = Ks + buf * kBN * RS;
-    const uint16_t* Vt = Vs + buf * kBN * RS;
+    const int s = i % STAGES;
+    const int c0 = (t0 + i) * BN;
+    mbar_wait(&full[s], (i / STAGES) & 1);
 
-    // S = Q K^T over this tile: kBN / 8 column groups of 8; one
-    // ldmatrix.x4 gives the B fragments of two groups for one k step
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt)
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; nt += 2) {
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        uint32_t bf[4];
-        // matrices: (group nt, k lo), (nt, k hi), (nt+1, k lo), (nt+1, k hi)
-        ldmatrix_x4(bf, Kt + ((nt + (lm_mat >> 1)) * 8 + lm_row) * RS +
-                            kc * 16 + (lm_mat & 1) * 8);
-        mma16816(s[nt], qf[kc], bf[0], bf[1]);
-        mma16816(s[nt + 1], qf[kc], bf[2], bf[3]);
-      }
-    }
+    float sacc[BN / 2];
+    wgmma_fence();
+    qk_async<D, BN, P::kBoxQ, P::kBoxKV>(sacc, q_addr,
+                                         smem_addr(Ks + s * P::kStage));
+    wgmma_commit();
+    wgmma_wait<0>();
 
-    // logits in log2 units (exp2 below), softcap, mask (bit nt*4+e set
-    // = valid) and the row max; a tile every row attends in full (below
-    // the causal diagonal, inside kv_hi and the window) skips the masks
-    const bool full = c0 + kBN - 1 <= base + q0 && c0 + kBN <= kv_hi &&
-                      (window <= 0 || c0 > base + q0 + nq - 1 - window);
-    uint32_t valid = full ? 0xffffffffu : 0u;
-    float tmax_a = kMInit, tmax_b = kMInit;
+    // a tile every row attends in full (below the causal diagonal,
+    // inside kv_hi and the window) skips the mask
+    const bool tile_full =
+        c0 + BN - 1 <= base + q0 && c0 + BN <= kv_hi &&
+        (window <= 0 || c0 > base + q0 + nq - 1 - window);
+    float al_a, al_b;
+    softmax_tile<BN>(sacc, m_a, m_b, l_a, l_b, al_a, al_b, tile_full, c0,
+                     tig, pa, pb, kv_hi, window, softcap, scale,
+                     scale_log2);
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lower = e >= 2;
-        float x = softcap > 0.f
-                      ? tanhf(s[nt][e] * scale / softcap) * softcap * kLog2e
-                      : s[nt][e] * scale_log2;
-        if (!full) {
-          const int col = c0 + nt * 8 + tig * 2 + (e & 1);
-          const int p = lower ? pb : pa;
-          bool ok = (lower ? vb : va) && col <= p && col < kv_hi;
-          if (window > 0) ok = ok && col > p - window;
-          x = ok ? x : kMInit;
-          valid |= (ok ? 1u : 0u) << (nt * 4 + e);
-        }
-        s[nt][e] = x;
-        if (lower) tmax_b = fmaxf(tmax_b, x);
-        else tmax_a = fmaxf(tmax_a, x);
-      }
-    }
-    tmax_a = fmaxf(tmax_a, __shfl_xor_sync(0xffffffffu, tmax_a, 1));
-    tmax_a = fmaxf(tmax_a, __shfl_xor_sync(0xffffffffu, tmax_a, 2));
-    tmax_b = fmaxf(tmax_b, __shfl_xor_sync(0xffffffffu, tmax_b, 1));
-    tmax_b = fmaxf(tmax_b, __shfl_xor_sync(0xffffffffu, tmax_b, 2));
-    const float mn_a = fmaxf(m_a, tmax_a), mn_b = fmaxf(m_b, tmax_b);
-    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
-    float rs_a = 0.f, rs_b = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lower = e >= 2;
-        const float p = ((valid >> (nt * 4 + e)) & 1u)
-                            ? exp2f(s[nt][e] - (lower ? mn_b : mn_a))
-                            : 0.f;
-        s[nt][e] = p;
-        if (lower) rs_b += p;
-        else rs_a += p;
-      }
-    }
-    rs_a += __shfl_xor_sync(0xffffffffu, rs_a, 1);
-    rs_a += __shfl_xor_sync(0xffffffffu, rs_a, 2);
-    rs_b += __shfl_xor_sync(0xffffffffu, rs_b, 1);
-    rs_b += __shfl_xor_sync(0xffffffffu, rs_b, 2);
-    l_a = l_a * al_a + rs_a;
-    l_b = l_b * al_b + rs_b;
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      o[nd][0] *= al_a; o[nd][1] *= al_a;
-      o[nd][2] *= al_b; o[nd][3] *= al_b;
+    for (int j = 0; j < D / 2; ++j) o[j] *= (j & 2) ? al_b : al_a;
+    uint32_t pf[BN / 16][4];
+    to_a_frags<BN>(sacc, pf);
+
+    if (c0 + BN > kv_hi) {
+      // the tile straddles kv_hi: zero its V rows past kv_hi (all the
+      // consumers together, then a barrier among them)
+      const int rz = max(kv_hi - c0, 0);
+      uint4* vt = reinterpret_cast<uint4*>(Vs + s * P::kStage);
+      for (int idx = threadIdx.x; idx < P::kDB * BN * 8; idx += 128 * NC)
+        if ((idx / 8) % BN >= rz) vt[idx] = make_uint4(0u, 0u, 0u, 0u);
+      fence_proxy_async();
+      named_bar_sync(1, 128 * NC);
     }
 
-    // O += P V: the QK^T accumulator layout of two adjacent column
-    // groups is exactly the A-operand layout of one 16-deep k step; the
-    // V fragments come transposed out of shared memory by ldmatrix
-#pragma unroll
-    for (int kc = 0; kc < kBN / 16; ++kc) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      a[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      a[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      a[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < D / 8; nd += 2) {
-        uint32_t bf[4];
-        // matrices: (k lo, dims nd), (k hi, nd), (k lo, nd+1), (k hi, nd+1)
-        ldmatrix_x4_trans(bf, Vt + (kc * 16 + (lm_mat & 1) * 8 + lm_row) *
-                                       RS + (nd + (lm_mat >> 1)) * 8);
-        mma16816(o[nd], a, bf[0], bf[1]);
-        mma16816(o[nd + 1], a, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // tile i consumed before its buffer is refilled
+    wgmma_fence();
+    pv_async<D, BN, P::kBoxKV>(o, pf, smem_addr(Vs + s * P::kStage));
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with s
   }
 
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+  l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+  l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int c = nd * 8 + tig * 2;
-    if (va) {
-      const uint32_t w = (uint32_t)to_bf16(o[nd][0] * inv_a) |
-                         ((uint32_t)to_bf16(o[nd][1] * inv_a) << 16);
-      *reinterpret_cast<uint32_t*>(out + rowa + c) = w;
-    }
-    if (vb) {
-      const uint32_t w = (uint32_t)to_bf16(o[nd][2] * inv_b) |
-                         ((uint32_t)to_bf16(o[nd][3] * inv_b) << 16);
-      *reinterpret_cast<uint32_t*>(out + rowb + c) = w;
-    }
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    if (r / G >= nq) continue;
+    const float inv = half ? inv_b : inv_a;
+    uint16_t* dst =
+        out + (((size_t)b * Sq + q0 + r / G) * H + kh * G + r % G) * D +
+        tig * 2;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(dst + i * 8) =
+          pack_bf16(o[4 * i + 2 * half] * inv, o[4 * i + 2 * half + 1] * inv);
   }
 }
 
@@ -419,20 +498,91 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from libcuda, fetched once
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// bf16 x [B, L, X, D] as the 4D map (D, X, L, B), box (64, bx, bl, 1),
+// 128-byte swizzle; coordinates past L read as zeros
+bool encode_map(CUtensorMap* map, const void* x, int B, int L, int X, int D,
+                int bx, int bl) {
+  EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)X, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)X * D * 2,
+                                 (cuuint64_t)L * X * D * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)bx, (cuuint32_t)bl, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+template <int D, int NC>
+cudaError_t launch_wgmma(const uint16_t* q, const uint16_t* k,
+                         const uint16_t* v, const int* base,
+                         const int* kvhi, uint16_t* out, int B, int Sq,
+                         int S, int H, int K, int G, float scale,
+                         float softcap, int window, cudaStream_t st) {
+  using P = Prefill<D, kBN, NC, kStages>;
+  CUtensorMap tmq, tmk, tmv;
+  if (!encode_map(&tmq, q, B, Sq, H, D, G, 64 / G) ||
+      !encode_map(&tmk, k, B, S, K, D, 1, kBN) ||
+      !encode_map(&tmv, v, B, S, K, D, 1, kBN))
+    return cudaErrorInvalidValue;
+  auto kern = prefill_wgmma<D, kBN, NC, kStages>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (err != cudaSuccess) return err;
+  const int bq = 64 * NC / G;
+  kern<<<dim3(K, B, (Sq + bq - 1) / bq), P::kThreads, P::kSmem, st>>>(
+      tmq, tmk, tmv, base, kvhi, out, Sq, S, H, G, scale, softcap, window);
+  return cudaGetLastError();
+}
+
+// Two consumer warpgroups per block unless that grid would leave SMs
+// idle (the short prompts), then one.
 template <int D>
 cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k,
                         const uint16_t* v, const int* base, const int* kvhi,
                         uint16_t* out, int B, int Sq, int S, int H, int K,
                         int G, float scale, float softcap, int window,
                         cudaStream_t st) {
-  constexpr int smem = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      prefill_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int BQ = kBM / G;
-  prefill_mma<D><<<dim3((Sq + BQ - 1) / BQ, K, B), 128, smem, st>>>(
-      q, k, v, base, kvhi, out, Sq, S, H, K, G, scale, softcap, window);
-  return cudaGetLastError();
+  const long blocks2 = (long)K * B * ((Sq + 128 / G - 1) / (128 / G));
+  if (blocks2 >= sm_count())
+    return launch_wgmma<D, 2>(q, k, v, base, kvhi, out, B, Sq, S, H, K, G,
+                              scale, softcap, window, st);
+  return launch_wgmma<D, 1>(q, k, v, base, kvhi, out, B, Sq, S, H, K, G,
+                            scale, softcap, window, st);
 }
 
 }  // namespace
@@ -450,6 +600,10 @@ extern "C" int ome_flash_prefill(const void* q, const void* k, const void* v,
   const int G = H / K;
   if (G > kBM || kBM % G != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B == 0 || Sq == 0) return cudaSuccess;
+  if (S == 0)  // nothing to attend: every row is 0, as l clamps to 1e-30
+    return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * (is_bf16 ? 2 : 4),
+                           st);
   if (is_bf16) {
     const uint16_t* q16 = static_cast<const uint16_t*>(q);
     const uint16_t* k16 = static_cast<const uint16_t*>(k);

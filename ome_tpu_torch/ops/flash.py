@@ -16,11 +16,13 @@ ctypes on PyTorch's current stream.
 * `flash_prefill` replaces `_flash_prefill` / `_prefill_kernel` /
   `_prefill_block_range` (ome_tpu/ops/flash.py:261-386). Bound on the
   H100: tensor-core operations of the causal QK^T and PV products. The
-  bf16 kernel runs both on the tensor cores (mma.sync m16n8k16, fp32
-  accumulation) with Q and O held in registers, folds the G heads of a
-  KV head into one tile's rows so K/V tiles are staged once for all of
-  them, and walks only the KV tiles the causal frontier, kv_hi and the
-  window allow (`csrc/flash_prefill.cu`).
+  bf16 kernel runs both on `wgmma` (fp32 accumulation, P fed from
+  registers, O held in registers), in two consumer warpgroups of 64
+  folded rows (the G heads of a KV head folded into the rows) fed by a
+  producer warpgroup whose TMA copies fill a ring of K/V stages under
+  mbarriers; it walks only the KV tiles the causal frontier, kv_hi and
+  the window allow (`prefill_tile_plan` states the rule), heaviest q
+  tiles first (`csrc/flash_prefill.cu`). fp32 runs a scalar kernel.
 * `flash_decode_quantized` replaces `flash_decode_quantized` ->
   `_flash_decode(quantized=True)` (ome_tpu/ops/flash.py:221-255): decode
   over a dense int8 cache [B, S, K, D] with f32 scales [B, K, S] from
@@ -114,6 +116,34 @@ def flash_prefill_ref(q, k, v, base, kv_hi, scale: float,
     if window:
         valid = valid & (col > pos - window)
     return _masked_softmax_attention(q, k, v, valid, scale, softcap)
+
+
+def prefill_tile_plan(base: int, kv_hi: int, q0: int, nq: int, bn: int,
+                      window: Optional[int] = None):
+    """The KV-tile walk of one prefill q tile: the rule the bf16 kernel
+    implements (`csrc/flash_prefill.cu`, `prefill_wgmma`: `t0`/`ntiles`
+    at the head of the kernel, `tile_full` in the consumer loop).
+
+    The q tile holds positions base + q0 .. base + q0 + nq - 1 (nq >= 1
+    valid rows); KV tiles are `bn` rows. Returns (t0, ntiles, full):
+    the walk is tiles t0 .. t0 + ntiles - 1, every one of which holds a
+    valid (row, column) pair, and full[i] says that every pair of tile
+    t0 + i is valid (column <= position, column < kv_hi and, with a
+    window, column > position - window), so the kernel skips its mask.
+    Columns before the window's first or past min(last position,
+    kv_hi - 1) are never walked — `_prefill_block_range`'s bounds."""
+    first = max(base + q0 - window + 1, 0) if window else 0
+    last = min(base + q0 + nq - 1, kv_hi - 1)
+    if nq <= 0 or last < first:
+        return first // bn, 0, []
+    t0 = first // bn
+    ntiles = last // bn - t0 + 1
+    full = []
+    for t in range(t0, t0 + ntiles):
+        c0 = t * bn
+        full.append(c0 + bn - 1 <= base + q0 and c0 + bn <= kv_hi
+                    and (not window or c0 > base + q0 + nq - 1 - window))
+    return t0, ntiles, full
 
 
 def quantize_rows(x: torch.Tensor):
