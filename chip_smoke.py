@@ -20,8 +20,12 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    runs over a bf16, an fp32 and an int8 pool (random block table) and
    with a free slot's all-trash table row; the int8 dense decode (B5)
    runs on the same kernel; the int4 weight-only matmul (B4) runs at
-   the 8B projection shapes, beside `_weight_int4pack_mm` and a bf16
-   `torch.mm` over the dequantized weight as yardsticks;
+   the 8B projection shapes (w_gate, wq, wk at m 1, 5, 8, 16, 256; w_gate
+   at m 17, 64, 128 and with fp32 output; w_down's K 14336 at m 8), each
+   with its share of the bound and its time with the kernel it replaced,
+   beside `_weight_int4pack_mm` and a bf16 `torch.mm` over the
+   dequantized weight as yardsticks; the main case and wk at m 1 (the
+   most K splits) must give the same bits on a second launch;
 4. serve: the OpenAI HTTP server from `ome_tpu_torch.engine.serve.
    build_server` at the Llama-3-8B shape (random bf16 weights from a
    seed), answering concurrent completions, a stream, a prefix-cache hit
@@ -41,7 +45,9 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
 8. step times: the dense, paged bf16 and paged int8 engines' decode
    steps over one set of weights, timed in turns;
 9. weight quantization: the bf16, int8, fp8 and int4 engines over one
-   weight set, decode steps timed in turns, each quantized engine's
+   weight set, decode steps timed in turns (the int4 step's device time
+   printed beside its time with the int4 kernel this one replaced), each
+   quantized engine's
    greedy drift from bf16, and the int4 engine's logits held against a
    twin whose int4 weights are dequantized to bf16 (B4 end to end);
 10. stream identity: fp32 at the Llama-3-8B widths, 4 layers, through
@@ -69,6 +75,10 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 # the mma.sync prefill kernel that the wgmma kernel replaced (NVIDIA
 # H100 80GB HBM3, 700 W), printed beside this run's
 PREFILL_2048_DEVICE_MS_BEFORE = 66.75
+# device time of one int4-weight decode step (8 armed slots, weight
+# turns) with the int4 kernel that the TMA/persistent one replaced
+# (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+INT4_STEP_DEVICE_MS_BEFORE = 34.8
 PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core bf16
               "fp32": 67e12}       # fp32 outside the tensor cores
 ATOL = {"bf16": 2e-2, "fp32": 2e-4}
@@ -505,11 +515,41 @@ def _int4_library(torch, qt):
 INT4_RTOL = {"fp32": 1e-4, "bf16": 2 ** -7}
 
 
-def int4_case(torch, timer, gen, weights, name, m, K, N, out_name="bf16"):
+# B4's time at each case with the kernel this one replaced (cp.async,
+# split-K combined by a second kernel), measured on an NVIDIA H100 80GB
+# HBM3 at 700 W by this script's int4 cases; printed beside this run's
+INT4_MS_BEFORE = {
+    "int4 w_gate m=8 K=4096 N=14336 G=128 out=bf16": 0.0415,
+    "int4 w_gate m=1 K=4096 N=14336 G=128 out=bf16": 0.0408,
+    "int4 w_gate m=5 K=4096 N=14336 G=128 out=bf16": 0.0413,
+    "int4 w_gate m=16 K=4096 N=14336 G=128 out=bf16": 0.0437,
+    "int4 w_gate m=256 K=4096 N=14336 G=128 out=bf16": 0.2753,
+    "int4 wq m=1 K=4096 N=4096 G=128 out=bf16": 0.0173,
+    "int4 wq m=5 K=4096 N=4096 G=128 out=bf16": 0.0167,
+    "int4 wq m=8 K=4096 N=4096 G=128 out=bf16": 0.017,
+    "int4 wq m=16 K=4096 N=4096 G=128 out=bf16": 0.0177,
+    "int4 wq m=256 K=4096 N=4096 G=128 out=bf16": 0.085,
+    "int4 wk m=1 K=4096 N=1024 G=128 out=bf16": 0.0132,
+    "int4 wk m=5 K=4096 N=1024 G=128 out=bf16": 0.0124,
+    "int4 wk m=8 K=4096 N=1024 G=128 out=bf16": 0.0135,
+    "int4 wk m=16 K=4096 N=1024 G=128 out=bf16": 0.0137,
+    "int4 wk m=256 K=4096 N=1024 G=128 out=bf16": 0.0332,
+    "int4 w_gate m=8 K=4096 N=14336 G=128 out=fp32": 0.0426,
+    "int4 w_gate m=17 K=4096 N=14336 G=128 out=bf16": 0.0754,
+    "int4 w_gate m=64 K=4096 N=14336 G=128 out=bf16": 0.0833,
+    "int4 w_gate m=128 K=4096 N=14336 G=128 out=bf16": 0.1516,
+    "int4 w_down m=8 K=14336 N=4096 G=128 out=bf16": 0.0379,
+}
+
+
+def int4_case(torch, timer, gen, weights, name, m, K, N, out_name="bf16",
+              repeat_bits=False):
     """B4 at one projection shape: x [m, K] bf16 (the serving dtype)
     against a [K, N] weight quantized by the port's own
     `quantize_tensor_int4` (std 0.02, as the model init), group 128;
-    `weights` caches each shape's weight and yardsticks across cases."""
+    `weights` caches each shape's weight and yardsticks across cases.
+    `repeat_bits`: a second launch on the same inputs must give the same
+    bits (the split-K sum has a fixed order)."""
     from ome_tpu_torch.models.quant import quantize_tensor_int4
     from ome_tpu_torch.ops import int4_matmul
     dev = torch.device("cuda")
@@ -534,8 +574,15 @@ def int4_case(torch, timer, gen, weights, name, m, K, N, out_name="bf16"):
         return int4_matmul.int4_matmul_ref(x, qt, torch.float32)
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
+    label = f"int4 {name} m={m} K={K} N={N} G=128 out={out_name}"
     if not torch.isfinite(out.float()).all():
         fail(f"int4_matmul {name} m={m}: non-finite output")
+    same_bits = None
+    if repeat_bits:
+        same_bits = bool(torch.equal(out, kernel()))
+        if not same_bits:
+            fail(f"int4_matmul {label}: two launches on the same inputs "
+                 f"gave different bits")
     err = (out.float() - ref).abs().max().item()
     atol = INT4_RTOL[out_name] * ref.abs().max().item()
     ms = timer.ms(kernel)
@@ -549,38 +596,54 @@ def int4_case(torch, timer, gen, weights, name, m, K, N, out_name="bf16"):
     bf16_mm_ms = timer.ms(lambda: torch.mm(x, wb))
     nbytes = (K // 2 * N + K // 128 * N * 4 + m * K * 2
               + m * N * out.element_size())
-    return {"case": f"int4 {name} m={m} K={K} N={N} G=128 out={out_name}",
-            "max_abs_err": err, "atol": atol, "ms": ms,
+    bound = _bound(nbytes, 2 * m * K * N, "bf16")
+    return {"case": label, "max_abs_err": err, "atol": atol, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_err": lib_err, "library_why": lib_why,
-            "bf16_mm_ms": bf16_mm_ms, **_bound(nbytes, 2 * m * K * N, "bf16")}
+            "bf16_mm_ms": bf16_mm_ms, "same_bits": same_bits,
+            "ms_before": INT4_MS_BEFORE.get(label),
+            "share_of_bound": bound["bound_ms"] / ms, **bound}
 
 
 def phase_int4_kernel(torch, timer, gen):
     """B4 against its plain version at the Llama-3-8B projection shapes
-    it serves (K 4096; w_gate/w_up N 14336, wq N 4096, wk/wv N 1024) at
-    decode and short-prefill batch sizes; the main case, first, is
-    w_gate at m = 8."""
+    (K 4096; w_gate/w_up N 14336, wq N 4096, wk/wv N 1024) at decode and
+    short-prefill batch sizes, the wide variant's edges (m 17, 64, 128)
+    and w_down's shape (K 14336, N 4096: the longest K, the most splits;
+    int8 in serving). The main case, first, is w_gate at m = 8; it and
+    wk at m = 1 (the most splits per column tile) must repeat their bits
+    from launch to launch."""
     weights = {}
     shapes = (("w_gate", 4096, 14336), ("wq", 4096, 4096),
               ("wk", 4096, 1024))
     cases = [int4_case(torch, timer, gen, weights, "w_gate", 8, 4096,
-                       14336)]
+                       14336, repeat_bits=True)]
     for name, K, N in shapes:
         for m in (1, 5, 8, 16, 256):
             if (name, m) != ("w_gate", 8):
                 cases.append(int4_case(torch, timer, gen, weights, name, m,
-                                       K, N))
+                                       K, N, repeat_bits=(name, m) == (
+                                           "wk", 1)))
     cases.append(int4_case(torch, timer, gen, weights, "w_gate", 8, 4096,
                            14336, out_name="fp32"))
+    for m in (17, 64, 128):
+        cases.append(int4_case(torch, timer, gen, weights, "w_gate", m,
+                               4096, 14336))
+    cases.append(int4_case(torch, timer, gen, weights, "w_down", 8, 14336,
+                           4096))
     why = weights[(4096, 14336)]["lib"][1]
     if why:
         log(f"[kernels] int4_matmul: no library_ms: "
             f"torch.ops.aten._weight_int4pack_mm failed ({why})")
     for c in cases:
-        log(f"[kernels] int4_matmul {c['case']}: bf16 torch.mm over the "
-            f"dequantized weight {c['bf16_mm_ms']:.4f} ms; "
-            f"_weight_int4pack_mm err {c['library_err']}")
+        before = ("not measured" if c["ms_before"] is None
+                  else f"{c['ms_before']:.4f} ms")
+        log(f"[kernels] int4_matmul {c['case']}: share of bound "
+            f"{c['share_of_bound']:.3f}; before {before}; bf16 torch.mm "
+            f"over the dequantized weight {c['bf16_mm_ms']:.4f} ms; "
+            f"_weight_int4pack_mm err {c['library_err']}"
+            + ("" if c["same_bits"] is None else
+               f"; two launches bitwise equal {c['same_bits']}"))
     del weights
     return {"int4_matmul": cases}
 
@@ -1246,7 +1309,9 @@ def phase_quant_turns(torch, seed: int = 0, rounds: int = 2,
         walls = ", ".join(f"{x:.2f}" for x in out[name]["wall_ms"])
         busy = ", ".join(f"{x:.2f}" for x in out[name]["device_ms"] if x)
         log(f"[quant] {name} weights, decode step, runs in turns: wall "
-            f"{walls} ms; device busy {busy} ms")
+            f"{walls} ms; device busy {busy} ms"
+            + (f" (before the int4 kernel's redesign: "
+               f"{INT4_STEP_DEVICE_MS_BEFORE} ms)" if name == "int4" else ""))
 
     prompts = [prompt(n) for n in (37, 200, 515, 1000)]
     streams, gaps, first = {}, {}, {}

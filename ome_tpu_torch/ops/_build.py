@@ -50,8 +50,8 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                             _P]),
     "int4_matmul": ("ome_int4_matmul",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _P]),
+                    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -66,10 +66,7 @@
 //
 // Built with nvcc into a shared library with a plain C interface (see
 // ome_tpu_torch/ops/_build.py) and called through ctypes. The tensor maps
-// are encoded on the host per launch by cuTensorMapEncodeTiled, fetched
-// through cudaGetDriverEntryPoint, so the library does not link libcuda.
-
-#include <cuda.h>  // CUtensorMap and its enums (types only)
+// are encoded on the host per launch (encode_map in common.cuh).
 
 #include "common.cuh"
 
@@ -498,53 +495,17 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled from libcuda, fetched once
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // bf16 x [B, L, X, D] as the 4D map (D, X, L, B), box (64, bx, bl, 1),
 // 128-byte swizzle; coordinates past L read as zeros
-bool encode_map(CUtensorMap* map, const void* x, int B, int L, int X, int D,
-                int bx, int bl) {
-  EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return false;
+bool encode_bf16_4d(CUtensorMap* map, const void* x, int B, int L, int X,
+                    int D, int bx, int bl) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)X, (cuuint64_t)L,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)X * D * 2,
                                  (cuuint64_t)L * X * D * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)bx, (cuuint32_t)bl, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int D, int NC>
@@ -555,9 +516,9 @@ cudaError_t launch_wgmma(const uint16_t* q, const uint16_t* k,
                          float softcap, int window, cudaStream_t st) {
   using P = Prefill<D, kBN, NC, kStages>;
   CUtensorMap tmq, tmk, tmv;
-  if (!encode_map(&tmq, q, B, Sq, H, D, G, 64 / G) ||
-      !encode_map(&tmk, k, B, S, K, D, 1, kBN) ||
-      !encode_map(&tmv, v, B, S, K, D, 1, kBN))
+  if (!encode_bf16_4d(&tmq, q, B, Sq, H, D, G, 64 / G) ||
+      !encode_bf16_4d(&tmk, k, B, S, K, D, 1, kBN) ||
+      !encode_bf16_4d(&tmv, v, B, S, K, D, 1, kBN))
     return cudaErrorInvalidValue;
   auto kern = prefill_wgmma<D, kBN, NC, kStages>;
   cudaError_t err = cudaFuncSetAttribute(
