@@ -205,8 +205,46 @@ def _sdpa(torch, q, k, v, mask, is_causal=False):
     return fn
 
 
+def _check_bits(torch, label, out, again, alone, part):
+    """The bitwise checks of a decode case: `again` (a second launch on
+    the same inputs) and `alone` (one sequence launched by itself) must
+    equal `out` and `out[part]`."""
+    same = bool(torch.equal(out, again))
+    inv = bool(torch.equal(out[part], alone))
+    if not same:
+        fail(f"{label}: two launches on the same inputs gave different "
+             f"bits")
+    if not inv:
+        fail(f"{label}: a sequence launched alone gave other bits than "
+             f"inside the batch")
+    return same, inv
+
+
+def _nan_outside(torch, x, lo, hi, rows_of):
+    """x with NaN in every row that no window [lo[b], hi[b]) reads;
+    rows_of(b, r) gives the row of x that holds sequence b's row r."""
+    keep = torch.zeros(x.shape[0] * x.shape[1], dtype=torch.bool,
+                       device=x.device)
+    for b, (a, z) in enumerate(zip(lo.tolist(), hi.tolist())):
+        r = torch.arange(max(a, 0), max(z, 0), device=x.device)
+        if r.numel():
+            keep[rows_of(b, r)] = True
+    flat = x.reshape(-1, *x.shape[2:]).clone()
+    flat[~keep] = float("nan")
+    return flat.reshape(x.shape)
+
+
 def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
-                softcap=None, B=8, S=4096, H=32, K=8, D=128):
+                softcap=None, B=8, S=4096, H=32, K=8, D=128,
+                nan_outside=False, check_bits=False):
+    """B1 at one shape against flash_decode_ref (fp32, same inputs).
+    `nan_outside`: every cache row outside the windows is NaN (the
+    rows before lo under a window, past hi, and so the next sequence's
+    first rows that a tile running past S takes in); those rows are not
+    part of the function, so the plain version reads them as 0.
+    `check_bits`: a second launch gives the same bits, and the sequence
+    with the longest window launched alone gives the same bits as in
+    the batch."""
     from ome_tpu_torch.ops import flash
     dev = torch.device("cuda")
     dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
@@ -217,19 +255,37 @@ def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
     lo = (pos - window + 1).clamp(min=0) if window else \
         torch.zeros_like(pos)
     scale = D ** -0.5
+    kr, vr = k, v
+    if nan_outside:
+        k = _nan_outside(torch, k.reshape(B * S, 1, K, D), lo, hi,
+                         lambda b, r: b * S + r).reshape(B, S, K, D)
+        v = _nan_outside(torch, v.reshape(B * S, 1, K, D), lo, hi,
+                         lambda b, r: b * S + r).reshape(B, S, K, D)
     out = flash.flash_decode(q, k, v, lo, hi, scale, softcap)
-    ref = flash.flash_decode_ref(q.float(), k.float(), v.float(), lo, hi,
+    ref = flash.flash_decode_ref(q.float(), kr.float(), vr.float(), lo, hi,
                                  scale, softcap)
     torch.cuda.synchronize()
+    label = (f"decode {dtype_name} B={B} S={S} H={H} K={K} D={D} "
+             f"lengths={lengths} window={window} softcap={softcap}"
+             + (" nan_outside" if nan_outside else ""))
     if not torch.isfinite(out.float()).all():
-        fail(f"flash_decode {dtype_name}: non-finite output")
+        fail(f"flash_decode {label}: non-finite output")
     err = (out.float() - ref).abs().max().item()
+    same = inv = None
+    if check_bits:
+        b = int((hi - lo).argmax())
+        sl = slice(b, b + 1)
+        same, inv = _check_bits(
+            torch, f"flash_decode {label}", out,
+            flash.flash_decode(q, k, v, lo, hi, scale, softcap),
+            flash.flash_decode(q[sl], k[sl], v[sl], lo[sl], hi[sl], scale,
+                               softcap), sl)
     ms = timer.ms(lambda: flash.flash_decode(q, k, v, lo, hi, scale,
                                              softcap))
     plain_ms = timer.ms(lambda: flash.flash_decode_ref(
         q.float(), k.float(), v.float(), lo, hi, scale, softcap), iters=5)
     lib_ms = None
-    if not softcap:
+    if not softcap and not nan_outside:
         col = torch.arange(S, device=dev)
         mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None])
                 )[:, None, None, :]
@@ -239,16 +295,12 @@ def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
     rows = int((hi - lo).clamp(min=0).sum())
     esize = q.element_size()
     nbytes = 2 * rows * K * D * esize + 2 * q.numel() * esize + 2 * B * 4
-    flops = 4 * D * H * rows
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return {"case": f"decode {dtype_name} B={B} S={S} H={H} K={K} D={D} "
-                    f"lengths={lengths} window={window} softcap={softcap}",
-            "max_abs_err": err, "atol": ATOL[dtype_name],
+    bound = _bound(nbytes, 4 * D * H * rows, dtype_name)
+    return {"case": label, "max_abs_err": err, "atol": ATOL[dtype_name],
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops}
+            "same_bits": same, "batch_invariant": inv,
+            "ms_before": DECODE_MS_BEFORE.get(label),
+            "share_of_bound": bound["bound_ms"] / ms, **bound}
 
 
 def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
@@ -370,11 +422,18 @@ def _bound(nbytes, flops, dtype_name):
 
 
 def paged_case(torch, timer, gen, pool_name, lengths, trash_slot=None,
-               B=8, H=32, K=8, D=128, bs=128, M=32, N=257):
+               B=8, H=32, K=8, D=128, bs=128, M=32, N=257,
+               nan_outside=False, check_bits=False):
     """B3 over a pool of N blocks with a random permutation table (no
     two sequences share a block; block 0 stays the trash block). A
     `trash_slot` gets an all-zero table row, as a free engine slot has,
-    and a length past M * bs: its output must be finite."""
+    and a length past M * bs: its output must be finite. `nan_outside`:
+    every pool row outside the windows is NaN (int8: its scales), the
+    blocks outside every table row and the rows of a sequence's blocks
+    past its length; the plain version reads them as 0. `check_bits`:
+    a second launch gives the same bits, and the sequence with the
+    longest window launched alone gives the same bits as in the
+    batch."""
     from ome_tpu_torch.ops import flash, paged
     dev = torch.device("cuda")
     qdt = torch.float32 if pool_name == "fp32" else torch.bfloat16
@@ -395,24 +454,51 @@ def paged_case(torch, timer, gen, pool_name, lengths, trash_slot=None,
     if trash_slot is not None:
         table[trash_slot] = 0
     scale = D ** -0.5
+    kr, vr, ksr, vsr = kp, vp, ks, vs
+    if nan_outside:
+        hi = kv_len.clamp(max=M * bs)
+
+        def rows_of(b, r):  # pool row of sequence b's row r
+            return table[b, r // bs].long() * bs + r % bs
+        zero = torch.zeros_like(hi)
+        if ks is None:
+            kp = _nan_outside(torch, kp, zero, hi, rows_of)
+            vp = _nan_outside(torch, vp, zero, hi, rows_of)
+        else:  # int8 values are finite: the scales carry the NaN
+            def scales(x):
+                t = x.transpose(1, 2).contiguous()       # [N, bs, K]
+                t = _nan_outside(torch, t, zero, hi, rows_of)
+                return t.transpose(1, 2).contiguous()
+            ks, vs = scales(ks), scales(vs)
 
     def kernel():
         return paged.paged_flash_decode(q, kp, vp, table, kv_len, scale,
                                         k_scale=ks, v_scale=vs)
 
-    def plain():
+    def plain(kk, vv, sk, sv):
         return paged.flash_paged_decode_ref(
-            q.float(), kp if ks is not None else kp.float(),
-            vp if vs is not None else vp.float(), table,
-            torch.zeros_like(kv_len), kv_len, scale, k_scale=ks,
-            v_scale=vs)
-    out, ref = kernel(), plain()
+            q.float(), kk if sk is not None else kk.float(),
+            vv if sv is not None else vv.float(), table,
+            torch.zeros_like(kv_len), kv_len, scale, k_scale=sk,
+            v_scale=sv)
+    out, ref = kernel(), plain(kr, vr, ksr, vsr)
     torch.cuda.synchronize()
+    label = (f"paged {pool_name} B={B} H={H} K={K} D={D} bs={bs} M={M} "
+             f"N={N} lengths={lengths} trash_slot={trash_slot}"
+             + (" nan_outside" if nan_outside else ""))
     if not torch.isfinite(out.float()).all():
-        fail(f"flash_paged_decode {pool_name}: non-finite output")
+        fail(f"flash_paged_decode {label}: non-finite output")
     err = (out.float() - ref).abs().max().item()
+    same = inv = None
+    if check_bits:
+        b = int(kv_len.clamp(max=M * bs).argmax())
+        sl = slice(b, b + 1)
+        same, inv = _check_bits(
+            torch, f"flash_paged_decode {label}", out, kernel(),
+            paged.paged_flash_decode(q[sl], kp, vp, table[sl], kv_len[sl],
+                                     scale, k_scale=ks, v_scale=vs), sl)
     ms = timer.ms(kernel)
-    plain_ms = timer.ms(plain, iters=5)
+    plain_ms = timer.ms(lambda: plain(kp, vp, ks, vs), iters=5)
     rows = int(kv_len.clamp(max=M * bs).sum())
     esize = kp.element_size()
     nbytes = (2 * rows * K * D * esize + 2 * q.numel() * q.element_size()
@@ -420,11 +506,12 @@ def paged_case(torch, timer, gen, pool_name, lengths, trash_slot=None,
     if ks is not None:
         nbytes += 2 * rows * K * 4
     dt = "fp32" if pool_name == "fp32" else "bf16"
-    return {"case": f"paged {pool_name} B={B} H={H} K={K} D={D} bs={bs} "
-                    f"M={M} N={N} lengths={lengths} trash_slot={trash_slot}",
-            "max_abs_err": err, "atol": ATOL[dt], "ms": ms,
+    bound = _bound(nbytes, 4 * D * H * rows, dt)
+    return {"case": label, "max_abs_err": err, "atol": ATOL[dt], "ms": ms,
             "plain_ms": plain_ms, "library_ms": None,
-            **_bound(nbytes, 4 * D * H * rows, dt)}
+            "same_bits": same, "batch_invariant": inv,
+            "ms_before": DECODE_MS_BEFORE.get(label),
+            "share_of_bound": bound["bound_ms"] / ms, **bound}
 
 
 def quantized_case(torch, timer, gen, lengths, window=256, softcap=30.0,
@@ -460,26 +547,231 @@ def quantized_case(torch, timer, gen, lengths, window=256, softcap=30.0,
     rows = int((hi - lo).clamp(min=0).sum())
     nbytes = (2 * rows * K * (D + 4) + 2 * q.numel() * q.element_size()
               + B * 4)
-    return {"case": f"int8 dense B={B} S={S} H={H} K={K} D={D} "
-                    f"lengths={lengths} window={window} softcap={softcap}",
-            "max_abs_err": err, "atol": ATOL["bf16"], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": None,
-            **_bound(nbytes, 4 * D * H * rows, "bf16")}
+    label = (f"int8 dense B={B} S={S} H={H} K={K} D={D} "
+             f"lengths={lengths} window={window} softcap={softcap}")
+    bound = _bound(nbytes, 4 * D * H * rows, "bf16")
+    return {"case": label, "max_abs_err": err, "atol": ATOL["bf16"],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "ms_before": DECODE_MS_BEFORE.get(label),
+            "share_of_bound": bound["bound_ms"] / ms, **bound}
 
 
 def phase_paged_kernels(torch, timer, gen):
-    """B3 in its three pool dtypes and with a trash-table slot, and B5,
-    each against its plain version."""
+    """B3 in its three pool dtypes, with a trash-table slot, with NaN in
+    every pool row outside the windows (bf16 and int8), at the engine's
+    shape (16 slots of 32 blocks), with 32-row blocks (two TMA boxes per
+    tile) and at G 16, D 64; and B5; each against its plain version. The
+    main case, first, and the int8 pool repeat their bits and give a
+    sequence the same bits alone as in the batch."""
     lengths = [1, 17, 128, 300, 1023, 2049, 4095, 4096]
     cases = {"flash_paged_decode": [], "flash_decode_quantized": []}
+    add = cases["flash_paged_decode"].append
     for pool_name in ("bf16", "fp32", "int8"):
-        cases["flash_paged_decode"].append(
-            paged_case(torch, timer, gen, pool_name, lengths))
-    cases["flash_paged_decode"].append(paged_case(
-        torch, timer, gen, "bf16", lengths[:7] + [5000], trash_slot=7))
+        add(paged_case(torch, timer, gen, pool_name, lengths,
+                       check_bits=pool_name != "fp32"))
+    add(paged_case(torch, timer, gen, "bf16", lengths[:7] + [5000],
+                   trash_slot=7))
+    for pool_name in ("bf16", "int8"):
+        add(paged_case(torch, timer, gen, pool_name, lengths,
+                       nan_outside=True))
+    add(paged_case(torch, timer, gen, "bf16",
+                   [1, 5, 64, 100, 257, 512, 700, 1000, 1500, 2048, 2500,
+                    3000, 3500, 4000, 4095, 4096], B=16, N=513))
+    add(paged_case(torch, timer, gen, "bf16", lengths, bs=32, M=128,
+                   N=1025))
+    add(paged_case(torch, timer, gen, "bf16", lengths, K=2, D=64, bs=64,
+                   M=64, N=513))
     cases["flash_decode_quantized"].append(quantized_case(
         torch, timer, gen, [0, 1, 17, 128, 300, 1023, 2049, 4095]))
+    for name, rows in cases.items():
+        _log_decode_cases(name, rows)
     return cases
+
+
+def _log_decode_cases(name, rows):
+    for c in rows:
+        before = ("not measured" if c.get("ms_before") is None
+                  else f"{c['ms_before']:.4f} ms")
+        bits = ("" if c.get("same_bits") is None else
+                f"; two launches bitwise equal {c['same_bits']}; alone "
+                f"= in batch {c['batch_invariant']}")
+        log(f"[kernels] {name} {c['case']}: share of bound "
+            f"{c['share_of_bound']:.3f}; PR 6's kernel {before}{bits}")
+
+
+def phase_decode_kernels(torch, timer, gen):
+    """B1 at the Llama-3-8B decode shape (B 8, S 4096, H 32, K 8, D 128)
+    in bf16 and fp32, with window + softcap, with NaN in every cache row
+    outside the windows at S 4000 (a tile past S reads the next
+    sequence's rows) with and without a window, at G 1 and 16 and D 64.
+    The main case, first, repeats its bits and gives a sequence the same
+    bits alone as in the batch."""
+    lengths = [0, 1, 17, 128, 300, 1023, 2049, 4095]
+    cases = [decode_case(torch, timer, gen, "bf16", lengths,
+                         check_bits=True),
+             decode_case(torch, timer, gen, "fp32", lengths),
+             decode_case(torch, timer, gen, "bf16", lengths, window=256,
+                         softcap=30.0),
+             decode_case(torch, timer, gen, "bf16",
+                         [4000, 3999, 4000, 1000, 4000, 700, 300, 4000],
+                         window=256, S=4000, nan_outside=True),
+             decode_case(torch, timer, gen, "bf16",
+                         [1, 17, 63, 64, 300, 3999, 4000, 2049], S=4000,
+                         nan_outside=True),
+             decode_case(torch, timer, gen, "bf16", lengths, K=32),
+             decode_case(torch, timer, gen, "bf16", lengths, K=2),
+             decode_case(torch, timer, gen, "bf16", lengths, D=64)]
+    _log_decode_cases("flash_decode", cases)
+    return {"flash_decode": cases}
+
+
+# Scratch variants of PR 6's split-KV decode kernels (`flash_decode.cu`,
+# `flash_paged_decode.cu`, two launches per call), for
+# `decode_decompose`: each is (file, old text, new text), applied once.
+_DECOMPOSE_EDITS = {
+    "loads only": [  # the tile's math skipped, its copies kept
+        ("flash_decode.cu", "    const int row = r0 + t * TR + lane;",
+         "    if (ntiles < 0) {\n    const int row = r0 + t * TR + lane;"),
+        ("flash_paged_decode.cu",
+         "    const int row = alo + (first + t) * kTile + lane;",
+         "    if (ntiles < 0) {\n"
+         "    const int row = alo + (first + t) * kTile + lane;"),
+        ("*", "    __syncthreads();  // tile t consumed",
+         "    }\n    __syncthreads();  // tile t consumed")],
+    "math only": [  # no copies: the math runs on whatever smem holds
+        ("*", "      cp_async16(&Ks[buf]", "      if (0) cp_async16(&Ks[buf]"),
+        ("*", "      cp_async16(&Vs[buf]", "      if (0) cp_async16(&Vs[buf]"),
+        ("flash_paged_decode.cu", "        cp_async16(&Ss[buf]",
+         "        if (0) cp_async16(&Ss[buf]")],
+    "empty pass 1": [
+        ("flash_decode.cu", "  constexpr int TR = 32;",
+         "  if (n_split > 0) return;\n  constexpr int TR = 32;"),
+        ("flash_paged_decode.cu", "  constexpr bool QUANT =",
+         "  if (n_split > 0) return;\n  constexpr bool QUANT =")],
+    "merge pass alone": [
+        ("flash_decode.cu", "  decode_partial<T, D, G><<<",
+         "  if (0) decode_partial<T, D, G><<<"),
+        ("flash_paged_decode.cu", "  paged_partial<TQ, TKV, D, G>\n",
+         "  if (0) paged_partial<TQ, TKV, D, G>\n")],
+    "pass 1 alone": [
+        ("*", "  split_kv_combine<", "  if (0) split_kv_combine<")],
+}
+
+
+def decode_decompose(torch, csrc, iters: int = 30):
+    """Time PR 6's B1 and B3 kernels (the sources under `csrc`, e.g. a
+    `git archive` of that commit's `ome_tpu_torch/ops/csrc`) at their
+    main cases, as built and in the scratch variants of
+    `_DECOMPOSE_EDITS`, each built with the port's nvcc flags; plus the
+    Timer's reading around one tiny elementwise kernel. Returns
+    {kernel: {variant: ms}}. Run alone:
+
+        python3 -c "import chip_smoke as c, torch; c.phase_device(torch);
+            c.decode_decompose(torch, 'DIR/ome_tpu_torch/ops/csrc')"
+    """
+    import ctypes
+    import shutil
+
+    from ome_tpu_torch.ops import _build
+    dev = torch.device("cuda")
+    timer = Timer(torch, dev)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    root = os.path.join(OUT_DIR, "decompose")
+    shutil.rmtree(root, ignore_errors=True)
+    procs = {}
+    for variant in ["as built"] + list(_DECOMPOSE_EDITS):
+        vdir = os.path.join(root, variant.replace(" ", "_"))
+        shutil.copytree(csrc, vdir)
+        for fname, old, new in _DECOMPOSE_EDITS.get(variant, []):
+            for f in (("flash_decode.cu", "flash_paged_decode.cu")
+                      if fname == "*" else (fname,)):
+                path = os.path.join(vdir, f)
+                text = open(path).read()
+                if text.count(old) != 1:
+                    fail(f"decompose {variant}: {old!r} not once in {f}")
+                open(path, "w").write(text.replace(old, new))
+        for src in ("flash_decode", "flash_paged_decode"):
+            out = os.path.join(vdir, f"{src}.so")
+            procs[(variant, src)] = (out, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+                 os.path.join(vdir, f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for key, (out, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"decompose {key}: nvcc failed:\n{err}")
+        libs[key] = ctypes.CDLL(out)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+    B, S, H, K, D = 8, 4096, 32, 8, 128
+    q, k, v = _inputs(torch, gen, B, 1, S, H, K, D, torch.bfloat16, dev)
+    lens = torch.tensor([0, 1, 17, 128, 300, 1023, 2049, 4095],
+                        dtype=torch.int32, device=dev)
+    lo, hi = torch.zeros_like(lens), lens.clone()
+    bs, M, N = 128, 32, 257
+    kp = torch.randn(N, bs, K, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    vp = torch.randn(N, bs, K, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    kq, ks = (t.contiguous() for t in _quantize_pool(torch, kp))
+    vq, vs = (t.contiguous() for t in _quantize_pool(torch, vp))
+    table = (torch.randperm(N - 1, generator=gen, device=dev)[:B * M] + 1
+             ).reshape(B, M).to(torch.int32)
+    plens = torch.tensor([1, 17, 128, 300, 1023, 2049, 4095, 4096],
+                         dtype=torch.int32, device=dev)
+    plo = torch.zeros_like(plens)
+    n_split = 16  # PR 6's decode_splits(4096)
+    pm = torch.empty(B * H * n_split, dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    pa = torch.empty(B * H * n_split * D, dtype=torch.float32, device=dev)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scale = D ** -0.5
+    results = {"B1 bf16": {}, "B3 bf16": {}, "B3 int8": {}}
+    for (variant, src), lib in sorted(libs.items()):
+        if src == "flash_decode":
+            fn = lib.ome_flash_decode
+            fn.argtypes = [P] * 9 + [I] * 6 + [F, F, I, P]
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
+                    hi.data_ptr(), out.data_ptr(), pm.data_ptr(),
+                    pl.data_ptr(), pa.data_ptr(), B, S, H, K, D, n_split,
+                    scale, 0.0, 1, stream)
+            runs = {"B1 bf16": args}
+        else:
+            fn = lib.ome_flash_paged_decode
+            fn.argtypes = [P] * 12 + [I] * 7 + [F, F, I, I, P]
+            runs = {}
+            for name, kk, vv, sk, sv in (("B3 bf16", kp, vp, None, None),
+                                         ("B3 int8", kq, vq, ks, vs)):
+                runs[name] = (
+                    q.data_ptr(), kk.data_ptr(), vv.data_ptr(),
+                    sk.data_ptr() if sk is not None else None,
+                    sv.data_ptr() if sv is not None else None,
+                    table.data_ptr(), plo.data_ptr(), plens.data_ptr(),
+                    out.data_ptr(), pm.data_ptr(), pl.data_ptr(),
+                    pa.data_ptr(), B, bs, M, H, K, D, n_split, scale, 0.0,
+                    1, int(sk is not None), stream)
+        fn.restype = I
+        for name, args in runs.items():
+            if fn(*args) != 0:
+                fail(f"decompose {variant} {name}: launch failed")
+            torch.cuda.synchronize()
+            results[name][variant] = timer.ms(lambda: fn(*args), iters)
+    tiny = torch.zeros(256, device=dev)
+    results["timer floor (one tiny elementwise kernel)"] = timer.ms(
+        lambda: tiny.add_(1.0), iters)
+    for name, row in results.items():
+        log(f"[decompose] {name}: {row}")
+    return results
+
+
+def _quantize_pool(torch, x):
+    """int8 pool [N, bs, K, D] and its scales [N, K, bs] (the port's
+    quantizer)."""
+    from ome_tpu_torch.ops import flash
+    return flash.quantize_kv_block(x)
 
 
 def _int4_library(torch, qt):
@@ -506,6 +798,13 @@ def _int4_library(torch, qt):
         return fn, None
     except Exception as e:  # the op is missing or refuses this build
         return None, f"{type(e).__name__}: {str(e)[:200]}"
+
+
+# B1, B3 and B5 at each case with PR 6's split-KV kernels (two launches
+# per call, the CUDA cores), measured on an NVIDIA H100 80GB HBM3 at 700 W
+# by this script's decode cases in one call with this PR's kernels;
+# printed beside this run's
+DECODE_MS_BEFORE = {}
 
 
 # tolerance of B4 against its plain version (fp32 output), relative to
@@ -652,13 +951,7 @@ def phase_kernels(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     timer = Timer(torch, torch.device("cuda"))
-    lengths = [0, 1, 17, 128, 300, 1023, 2049, 4095]
-    cases = {"flash_decode": []}
-    for dt in ("bf16", "fp32"):
-        cases["flash_decode"].append(
-            decode_case(torch, timer, gen, dt, lengths))
-    cases["flash_decode"].append(decode_case(
-        torch, timer, gen, "bf16", lengths, window=256, softcap=30.0))
+    cases = phase_decode_kernels(torch, timer, gen)
     cases.update(phase_prefill_kernel(torch, timer, gen))
     cases.update(phase_paged_kernels(torch, timer, gen))
     cases.update(phase_int4_kernel(torch, timer, gen))

@@ -5,7 +5,8 @@ Each source under `ops/csrc/` is compiled by `nvcc` for Hopper
 loaded with `ctypes`. Nothing here runs at import time: the first
 launch of a kernel (or an explicit `build()`) compiles it into
 `ome_tpu_torch/_build/`, keyed by a hash of the source, the shared
-headers (`csrc/*.cuh`) and the flags, so an edited source or header
+headers (`csrc/*.cuh`: `common.cuh`, and `decode_core.cuh` of the two
+decode sources) and the flags, so an edited source or header
 rebuilds and an unchanged one is loaded as is.
 A failed compile raises with nvcc's stderr.
 """
@@ -40,15 +41,15 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point and its argument types, per kernel
 _SIGNATURES = {
     "flash_decode": ("ome_flash_decode",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
+                     [_P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
     "flash_prefill": ("ome_flash_prefill",
                       [_P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
     "flash_paged_decode": ("ome_flash_paged_decode",
-                           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
-                            _P]),
+                           [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                            _I, _P]),
     "int4_matmul": ("ome_int4_matmul",
                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                      _I, _I, _I, _P]),

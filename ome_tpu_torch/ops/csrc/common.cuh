@@ -317,6 +317,32 @@ __device__ __forceinline__ void wgmma_rs_k<16>(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D(64xN, f32) (+)= A(64x16, bf16, shared) * B(16xN, bf16, shared,
+// K-major); A is K-major (TA 0) or MN-major (TA 1: the transpose bit).
+// scale_d 0 overwrites D. N = 8 and 16 are defined (the decode kernels'
+// query heads of one KV head, padded).
+template <int N, int TA>
+__device__ __forceinline__ void wgmma_ss_n(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  static_assert(N == 8 || N == 16, "wgmma_ss_n: N is 8 or 16");
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA));
+  }
+}
+
 // keeps registers read by an in-flight wgmma live (and unmoved) up to
 // this point: place after the wgmma_wait that retires it
 template <int R>
@@ -408,6 +434,29 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// The in-launch split handshake of the kernels that cut one output into
+// splits (B4's K splits, the decode kernels' units of a window), after
+// each thread of the nthr has written its part of this split's partial:
+// one thread counts the split on the output's counter. Returns, to every
+// thread, whether this was the last split, the one that adds them all
+// up; that split resets the counter for the next launch. `bar` is a
+// named barrier over the nthr threads; `is_last` a shared flag.
+__device__ __forceinline__ bool last_split(int* cnt, int tile, int splits,
+                                           int nthr, int tid, int bar,
+                                           int& is_last) {
+  __threadfence();
+  named_bar_sync(bar, nthr);
+  if (tid == 0) {
+    const int last = atomicAdd(&cnt[tile], 1) == splits - 1;
+    if (last) cnt[tile] = 0;  // ready for the next launch
+    is_last = last;
+  }
+  named_bar_sync(bar, nthr);
+  if (!is_last) return false;
+  __threadfence();
+  return true;
+}
+
 // warpgroup register reallocation (every thread of the warpgroup)
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {
@@ -468,29 +517,6 @@ inline int sm_count() {
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
   }
   return n;
-}
-
-// -- split-KV merge (decode kernels, pass 2) ---------------------------------
-
-// One block per (query head, sequence), one thread per dim: merges the
-// n_split partial softmax triples (m, l, acc) of pass 1 in split order.
-template <typename T, int D>
-__global__ void __launch_bounds__(D)
-split_kv_combine(const float* __restrict__ part_m,
-                 const float* __restrict__ part_l,
-                 const float* __restrict__ part_acc, T* __restrict__ out,
-                 int H, int n_split) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const size_t base = ((size_t)b * H + h) * n_split;
-  float mx = kMInit;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, part_m[base + s]);
-  float lsum = 0.f, a = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float f = expf(part_m[base + s] - mx);
-    lsum += part_l[base + s] * f;
-    a += part_acc[(base + s) * D + d] * f;
-  }
-  store_out(out + ((size_t)b * H + h) * D + d, a / fmaxf(lsum, 1e-30f));
 }
 
 }  // namespace

@@ -162,26 +162,7 @@ struct Producer {
   }
 };
 
-// The split-K handshake of both kernels, after each thread of the nthr
-// has written its part of this split's partial: one thread counts the
-// split on the tile's counter. Returns, to every thread, whether this was
-// the tile's last split, the one that adds them all up. `bar` is a named
-// barrier over the nthr threads; `is_last` a shared flag.
-__device__ __forceinline__ bool last_split(int* cnt, int tile, int splits,
-                                           int nthr, int tid, int bar,
-                                           int& is_last) {
-  __threadfence();
-  named_bar_sync(bar, nthr);
-  if (tid == 0) {
-    const int last = atomicAdd(&cnt[tile], 1) == splits - 1;
-    if (last) cnt[tile] = 0;  // ready for the next launch
-    is_last = last;
-  }
-  named_bar_sync(bar, nthr);
-  if (!is_last) return false;
-  __threadfence();
-  return true;
-}
+// The split-K handshake of both kernels is last_split (common.cuh).
 
 // Byte c of a word of biased nibbles (each byte v + 8 in 0..15, made from
 // a raw two's-complement nibble by `raw ^ 8`) -> the exact float v: one

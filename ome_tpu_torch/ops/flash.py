@@ -8,11 +8,13 @@ ctypes on PyTorch's current stream.
 
 * `flash_decode` replaces `_flash_decode` / `_decode_kernel`
   (ome_tpu/ops/flash.py:65-204). Bound on the H100: the bytes of the
-  K/V rows in [lo, hi) read from device memory. The kernel reads only
-  those rows, once per KV head for all G query heads, in 32-row tiles
-  copied with cp.async, and splits each window across several blocks
-  (flash-decoding) with a merge pass, so a small decode batch still
-  spreads over the SMs (`csrc/flash_decode.cu`).
+  K/V rows in [lo, hi) read from device memory. It runs the decode core
+  (`csrc/decode_core.cuh`, shared with the paged kernel) with the dense
+  row address: each window is cut into work units by its own length
+  (`decode_plan` states the rule), a persistent grid walks them, and the
+  last unit of a window merges the window's partials inside the one
+  launch. bf16 loads 64-row tiles by TMA and runs both products on
+  wgmma; fp32 runs on the CUDA cores (`csrc/flash_decode.cu`).
 * `flash_prefill` replaces `_flash_prefill` / `_prefill_kernel` /
   `_prefill_block_range` (ome_tpu/ops/flash.py:261-386). Bound on the
   H100: tensor-core operations of the causal QK^T and PV products. The
@@ -45,7 +47,9 @@ is imported.
 
 from __future__ import annotations
 
-from typing import Optional
+import bisect
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -213,13 +217,151 @@ def _int32(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int32).contiguous()
 
 
-def decode_splits(S: int) -> int:
-    """KV splits per (sequence, KV head): one per 256 rows the cache can
-    hold, at most 16. A window shorter than the cache uses only the
-    splits it needs (the kernel cuts windows into whole 32-row tiles),
-    so a long sequence is spread over many blocks and a short one over
-    few."""
-    return max(1, min(16, -(-S // 256)))
+# -- decode plan -------------------------------------------------------------
+#
+# How the decode core (`csrc/decode_core.cuh`; B1, B3, B5) cuts and walks
+# its work, in plain Python so that the CPU tests reach it. The kernel
+# mirrors it: kTileRows, kMaxBatch, kTcBlocksPerSm and `window_of`,
+# `build_prefix`, `unit_of`, `merge_window` for the functions below.
+
+TILE_ROWS = 64       # rows of a tile (kTileRows): wgmma's M side
+UNIT_ROWS = 256      # rows of a full work unit, a multiple of TILE_ROWS
+MAX_BATCH = 1024     # sequences a launch takes (kMaxBatch)
+TC_BLOCKS_PER_SM = 2      # decode_tc blocks on an SM (bf16 queries)
+SCALAR_BLOCKS_PER_SM = 4  # decode_scalar blocks on an SM (fp32)
+
+
+class DecodeWindow(NamedTuple):
+    """Sequence b's rows [lo, hi) inside [0, limit), the tile-aligned
+    start `alo` the units are cut from, and the number of units `n`
+    (at least 1: an empty window is one unit with no rows, which writes
+    its zeros)."""
+
+    lo: int
+    hi: int
+    alo: int
+    n: int
+
+
+def decode_window(lo: int, hi: int, limit: int,
+                  unit_rows: int = UNIT_ROWS) -> DecodeWindow:
+    lo, hi = max(int(lo), 0), min(int(hi), limit)
+    if hi <= lo:
+        return DecodeWindow(0, 0, 0, 1)
+    alo = lo - lo % TILE_ROWS
+    return DecodeWindow(lo, hi, alo, -(-(hi - alo) // unit_rows))
+
+
+def decode_grid(B: int, K: int, limit: int, sm_count: int,
+                tensor_cores: bool = True, unit_rows: int = UNIT_ROWS):
+    """(grid, max_units) of a launch, from what the host knows without
+    reading lo and hi: the persistent grid is the card's resident blocks
+    of the kernel, but no more than the units the windows can have
+    (`max_units`, B K ceil(limit / unit_rows), which also sizes the
+    workspace)."""
+    max_units = B * K * max(1, -(-limit // unit_rows))
+    per_sm = TC_BLOCKS_PER_SM if tensor_cores else SCALAR_BLOCKS_PER_SM
+    return max(1, min(sm_count * per_sm, max_units)), max_units
+
+
+class DecodePlan(NamedTuple):
+    """The walk of one decode launch. Window (b, kh) is cut from its
+    `alo` into units of `unit_rows` rows, unit j taking [alo + j
+    unit_rows, min(alo + (j + 1) unit_rows, hi)). Units are numbered
+    sequence by sequence, `u = prefix[b] + j * K + kh`, so that units
+    that run side by side read one sequence's heads at the same rows.
+    Block i of the persistent grid walks units i, i + grid, ...; the
+    last unit of a window to finish merges the window's partials in
+    unit order (`merge_order`). A window's units and its merge depend on
+    its own [lo, hi) only."""
+
+    K: int
+    limit: int
+    unit_rows: int
+    windows: Tuple[DecodeWindow, ...]
+    prefix: Tuple[int, ...]   # prefix[b]: units of sequences before b
+    grid: int
+    max_units: int
+
+    @property
+    def n_units(self) -> int:
+        return self.prefix[-1]
+
+    def unit(self, u: int) -> Tuple[int, int, int, int, int]:
+        """Unit u as (b, kh, j, r0, r1): rows [r0, r1) of its window."""
+        b = bisect.bisect_right(self.prefix, u) - 1
+        j, kh = divmod(u - self.prefix[b], self.K)
+        w = self.windows[b]
+        r0 = w.alo + j * self.unit_rows
+        return b, kh, j, r0, max(min(r0 + self.unit_rows, w.hi), r0)
+
+    def units(self, block: int) -> List[int]:
+        """Block `block`'s units in walk order."""
+        return list(range(block, self.n_units, self.grid))
+
+    def merge_order(self, b: int, kh: int) -> List[int]:
+        """The units of window (b, kh), in the order their partials are
+        added."""
+        return [self.prefix[b] + j * self.K + kh
+                for j in range(self.windows[b].n)]
+
+
+def decode_plan(lo, hi, K: int, limit: int, sm_count: int,
+                tensor_cores: bool = True,
+                unit_rows: int = UNIT_ROWS) -> DecodePlan:
+    """The plan of a decode launch over windows [lo[b], hi[b]) of
+    sequences that hold `limit` rows (S dense, M * bs paged), K KV heads,
+    on a card of `sm_count` SMs. The kernel builds the same unit list on
+    the device; the host needs only `decode_grid`."""
+    windows = tuple(decode_window(a, z, limit, unit_rows)
+                    for a, z in zip(lo, hi))
+    prefix = [0]
+    for w in windows:
+        prefix.append(prefix[-1] + w.n * K)
+    grid, max_units = decode_grid(len(windows), K, limit, sm_count,
+                                  tensor_cores, unit_rows)
+    return DecodePlan(K, limit, unit_rows, windows, tuple(prefix), grid,
+                      max_units)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# (device index, stream) -> (fp32 unit partials, int32 window counters):
+# allocated once and grown, never per launch. The kernels leave every
+# counter at 0 when they end, so launches on one stream reuse them.
+_DECODE_SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _decode_scratch(dev: torch.device, stream: int, n_part: int,
+                    n_cnt: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    part, cnt = _DECODE_SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+    if cnt is None or cnt.numel() < n_cnt:
+        cnt = torch.zeros(n_cnt, dtype=torch.int32, device=dev)
+    _DECODE_SCRATCH[key] = (part, cnt)
+    return part, cnt
+
+
+def _decode_workspace(name: str, q, K: int, limit: int):
+    """(grid, unit_rows, part, cnt, stream) of a decode launch on q's
+    device and current stream."""
+    B, _, H, D = q.shape
+    if B > MAX_BATCH:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel takes at most {MAX_BATCH} sequences, "
+            f"got {B}")
+    dev = q.device
+    unit_rows = UNIT_ROWS
+    grid, max_units = decode_grid(B, K, limit, _sm_count(dev),
+                                  q.dtype == torch.bfloat16, unit_rows)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part, cnt = _decode_scratch(dev, stream, max_units * H * (D + 2), B * K)
+    return grid, unit_rows, part, cnt, stream
 
 
 def flash_decode(q, k, v, lo, hi, scale: float,
@@ -240,18 +382,13 @@ def flash_decode(q, k, v, lo, hi, scale: float,
     fn = _build.kernel("flash_decode")
     dev = q.device
     lo, hi = _int32(lo, dev), _int32(hi, dev)
-    n_split = decode_splits(S)
-    part_m = torch.empty(B * H * n_split, dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(B * H * n_split * D, dtype=torch.float32,
-                           device=dev)
+    grid, unit_rows, part, cnt, stream = _decode_workspace(
+        "flash_decode", q, K, S)
     out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), B, S, H, K, D,
-            n_split, float(scale), float(softcap or 0.0),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+            hi.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+            B, S, H, K, D, unit_rows, grid, float(scale),
+            float(softcap or 0.0), int(q.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"flash_decode: kernel launch failed with "
                            f"CUDA error {rc}")
@@ -362,20 +499,16 @@ def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,
     table = _int32(table, dev)
     lo, hi = _int32(lo, dev), _int32(hi, dev)
     M = table.shape[1]
-    n_split = decode_splits(M * bs)
-    part_m = torch.empty(B * H * n_split, dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty(B * H * n_split * D, dtype=torch.float32,
-                           device=dev)
+    grid, unit_rows, part, cnt, stream = _decode_workspace(name, q, K,
+                                                           M * bs)
     out = torch.empty_like(q)
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             table.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-            B, bs, M, H, K, D, n_split, float(scale),
-            float(softcap or 0.0), int(q.dtype == torch.bfloat16),
-            int(quantized), torch.cuda.current_stream(dev).cuda_stream)
+            part.data_ptr(), cnt.data_ptr(), B, N, bs, M, H, K, D,
+            unit_rows, grid, float(scale), float(softcap or 0.0),
+            int(q.dtype == torch.bfloat16), int(quantized), stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc}")
