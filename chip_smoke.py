@@ -767,6 +767,173 @@ def decode_decompose(torch, csrc, iters: int = 30):
     return results
 
 
+# Scratch variants of the decode core (`decode_core.cuh`), for
+# `core_variants`: each is (old text, new text), applied once.
+_CORE_EDITS = {
+    "no math (consumers release each stage on arrival)": [
+        ("      mbar_wait(&full[s], (gi / stages) & 1);\n",
+         "      mbar_wait(&full[s], (gi / stages) & 1);\n"
+         "      if (g.limit >= 0) { __syncwarp(); if (lane == 0) "
+         "mbar_arrive(&empty[s]); continue; }\n")],
+    "no loads (the producer completes each stage without copies)": [
+        ("          mbar_arrive_expect_tx(&full[s], L::kTx);\n",
+         "          mbar_arrive(&full[s]); if (g.limit >= 0) continue;\n")],
+    "no merge (nor its handshake)": [
+        ("    if (last_split(cnt, un.b * g.K + un.kh,",
+         "    if (g.limit < 0 && last_split(cnt, un.b * g.K + un.kh,")],
+    "no tiles (units' own work only)": [
+        ("        for (int r0 = un.r0; r0 < un.r1;",
+         "        for (int r0 = un.r0; r0 < un.r0;"),
+        ("    for (int r0 = un.r0; r0 < un.r1;",
+         "    for (int r0 = un.r0; r0 < un.r0;")],
+}
+
+
+def _decode_main_cases(torch, gen):
+    """Callables of the decode core's main cases: B1 bf16, B3 over the
+    bf16 and the int8 pool, B5 (chip_smoke's first case of each)."""
+    from ome_tpu_torch.ops import flash, paged
+    dev = torch.device("cuda")
+    B, S, H, K, D = 8, 4096, 32, 8, 128
+    q, k, v = _inputs(torch, gen, B, 1, S, H, K, D, torch.bfloat16, dev)
+    lens = torch.tensor([0, 1, 17, 128, 300, 1023, 2049, 4095],
+                        dtype=torch.int32, device=dev)
+    lo = torch.zeros_like(lens)
+    bs, M, N = 128, 32, 257
+    kp = torch.randn(N, bs, K, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    vp = torch.randn(N, bs, K, D, generator=gen, device=dev).to(
+        torch.bfloat16)
+    kq, ks = _quantize_pool(torch, kp)
+    vq, vs = _quantize_pool(torch, vp)
+    table = (torch.randperm(N - 1, generator=gen, device=dev)[:B * M] + 1
+             ).reshape(B, M).to(torch.int32)
+    plens = torch.tensor([1, 17, 128, 300, 1023, 2049, 4095, 4096],
+                         dtype=torch.int32, device=dev)
+    dq, dks = flash.quantize_kv_block(k)
+    dvq, dvs = flash.quantize_kv_block(v)
+    pos = (lens - 1).clamp(min=0)[:, None]
+    scale = D ** -0.5
+    return {
+        "B1 bf16": lambda: flash.flash_decode(q, k, v, lo, lens, scale),
+        "B3 bf16": lambda: paged.paged_flash_decode(q, kp, vp, table, plens,
+                                                    scale),
+        "B3 int8": lambda: paged.paged_flash_decode(
+            q, kq, vq, table, plens, scale, k_scale=ks, v_scale=vs),
+        "B5": lambda: flash.flash_decode_quantized(
+            q, dq, dvq, dks, dvs, pos, lens, sliding_window=256,
+            scale=scale, logit_softcap=30.0)}
+
+
+def core_variants(torch, unit_rows=(128, 256, 512), iters: int = 30):
+    """Time the decode core's main cases (`_decode_main_cases`) as built
+    at each of `unit_rows`, and, at the plan's UNIT_ROWS, in the scratch
+    variants of `_CORE_EDITS` (each built with the port's nvcc flags and
+    swapped in behind the same wrappers). Returns {variant: {case: ms}}.
+    Run alone:
+
+        python3 -c "import chip_smoke as c, torch; c.phase_device(torch);
+            c.core_variants(torch)"
+    """
+    import ctypes
+    import shutil
+
+    from ome_tpu_torch.ops import _build, flash
+    dev = torch.device("cuda")
+    timer = Timer(torch, dev)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    _build.build(["flash_decode", "flash_paged_decode"])
+    csrc = _build._CSRC
+    root = os.path.join(OUT_DIR, "core_variants")
+    shutil.rmtree(root, ignore_errors=True)
+    procs = {}
+    for variant, edits in _CORE_EDITS.items():
+        vdir = os.path.join(root, str(len(procs) // 2))
+        shutil.copytree(csrc, vdir)
+        path = os.path.join(vdir, "decode_core.cuh")
+        text = open(path).read()
+        for old, new in edits:
+            if text.count(old) != 1:
+                fail(f"core variant {variant}: {old!r} not once")
+            text = text.replace(old, new)
+        open(path, "w").write(text)
+        for src in ("flash_decode", "flash_paged_decode"):
+            out = os.path.join(vdir, f"{src}.so")
+            procs[(variant, src)] = (out, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out,
+                 os.path.join(vdir, f"{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    cases = _decode_main_cases(torch, gen)
+    results = {}
+    built = dict(_build._loaded)
+    default_rows = flash.UNIT_ROWS
+    for rows in unit_rows:
+        flash.UNIT_ROWS = rows
+        results[f"as built, unit_rows {rows}"] = {
+            name: timer.ms(fn, iters) for name, fn in cases.items()}
+    flash.UNIT_ROWS = default_rows
+    for (variant, src), (out, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            fail(f"core variant {variant}: nvcc failed:\n{err}")
+    for variant in _CORE_EDITS:
+        for src in ("flash_decode", "flash_paged_decode"):
+            out = procs[(variant, src)][0]
+            symbol, argtypes = _build._SIGNATURES[src]
+            fn = getattr(ctypes.CDLL(out), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _build._loaded[src] = fn
+        results[variant] = {name: timer.ms(fn, iters)
+                            for name, fn in cases.items()}
+    _build._loaded.update(built)
+    results["timer floor (one tiny elementwise kernel)"] = timer.ms(
+        lambda: torch.zeros(256, device=dev).add_(1.0), iters)
+    for name, row in results.items():
+        log(f"[core] {name}: {row}")
+    return results
+
+
+def decode_ab(torch, other_root: str):
+    """B1, B3 and B5 over this script's decode cases (`phase_decode_
+    kernels`, `phase_paged_kernels`) with the `ome_tpu_torch` package
+    under `other_root` (e.g. a `git archive` of an earlier commit) and
+    with this checkout's, in turns in one call: other, this, this,
+    other, each in a process of its own that builds its kernels.
+    Returns {case: [ms, ms, ms, ms]}; the table in `DECODE_MS_BEFORE`
+    comes from such a run. Run alone:
+
+        python3 -c "import chip_smoke as c, torch; c.phase_device(torch);
+            c.decode_ab(torch, 'DIR')"
+    """
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import sys, json; sys.path[:0] = [{root!r}, {here!r}]\n"
+        "import torch, chip_smoke as c\n"
+        "c.phase_build()\n"
+        "g = torch.Generator(device='cuda'); g.manual_seed(0)\n"
+        "t = c.Timer(torch, torch.device('cuda'))\n"
+        "cases = c.phase_decode_kernels(torch, t, g)\n"
+        "cases.update(c.phase_paged_kernels(torch, t, g))\n"
+        "print('AB ' + json.dumps({{r['case']: r['ms'] for rows in "
+        "cases.values() for r in rows}}))\n")
+    times = {}
+    for root in (other_root, here, here, other_root):
+        proc = subprocess.run(
+            [sys.executable, "-c", code.format(root=os.path.abspath(root),
+                                               here=here)],
+            capture_output=True, text=True, timeout=900)
+        line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
+        if proc.returncode != 0 or not line:
+            fail(f"decode_ab {root}: {proc.stderr[-2000:]}")
+        for case, ms in json.loads(line[0][3:]).items():
+            times.setdefault(case, []).append(ms)
+    for case, row in times.items():
+        log(f"[ab] {case}: other, this, this, other = {row}")
+    return times
+
+
 def _quantize_pool(torch, x):
     """int8 pool [N, bs, K, D] and its scales [N, K, bs] (the port's
     quantizer)."""

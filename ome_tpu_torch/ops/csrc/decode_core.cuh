@@ -104,7 +104,7 @@ __device__ __forceinline__ Window window_of(const int* lo_arr,
                                             const int* hi_arr, int b,
                                             const Geo& g) {
   Window w;
-  w.lo = max(lo_arr[b], 0);
+  w.lo = lo_arr != nullptr ? max(lo_arr[b], 0) : 0;
   w.hi = min(hi_arr[b], g.limit);
   if (w.hi <= w.lo) {
     w.lo = w.hi = w.alo = 0;
@@ -183,33 +183,76 @@ __device__ __forceinline__ int pool_row(const int* table, int b, int r,
   }
 }
 
-// The workspace of unit u: m[G], l[G], acc[G][D] (fp32).
+// The workspace of unit u: acc[G][D], then m[G] and l[G] (fp32), G (D +
+// 4) floats in all, so every acc row is 16-byte aligned.
 __device__ __forceinline__ float* unit_part(float* part, int u, int G,
                                             int D) {
-  return part + (size_t)u * G * (D + 2);
+  return part + (size_t)u * G * (D + 4);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(uint16_t* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
 }
 
 // The last unit of a window merges the window's n partials, units u0,
-// u0 + stride, ..., in that order, into out (the window's G x D outputs).
+// u0 + stride, ..., in that order, into out (the window's G x D outputs):
+// one thread per 4 dims of a query head, reading kMergeBatch units'
+// partials at a time so that their loads are in flight together (the
+// partials were written by other SMs: read through L2).
+constexpr int kMergeBatch = 8;
+
 template <typename TO>
 __device__ __forceinline__ void merge_window(const float* part, int u0,
                                              int stride, int n, int G, int D,
                                              TO* out, int tid, int nthr) {
-  for (int idx = tid; idx < G * D; idx += nthr) {
-    const int g = idx / D, d = idx - g * D;
+  const size_t per = (size_t)G * (D + 4);
+  for (int idx = tid; idx < G * D / 4; idx += nthr) {
+    const int g = idx / (D / 4), d = (idx - g * (D / 4)) * 4;
+    const float* base = part + (size_t)u0 * per;
+    const size_t step = (size_t)stride * per;
     float mx = kMInit;
-    for (int j = 0; j < n; ++j)
-      mx = fmaxf(mx, __ldcg(unit_part(const_cast<float*>(part),
-                                      u0 + j * stride, G, D) + g));
-    float lsum = 0.f, a = 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float* p =
-          unit_part(const_cast<float*>(part), u0 + j * stride, G, D);
-      const float f = expf(__ldcg(p + g) - mx);
-      lsum += __ldcg(p + G + g) * f;
-      a += __ldcg(p + 2 * G + g * D + d) * f;
+    for (int j0 = 0; j0 < n; j0 += kMergeBatch) {
+      float mm[kMergeBatch];
+#pragma unroll
+      for (int i = 0; i < kMergeBatch; ++i)
+        mm[i] = j0 + i < n ? __ldcg(base + (j0 + i) * step + G * D + g)
+                           : kMInit;
+#pragma unroll
+      for (int i = 0; i < kMergeBatch; ++i) mx = fmaxf(mx, mm[i]);
     }
-    store_out(out + (size_t)g * D + d, a / fmaxf(lsum, 1e-30f));
+    float lsum = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j0 = 0; j0 < n; j0 += kMergeBatch) {
+      float mm[kMergeBatch], ll[kMergeBatch];
+      float4 aa[kMergeBatch];
+#pragma unroll
+      for (int i = 0; i < kMergeBatch; ++i) {
+        if (j0 + i < n) {
+          const float* p = base + (j0 + i) * step;
+          mm[i] = __ldcg(p + G * D + g);
+          ll[i] = __ldcg(p + G * D + G + g);
+          aa[i] = __ldcg(reinterpret_cast<const float4*>(p + g * D + d));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMergeBatch; ++i) {
+        if (j0 + i < n) {
+          const float f = expf(mm[i] - mx);
+          lsum += ll[i] * f;
+          a.x += aa[i].x * f;
+          a.y += aa[i].y * f;
+          a.z += aa[i].z * f;
+          a.w += aa[i].w * f;
+        }
+      }
+    }
+    const float inv = 1.f / fmaxf(lsum, 1e-30f);
+    store4(out + (size_t)g * D + d,
+           make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
   }
 }
 
@@ -260,46 +303,14 @@ struct TcLayout {
   static constexpr int kKv = INT8 ? kTileRows * D : kTileRows * D * 2;
   static constexpr int kTx = 2 * kKv + (INT8 ? 2 * kTileRows * 4 : 0);
   static constexpr int kStage = (kTx + 1023) / 1024 * 1024;
-  static constexpr int kConv = INT8 ? 2 * kTileRows * D * 2 : 0;
   static constexpr int kQBox = 16 * 128;
-  static constexpr int kFixed = kConv + (D / 64) * kQBox + 16 * 128;
+  static constexpr int kFixed = (D / 64) * kQBox + 16 * 128;
   static int stages() {
     const int s = (kTcSmemBudget - 1024 - kFixed) / kStage;
     return s < kMaxStages ? s : kMaxStages;
   }
   static int smem(int stages) { return 1024 + stages * kStage + kFixed; }
 };
-
-// int8 K then V tiles (64 rows x D bytes each) -> bf16 tiles in the
-// swizzled layout TMA gives bf16 rows (D / 64 boxes of 64 rows x 128 B)
-template <int D>
-__device__ __forceinline__ void convert_tiles(const uint8_t* src,
-                                              uint8_t* dst, int tid) {
-  constexpr int CPR = D / 16;  // 16-byte chunks (16 values) per int8 row
-#pragma unroll 2
-  for (int idx = tid; idx < 2 * kTileRows * CPR; idx += kCons) {
-    const int t = idx / (kTileRows * CPR);
-    const int rem = idx - t * kTileRows * CPR;
-    const int r = rem / CPR, c = rem - (rem / CPR) * CPR;
-    const uint4 w = *reinterpret_cast<const uint4*>(
-        src + t * kTileRows * D + r * D + c * 16);
-    const uint32_t ws[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u,
-                            w.z ^ 0x80808080u, w.w ^ 0x80808080u};
-    uint32_t o[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      o[2 * i] = pack_bf16(int8_at(ws[i], 0), int8_at(ws[i], 1));
-      o[2 * i + 1] = pack_bf16(int8_at(ws[i], 2), int8_at(ws[i], 3));
-    }
-    // values 16c .. 16c + 15: box c / 4, 16-byte chunks 2(c % 4), + 1
-    uint8_t* row = dst + t * kTileRows * D * 2 + (c >> 2) * 8192 + r * 128;
-    const int ch = (2 * c) & 7;
-    *reinterpret_cast<uint4*>(row + ((ch ^ (r & 7)) << 4)) =
-        make_uint4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<uint4*>(row + (((ch + 1) ^ (r & 7)) << 4)) =
-        make_uint4(o[4], o[5], o[6], o[7]);
-  }
-}
 
 // Grid `grid` (persistent), kTcThreads threads: one consumer warpgroup,
 // then the producer warp. NG: the G query heads padded to 8 or 16.
@@ -326,8 +337,7 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
   uint64_t* const empty = bars + kMaxStages;  // the consumers done with s
   uint8_t* const ring =
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
-  uint8_t* const conv = ring + stages * L::kStage;
-  uint8_t* const Qs = conv + L::kConv;
+  uint8_t* const Qs = ring + stages * L::kStage;
   uint8_t* const Ps = Qs + (D / 64) * L::kQBox;
 
   if (threadIdx.x == 0) {
@@ -351,13 +361,17 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
         const Unit un = unit_of(u, prefix, lo_arr, hi_arr, g);
         for (int r0 = un.r0; r0 < un.r1; r0 += kTileRows, ++gi) {
           const int s = gi % stages, lap = gi / stages;
+          // the boxes' rows (table reads) before the wait, so that their
+          // latency overlaps it
+          int prows[2], blks[2], offs[2];
+          for (int x = 0; x < nbox; ++x)
+            prows[x] = pool_row<PAGED>(table, un.b, r0 + x * g.box_rows, g,
+                                       blks[x], offs[x]);
           if (lap > 0) mbar_wait(&empty[s], (lap - 1) & 1);
           uint8_t* st = ring + s * L::kStage;
           mbar_arrive_expect_tx(&full[s], L::kTx);
           for (int x = 0; x < nbox; ++x) {
-            const int r = r0 + x * g.box_rows;
-            int blk, off;
-            const int prow = pool_row<PAGED>(table, un.b, r, g, blk, off);
+            const int prow = prows[x], blk = blks[x], off = offs[x];
             if constexpr (INT8) {
               const int rb = x * g.box_rows;
               tma_load_2d(st + rb * D, &tmk, &full[s], un.kh * D, prow);
@@ -394,20 +408,67 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
   const int c0 = 2 * (lane & 3);
   const uint32_t q_addr = smem_addr(Qs), p_addr = smem_addr(Ps);
   auto col_of = [&](int k) { return 8 * (k >> 1) + c0 + (k & 1); };
+  // int8 rows run both products with A from registers, in permuted k and
+  // M orders that let each thread read its bytes in whole words:
+  //   S^T: logical k 2t, 2t+1 | 2t+8, 2t+9 of step kc are dims
+  //     kdim(t, kc) = t D/4 + 4 kc, + 1 | + 2, + 3 (Q^T is written so);
+  //   O^T: logical k 2t, 2t+1 | 2t+8, 2t+9 of step kc are tile rows
+  //     16 kc + 4t, + 1 | + 2, + 3 (kpos: where P^T holds tile row R),
+  //     and accumulator row 16 warp + lane / 4 + 8 j of half h is dim
+  //     odim(h, j): 4 (8 warp + lane / 4) + 2h + j (D 128) or 2 (8 warp +
+  //     lane / 4) + j (D 64), so a thread's dims are adjacent bytes.
+  auto kpos = [](int R) {
+    if constexpr (!INT8) return R;
+    const int r = R & 15;
+    return (R & ~15) + 2 * (r >> 2) + (r & 1) + 8 * ((r >> 1) & 1);
+  };
+  auto odim = [&](int h, int i) {
+    const int j = (i >> 1) & 1;
+    if constexpr (INT8)
+      return (D == 128 ? 4 : 2) * (8 * warp + (lane >> 2)) + 2 * h + j;
+    return 64 * h + ra + 8 * j;
+  };
+  const int G = g.G;
+  // Q^T as B: G rows of D (raw bf16, zero rows to NG), swizzled; this
+  // thread's 16-byte chunks of a unit's Q are loaded one unit ahead
+  constexpr int QCH = (NG * (D / 8) + kCons - 1) / kCons;
+  uint4 qn[QCH];
+  auto load_q = [&](int u) {
+    if (u >= total) return;
+    const Unit un = unit_of(u, prefix, lo_arr, hi_arr, g);
+    const uint16_t* qrow = q + ((size_t)un.b * g.H + un.kh * G) * D;
+#pragma unroll
+    for (int i = 0; i < QCH; ++i) {
+      const int idx = tid + i * kCons, r = idx / (D / 8);
+      qn[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (r >= G) continue;
+      if constexpr (INT8) {
+        // logical chunk c: k step c / 2, positions 8 (c % 2) .. + 7, i.e.
+        // dim pairs kdim(t, c / 2) + 2 (c % 2) of t = 0 .. 3
+        const int c = idx - r * (D / 8);
+        const uint32_t* q32 =
+            reinterpret_cast<const uint32_t*>(qrow + (size_t)r * D);
+        const int w0 = (4 * (c >> 1) + 2 * (c & 1)) >> 1;
+        qn[i] = make_uint4(q32[w0], q32[w0 + D / 8], q32[w0 + D / 4],
+                           q32[w0 + 3 * D / 8]);
+      } else {
+        qn[i] = *reinterpret_cast<const uint4*>(qrow + (size_t)idx * 8);
+      }
+    }
+  };
+  load_q(blockIdx.x);
   int gi = 0;
   for (int u = blockIdx.x; u < total; u += gridDim.x) {
     const Unit un = unit_of(u, prefix, lo_arr, hi_arr, g);
-    const int G = g.G;
-    // Q^T as B: G rows of D (raw bf16, zero rows to NG), swizzled
-    const uint16_t* qrow = q + ((size_t)un.b * g.H + un.kh * G) * D;
-    for (int idx = tid; idx < NG * (D / 8); idx += kCons) {
-      const int r = idx / (D / 8), c = idx - (idx / (D / 8)) * (D / 8);
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < G)
-        val = *reinterpret_cast<const uint4*>(qrow + (size_t)r * D + c * 8);
-      *reinterpret_cast<uint4*>(Qs + (c >> 3) * L::kQBox + r * 128 +
-                                (((c & 7) ^ (r & 7)) << 4)) = val;
+#pragma unroll
+    for (int i = 0; i < QCH; ++i) {
+      const int idx = tid + i * kCons;
+      const int r = idx / (D / 8), c = idx - r * (D / 8);
+      if (r < NG)
+        *reinterpret_cast<uint4*>(Qs + (c >> 3) * L::kQBox + r * 128 +
+                                  (((c & 7) ^ (r & 7)) << 4)) = qn[i];
     }
+    load_q(u + gridDim.x);
     fence_proxy_async();
     named_bar_sync(1, kCons);
 
@@ -437,14 +498,7 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
         ksb = sc[ra + 8];
         vsa = sc[kTileRows + ra];
         vsb = sc[kTileRows + ra + 8];
-        named_bar_sync(1, kCons);  // the last tile's products left conv
-        convert_tiles<D>(st, conv, tid);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[s]);  // the stage is read
-        fence_proxy_async();
-        named_bar_sync(1, kCons);
-        k_addr = smem_addr(conv);
-        v_addr = k_addr + kTileRows * D * 2;
+        k_addr = v_addr = 0;
       } else {
         k_addr = smem_addr(st);
         v_addr = k_addr + L::kKv;
@@ -464,15 +518,51 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
       float sacc[NG / 2];
 #pragma unroll
       for (int i = 0; i < NG / 2; ++i) sacc[i] = 0.f;
-      wgmma_fence();
+      if constexpr (INT8) {
+        // A = the K rows ra, ra + 8 from registers, converted here once:
+        // k step kc of lane t takes dims kdim(t, kc) .. + 3 (see Q above)
+        uint32_t ka[D / 16][4];
+        const uint8_t* kra = st + ra * D + (lane & 3) * (D / 4);
 #pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc)
-        wgmma_ss_n<NG, 0>(
-            sacc, sw128_desc(k_addr + (kc >> 2) * 8192 + (kc & 3) * 32, 16, 1024),
-            sw128_desc(q_addr + (kc >> 2) * L::kQBox + (kc & 3) * 32, 16, 1024),
-            kc > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
+        for (int c = 0; c < D / 64; ++c) {
+          const uint4 wa = *reinterpret_cast<const uint4*>(kra + 16 * c);
+          const uint4 wb =
+              *reinterpret_cast<const uint4*>(kra + 8 * D + 16 * c);
+          const uint32_t xa[4] = {wa.x, wa.y, wa.z, wa.w};
+          const uint32_t xb[4] = {wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const uint32_t fa = xa[e] ^ 0x80808080u, fb = xb[e] ^ 0x80808080u;
+            uint32_t(&a)[4] = ka[4 * c + e];
+            a[0] = pack_bf16(int8_at(fa, 0), int8_at(fa, 1));
+            a[1] = pack_bf16(int8_at(fb, 0), int8_at(fb, 1));
+            a[2] = pack_bf16(int8_at(fa, 2), int8_at(fa, 3));
+            a[3] = pack_bf16(int8_at(fb, 2), int8_at(fb, 3));
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc)
+          wgmma_rs_k<NG>(sacc, ka[kc],
+                         sw128_desc(q_addr + (kc >> 2) * L::kQBox +
+                                        (kc & 3) * 32, 16, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc) reg_fence(ka[kc]);
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc)
+          wgmma_ss_n<NG, 0>(
+              sacc,
+              sw128_desc(k_addr + (kc >> 2) * 8192 + (kc & 3) * 32, 16, 1024),
+              sw128_desc(q_addr + (kc >> 2) * L::kQBox + (kc & 3) * 32, 16,
+                         1024),
+              kc > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
 
       // logits: (int8: x k-scale) x scale, softcap, rows outside [lo, hi)
       // selected to M_INIT; the tile's max per query head
@@ -522,7 +612,7 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
         lp[k] += p;
         float pv = p;
         if constexpr (INT8) pv = valid ? p * (rb ? vsb : vsa) : 0.f;
-        const int row = ra + 8 * rb, c = col_of(k);
+        const int row = kpos(ra + 8 * rb), c = col_of(k);
         *reinterpret_cast<uint16_t*>(Ps + c * 128 +
                                      (((row >> 3) ^ (c & 7)) << 4) +
                                      (row & 7) * 2) = to_bf16(pv);
@@ -537,20 +627,56 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
 
       // O^T += V^T P^T: per 64-dim half, 4 k16 steps of 16 V rows (2 KB);
       // V^T is the MN-major A operand (the transpose bit)
-      wgmma_fence();
+      if constexpr (INT8) {
+        // A = V^T from registers: this thread's dims odim(h, j) of rows
+        // 16 kc + 4t .. + 3, the k order of P^T (kpos)
+        uint32_t vfr[D / 64][kTileRows / 16][4];
+        const uint8_t* vt = st + L::kKv + (lane & 3) * 4 * D +
+                            (D == 128 ? 4 : 2) * (8 * warp + (lane >> 2));
 #pragma unroll
-      for (int h = 0; h < D / 64; ++h)
+        for (int kc = 0; kc < kTileRows / 16; ++kc) {
+          uint32_t w[4];
 #pragma unroll
-        for (int kc = 0; kc < kTileRows / 16; ++kc)
-          wgmma_ss_n<NG, 1>(o[h],
-                            sw128_desc(v_addr + h * 8192 + kc * 2048, 8192, 1024),
-                            sw128_desc(p_addr + kc * 32, 16, 1024), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      if constexpr (!INT8) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with s
+          for (int x = 0; x < 4; ++x) {
+            const uint8_t* p = vt + (16 * kc + x) * D;
+            w[x] = D == 128 ? *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u
+                            : (uint32_t)*reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
+          }
+#pragma unroll
+          for (int h = 0; h < D / 64; ++h) {
+            vfr[h][kc][0] = pack_bf16(int8_at(w[0], 2 * h), int8_at(w[1], 2 * h));
+            vfr[h][kc][1] = pack_bf16(int8_at(w[0], 2 * h + 1), int8_at(w[1], 2 * h + 1));
+            vfr[h][kc][2] = pack_bf16(int8_at(w[2], 2 * h), int8_at(w[3], 2 * h));
+            vfr[h][kc][3] = pack_bf16(int8_at(w[2], 2 * h + 1), int8_at(w[3], 2 * h + 1));
+          }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+          for (int kc = 0; kc < kTileRows / 16; ++kc)
+            wgmma_rs_k<NG>(o[h], vfr[h][kc],
+                           sw128_desc(p_addr + kc * 32, 16, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+          for (int kc = 0; kc < kTileRows / 16; ++kc) reg_fence(vfr[h][kc]);
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+          for (int kc = 0; kc < kTileRows / 16; ++kc)
+            wgmma_ss_n<NG, 1>(
+                o[h], sw128_desc(v_addr + h * 8192 + kc * 2048, 8192, 1024),
+                sw128_desc(p_addr + kc * 32, 16, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with s
     }
 
     // ---- the unit's end: row sums, then the output or the partial --------
@@ -576,7 +702,7 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
         for (int i = 0; i < NG / 2; ++i) {
           const int k = 2 * (i >> 2) + (i & 1), c = col_of(k);
           if (c < G)
-            obase[c * D + 64 * h + ra + 8 * ((i >> 1) & 1)] =
+            obase[c * D + odim(h, i)] =
                 to_bf16(o[h][i] / fmaxf(l[k], 1e-30f));
         }
       continue;
@@ -588,16 +714,15 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
       for (int i = 0; i < NG / 2; ++i) {
         const int c = col_of(2 * (i >> 2) + (i & 1));
         if (c < G)
-          __stcg(pp + 2 * G + c * D + 64 * h + ra + 8 * ((i >> 1) & 1),
-                 o[h][i]);
+          __stcg(pp + c * D + odim(h, i), o[h][i]);
       }
     if (warp == 0 && lane < 4) {
 #pragma unroll
       for (int k = 0; k < NCOL; ++k) {
         const int c = col_of(k);
         if (c < G) {
-          __stcg(pp + c, m[k]);
-          __stcg(pp + G + c, l[k]);
+          __stcg(pp + G * D + c, m[k]);
+          __stcg(pp + G * D + G + c, l[k]);
         }
       }
     }
@@ -745,10 +870,10 @@ decode_scalar(const float* __restrict__ q, const TKV* __restrict__ kpool,
     float* const pp = unit_part(part, u, G, D);
 #pragma unroll
     for (int i = 0; i < VEC; ++i)
-      __stcg(pp + 2 * G + w * D + lane * VEC + i, acc[i]);
+      __stcg(pp + w * D + lane * VEC + i, acc[i]);
     if (lane == 0) {
-      __stcg(pp + w, m);
-      __stcg(pp + G + w, l);
+      __stcg(pp + G * D + w, m);
+      __stcg(pp + G * D + G + w, l);
     }
     if (last_split(cnt, b * K + kh, un.n, NT, threadIdx.x, 1, is_last))
       merge_window(part, prefix[b] + kh, K, un.n, G, D, obase, threadIdx.x,

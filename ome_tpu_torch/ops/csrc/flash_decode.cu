@@ -19,7 +19,7 @@
 #include "decode_core.cuh"
 
 // q [B, H, D]; k, v [B, S, K, D] (contiguous, same dtype, bf16 or fp32);
-// lo, hi [B] int32; out [B, H, D]. part: fp32 workspace of G (D + 2)
+// lo, hi [B] int32; out [B, H, D]. part: fp32 workspace of G (D + 4)
 // floats per unit, for every unit the windows can have (B K ceil(S /
 // unit_rows)); cnt [B K] int32, all 0 (each launch leaves it so).
 // unit_rows and grid are ops/flash.py::decode_plan's. softcap <= 0

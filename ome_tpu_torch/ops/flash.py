@@ -225,7 +225,7 @@ def _int32(x, device) -> torch.Tensor:
 # `build_prefix`, `unit_of`, `merge_window` for the functions below.
 
 TILE_ROWS = 64       # rows of a tile (kTileRows): wgmma's M side
-UNIT_ROWS = 256      # rows of a full work unit, a multiple of TILE_ROWS
+UNIT_ROWS = 512      # rows of a full work unit, a multiple of TILE_ROWS
 MAX_BATCH = 1024     # sequences a launch takes (kMaxBatch)
 TC_BLOCKS_PER_SM = 2      # decode_tc blocks on an SM (bf16 queries)
 SCALAR_BLOCKS_PER_SM = 4  # decode_scalar blocks on an SM (fp32)
@@ -360,7 +360,8 @@ def _decode_workspace(name: str, q, K: int, limit: int):
     grid, max_units = decode_grid(B, K, limit, _sm_count(dev),
                                   q.dtype == torch.bfloat16, unit_rows)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    part, cnt = _decode_scratch(dev, stream, max_units * H * (D + 2), B * K)
+    part, cnt = _decode_scratch(dev, stream,
+                                max_units * (H // K) * (D + 4), B * K)
     return grid, unit_rows, part, cnt, stream
 
 
@@ -450,7 +451,8 @@ def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,
     tensors and count it under LAUNCHES[name]. q [B, 1, H, D] bf16 or
     fp32; pools [N, bs, K, D] in q's dtype, or int8 with k_scale,
     v_scale [N, K, bs] f32; table [B, M] pool block ids; sequence b
-    attends rows [lo[b], hi[b]). Returns [B, 1, H, D] in q.dtype."""
+    attends rows [lo[b], hi[b]) (lo None: from row 0). Returns
+    [B, 1, H, D] in q.dtype."""
     B, Sq, H, D = q.shape
     N, bs, K, _ = k_pool.shape
     quantized = k_pool.dtype == torch.int8
@@ -497,7 +499,8 @@ def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,
     fn = _build.kernel("flash_paged_decode")
     dev = q.device
     table = _int32(table, dev)
-    lo, hi = _int32(lo, dev), _int32(hi, dev)
+    hi = _int32(hi, dev)
+    lo = None if lo is None else _int32(lo, dev)
     M = table.shape[1]
     grid, unit_rows, part, cnt, stream = _decode_workspace(name, q, K,
                                                            M * bs)
@@ -505,7 +508,8 @@ def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,
     rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
-            table.data_ptr(), lo.data_ptr(), hi.data_ptr(), out.data_ptr(),
+            table.data_ptr(), None if lo is None else lo.data_ptr(),
+            hi.data_ptr(), out.data_ptr(),
             part.data_ptr(), cnt.data_ptr(), B, N, bs, M, H, K, D,
             unit_rows, grid, float(scale), float(softcap or 0.0),
             int(q.dtype == torch.bfloat16), int(quantized), stream)
@@ -535,6 +539,12 @@ def _decode_limits(positions, kv_len, S: int, sliding_window):
     return lo, hi
 
 
+@functools.lru_cache(maxsize=64)
+def _identity_table(B: int, device: torch.device) -> torch.Tensor:
+    """[B, 1] int32 table b -> b (made once per batch size and device)."""
+    return torch.arange(B, dtype=torch.int32, device=device)[:, None]
+
+
 def flash_decode_quantized(q, kq, vq, k_scale, v_scale, positions,
                            kv_len=None, sliding_window: Optional[int] = None,
                            scale: Optional[float] = None,
@@ -553,7 +563,7 @@ def flash_decode_quantized(q, kq, vq, k_scale, v_scale, positions,
         return flash_decode_quantized_ref(q, kq, vq, k_scale, v_scale, lo,
                                           hi, scale, logit_softcap)
     # the dense cache is a pool of B blocks of S rows, block b = sequence b
-    table = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
+    table = _identity_table(B, q.device)
     return paged_decode_launch("flash_decode_quantized", q, kq, vq, table,
                                lo, hi, scale, logit_softcap,
                                k_scale=k_scale, v_scale=v_scale)

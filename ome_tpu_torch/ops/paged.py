@@ -113,13 +113,14 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
     D = q.shape[-1]
     scale = scale if scale is not None else D ** -0.5
     hi = kv_len.to(device=q.device, dtype=torch.int32)
-    lo = torch.zeros_like(hi)
     if not q.is_cuda:
-        return flash_paged_decode_ref(q, k_pool, v_pool, table, lo, hi,
-                                      scale, logit_softcap,
-                                      k_scale=k_scale, v_scale=v_scale)
+        return flash_paged_decode_ref(q, k_pool, v_pool, table,
+                                      torch.zeros_like(hi), hi, scale,
+                                      logit_softcap, k_scale=k_scale,
+                                      v_scale=v_scale)
+    # lo None: every window starts at row 0 (no zeros to fill on the card)
     return paged_decode_launch("flash_paged_decode", q, k_pool, v_pool,
-                               table, lo, hi, scale, logit_softcap,
+                               table, None, hi, scale, logit_softcap,
                                k_scale=k_scale, v_scale=v_scale)
 
 
