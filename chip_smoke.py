@@ -16,10 +16,18 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    softcap, G 1 and 8, head_dim 64, two sequences with their own bases
    and a ragged chunk whose cache tail past kv_hi is NaN, each with its
    share of the bound and, for the causal buckets, a second yardstick:
-   SDPA with is_causal and no mask. The paged decode kernel (B3)
-   runs over a bf16, an fp32 and an int8 pool (random block table) and
-   with a free slot's all-trash table row; the int8 dense decode (B5)
-   runs on the same kernel; the int4 weight-only matmul (B4) runs at
+   SDPA with is_causal and no mask. The decode kernels run one decode
+   core: B1 over the dense cache in bf16 and fp32, with window +
+   softcap, at G 1, 4, 16 and D 64, and with NaN in every cache row
+   outside the windows at S 4000 (a tile past S reads the next
+   sequence's rows); B3 over a bf16, an fp32 and an int8 pool (random
+   block table), with a free slot's all-trash table row, with NaN in
+   every pool row (int8: scale) outside the windows, at the engine's 16
+   slots of 32 blocks, with 32-row blocks and at G 16, D 64; B5 (int8
+   dense) on B3's source; each with its share of the bound and its time
+   with the split-KV kernels it replaced (`DECODE_MS_BEFORE`); the main
+   cases of B1 and B3 (and the int8 pool) give the same bits on a
+   second launch and for their longest sequence launched alone; the int4 weight-only matmul (B4) runs at
    the 8B projection shapes (w_gate, wq, wk at m 1, 5, 8, 16, 256; w_gate
    at m 17, 64, 128 and with fp32 output; w_down's K 14336 at m 8), each
    with its share of the bound and its time with the kernel it replaced,
@@ -672,7 +680,7 @@ def decode_decompose(torch, csrc, iters: int = 30):
     import ctypes
     import shutil
 
-    from ome_tpu_torch.ops import _build
+    from ome_tpu_torch.ops import _build, flash
     dev = torch.device("cuda")
     timer = Timer(torch, dev)
     gen = torch.Generator(device="cuda")
@@ -715,8 +723,8 @@ def decode_decompose(torch, csrc, iters: int = 30):
         torch.bfloat16)
     vp = torch.randn(N, bs, K, D, generator=gen, device=dev).to(
         torch.bfloat16)
-    kq, ks = (t.contiguous() for t in _quantize_pool(torch, kp))
-    vq, vs = (t.contiguous() for t in _quantize_pool(torch, vp))
+    kq, ks = flash.quantize_kv_block(kp)
+    vq, vs = flash.quantize_kv_block(vp)
     table = (torch.randperm(N - 1, generator=gen, device=dev)[:B * M] + 1
              ).reshape(B, M).to(torch.int32)
     plens = torch.tensor([1, 17, 128, 300, 1023, 2049, 4095, 4096],
@@ -804,8 +812,8 @@ def _decode_main_cases(torch, gen):
         torch.bfloat16)
     vp = torch.randn(N, bs, K, D, generator=gen, device=dev).to(
         torch.bfloat16)
-    kq, ks = _quantize_pool(torch, kp)
-    vq, vs = _quantize_pool(torch, vp)
+    kq, ks = flash.quantize_kv_block(kp)
+    vq, vs = flash.quantize_kv_block(vp)
     table = (torch.randperm(N - 1, generator=gen, device=dev)[:B * M] + 1
              ).reshape(B, M).to(torch.int32)
     plens = torch.tensor([1, 17, 128, 300, 1023, 2049, 4095, 4096],
@@ -911,6 +919,7 @@ def decode_ab(torch, other_root: str):
     code = (
         "import sys, json; sys.path[:0] = [{root!r}, {here!r}]\n"
         "import torch, chip_smoke as c\n"
+        "c.fail = lambda msg: print('NOTE ' + msg, flush=True)\n"
         "c.phase_build()\n"
         "g = torch.Generator(device='cuda'); g.manual_seed(0)\n"
         "t = c.Timer(torch, torch.device('cuda'))\n"
@@ -927,18 +936,18 @@ def decode_ab(torch, other_root: str):
         line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
         if proc.returncode != 0 or not line:
             fail(f"decode_ab {root}: {proc.stderr[-2000:]}")
+        # a check that fails is reported, and the case still timed; this
+        # checkout's kernels must pass every check
+        notes = [x for x in proc.stdout.splitlines() if x.startswith("NOTE ")]
+        for note in notes:
+            log(f"[ab] {root}: {note[5:]}")
+        if notes and root == here:
+            fail(f"decode_ab: this checkout failed a check: {notes[0]}")
         for case, ms in json.loads(line[0][3:]).items():
             times.setdefault(case, []).append(ms)
     for case, row in times.items():
         log(f"[ab] {case}: other, this, this, other = {row}")
     return times
-
-
-def _quantize_pool(torch, x):
-    """int8 pool [N, bs, K, D] and its scales [N, K, bs] (the port's
-    quantizer)."""
-    from ome_tpu_torch.ops import flash
-    return flash.quantize_kv_block(x)
 
 
 def _int4_library(torch, qt):
@@ -967,11 +976,65 @@ def _int4_library(torch, qt):
         return None, f"{type(e).__name__}: {str(e)[:200]}"
 
 
-# B1, B3 and B5 at each case with PR 6's split-KV kernels (two launches
-# per call, the CUDA cores), measured on an NVIDIA H100 80GB HBM3 at 700 W
-# by this script's decode cases in one call with this PR's kernels;
-# printed beside this run's
-DECODE_MS_BEFORE = {}
+# B1, B3 and B5 at each case with the split-KV kernels the decode core
+# replaced (two launches per call, the CUDA cores): the mean of the two
+# runs of that package in `decode_ab`'s turns, on an NVIDIA H100 80GB
+# HBM3 at 700 W; printed beside this run's. (On the int8 pool with NaN
+# scales outside the windows those kernels gave non-finite output.)
+DECODE_MS_BEFORE = {
+    ('decode bf16 B=8 S=4096 H=32 K=8 D=128 lengths=[0, 1, 17, 128, '
+     '300, 1023, 2049, 4095] window=None softcap=None'):
+        0.0352,
+    ('decode fp32 B=8 S=4096 H=32 K=8 D=128 lengths=[0, 1, 17, 128, '
+     '300, 1023, 2049, 4095] window=None softcap=None'):
+        0.0521,
+    ('decode bf16 B=8 S=4096 H=32 K=8 D=128 lengths=[0, 1, 17, 128, '
+     '300, 1023, 2049, 4095] window=256 softcap=30.0'):
+        0.0173,
+    ('decode bf16 B=8 S=4000 H=32 K=8 D=128 lengths=[4000, 3999, 4000, '
+     '1000, 4000, 700, 300, 4000] window=256 softcap=None nan_outside'):
+        0.0189,
+    ('decode bf16 B=8 S=4000 H=32 K=8 D=128 lengths=[1, 17, 63, 64, '
+     '300, 3999, 4000, 2049] window=None softcap=None nan_outside'):
+        0.0431,
+    ('decode bf16 B=8 S=4096 H=32 K=32 D=128 lengths=[0, 1, 17, 128, '
+     '300, 1023, 2049, 4095] window=None softcap=None'):
+        0.0710,
+    ('decode bf16 B=8 S=4096 H=32 K=2 D=128 lengths=[0, 1, 17, 128, '
+     '300, 1023, 2049, 4095] window=None softcap=None'):
+        0.0355,
+    ('decode bf16 B=8 S=4096 H=32 K=8 D=64 lengths=[0, 1, 17, 128, 300, '
+     '1023, 2049, 4095] window=None softcap=None'):
+        0.0247,
+    ('paged bf16 B=8 H=32 K=8 D=128 bs=128 M=32 N=257 lengths=[1, 17, '
+     '128, 300, 1023, 2049, 4095, 4096] trash_slot=None'):
+        0.0468,
+    ('paged fp32 B=8 H=32 K=8 D=128 bs=128 M=32 N=257 lengths=[1, 17, '
+     '128, 300, 1023, 2049, 4095, 4096] trash_slot=None'):
+        0.0669,
+    ('paged int8 B=8 H=32 K=8 D=128 bs=128 M=32 N=257 lengths=[1, 17, '
+     '128, 300, 1023, 2049, 4095, 4096] trash_slot=None'):
+        0.0400,
+    ('paged bf16 B=8 H=32 K=8 D=128 bs=128 M=32 N=257 lengths=[1, 17, '
+     '128, 300, 1023, 2049, 4095, 5000] trash_slot=7'):
+        0.0430,
+    ('paged bf16 B=8 H=32 K=8 D=128 bs=128 M=32 N=257 lengths=[1, 17, '
+     '128, 300, 1023, 2049, 4095, 4096] trash_slot=None nan_outside'):
+        0.0465,
+    ('paged bf16 B=16 H=32 K=8 D=128 bs=128 M=32 N=513 lengths=[1, 5, '
+     '64, 100, 257, 512, 700, 1000, 1500, 2048, 2500, 3000, 3500, 4000, '
+     '4095, 4096] trash_slot=None'):
+        0.0744,
+    ('paged bf16 B=8 H=32 K=8 D=128 bs=32 M=128 N=1025 lengths=[1, 17, '
+     '128, 300, 1023, 2049, 4095, 4096] trash_slot=None'):
+        0.0463,
+    ('paged bf16 B=8 H=32 K=2 D=64 bs=64 M=64 N=513 lengths=[1, 17, '
+     '128, 300, 1023, 2049, 4095, 4096] trash_slot=None'):
+        0.0308,
+    ('int8 dense B=8 S=4096 H=32 K=8 D=128 lengths=[0, 1, 17, 128, 300, '
+     '1023, 2049, 4095] window=256 softcap=30.0'):
+        0.0322,
+}
 
 
 # tolerance of B4 against its plain version (fp32 output), relative to

@@ -37,27 +37,34 @@
 //     workspace and the last unit of the window to finish (last_split on a
 //     per-window counter, common.cuh) merges them in unit order.
 //   * bf16 queries (decode_tc): a producer warp loads 64-row tiles by TMA
-//     into an mbarrier ring, each tile as 64 / box_rows boxes (a box never
-//     straddles a pool block: box_rows divides bs), 128-byte swizzled for
-//     bf16 rows. One consumer warpgroup runs both products on wgmma: S^T =
-//     K_tile Q^T with the tile's rows as the 64-row M side and the G query
-//     heads, padded to N = 8 or 16, as B (the swap-AB form of B4's decode);
-//     then O^T += V^T P^T with D as M (64-row halves, V read MN-major) and
-//     the tile's rows as the k depth, P^T written to shared memory in bf16.
-//     The online softmax runs per query head across the warpgroup (one
-//     named barrier per tile for the column max; row sums kept per thread
-//     and reduced once per unit). int8 rows land unswizzled and the
-//     warpgroup converts each K/V tile once into bf16 tiles in the swizzled
-//     layout (exact, by PRMT into the mantissa of 2^23 and one FADD), so a
-//     byte is converted once per block, not once per query head; the scales
-//     fold into the logits and probabilities.
+//     into an mbarrier ring (3-4 stages), each tile as 64 / box_rows
+//     boxes (a box never straddles a pool block: box_rows divides bs),
+//     reading the block table itself before it waits for a free stage.
+//     One consumer warpgroup runs both products on the tensor cores
+//     (wgmma): S^T = K_tile Q^T with the tile's rows as the 64-row M side
+//     and the G query heads, padded to N = 8 or 16, as B (the swap-AB form
+//     of B4's decode); then O^T += V^T P^T with D as M (64-row halves) and
+//     the tile's rows as the k depth, P^T written to shared memory in
+//     bf16. bf16 rows land 128-byte swizzled and both products read them
+//     from shared memory (SS; V^T through the transpose bit). int8 rows
+//     land as plain bytes and each thread converts its share once into A
+//     fragments in registers (RS; exact, by PRMT into the mantissa of 2^23
+//     and one FADD), so a byte is converted once per block, not once per
+//     query head; the k and M orders of both products are permuted
+//     (kpos, odim, the Q^T layout) so that every thread reads its bytes in
+//     whole words, and the scales fold into the logits and probabilities.
+//     The online softmax runs per query head across the warpgroup: one
+//     named barrier per tile for the column max, row sums kept per thread
+//     and reduced once per unit. wgmma was chosen over mma.sync for the
+//     single warpgroup-wide product per tile (no per-warp fragment loads
+//     of K or V for bf16); no mma.sync build was timed against it.
 //   * TMA reads whole boxes, so the partial tiles at lo and hi, the dense
 //     tail past S, the next sequence's rows and a free slot's trash block
 //     are all loaded. Their logits are selected to M_INIT (never
 //     multiplied by a mask), and a partial bf16 tile's V rows outside
 //     [lo, hi) are zeroed in shared memory before the PV product (0 x NaN
-//     is NaN in a tensor-core product too); an int8 row's v-scale is
-//     selected to 0 with its probability.
+//     is NaN in a tensor-core product too); an int8 row's values are
+//     finite, and its probability times its v-scale is selected to 0.
 //   * fp32 (an fp32 cache or pool, or an fp32 query over an int8 pool)
 //     stays on the CUDA cores in fp32 (decode_scalar: tensor-core TF32
 //     would not hold the fp32 tolerance): the split-KV kernels' per-warp
@@ -292,12 +299,11 @@ __device__ __forceinline__ void load_row(const int8_t* p, float (&o)[VEC]) {
 // -- decode_tc: bf16 queries over bf16 or int8 rows -----------------------------
 
 // Shared memory of a decode_tc block (dynamic part, 1024-byte aligned):
-// `stages` ring stages, then (int8) the converted bf16 K and V tiles,
-// then Q^T (D / 64 boxes of up to 16 rows x 128 bytes) and P^T (16 rows x
-// 128 bytes). A bf16 stage holds the K tile then the V tile, each D / 64
-// boxes of 64 rows x 128 bytes (128-byte swizzle); an int8 stage holds K
-// and V as 64 rows x D bytes (no swizzle), then the tile's 64 k-scales
-// and 64 v-scales.
+// `stages` ring stages, then Q^T (D / 64 boxes of up to 16 rows x 128
+// bytes) and P^T (16 rows x 128 bytes). A bf16 stage holds the K tile
+// then the V tile, each D / 64 boxes of 64 rows x 128 bytes (128-byte
+// swizzle); an int8 stage holds K and V as 64 rows x D bytes (no
+// swizzle), then the tile's 64 k-scales and 64 v-scales.
 template <int D, bool INT8>
 struct TcLayout {
   static constexpr int kKv = INT8 ? kTileRows * D : kTileRows * D * 2;

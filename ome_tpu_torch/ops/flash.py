@@ -48,7 +48,6 @@ is imported.
 from __future__ import annotations
 
 import bisect
-import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -324,11 +323,6 @@ def decode_plan(lo, hi, K: int, limit: int, sm_count: int,
                       max_units)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 # (device index, stream) -> (fp32 unit partials, int32 window counters):
 # allocated once and grown, never per launch. The kernels leave every
 # counter at 0 when they end, so launches on one stream reuse them.
@@ -347,14 +341,18 @@ def _decode_scratch(dev: torch.device, stream: int, n_part: int,
     return part, cnt
 
 
-def _decode_workspace(name: str, q, K: int, limit: int):
-    """(grid, unit_rows, part, cnt, stream) of a decode launch on q's
-    device and current stream."""
-    B, _, H, D = q.shape
+def _check_batch(name: str, B: int) -> None:
     if B > MAX_BATCH:
         raise NotImplementedError(
             f"{name}: the CUDA kernel takes at most {MAX_BATCH} sequences, "
             f"got {B}")
+
+
+def _decode_workspace(name: str, q, K: int, limit: int):
+    """(grid, unit_rows, part, cnt, stream) of a decode launch on q's
+    device and current stream."""
+    from .int4_matmul import _sm_count
+    B, _, H, D = q.shape
     dev = q.device
     unit_rows = UNIT_ROWS
     grid, max_units = decode_grid(B, K, limit, _sm_count(dev),
@@ -379,6 +377,7 @@ def flash_decode(q, k, v, lo, hi, scale: float,
         raise NotImplementedError(
             f"flash_decode: needs Sq == 1 and H/K in (1, 2, 4, 8, 16), "
             f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    _check_batch("flash_decode", B)
     from . import _build
     fn = _build.kernel("flash_decode")
     dev = q.device
@@ -479,6 +478,7 @@ def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,
             f"{name}: q {tuple(q.shape)} against pools "
             f"{tuple(k_pool.shape)}")
     check_paged_coverage(bs, D, H, K)
+    _check_batch(name, B)
     scales = (k_scale, v_scale)
     if quantized:
         for t, what in ((k_scale, "k_scale"), (v_scale, "v_scale")):
@@ -539,12 +539,6 @@ def _decode_limits(positions, kv_len, S: int, sliding_window):
     return lo, hi
 
 
-@functools.lru_cache(maxsize=64)
-def _identity_table(B: int, device: torch.device) -> torch.Tensor:
-    """[B, 1] int32 table b -> b (made once per batch size and device)."""
-    return torch.arange(B, dtype=torch.int32, device=device)[:, None]
-
-
 def flash_decode_quantized(q, kq, vq, k_scale, v_scale, positions,
                            kv_len=None, sliding_window: Optional[int] = None,
                            scale: Optional[float] = None,
@@ -563,7 +557,7 @@ def flash_decode_quantized(q, kq, vq, k_scale, v_scale, positions,
         return flash_decode_quantized_ref(q, kq, vq, k_scale, v_scale, lo,
                                           hi, scale, logit_softcap)
     # the dense cache is a pool of B blocks of S rows, block b = sequence b
-    table = _identity_table(B, q.device)
+    table = torch.arange(B, dtype=torch.int32, device=q.device)[:, None]
     return paged_decode_launch("flash_decode_quantized", q, kq, vq, table,
                                lo, hi, scale, logit_softcap,
                                k_scale=k_scale, v_scale=v_scale)

@@ -9,11 +9,15 @@ per-(row, head) scales `[N, K, bs]`, S-minor as
 
 * `paged_flash_decode` replaces the Pallas kernel `paged_flash_decode`
   / `_paged_kernel` (ome_tpu/ops/paged.py:142-229) with the hand-written
-  CUDA kernel `csrc/flash_paged_decode.cu`: B1's decode math with the
-  tile's source block read from the table, in a bf16/fp32 branch and an
-  int8 branch that folds the scales into the logits and probabilities.
-  Bound on the H100: the bytes of the K/V rows in [0, kv_len) (and
-  their scales). `flash_paged_decode_ref` is its plain version.
+  CUDA kernel `csrc/flash_paged_decode.cu`: the decode core that B1 runs
+  too (`csrc/decode_core.cuh`), whose producer reads each tile's pool
+  block from the table. A bf16 query over a bf16 or int8 pool runs both
+  products on the tensor cores, the int8 scales folded into the logits
+  and probabilities; fp32 runs on the CUDA cores. Each slot's rows are
+  cut into work units by its own length (`flash.decode_plan`) and merged
+  inside the one launch. Bound on the H100: the bytes of the K/V rows in
+  [0, kv_len) (and their scales). `flash_paged_decode_ref` is its plain
+  version.
 * `paged_attention_xla` is the reference's gather-and-mask path, the
   plain version the CPU runs.
 * `paged_attention` dispatches: a CUDA tensor goes to the kernel (an

@@ -134,7 +134,7 @@ def _bf16(x):
     return u.view(np.float32)
 
 
-def _emulate(plan, q, rows_k, rows_v, lo, hi, scale, softcap, order,
+def _emulate(plan, q, rows_k, rows_v, scale, softcap, order,
              rows_ks=None, rows_vs=None):
     """The kernel's walk: q [B, H, D]; rows_k(b, r) -> [n, K, D] rows of
     sequence b (rows_ks -> [n, K] int8 k-scales); units visited in
@@ -241,8 +241,8 @@ def test_emulated_dense_walk_matches_flash_decode_ref(softcap, window):
             return out
         return get
     plan = flash.decode_plan(lo, hi, K, S, 132, unit_rows=128)
-    got = _check_orders(plan, q, rows(flat_k), rows(flat_v), lo, hi,
-                        D ** -0.5, softcap)
+    got = _check_orders(plan, q, rows(flat_k), rows(flat_v), D ** -0.5,
+                        softcap)
     ref = flash.flash_decode_ref(
         torch.from_numpy(q)[:, None], torch.from_numpy(k),
         torch.from_numpy(v), torch.from_numpy(lo), torch.from_numpy(hi),
@@ -291,7 +291,7 @@ def test_emulated_paged_walk_matches_the_plain_versions(bs, int8):
     plan = flash.decode_plan(np.zeros(B, int), kv_len, K, M * bs, 132,
                              unit_rows=128)
     got = _check_orders(
-        plan, q, rows(kp), rows(vp), None, None, D ** -0.5, None,
+        plan, q, rows(kp), rows(vp), D ** -0.5, None,
         rows_ks=scale_rows(ks) if int8 else None,
         rows_vs=scale_rows(vs) if int8 else None)
     t = torch.from_numpy
@@ -307,3 +307,30 @@ def test_emulated_paged_walk_matches_the_plain_versions(bs, int8):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
     np.testing.assert_allclose(got, jref, atol=ATOL, rtol=0)
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports is_cuda, so the kernel wrappers' checks
+    run without a card."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("entry", ["dense", "paged"])
+def test_a_batch_past_the_kernels_limit_raises(entry):
+    Bx = flash.MAX_BATCH + 1
+    q = torch.zeros(Bx, 1, 8, 64).as_subclass(_FakeCuda)
+    before = dict(flash.LAUNCHES)
+    with pytest.raises(NotImplementedError, match="at most"):
+        if entry == "dense":
+            k = torch.zeros(Bx, 4, 2, 64)
+            flash.flash_decode(q, k, k, torch.zeros(Bx), torch.ones(Bx),
+                               0.125)
+        else:
+            pool = torch.zeros(3, 32, 2, 64)
+            paged.paged_flash_decode(q, pool, pool,
+                                     torch.ones(Bx, 1, dtype=torch.int32),
+                                     torch.ones(Bx, dtype=torch.int32))
+    assert flash.LAUNCHES == before
