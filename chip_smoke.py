@@ -799,7 +799,8 @@ _CORE_EDITS = {
 
 def _decode_main_cases(torch, gen):
     """Callables of the decode core's main cases: B1 bf16, B3 over the
-    bf16 and the int8 pool, B5 (chip_smoke's first case of each)."""
+    bf16 and the int8 pool, B5 (chip_smoke's first case of each), and
+    B1 and B3 over the windows of the serving phases' decode steps."""
     from ome_tpu_torch.ops import flash, paged
     dev = torch.device("cuda")
     B, S, H, K, D = 8, 4096, 32, 8, 128
@@ -822,10 +823,18 @@ def _decode_main_cases(torch, gen):
     dvq, dvs = flash.quantize_kv_block(v)
     pos = (lens - 1).clamp(min=0)[:, None]
     scale = D ** -0.5
+    # the windows of the serving phases' decode steps (8 slots armed at
+    # lengths 64 + 300 slot, plus the step's own token)
+    slens = torch.tensor([65 + 300 * i for i in range(B)],
+                         dtype=torch.int32, device=dev)
     return {
         "B1 bf16": lambda: flash.flash_decode(q, k, v, lo, lens, scale),
+        "B1 bf16 serving windows": lambda: flash.flash_decode(
+            q, k, v, lo, slens, scale),
         "B3 bf16": lambda: paged.paged_flash_decode(q, kp, vp, table, plens,
                                                     scale),
+        "B3 bf16 serving windows": lambda: paged.paged_flash_decode(
+            q, kp, vp, table, slens, scale),
         "B3 int8": lambda: paged.paged_flash_decode(
             q, kq, vq, table, plens, scale, k_scale=ks, v_scale=vs),
         "B5": lambda: flash.flash_decode_quantized(
@@ -898,6 +907,13 @@ def core_variants(torch, unit_rows=(128, 256, 512), iters: int = 30):
     _build._loaded.update(built)
     results["timer floor (one tiny elementwise kernel)"] = timer.ms(
         lambda: torch.zeros(256, device=dev).add_(1.0), iters)
+    # the card's read rate under this Timer: one torch reduction over as
+    # many contiguous bytes as B3's and B1's main cases read
+    for mb in (48, 31):
+        x = torch.ones(mb << 19, dtype=torch.bfloat16, device=dev)
+        results[f"torch sum over {mb} MB of bf16 (reads)"] = timer.ms(
+            lambda: x.sum(), iters)
+        del x
     for name, row in results.items():
         log(f"[core] {name}: {row}")
     return results
