@@ -27,7 +27,8 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    dense) on B3's source; each with its share of the bound and its time
    with the split-KV kernels it replaced (`DECODE_MS_BEFORE`); the main
    cases of B1 and B3 (and the int8 pool) give the same bits on a
-   second launch and for their longest sequence launched alone; the int4 weight-only matmul (B4) runs at
+   second launch and for their longest sequence launched alone; the
+   int4 weight-only matmul (B4) runs at
    the 8B projection shapes (w_gate, wq, wk at m 1, 5, 8, 16, 256; w_gate
    at m 17, 64, 128 and with fp32 output; w_down's K 14336 at m 8), each
    with its share of the bound and its time with the kernel it replaced,
@@ -604,7 +605,7 @@ def _log_decode_cases(name, rows):
                 f"; two launches bitwise equal {c['same_bits']}; alone "
                 f"= in batch {c['batch_invariant']}")
         log(f"[kernels] {name} {c['case']}: share of bound "
-            f"{c['share_of_bound']:.3f}; PR 6's kernel {before}{bits}")
+            f"{c['share_of_bound']:.3f}; the split-KV kernels {before}{bits}")
 
 
 def phase_decode_kernels(torch, timer, gen):
@@ -633,7 +634,7 @@ def phase_decode_kernels(torch, timer, gen):
     return {"flash_decode": cases}
 
 
-# Scratch variants of PR 6's split-KV decode kernels (`flash_decode.cu`,
+# Scratch variants of the split-KV decode kernels (`flash_decode.cu`,
 # `flash_paged_decode.cu`, two launches per call), for
 # `decode_decompose`: each is (file, old text, new text), applied once.
 _DECOMPOSE_EDITS = {
@@ -667,11 +668,12 @@ _DECOMPOSE_EDITS = {
 
 
 def decode_decompose(torch, csrc, iters: int = 30):
-    """Time PR 6's B1 and B3 kernels (the sources under `csrc`, e.g. a
-    `git archive` of that commit's `ome_tpu_torch/ops/csrc`) at their
-    main cases, as built and in the scratch variants of
-    `_DECOMPOSE_EDITS`, each built with the port's nvcc flags; plus the
-    Timer's reading around one tiny elementwise kernel. Returns
+    """Time the split-KV B1 and B3 kernels that the decode core replaced
+    (the sources under `csrc`, e.g. from a `git archive` of an earlier
+    commit's `ome_tpu_torch/ops/csrc`) at their main cases, as built
+    and in the scratch variants of `_DECOMPOSE_EDITS`, each built with
+    the port's nvcc flags; plus the Timer's reading around one tiny
+    elementwise kernel. Returns
     {kernel: {variant: ms}}. Run alone:
 
         python3 -c "import chip_smoke as c, torch; c.phase_device(torch);
@@ -730,7 +732,7 @@ def decode_decompose(torch, csrc, iters: int = 30):
     plens = torch.tensor([1, 17, 128, 300, 1023, 2049, 4095, 4096],
                          dtype=torch.int32, device=dev)
     plo = torch.zeros_like(plens)
-    n_split = 16  # PR 6's decode_splits(4096)
+    n_split = 16  # their decode_splits(4096)
     pm = torch.empty(B * H * n_split, dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
     pa = torch.empty(B * H * n_split * D, dtype=torch.float32, device=dev)

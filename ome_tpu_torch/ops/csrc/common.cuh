@@ -1,9 +1,9 @@
 // Device helpers shared by the port's hand-written Hopper kernels:
 // flash_decode.cu (B1), flash_prefill.cu (B2), flash_paged_decode.cu
 // (B3, B5; the last two through decode_core.cuh) and int4_matmul.cu
-// (B4), and the host-side tensor-map encoder of the TMA kernels. Everything sits in an anonymous namespace,
-// so each kernel library keeps its own copy and exports only its
-// extern "C" entry point.
+// (B4), and the host-side tensor-map encoder of the TMA kernels.
+// Everything sits in an anonymous namespace, so each kernel library keeps
+// its own copy and exports only its extern "C" entry point.
 //
 // ome_tpu_torch/ops/_build.py hashes every header under csrc/ into each
 // library's build key, so an edit here rebuilds every kernel.

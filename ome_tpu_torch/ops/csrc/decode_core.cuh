@@ -88,7 +88,8 @@ constexpr int kCons = 128;      // decode_tc's consumer threads (a warpgroup)
 constexpr int kTcThreads = kCons + 32;  // and its producer warp
 constexpr int kTcBlocksPerSm = 2;       // TC_BLOCKS_PER_SM
 // dynamic shared bytes a decode_tc block may take, so that two blocks
-// (with their static shared memory and the driver's reserve) fit an SM
+// (with their static shared memory and the 1 KB reserved per block)
+// fit an SM
 constexpr int kTcSmemBudget = 104 * 1024;
 
 // Where a launch's rows live and how its windows are cut.
@@ -514,7 +515,8 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
           uint4* vt = reinterpret_cast<uint4*>(st + L::kKv);
           for (int idx = tid; idx < (D / 64) * kTileRows * 8; idx += kCons) {
             const int row = r0 + ((idx >> 3) & (kTileRows - 1));
-            if (row < un.lo || row >= un.hi) vt[idx] = make_uint4(0u, 0u, 0u, 0u);
+            if (row < un.lo || row >= un.hi)
+              vt[idx] = make_uint4(0u, 0u, 0u, 0u);
           }
         }
       }
@@ -645,15 +647,18 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
             const uint8_t* p = vt + (16 * kc + x) * D;
-            w[x] = D == 128 ? *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u
-                            : (uint32_t)*reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
+            if constexpr (D == 128)
+              w[x] = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+            else
+              w[x] = (uint32_t)*reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
           }
 #pragma unroll
           for (int h = 0; h < D / 64; ++h) {
-            vfr[h][kc][0] = pack_bf16(int8_at(w[0], 2 * h), int8_at(w[1], 2 * h));
-            vfr[h][kc][1] = pack_bf16(int8_at(w[0], 2 * h + 1), int8_at(w[1], 2 * h + 1));
-            vfr[h][kc][2] = pack_bf16(int8_at(w[2], 2 * h), int8_at(w[3], 2 * h));
-            vfr[h][kc][3] = pack_bf16(int8_at(w[2], 2 * h + 1), int8_at(w[3], 2 * h + 1));
+            const int e0 = 2 * h, e1 = 2 * h + 1;
+            vfr[h][kc][0] = pack_bf16(int8_at(w[0], e0), int8_at(w[1], e0));
+            vfr[h][kc][1] = pack_bf16(int8_at(w[0], e1), int8_at(w[1], e1));
+            vfr[h][kc][2] = pack_bf16(int8_at(w[2], e0), int8_at(w[3], e0));
+            vfr[h][kc][3] = pack_bf16(int8_at(w[2], e1), int8_at(w[3], e1));
           }
         }
         wgmma_fence();

@@ -46,11 +46,12 @@ cudaError_t dispatch_d(const DecodeArgs& a, bool q_bf16, bool kv_int8) {
 // q [B, H, D] (bf16 or fp32); k_pool, v_pool [N, bs, K, D] in q's dtype,
 // or int8 with k_scale, v_scale [N, K, bs] fp32 (NULL otherwise);
 // table [B, M] int32 pool block ids; lo, hi [B] int32 sequence rows
-// [lo, hi) to attend (lo NULL: 0); out [B, H, D] in q's dtype. part: fp32 workspace of
-// G (D + 4) floats per unit, for every unit the windows can have (B K
-// ceil(M bs / unit_rows)); cnt [B K] int32, all 0 (each launch leaves it
-// so). unit_rows and grid are ops/flash.py::decode_plan's. softcap <= 0
-// disables the softcap. Returns the CUDA error code of the launch.
+// [lo, hi) to attend (lo NULL: 0); out [B, H, D] in q's dtype. part:
+// fp32 workspace of G (D + 4) floats per unit, for every unit the
+// windows can have (B K ceil(M bs / unit_rows)); cnt [B K] int32, all 0
+// (each launch leaves it so). unit_rows and grid are ops/flash.py::
+// decode_plan's. softcap <= 0 disables the softcap. Returns the CUDA
+// error code of the launch.
 extern "C" int ome_flash_paged_decode(
     const void* q, const void* k_pool, const void* v_pool,
     const float* k_scale, const float* v_scale, const int* table,
