@@ -24,10 +24,31 @@ tensors are updated in place directly (`insert` copies a prefill's KV
 into its slot or its pool blocks, `decode` writes each new row), which
 keeps the same single copy of the cache on the device.
 
-Multi-LoRA adapters, grammar masks, multi-step decode, speculative
-verify (and with it `_grow_blocks_spec` / `commit_spec`) and the
-prefix cache's host tier are not ported yet: the serve flags that would
-ask for them refuse (engine/serve.py).
+The scheduler's step plans run through the ops below (the reference's
+`_decode_multi*` / `_verify*` programs and its host block ops):
+
+  * `decode_multi` runs K decode iterations in one call: a Python loop
+    over tensors on the device that samples, appends KV and feeds each
+    token back, freezing a slot with `torch.where` on a stop-table
+    token, its budget or the cache capacity. Nothing inside the chunk
+    reads the device from the host; the outputs' host copies are queued
+    behind the chunk, so the caller syncs once per chunk. On a card
+    each iteration runs the decode kernel (B1 dense, B3 paged);
+  * `verify` scores k drafted tokens plus a bonus position in one
+    forward of S = k+1 rows (dense: the prefill kernel B2 from
+    base = lengths; paged: the plain `paged_attention_multi`) and
+    accepts per slot with `sampling.spec_verify`;
+  * a paged chunk or verify pre-allocates the blocks of every row it
+    may write (`_grow_blocks_spec`), so the block table is static for
+    the call; `commit_spec` reconciles the host length mirror after the
+    drain and returns the surplus;
+  * grammar masks: `decode`, `decode_multi` and `verify` take a dense
+    allowed-token mask or indices into a device-resident mask table
+    (`_mask_table`, filled row by row by `set_mask_row`); `prefill`
+    takes a `first_mask` for the first sampled token.
+
+Multi-LoRA adapters and the prefix cache's host tier are not ported
+yet: the serve flags that would ask for them refuse (engine/serve.py).
 """
 
 from __future__ import annotations
@@ -44,7 +65,7 @@ from ..models import llama
 from ..models.config import ModelConfig
 from ..models.params import Params
 from ..ops.flash import check_paged_coverage, quantize_rows
-from .sampling import sample
+from .sampling import sample, spec_verify
 
 
 @dataclasses.dataclass
@@ -88,13 +109,18 @@ def _bucketize(n: int, buckets: List[int]) -> int:
 
 
 def _sampling_array(x, dtype, device) -> torch.Tensor:
-    """Per-step sampling params: convert host inputs to a tensor on the
-    engine's device, but pass tensors through untouched — the
-    scheduler caches them on the device so a decode step uploads
-    nothing."""
+    """Per-step host inputs (sampling params, budgets, drafts, masks):
+    convert to a tensor on the engine's device, but pass tensors
+    through untouched — the scheduler caches the sampling params and
+    the stop table on the device. On a card the copy goes through
+    pinned memory without blocking, so uploading a plan's inputs does
+    not wait for the step still in flight."""
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    host = torch.as_tensor(np.ascontiguousarray(x), dtype=dtype)
+    if torch.device(device).type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
 
 
 class TokenHandle:
@@ -118,6 +144,11 @@ class TokenHandle:
         else:
             self._host = toks.clone()
             self._event = None
+
+    @property
+    def shape(self) -> torch.Size:
+        """The tokens' shape (metadata only: no wait on the device)."""
+        return self._host.shape
 
     def __array__(self, dtype=None, copy=None):
         if self._event is not None:
@@ -237,8 +268,12 @@ class PrefixCache:
 
 
 class InferenceEngine:
-    """Prefill / insert / decode over one dense Llama model on one
-    device, with a dense or a paged KV cache."""
+    """Prefill / insert / decode (and the step-plan ops decode_multi /
+    verify) over one dense Llama model on one device, with a dense or a
+    paged KV cache."""
+
+    # the scheduler's K-step chunk plans need decode_multi
+    supports_multi_step = True
 
     def __init__(self, params: Params, cfg: ModelConfig,
                  max_slots: int = 8, max_seq: Optional[int] = None,
@@ -247,7 +282,7 @@ class InferenceEngine:
                  kv_block: int = 0, kv_blocks: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0):
+                 seed: int = 0, mask_table_rows: int = 64):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_slots = max_slots
@@ -327,10 +362,21 @@ class InferenceEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._rng_lock = threading.Lock()
+        # device-resident grammar mask table [rows, V] bool, created
+        # all-True on first touch; row 0 stays all-True (the unmasked
+        # sentinel every index array defaults to)
+        self.mask_table_rows = int(mask_table_rows)
+        self._mask_table_dev: Optional[torch.Tensor] = None
 
     def _sample(self, logits, temperature, top_k, top_p) -> torch.Tensor:
         with self._rng_lock:
             return sample(logits, self._gen, temperature, top_k, top_p)
+
+    def _spec_verify(self, logits, drafts, draft_len, temperature, top_k,
+                     top_p):
+        with self._rng_lock:
+            return spec_verify(logits, drafts, draft_len, self._gen,
+                               temperature, top_k, top_p)
 
     # -- state ---------------------------------------------------------
 
@@ -464,6 +510,61 @@ class InferenceEngine:
                 self._table_dirty = True
             self._host_len[b] = w + 1  # mirror of the device +1
 
+    def _grow_blocks_spec(self, rows: int) -> None:
+        """Pre-allocate blocks covering each active slot's next `rows`
+        writes (a verify step writes k+1 rows at once, a K-step chunk up
+        to K) WITHOUT advancing the host length mirror: how far the
+        device advanced is known only after the drain, when
+        commit_spec() reconciles and returns the surplus. Pool pressure
+        preempts victims exactly like _grow_blocks."""
+        for b in range(self.max_slots):
+            if not self._owned[b]:
+                continue
+            w = int(self._host_len[b])
+            top = min(w + rows, self.max_seq)  # write rows [w, top)
+            need = min(-(-top // self.kv_block), self.max_blocks)
+            while len(self._owned[b]) < need:
+                j = len(self._owned[b])
+                self._growing_slot = b
+                while not self._free_blocks:
+                    if not self._preempt_victim():
+                        break
+                self._growing_slot = None
+                if not self._owned[b]:
+                    break  # b itself was the victim
+                if not self._free_blocks:
+                    # never let a live slot write into the trash block
+                    self._preempted.append(b)
+                    self.free_slot(b)
+                    break
+                nid = self._free_blocks.pop()
+                self._owned[b].append(nid)
+                self._table[b, j] = nid
+                self._table_dirty = True
+
+    def commit_spec(self, slot: int, advance: int,
+                    reserve: int = 0) -> None:
+        """Reconcile a slot's host length mirror after a drained verify
+        (or multi-token decode) step advanced its device length by
+        `advance`, and return the blocks allocated past the new length
+        to the pool — the paged rollback of rejected draft rows.
+        `reserve` keeps blocks covering that many rows PAST the new
+        length: chunks already dispatched behind this one will write
+        rows [len, len + reserve), and an insert must not take those
+        blocks first."""
+        if not self.kv_block or not self._owned[slot]:
+            return
+        self._host_len[slot] = min(
+            int(self._host_len[slot]) + advance, self.max_seq)
+        need = self.blocks_needed(min(
+            int(self._host_len[slot]) + max(int(reserve), 0),
+            self.max_seq))
+        while len(self._owned[slot]) > need:
+            nid = self._owned[slot].pop()
+            self._table[slot, len(self._owned[slot])] = 0
+            self._free_blocks.append(nid)
+            self._table_dirty = True
+
     @property
     def kv_pool_stats(self) -> Dict[str, int]:
         return {"kv_blocks": getattr(self, "kv_blocks", 0),
@@ -527,13 +628,17 @@ class InferenceEngine:
     @torch.no_grad()
     def prefill(self, prompt_ids: List[int], temperature: float = 0.0,
                 top_k: int = 0, top_p: float = 1.0,
-                adapter: Optional[str] = None):
+                adapter: Optional[str] = None,
+                first_mask: Optional[np.ndarray] = None):
         """Returns (first_token: int, kv pair, true_len, bucket).
 
         With the prefix cache on, a prompt whose leading token blocks
         were cached by an earlier request runs only its suffix through
         the model: positions continue at the cached prefix length and
-        attention reaches into a cache seeded with the cached KV."""
+        attention reaches into a cache seeded with the cached KV.
+        `first_mask` ([V] bool) constrains the first sampled token
+        (structured outputs) and bypasses the prefix-cache suffix path,
+        as in the reference (the prompt still seeds the cache)."""
         # leave room for one generated token; cap at the largest bucket
         max_prompt = min(self.max_seq - 1, self.prefill_buckets[-1])
         ids = list(prompt_ids)[-max_prompt:]
@@ -553,8 +658,8 @@ class InferenceEngine:
                     <= self.prefill_buckets[-1])
 
         aid = self.adapter_id(adapter)
-        hit = None if aid != 0 else self.prefix_cache.match(
-            ids, usable=_usable)
+        hit = None if (first_mask is not None or aid != 0) \
+            else self.prefix_cache.match(ids, usable=_usable)
         if hit is not None:
             pk, pv, plen, _ = hit
             plen = _pow2_keep(plen)  # discard the ragged tail blocks
@@ -576,7 +681,12 @@ class InferenceEngine:
                                   dtype=torch.int32, device=dev)
             last = torch.tensor([len(ids) - 1], device=dev)
         logits, new_cache = self.model(padded, cache=cache, rows=last)
-        tok = self._sample(logits[:, 0], *sampling)
+        last_logits = logits[:, 0]
+        if first_mask is not None:
+            allowed = _sampling_array(np.asarray(first_mask, bool)[None],
+                                      torch.bool, dev)
+            last_logits = torch.where(allowed, last_logits, -torch.inf)
+        tok = self._sample(last_logits, *sampling)
         k, v = new_cache.k, new_cache.v
         if aid == 0:
             self.prefix_cache.put(ids, k, v, len(ids), bucket)
@@ -654,32 +764,196 @@ class InferenceEngine:
             self._table_dirty = False
         return self._table_dev
 
+    # -- grammar mask table --------------------------------------------
+
+    def _mask_table(self) -> torch.Tensor:
+        """The device-resident [mask_table_rows, V] grammar mask table,
+        created all-True on first touch. Row 0 stays all-True forever —
+        the sentinel unmasked slots index."""
+        if self._mask_table_dev is None:
+            self._mask_table_dev = torch.ones(
+                (self.mask_table_rows, self.cfg.vocab_size),
+                dtype=torch.bool, device=self.device)
+        return self._mask_table_dev
+
+    def set_mask_row(self, row: int, bits: np.ndarray) -> None:
+        """Upload one grammar-state mask as row `row` (>= 1; row 0 is
+        the reserved all-True sentinel) of the device mask table. The
+        write is queued on the device stream after every step already
+        dispatched, so a plan in flight gathers the row it was planned
+        with."""
+        row = int(row)
+        if not 1 <= row < self.mask_table_rows:
+            raise ValueError(f"mask row {row} out of range "
+                             f"[1, {self.mask_table_rows})")
+        tab = self._mask_table()
+        tab[row] = _sampling_array(np.asarray(bits, bool), torch.bool,
+                                   self.device)
+
+    def _masks(self, mask, mask_idx) -> Optional[torch.Tensor]:
+        """The allowed-token mask a step samples under: rows of the
+        device table gathered by `mask_idx` (int32 indices, any shape)
+        when given, else the dense `mask` uploaded, else None."""
+        if mask_idx is not None:
+            idx = _sampling_array(mask_idx, torch.long, self.device)
+            return self._mask_table()[idx.long()]
+        if mask is not None:
+            return _sampling_array(mask, torch.bool, self.device)
+        return None
+
+    # -- decode ops ----------------------------------------------------
+
+    def _forward_step(self, state: DecodeState, tokens: torch.Tensor):
+        """One forward of `tokens` [B, S] over the decode cache at the
+        slots' lengths, writing their K/V rows in place. Returns
+        (logits [B, S, V], new lengths [B])."""
+        if self.kv_block:
+            cache = llama.PagedKVCache(
+                k=state.k, v=state.v, index=state.lengths,
+                table=self._device_table(), k_scale=state.k_scale,
+                v_scale=state.v_scale)
+            logits, nc = self.model.forward_paged(tokens, cache)
+        else:
+            cache = llama.KVCache(k=state.k, v=state.v,
+                                  index=state.lengths)
+            logits, nc = self.model(tokens, cache=cache)
+        return logits, nc.index
+
     @torch.no_grad()
-    def decode(self, state: DecodeState, temperature, top_k, top_p
+    def decode(self, state: DecodeState, temperature, top_k, top_p,
+               mask: Optional[np.ndarray] = None,
+               mask_idx: Optional[np.ndarray] = None,
                ) -> Tuple[DecodeState, TokenHandle]:
         """One decode step for ALL slots. Sampling params: [B] host
         arrays or device tensors (the scheduler's cache). Free slots
         decode too, on whatever their cache holds; their tokens are
-        discarded by the caller.
+        discarded by the caller. `mask` ([B, V] bool) constrains
+        sampling (structured outputs); `mask_idx` ([B] int32, wins over
+        `mask`) instead gathers each slot's row of the device mask
+        table — B ints of transfer instead of B*V bools (0 = the
+        all-True row).
 
         Returns the state (updated in place) and a TokenHandle whose
         host copy is already queued, so a pipelined caller can dispatch
         the next step before reading the tokens."""
         sampling = self._sampling(temperature, top_k, top_p)
+        allowed = self._masks(mask, mask_idx)
         if self.kv_block:
             self._grow_blocks()
-            cache = llama.PagedKVCache(
-                k=state.k, v=state.v, index=state.lengths,
-                table=self._device_table(), k_scale=state.k_scale,
-                v_scale=state.v_scale)
-            logits, new_cache = self.model.forward_paged(
-                state.tokens[:, None], cache)
-        else:
-            cache = llama.KVCache(k=state.k, v=state.v,
-                                  index=state.lengths)
-            logits, new_cache = self.model(state.tokens[:, None],
-                                           cache=cache)
-        toks = self._sample(logits[:, -1], *sampling)
-        state.lengths = new_cache.index
+        logits, lengths = self._forward_step(state, state.tokens[:, None])
+        last = logits[:, -1]
+        if allowed is not None:
+            last = torch.where(allowed, last, -torch.inf)
+        toks = self._sample(last, *sampling)
+        state.lengths = lengths
         state.tokens = toks
         return state, TokenHandle(toks)
+
+    @torch.no_grad()
+    def decode_multi(self, state: DecodeState, temperature, top_k, top_p,
+                     steps: int, budget, stop_ids,
+                     lookahead_rows: Optional[int] = None,
+                     mask: Optional[np.ndarray] = None,
+                     mask_idx: Optional[np.ndarray] = None,
+                     ) -> Tuple[DecodeState, TokenHandle, TokenHandle]:
+        """`steps` decode iterations for ALL slots in one call, with one
+        host sync per chunk instead of per token (the reference's
+        `_multi_body` / `_multi_loop`).
+
+        budget: [B] int32 per-slot remaining-token cap (0 freezes the
+        slot for the chunk); stop_ids: [B, NS] int32 stop table, -1
+        padding. Both may be host arrays or device tensors. A slot
+        freezes — its token and length held, on the device — once it
+        sampled a stop-table token, spent its budget or reached the
+        cache capacity, and a slot whose input token is already a stop
+        freezes for the whole chunk. The freeze rules are a subset of
+        the host's finish rules: the device may run long (the host
+        discards the overshoot at the drain), never short.
+        lookahead_rows (paged only): rows to pre-allocate per slot,
+        covering every plan still in flight plus this one (default
+        `steps`). mask ([B, steps, V] bool) / mask_idx ([B, steps]
+        int32 table rows, wins) constrain iteration i to mask[:, i].
+
+        Returns (state, tokens [B, steps], advanced [B]) as TokenHandles
+        with their host copies queued: slot b produced
+        tokens[b, :advanced[b]]; paged callers reconcile each drained
+        chunk with commit_spec(slot, advanced, reserve=...)."""
+        sampling = self._sampling(temperature, top_k, top_p)
+        dev = self.device
+        budget = _sampling_array(budget, torch.int32, dev)
+        stop_ids = _sampling_array(stop_ids, torch.int32, dev)
+        allowed = self._masks(mask, mask_idx)
+        n = int(steps)
+        if self.kv_block:
+            self._grow_blocks_spec(n if lookahead_rows is None
+                                   else int(lookahead_rows))
+        B = self.max_slots
+        done = (budget <= 0) | (state.tokens[:, None]
+                                == stop_ids).any(dim=1)
+        acc = torch.zeros((B, n), dtype=torch.int32, device=dev)
+        adv = torch.zeros((B,), dtype=torch.int32, device=dev)
+        for i in range(n):
+            active = (~done) & (budget > i) & (state.lengths
+                                               < self.max_seq)
+            logits, lengths = self._forward_step(state,
+                                                 state.tokens[:, None])
+            last = logits[:, -1]
+            if allowed is not None:
+                last = torch.where(allowed[:, i], last, -torch.inf)
+            toks = torch.where(active, self._sample(last, *sampling),
+                               state.tokens)
+            done = done | (toks[:, None] == stop_ids).any(dim=1)
+            acc[:, i] = toks
+            adv += active.to(torch.int32)
+            state.lengths = torch.where(active, lengths, state.lengths)
+            state.tokens = toks
+        return state, TokenHandle(acc), TokenHandle(adv)
+
+    @torch.no_grad()
+    def verify(self, state: DecodeState, drafts, draft_len, temperature,
+               top_k, top_p, lookahead_rows: Optional[int] = None,
+               mask: Optional[np.ndarray] = None,
+               mask_idx: Optional[np.ndarray] = None,
+               ) -> Tuple[DecodeState, TokenHandle, TokenHandle]:
+        """One speculative verify step for ALL slots: score the k
+        drafted tokens plus one bonus position in a single forward of
+        [last token, d_0 .. d_{k-1}] per slot, and accept per slot the
+        longest valid prefix (`sampling.spec_verify`). A slot with
+        draft_len 0 is a plain decode step. The K/V of all k+1 rows are
+        written at the slot's length; the rollback of rejected rows is
+        just the length update (rows past lengths + accepted + 1 are
+        never read and are overwritten later).
+
+        drafts: [B, k] int32 (garbage past draft_len); draft_len: [B]
+        in [0, k]. mask ([B, V] bool) constrains position 0 — how masked
+        slots ride a verify plan at draft_len 0; mask_idx ([B, k+1]
+        int32 table rows, wins) masks every position. Paged callers
+        pass lookahead_rows (the rows of every plan in flight plus this
+        one's k+1, default k+1) and commit each drained step with
+        commit_spec(slot, accepted + 1, reserve=...).
+
+        Returns (state, out_tokens [B, k+1], accepted [B]) as
+        TokenHandles with their host copies queued: slot b emits
+        out_tokens[b, :accepted[b]+1]."""
+        sampling = self._sampling(temperature, top_k, top_p)
+        dev = self.device
+        drafts = _sampling_array(drafts, torch.int32, dev)
+        draft_len = _sampling_array(draft_len, torch.int32, dev)
+        k = int(drafts.shape[1])
+        if self.kv_block:
+            self._grow_blocks_spec(k + 1 if lookahead_rows is None
+                                   else int(lookahead_rows))
+        toks = torch.cat([state.tokens[:, None], drafts], dim=1)
+        logits, _ = self._forward_step(state, toks)
+        if mask_idx is not None:
+            logits = torch.where(self._masks(None, mask_idx), logits,
+                                 -torch.inf)
+        elif mask is not None:
+            logits[:, 0] = torch.where(self._masks(mask, None),
+                                       logits[:, 0], -torch.inf)
+        out, accepted = self._spec_verify(logits, drafts, draft_len,
+                                          *sampling)
+        state.lengths = state.lengths + accepted + 1
+        state.tokens = torch.gather(out, 1,
+                                    accepted.long()[:, None])[:, 0]
+        return state, TokenHandle(out), TokenHandle(accepted)

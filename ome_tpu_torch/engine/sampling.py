@@ -59,8 +59,93 @@ def sample(logits: torch.Tensor, generator: torch.Generator,
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     scaled = filtered_logits(logits, temperature, top_k, top_p)
-    u = torch.rand(scaled.shape, generator=generator,
-                   device=scaled.device, dtype=torch.float32)
-    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
-    sampled = torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+    sampled = _categorical(scaled, generator)
     return torch.where(temperature.to(logits.device) > 0, sampled, greedy)
+
+
+def _categorical(logits: torch.Tensor,
+                 generator: torch.Generator) -> torch.Tensor:
+    """One draw per row of `logits` [..., V] (unnormalized log
+    probabilities) by the Gumbel-max trick, with uniforms from
+    `generator`. Returns [...] int32."""
+    u = torch.rand(logits.shape, generator=generator,
+                   device=logits.device, dtype=torch.float32)
+    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20, max=1.0 - 1e-7)))
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
+def spec_verify(logits: torch.Tensor, drafts: torch.Tensor,
+                draft_len: torch.Tensor, generator: torch.Generator,
+                temperature: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor):
+    """Batched draft verification (Leviathan et al. 2023), the
+    reference's `spec_verify` with its `jax.random` key replaced by
+    `generator`.
+
+    One verify forward scored S = k+1 positions per slot: position 0
+    follows the committed last token, position i (1 <= i <= k) follows
+    draft token i-1. logits [B, S, V]; drafts [B, k] int32; draft_len
+    [B] in [0, k] (0: the slot did not draft, and the step is a plain
+    decode for it); temperature/top_k/top_p [B].
+
+    Greedy slots accept d_i iff it equals the argmax at position i,
+    exactly. Temperature > 0 slots accept d_i with probability p_i(d_i)
+    under the filtered target distribution (the one `sample` draws
+    from) and on rejection resample from p_i with d_i removed, which
+    preserves the target distribution.
+
+    Returns (out_tokens [B, S] int32, accepted [B] int32): slot b emits
+    out_tokens[b, :accepted[b]+1]; out_tokens[b, accepted[b]] is its
+    new last token."""
+    logits = logits.float()
+    B, S, V = logits.shape
+    k = S - 1
+    dev = logits.device
+    temperature = temperature.to(dev)
+    drafts = drafts.to(device=dev, dtype=torch.long)
+    draft_len = draft_len.to(device=dev)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, S]
+    filt = filtered_logits(
+        logits.reshape(B * S, V), temperature.repeat_interleave(S),
+        top_k.to(dev).repeat_interleave(S),
+        top_p.to(dev).repeat_interleave(S)).reshape(B, S, V)
+    probs = torch.softmax(filt, dim=-1)
+
+    pos = torch.arange(k, device=dev)[None, :]
+    in_draft = pos < draft_len[:, None]
+    # per-position accept decisions, then the longest accepted prefix
+    draft_p = torch.gather(probs[:, :k], 2, drafts[..., None])[..., 0]
+    u = torch.rand((B, k), generator=generator, device=dev,
+                   dtype=torch.float32)
+    accept = torch.where(temperature[:, None] > 0, u < draft_p,
+                         drafts == greedy[:, :k])
+    run = torch.cumprod((accept & in_draft).to(torch.int32), dim=1)
+    accepted = run.sum(dim=1).to(torch.int32)  # [B] in [0, k]
+
+    # the token emitted at the stop position: on rejection at i, the
+    # residual sample (p_i with d_i removed); on full acceptance
+    # (stop == draft_len), a plain sample from p_stop
+    is_draft_tok = (torch.arange(V, device=dev)[None, None, :]
+                    == drafts[..., None])
+    resid_tok = _categorical(
+        torch.where(is_draft_tok, torch.full_like(filt[:, :k], NEG_INF),
+                    filt[:, :k]), generator)                 # [B, k]
+    bonus_tok = _categorical(filt, generator)                # [B, S]
+    stop_tok = torch.cat([
+        torch.where(pos == draft_len[:, None], bonus_tok[:, :k],
+                    resid_tok),
+        bonus_tok[:, k:]], dim=1)                            # [B, S]
+    # greedy slots emit argmax(raw logits) at the stop position either
+    # way: on rejection the masked argmax equals the unmasked one
+    stop_tok = torch.where(temperature[:, None] > 0, stop_tok, greedy)
+
+    next_tok = torch.gather(stop_tok, 1, accepted.long()[:, None])
+    drafts_pad = torch.cat([drafts.to(torch.int32),
+                            torch.zeros((B, 1), dtype=torch.int32,
+                                        device=dev)], dim=1)  # [B, S]
+    j = torch.arange(S, device=dev)[None, :]
+    acc = accepted[:, None]
+    out = torch.where(j < acc, drafts_pad,
+                      torch.where(j == acc, next_tok,
+                                  torch.zeros_like(drafts_pad)))
+    return out.to(torch.int32), accepted

@@ -12,11 +12,20 @@ complete; `insert` is the only synchronization point. A slot semaphore
 paces admission: the thread holds at most max_slots prefills ahead of
 their inserts, and a finished request releases its slot back.
 
+The decode loop is a planner/executor pair, as in the reference:
+`_plan_step` decides once per iteration which engine op runs (plain
+decode / K-token chunk through `decode_multi` / speculative verify) and
+what it carries (grammar masks, chunk budgets, draft tokens); `_execute`
+dispatches any plan the same way. Pipelining, multi-token chunks,
+speculative verify and structured-output masks compose as plan
+features; when the planner cannot meet a plan's precondition it flushes
+and counts the cause on `ome_engine_step_degradations_total`.
+
 Decode pipelining: with `pipeline_depth` 1 the tokens of step k are read
 on the host only after step k+1 was dispatched (the engine queues their
 host copy behind the step), hiding the host-side bubble; depth 0 reads
-every step synchronously. `_plan_step` / `_execute` keep the reference's
-planner/executor shape; in this slice every plan is a plain decode step.
+every step synchronously. A plan marked `sync` (a sampled token the next
+plan depends on) drains at once.
 
 Failure semantics: an engine-step fault fails only the in-flight batch;
 queued requests survive, the decode state is rebuilt after an
@@ -33,10 +42,9 @@ whose prompt does not fit the free blocks waits in the requeue
 ranked by `_preempt_rank`; their generated tokens fold into the prompt
 of the requeued request. `/metrics` carries the pool gauges.
 
-Not in this slice (the serve flags that would need them refuse):
-speculative verify, multi-token chunks, grammar masks, the request
-journal, PD and cross-replica prefix fetches and the program cost
-ledger / HBM accountant gauges.
+Not ported yet (the serve flags that would need them refuse): the
+request journal, PD and cross-replica prefix fetches and the program
+cost ledger / HBM accountant gauges.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +70,7 @@ from ..priority import class_weights as _weights_table
 from ..telemetry import Registry
 from ..telemetry.flight import FlightRecorder
 from ..telemetry.tracing import Span, coerce_span_log, new_trace
+from . import spec as spec_drafter
 from .core import (DecodeState, InferenceEngine, KVPoolExhausted,
                    UnknownAdapterError)
 
@@ -91,19 +100,92 @@ _COUNTER_HELP = {
     "rejected_total": "Requests rejected at admission (429)",
     "engine_faults_total": "Engine-step faults (crash recovery runs)",
     "restarts_total": "Successful scheduler crash recoveries",
+    "spec_steps_total": "Speculative verify steps dispatched",
+    "spec_proposed_tokens_total":
+        "Draft tokens proposed by the n-gram drafter",
+    "spec_accepted_tokens_total":
+        "Draft tokens accepted by verify forwards",
 }
 
 
+class _SpecStep:
+    """Lag-queue payload of one speculative verify step: the [B, k+1]
+    emitted-token matrix and [B] accepted counts (host copies already
+    in flight, like plain decode tokens), the host-side draft lengths
+    for acceptance accounting and the dispatch timestamp for the
+    spec_verify span."""
+
+    __slots__ = ("out", "accepted", "draft_len", "t_dispatch")
+
+    def __init__(self, out, accepted, draft_len, t_dispatch=0.0):
+        self.out = out
+        self.accepted = accepted
+        self.draft_len = draft_len
+        self.t_dispatch = t_dispatch
+
+
+class _MultiStep:
+    """Lag-queue payload of one multi-token decode chunk: the [B, k]
+    sampled-token matrix and [B] advanced counts (host copies in
+    flight), the chunk size and the dispatch timestamp for the
+    decode_chunk span."""
+
+    __slots__ = ("out", "advanced", "k", "t_dispatch")
+
+    def __init__(self, out, advanced, k, t_dispatch):
+        self.out = out
+        self.advanced = advanced
+        self.k = k
+        self.t_dispatch = t_dispatch
+
+
 class StepPlan:
-    """One scheduler iteration's device work, decided at plan time.
-    In this slice the only kind is a plain decode step; `sync` drains
-    its tokens right after dispatch."""
+    """One scheduler iteration's device work, decided entirely at plan
+    time: which engine op runs (plain decode / K-token chunk / spec
+    verify), the per-slot constraints it carries (grammar masks, chunk
+    budgets, draft tokens), how many KV rows per slot it may commit,
+    and whether its results must drain synchronously because a sampled
+    token the next plan depends on cannot be known in advance. The
+    executor dispatches every plan the same way; composition decisions
+    live only in the planner."""
 
-    __slots__ = ("kind", "sync")
+    __slots__ = ("kind", "k", "sync", "mask", "mask_stack",
+                 "mask_idx", "mask_stack_idx", "drafts", "dlen",
+                 "budget", "rows", "mask_s")
 
-    def __init__(self, kind: str = "decode", sync: bool = False):
-        self.kind = kind
-        self.sync = sync
+    def __init__(self, kind, k=1, sync=False, mask=None,
+                 mask_stack=None, mask_idx=None, mask_stack_idx=None,
+                 drafts=None, dlen=None, budget=None,
+                 rows=1, mask_s=0.0):
+        self.kind = kind              # "decode" | "chunk" | "verify"
+        self.k = k                    # chunk length / max draft tokens
+        self.sync = sync              # drain everything after dispatch
+        self.mask = mask              # [B, V] allowed-token mask
+        self.mask_stack = mask_stack  # [B, k, V] per-iteration masks
+        # device mask-table row indices replacing the dense arrays
+        # above when every referenced grammar state is resident: row 0
+        # is the reserved all-True row unmasked slots point at
+        self.mask_idx = mask_idx            # [B] or [B, k+1] int32
+        self.mask_stack_idx = mask_stack_idx  # [B, k] int32
+        self.drafts = drafts          # [B, k] draft tokens (verify)
+        self.dlen = dlen              # [B] draft lengths (verify)
+        self.budget = budget          # [B] per-slot chunk budget
+        self.rows = rows              # KV rows this plan writes/slot
+        self.mask_s = mask_s          # host seconds building masks
+
+
+# degradation causes the planner can count — a fixed enum so the
+# counter's label cardinality is bounded. `masked` counts only a masker
+# whose automaton cannot be copied (no grammar walk); `spec_verify`
+# names an old carve-out and stays 0.
+DEGRADE_CAUSES = ("masked", "spec_verify", "spec_realign",
+                  "engine_multi_step", "engine_verify")
+
+
+# fixed width of the per-slot device stop table: stop ids past this
+# count are detected on the host only (the device just freezes later —
+# overshoot is discarded at the drain, so streams stay identical)
+_STOP_TABLE_WIDTH = 4
 
 
 # WDRR quantum: deficit credit per class visit is weight x this many
@@ -254,6 +336,9 @@ class Request:
     top_k: int = 0
     top_p: float = 1.0
     stop_ids: Sequence[int] = ()
+    # structured outputs: a TokenMasker (engine/structured.py)
+    # constrains sampling to valid continuations of its grammar
+    masker: Optional[object] = None
     # multi-LoRA adapter name; None = base (the only model served here)
     adapter: Optional[str] = None
     # multi-tenant priority class: drives the WDRR pick order and the
@@ -336,7 +421,10 @@ class Scheduler:
                  class_weights=None,
                  class_wait_caps=None,
                  priority_scheduling: bool = True,
-                 slow_step_factor: float = 4.0):
+                 slow_step_factor: float = 4.0,
+                 spec_tokens: int = 0,
+                 steps_per_dispatch: int = 1,
+                 grammar_table: bool = True):
         self.engine = engine
         # slow-step outlier threshold: a step slower than this factor
         # times the rolling median records a slow_step flight event
@@ -359,6 +447,36 @@ class Scheduler:
         # token emission. 0 = fetch every step synchronously; 1 = step
         # k's tokens are read only after step k+1 was dispatched
         self.pipeline_depth = max(int(pipeline_depth), 0)
+        # speculative decoding: max draft tokens per slot per step
+        # proposed by the host-side n-gram drafter (engine/spec.py) and
+        # verified in ONE batched forward. 0 = off; steps where no slot
+        # drafts, or a slot is near the cache capacity, run plainly, so
+        # greedy streams are identical either way
+        self.spec_tokens = max(int(spec_tokens), 0)
+        # multi-token decode: K decode iterations per engine call
+        # (decode_multi), the host syncing once per K-token chunk
+        self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
+        init_degrades = []
+        if self.steps_per_dispatch > 1 and not (
+                callable(getattr(engine, "decode_multi", None))
+                and getattr(engine, "supports_multi_step", False)):
+            log.warning("steps_per_dispatch=%d requested but engine %s "
+                        "has no multi-step decode; running at 1",
+                        self.steps_per_dispatch, type(engine).__name__)
+            self.steps_per_dispatch = 1
+            init_degrades.append("engine_multi_step")
+        # speculative verify needs the engine's verify op; engines
+        # without one run plain (counted once, not per step)
+        self._spec_ok = callable(getattr(engine, "verify", None))
+        if self.spec_tokens > 0 and not self._spec_ok:
+            init_degrades.append("engine_verify")
+        # per-slot predicted continuation beyond the committed stream:
+        # [] = in sync with the device, a token list = exactly what the
+        # plans still in flight will emit (forced grammar tokens,
+        # full-accept draft predictions), None = unknown until a drain
+        # or flush re-anchors it
+        self._planned_tail: List[Optional[List[int]]] = \
+            [[] for _ in range(engine.max_slots)]
         # shared telemetry registry: the EngineServer scrapes it on
         # /metrics; stats-dict counters below are mirrored into it
         self.registry = registry or Registry()
@@ -417,6 +535,9 @@ class Scheduler:
         # tensors on the engine's device), rebuilt only when a slot's
         # occupancy or params change — not three uploads per step
         self._sampling_dev: Optional[tuple] = None
+        # device-resident [B, NS] per-slot stop table for multi-step
+        # chunks, cached on the same invalidation rule
+        self._stops_dev: Optional[torch.Tensor] = None
         # monotonic timestamp of the last dispatch RETURN; the gap to
         # the next dispatch START is the host-side bubble pipelining
         # removes (None after idle/recovery)
@@ -447,7 +568,9 @@ class Scheduler:
             "preemptions_total": 0, "kv_requeues_total": 0,
             "timeouts_total": 0,
             "rejected_total": 0, "engine_faults_total": 0,
-            "restarts_total": 0,
+            "restarts_total": 0, "spec_steps_total": 0,
+            "spec_proposed_tokens_total": 0,
+            "spec_accepted_tokens_total": 0,
         }
         R = self.registry
         self._counters = {
@@ -488,6 +611,15 @@ class Scheduler:
         self._g_status = R.gauge(
             "ome_engine_status",
             "Scheduler health state", labelnames=("state",))
+        self._h_spec_accept = R.histogram(
+            "ome_engine_spec_accept_rate",
+            "Per-verify-step fraction of proposed draft tokens "
+            "accepted (steps where at least one slot drafted)",
+            buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0))
+        self._h_spec_accepted = R.histogram(
+            "ome_engine_spec_accepted_tokens_per_step",
+            "Accepted draft tokens per drafting slot per verify step",
+            buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0))
         # prefix-cache observability (engine counters are plain ints;
         # update_gauges mirrors them by delta so /metrics sees them)
         self._c_pc_hits = R.counter(
@@ -503,22 +635,78 @@ class Scheduler:
             "ome_engine_prefix_cache_bytes",
             "Device bytes resident in the prefix cache")
         # step-phase attribution from timestamps the loop already
-        # crosses: dispatch (the decode call), device_wait (blocking at
-        # the lag-queue read), host_sample (token emit after the read)
+        # crosses: dispatch (the decode call), mask_apply (grammar mask
+        # build), device_wait (blocking at the lag-queue read),
+        # host_sample (token emit after the read)
         self._h_step_phase = R.histogram(
             "ome_engine_step_phase_seconds",
             "Decode step time attributed by phase (dispatch / "
-            "device_wait / host_sample)",
+            "mask_apply / device_wait / host_sample)",
             labelnames=("phase",), buckets=STEP_BUCKETS)
         self._ph_dispatch = self._h_step_phase.labels(phase="dispatch")
+        self._ph_mask = self._h_step_phase.labels(phase="mask_apply")
         self._ph_wait = self._h_step_phase.labels(phase="device_wait")
         self._ph_sample = self._h_step_phase.labels(phase="host_sample")
+        # multi-step chunks attribute their whole dispatch here (K
+        # tokens per observation) instead of `dispatch` (1 token)
+        self._ph_device_loop = self._h_step_phase.labels(
+            phase="device_loop")
+        self._g_steps_per_dispatch = R.gauge(
+            "ome_engine_steps_per_dispatch",
+            "Decode iterations per engine dispatch (the "
+            "--steps-per-dispatch K; 1 = per-token dispatch)")
+        self._g_steps_per_dispatch.set(self.steps_per_dispatch)
         self._c_flight_events = R.counter(
             "ome_engine_flight_events_total",
             "Scheduler lifecycle events recorded by the flight ring")
         self._c_flight_dumps = R.counter(
             "ome_engine_flight_dumps_total",
             "Flight-recorder dumps written on crash recovery")
+        # step-plan degradations: counted whenever the planner gives up
+        # a composition feature (a pipeline flush to re-anchor drafts,
+        # an engine capability clamp); children pre-created for the
+        # fixed cause enum so absent causes scrape as explicit zeros
+        _deg = R.counter(
+            "ome_engine_step_degradations_total",
+            "Steps where the planner degraded a composition feature, "
+            "by cause (masked / spec_verify / spec_realign / "
+            "engine_multi_step / engine_verify)",
+            labelnames=("cause",))
+        self._c_degrade = {c: _deg.labels(cause=c)
+                           for c in DEGRADE_CAUSES}
+        for cause in init_degrades:
+            self._c_degrade[cause].inc()
+        # device-resident grammar-mask cache (engine/maskcache.py):
+        # compiled automaton-state masks live as rows of the engine's
+        # [S, V] device mask table and plans reference them by row index
+        # instead of shipping dense [B, K, V] bools. None = dense masks
+        # only (grammar_table=False — the dense baseline)
+        self._c_gmask_hit = R.counter(
+            "ome_engine_grammar_mask_cache_hits_total",
+            "Grammar-state mask lookups served by the device-resident "
+            "row cache")
+        self._c_gmask_miss = R.counter(
+            "ome_engine_grammar_mask_cache_misses_total",
+            "Grammar-state mask lookups that compiled a fresh mask "
+            "(uploading a row when one was free)")
+        self._c_gmask_evict = R.counter(
+            "ome_engine_grammar_mask_cache_evictions_total",
+            "Grammar-state mask rows reused for a new state (LRU; the "
+            "overwriting upload is the invalidation)")
+        self._g_gmask_resident = R.gauge(
+            "ome_engine_grammar_states_resident",
+            "Automaton states currently resident in the device mask "
+            "table")
+        self._gcache = None
+        _mrows = int(getattr(engine, "mask_table_rows", 0) or 0)
+        if grammar_table and _mrows >= 2 and callable(
+                getattr(engine, "set_mask_row", None)):
+            from .maskcache import GrammarMaskCache
+            self._gcache = GrammarMaskCache(
+                _mrows, upload=engine.set_mask_row,
+                on_hit=self._c_gmask_hit.inc,
+                on_miss=self._c_gmask_miss.inc,
+                on_evict=self._c_gmask_evict.inc)
 
         # per-class observability: children are pre-created for the
         # fixed class enum ONLY, so label cardinality is bounded
@@ -570,6 +758,16 @@ class Scheduler:
     @property
     def status(self) -> str:
         return self._status
+
+    @property
+    def degradations(self) -> Dict[str, int]:
+        """Per-cause degradation counts for /health: every composition
+        the planner had to give up."""
+        return {c: int(ch.value) for c, ch in self._c_degrade.items()}
+
+    def _degrade(self, cause: str) -> None:
+        self._c_degrade[cause].inc()
+        self._flight_event("step_degradation", cause=cause)
 
     # backward-compat boolean view of the tri-state (degraded still
     # accepts work, so it reads healthy)
@@ -1231,14 +1429,19 @@ class Scheduler:
     def _slot_changed(self, slot: int):
         """Every slot-occupancy change funnels through here: the
         generation bump retires any in-flight lagged token sampled for
-        the previous occupant, and the device sampling cache is
-        dropped so the next dispatch re-uploads the new [B] params."""
+        the previous occupant, the planner's predicted tail resets
+        (a new occupant has nothing beyond its committed stream), and
+        the device sampling cache is dropped so the next dispatch
+        re-uploads the new [B] params."""
         self._slot_gen[slot] += 1
+        self._planned_tail[slot] = []
         self._sampling_dev = None
+        self._stops_dev = None
 
     def _sampling(self):
         """Device-resident (temperature, top_k, top_p) for the whole
-        batch, re-uploaded only after an occupancy/param change."""
+        batch, re-uploaded only after an occupancy/param change — not
+        three fresh host arrays per decode step."""
         if self._sampling_dev is None:
             dev = getattr(self.engine, "device", None)
             self._sampling_dev = (torch.tensor(self._temp, device=dev),
@@ -1246,17 +1449,106 @@ class Scheduler:
                                   torch.tensor(self._top_p, device=dev))
         return self._sampling_dev
 
+    def _stop_table(self):
+        """Device-resident [B, NS] stop table for multi-step chunks
+        (-1 padding never matches a sampled token), cached like the
+        sampling params: re-uploaded only on occupancy change. Stop
+        ids past the fixed width stay host-detected — the device
+        table being a SUBSET of each request's stop set only costs
+        discarded overshoot, never a wrong stream."""
+        if self._stops_dev is None:
+            tab = np.full((self.engine.max_slots, _STOP_TABLE_WIDTH),
+                          -1, np.int32)
+            for slot, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                ids = list(req.stop_ids)[:_STOP_TABLE_WIDTH]
+                tab[slot, :len(ids)] = ids
+            self._stops_dev = torch.tensor(
+                tab, device=getattr(self.engine, "device", None))
+        return self._stops_dev
+
+    def _multi_budget(self, k: int) -> np.ndarray:
+        """Per-slot remaining-token cap for one chunk. Under
+        pipelining this over-counts by whatever is still in flight
+        (output_ids lags the device) — deliberately: the device may
+        only run LONG, and _maybe_finish cuts the stream at the exact
+        budget when the chunk drains, so K=1 and K=8 emit identical
+        bytes."""
+        budget = np.zeros(self.engine.max_slots, np.int32)
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            budget[slot] = min(
+                max(req.max_new_tokens - len(req.output_ids), 0), k)
+        return budget
+
+    @staticmethod
+    def _flight_rows(payload) -> int:
+        """Device KV rows one lag-queue entry may commit per slot —
+        the unit the paged reserve / lookahead / spec-headroom
+        accounting sums over plans still in flight (shape reads are
+        metadata only, never a device sync)."""
+        if isinstance(payload, _SpecStep):
+            return int(payload.out.shape[1])
+        if isinstance(payload, _MultiStep):
+            return int(payload.k)
+        return 1
+
+    def _inflight_rows(self) -> int:
+        """Summed per-slot KV rows of every plan still in flight."""
+        return sum(self._flight_rows(p) for p, _, _ in self._inflight)
+
+    def _note_actual(self, slot: int, toks) -> None:
+        """Reconcile one drained slot against the planner's predicted
+        tail: an exact prefix match consumes it; any divergence marks
+        the slot's device-side continuation unknown, and the next plan
+        that needs it re-anchors by flushing (docs/step-plan.md)."""
+        tail = self._planned_tail[slot]
+        if tail is None:
+            return
+        toks = [int(t) for t in toks]
+        n = len(toks)
+        if len(tail) >= n and tail[:n] == toks:
+            self._planned_tail[slot] = tail[n:]
+        else:
+            self._planned_tail[slot] = None
+
+    def _flush_inflight(self) -> bool:
+        """Drain every lagged step and re-anchor the planner's
+        predicted tails at the committed stream (host and device now
+        agree). Returns True when the drain finished every slot."""
+        self._drain_inflight()
+        for s in range(len(self._planned_tail)):
+            self._planned_tail[s] = []
+        return not any(r is not None for r in self.slots)
+
     def _drain_inflight(self, keep: int = 0) -> bool:
         """Read dispatched steps older than the newest `keep`, oldest
         first, emitting each token whose slot still holds the SAME
-        admission it was sampled for. This is the decode loop's only
-        device->host token fetch — under pipelining it runs AFTER the
-        next step was dispatched, and the copy decode() queued is
-        usually already complete."""
+        admission it was sampled for. Slots that finished, preempted,
+        failed, or were re-admitted since dispatch had their
+        generation bumped, so their speculative token is discarded
+        here. This is the decode loop's only device->host token fetch —
+        under pipelining it runs AFTER the next step was dispatched, and
+        the host copy the engine queued is usually already complete."""
         did = False
         drained = 0
         while len(self._inflight) > keep:
             toks, snap_slots, snap_gens = self._inflight.popleft()
+            if isinstance(toks, _SpecStep):
+                self._drain_spec(toks, snap_slots, snap_gens)
+                did = True
+                drained += 1
+                continue
+            if isinstance(toks, _MultiStep):
+                self._drain_multi(toks, snap_slots, snap_gens)
+                did = True
+                drained += 1
+                continue
+            # phase attribution: the block below is the lag-queue
+            # read — the only point the host waits on the device —
+            # and the emit loop after it is host-side sampling/offload
             t_read = time.monotonic()
             host_toks = np.asarray(toks)
             t_fetched = time.monotonic()
@@ -1266,6 +1558,7 @@ class Scheduler:
                         or self._slot_gen[slot] != snap_gens[slot]):
                     continue
                 tok = int(host_toks[slot])
+                self._note_actual(slot, (tok,))
                 req.emit(tok)
                 self._inc("tokens_generated_total")
                 self._c_class_tokens[self._class_of(req)].inc()
@@ -1279,57 +1572,659 @@ class Scheduler:
                                kept=keep)
         return did
 
+    def _drain_spec(self, step: _SpecStep, snap_slots, snap_gens):
+        """Emit one drained verify step: slot b produced
+        out[b, :accepted[b]+1] (accepted draft prefix + one sampled
+        token). Runs only from _drain_inflight — the host fetch below
+        completes the async copies verify() started. A slot that
+        finishes mid-prefix (stop token / deadline / length) discards
+        the rest of its accepted tokens, exactly as those steps would
+        never have run without speculation; the usual generation
+        check discards whole slots that changed occupant since
+        dispatch."""
+        t_read = time.monotonic()
+        host_out = np.asarray(step.out)
+        host_acc = np.asarray(step.accepted)
+        t_fetched = time.monotonic()
+        self._ph_wait.observe(t_fetched - t_read)
+        dlen = step.draft_len
+        proposed = int(dlen.sum())
+        accepted = 0
+        if proposed:
+            # acceptance accounting covers every drafting slot, even
+            # ones whose tokens are later discarded — the drafter/
+            # verify quality signal is about what the model accepted
+            accepted = int(host_acc.sum())
+            self._h_spec_accept.observe(accepted / proposed)
+            for slot in np.nonzero(dlen)[0]:
+                self._h_spec_accepted.observe(int(host_acc[slot]))
+            self._inc("spec_accepted_tokens_total", accepted)
+        self._spec_last = (proposed, accepted)
+        self._flight_event("spec_accept", proposed=proposed,
+                           accepted=accepted)
+        commit = getattr(self.engine, "commit_spec", None)
+        # later plans were dispatched against block pre-allocations
+        # covering their rows; commit must not trim those
+        reserve = self._inflight_rows()
+        for slot, req in enumerate(snap_slots):
+            if (req is None or self.slots[slot] is not req
+                    or self._slot_gen[slot] != snap_gens[slot]):
+                continue
+            n = int(host_acc[slot]) + 1
+            if commit is not None:
+                # paged KV: reconcile the host length mirror and
+                # return the speculative surplus blocks to the pool
+                commit(slot, n, reserve=reserve)
+            self._note_actual(slot, host_out[slot, :n])
+            self._note_decode_progress(req, tokens=n)
+            for tok in host_out[slot, :n]:
+                req.emit(int(tok))
+                self._inc("tokens_generated_total")
+                self._c_class_tokens[self._class_of(req)].inc()
+                self._maybe_finish(slot, int(tok))
+                if self.slots[slot] is not req:
+                    break  # finished mid-prefix: drop the tail
+        if self.span_log.enabled and step.t_dispatch:
+            # one span per verify round, timed dispatch-to-drain (the
+            # lag a pipelined verify rides shows up as span length)
+            s = Span("engine.spec_verify",
+                     trace_id=self._span_ctx.trace_id,
+                     parent_id=self._span_ctx.span_id,
+                     start_mono=step.t_dispatch,
+                     start_wall=time.time() - (time.monotonic()
+                                               - step.t_dispatch))
+            s.end().set(proposed=proposed, accepted=accepted)
+            self.span_log.write(s)
+        self._ph_sample.observe(time.monotonic() - t_fetched)
+
+    def _drain_multi(self, step: _MultiStep, snap_slots, snap_gens):
+        """Emit one drained multi-token chunk: slot b produced
+        step.out[b, :advanced[b]] (docs/multi-step-decode.md). Runs
+        only from _drain_inflight — the host fetch below completes
+        the async copies decode_multi() started; it is the chunk's
+        single device sync. The overshoot/discard rule: _maybe_finish
+        applies every host finish condition (full stop set, deadline,
+        exact budget, capacity) token by token, so everything the
+        device ran past a host finish is dropped here — including a
+        mid-chunk EOS tail — and the usual generation check drops
+        whole slots whose occupant changed since dispatch. Paged
+        engines reconcile allocator state per slot via commit_spec,
+        reserving rows for chunks still in flight."""
+        t_read = time.monotonic()
+        host_out = np.asarray(step.out)       # [B, k]
+        host_adv = np.asarray(step.advanced)  # [B]
+        t_fetched = time.monotonic()
+        self._ph_wait.observe(t_fetched - t_read)
+        commit = getattr(self.engine, "commit_spec", None)
+        # later plans were dispatched against block pre-allocations
+        # covering their rows; commit must not trim those
+        reserve = self._inflight_rows()
+        emitted = 0
+        for slot, req in enumerate(snap_slots):
+            if (req is None or self.slots[slot] is not req
+                    or self._slot_gen[slot] != snap_gens[slot]):
+                continue
+            n = int(host_adv[slot])
+            if commit is not None:
+                commit(slot, n, reserve=reserve)
+            self._note_actual(slot, host_out[slot, :n])
+            if n:
+                self._note_decode_progress(req, tokens=n)
+            for tok in host_out[slot, :n]:
+                req.emit(int(tok))
+                emitted += 1
+                self._inc("tokens_generated_total")
+                self._c_class_tokens[self._class_of(req)].inc()
+                self._maybe_finish(slot, int(tok))
+                if self.slots[slot] is not req:
+                    break  # finished mid-chunk: overshoot discarded
+        if self.span_log.enabled:
+            s = Span("engine.decode_chunk",
+                     trace_id=self._span_ctx.trace_id,
+                     parent_id=self._span_ctx.span_id,
+                     start_mono=step.t_dispatch,
+                     start_wall=time.time() - (time.monotonic()
+                                               - step.t_dispatch))
+            s.end().set(steps_per_dispatch=step.k, tokens=emitted)
+            self.span_log.write(s)
+        self._flight_event("multi_chunk", k=step.k, emitted=emitted)
+        self._ph_sample.observe(time.monotonic() - t_fetched)
+
     def _decode(self) -> bool:
         if not any(r is not None for r in self.slots):
             # the batch drained while a step was still in flight: read
-            # it out (every token discards) so the entry cannot strand
+            # it out (every token discards — its slot finished) so the
+            # entry cannot strand
             self._dispatch_end = None
             return self._drain_inflight()
         # deterministic fault injection (tests, chaos drills): only
-        # real decode steps count as hits
+        # real decode steps count as hits. A fault here leaves the
+        # lag queue to _recover, which drops it unread — lagged
+        # tokens of a failed batch are never emitted.
         faults.fire("engine_step")
         plan = self._plan_step()
+        if plan is None:
+            return True  # a precondition drain finished every slot
         return self._execute(plan)
 
-    def _plan_step(self) -> StepPlan:
-        """This iteration's plan: a plain decode step of the whole
-        batch, pipelined at the configured depth."""
-        return StepPlan("decode")
+    def _plan_step(self) -> Optional[StepPlan]:
+        """Build this iteration's StepPlan (docs/step-plan.md).
+
+        Composition is decided here, once: grammar-masked slots are
+        walked ahead through forced-token runs so they ride chunks
+        and the pipeline; speculative drafts are built over each
+        slot's predicted continuation so verify steps pipeline too;
+        a plan is marked `sync` only where a sampled token the NEXT
+        plan depends on cannot be known in advance (a grammar
+        boundary). Preconditions the planner cannot meet are
+        re-established by flushing the lag queue — counted in the
+        degradation counter, never silently. Returns None when such
+        a flush finished every slot."""
+        B = self.engine.max_slots
+        # with nothing in flight the committed stream IS the device
+        # state: re-anchor every predicted tail
+        if not self._inflight:
+            for s in range(B):
+                self._planned_tail[s] = []
+        k_steps = self.steps_per_dispatch
+        masked_slots = [s for s, r in enumerate(self.slots)
+                        if r is not None and r.masker is not None]
+        # -- grammar walk: advance a COPY of each masked slot's
+        # automaton over its predicted tail, then through enough
+        # future positions for whichever plan shape wins (one mask
+        # each, jumping ahead through forced tokens). Rows looked up
+        # during this plan are pinned until the next one.
+        spec_on = self.spec_tokens > 0 and self._spec_ok
+        horizon = max(k_steps, self.spec_tokens + 1 if spec_on else 1,
+                      1)
+        if self._gcache is not None and masked_slots:
+            self._gcache.begin_plan()
+        tm0 = time.monotonic()
+        mask_s = 0.0
+        walks: Dict[int, tuple] = {}
+        legacy_masked = False
+        for s in masked_slots:
+            m = self.slots[s].masker
+            if (self._planned_tail[s] is None
+                    or not callable(getattr(m, "copy", None))):
+                legacy_masked = True
+                break
+            try:
+                walks[s] = self._walk_masker(s, horizon)
+            except AttributeError:
+                # the masker copies but its automaton cannot
+                legacy_masked = True
+                break
+        if legacy_masked:
+            # plan precondition re-established by draining: a grammar
+            # that cannot be walked ahead is only consistent with the
+            # committed stream, so nothing may be in flight when its
+            # mask is built — one synchronous masked step, exactly
+            # the pre-plan behavior for copyless maskers, and the one
+            # case that still counts as a masked degradation
+            self._degrade("masked")
+            if self._inflight and self._flush_inflight():
+                return None
+            mask = self._build_mask()
+            mask_s = time.monotonic() - tm0
+            self._ph_mask.observe(mask_s)
+            return StepPlan("decode", sync=True, mask=mask,
+                            mask_s=mask_s)
+        if masked_slots:
+            mask_s = time.monotonic() - tm0
+            self._ph_mask.observe(mask_s)
+        # -- speculative drafts over predicted continuations. Masked
+        # slots draft THROUGH the grammar when their mask rows are
+        # device-resident: forced runs verbatim (the masked target
+        # distribution accepts them with certainty) plus
+        # grammar-screened n-gram proposals past a free boundary —
+        # a proposal leaving the grammar just truncates the draft.
+        # Without resident rows they ride verify steps at draft
+        # length 0 with their position-0 mask applied densely. A
+        # batch where any slot is within the in-flight-rows + k+1
+        # headroom of cache capacity falls back for the step (the
+        # verify write needs that many rows).
+        drafts = dlen = None
+        vrows = None
+        if spec_on:
+            k = self.spec_tokens
+            drafts, dlen = self._build_drafts(k)
+            if dlen.any() and self._inflight and any(
+                    dlen[s] and self._planned_tail[s] is None
+                    for s in range(B) if self.slots[s] is not None):
+                # draft positional alignment is a plan precondition:
+                # a drafting slot whose device-side continuation is
+                # unpredicted would draft against a stale stream and
+                # the verify would reject nearly everything. Flush,
+                # re-anchor, re-draft — and count it: realign
+                # flushes are the price of a mispredicted pipeline.
+                self._degrade("spec_realign")
+                if self._flush_inflight():
+                    return None
+                drafts, dlen = self._build_drafts(k)
+            if masked_slots and self._gcache is not None and all(
+                    (not walks[s][0]) or walks[s][3][0] is not None
+                    for s in masked_slots if s in walks):
+                vrows = {}
+                for s in masked_slots:
+                    if self.slots[s] is None or not walks[s][0]:
+                        continue
+                    dm = self._draft_masked(s, walks[s], k)
+                    if dm is None:
+                        vrows = None
+                        break
+                    vrows[s] = dm
+                if vrows is not None:
+                    # only now that EVERY masked slot has resident
+                    # rows may masked drafts land: a dense fallback
+                    # masks position 0 only, so a half-applied plan
+                    # would let rejected drafts emit unmasked tokens
+                    for s, (rows_s, toks_s, bonus_free) in \
+                            vrows.items():
+                        if toks_s:
+                            drafts[s, :len(toks_s)] = toks_s
+                            dlen[s] = len(toks_s)
+            if not dlen.any() or not self._spec_headroom(k):
+                drafts = dlen = None  # nobody drafted: plain/chunk
+                vrows = None
+        if drafts is not None:
+            # verify plan: a multi-token-shaped dispatch that
+            # pipelines like any chunk; sync only when a masked
+            # slot's next free sample lands at or before its bonus
+            # position (the token only the device can decide)
+            mask = None
+            mask_idx = None
+            sync = False
+            if masked_slots:
+                V = self.engine.cfg.vocab_size
+                if vrows is not None:
+                    mask_idx = np.zeros((B, self.spec_tokens + 1),
+                                        dtype=np.int32)
+                    for s, (rows_s, _toks, bonus_free) in \
+                            vrows.items():
+                        mask_idx[s, :len(rows_s)] = rows_s
+                        if bonus_free:
+                            sync = True
+                else:
+                    mask = np.ones((B, V), dtype=bool)
+                    for s in masked_slots:
+                        if s not in walks:
+                            continue
+                        w_masks, w_forced, w_boundary, _ = walks[s]
+                        if w_masks:
+                            mask[s] = w_masks[0]
+                        if w_boundary and not w_forced:
+                            sync = True
+            plan = StepPlan("verify", k=self.spec_tokens, sync=sync,
+                            mask=mask, mask_idx=mask_idx,
+                            drafts=drafts, dlen=dlen,
+                            rows=self.spec_tokens + 1, mask_s=mask_s)
+            self._predict_verify(plan, walks)
+            return plan
+        # -- chunk length: the device may not run PAST a grammar
+        # boundary (the token sampled there decides every later
+        # mask), so the nearest boundary clamps K for the whole
+        # batch; a boundary inside the chunk also marks it sync
+        n = max(k_steps, 1)
+        for s in masked_slots:
+            w_masks, w_forced, w_boundary, _ = walks[s]
+            if w_boundary:
+                n = min(n, len(w_forced) + 1)
+        sync = any(walks[s][2] and len(walks[s][1]) < n
+                   for s in masked_slots)
+        if n > 1:
+            budget = self._multi_budget(n)
+            stack = None
+            stack_idx = None
+            if masked_slots:
+                V = self.engine.cfg.vocab_size
+                if self._gcache is not None and all(
+                        all(r is not None for r in walks[s][3][:n])
+                        for s in masked_slots):
+                    stack_idx = np.zeros((B, n), dtype=np.int32)
+                    for s in masked_slots:
+                        rows_s = walks[s][3][:n]
+                        if rows_s:
+                            stack_idx[s, :len(rows_s)] = rows_s
+                        budget[s] = min(int(budget[s]),
+                                        len(walks[s][0]))
+                else:
+                    stack = np.ones((B, n, V), dtype=bool)
+                    for s in masked_slots:
+                        w_masks, w_forced, w_boundary, _ = walks[s]
+                        for i, row in enumerate(w_masks[:n]):
+                            stack[s, i] = row
+                        budget[s] = min(int(budget[s]), len(w_masks))
+            plan = StepPlan("chunk", k=n, sync=sync,
+                            mask_stack=stack,
+                            mask_stack_idx=stack_idx, budget=budget,
+                            rows=n, mask_s=mask_s)
+        else:
+            mask = None
+            mask_idx = None
+            if masked_slots:
+                V = self.engine.cfg.vocab_size
+                if self._gcache is not None and all(
+                        (not walks[s][0]) or walks[s][3][0] is not None
+                        for s in masked_slots):
+                    mask_idx = np.zeros(B, dtype=np.int32)
+                    for s in masked_slots:
+                        if walks[s][0]:
+                            mask_idx[s] = walks[s][3][0]
+                else:
+                    mask = np.ones((B, V), dtype=bool)
+                    for s in masked_slots:
+                        w_masks, w_forced, w_boundary, _ = walks[s]
+                        if w_masks:
+                            mask[s] = w_masks[0]
+            plan = StepPlan("decode", sync=sync, mask=mask,
+                            mask_idx=mask_idx, mask_s=mask_s)
+        self._predict_step(plan, walks, n)
+        return plan
+
+    def _walk_masker(self, slot: int, horizon: int):
+        """Advance a COPY of the slot's grammar ahead of its
+        committed stream: feed the predicted in-flight tail, then
+        walk up to `horizon` future positions, collecting the
+        allowed-token mask at each and jumping through forced tokens
+        (positions where the grammar allows exactly one — closing
+        braces, fixed keys, separators). Returns (masks, forced,
+        boundary, rows): one [V] mask per walked position, the
+        forced tokens (always a prefix of the walk), whether the
+        walk stopped at a boundary — a position whose token only the
+        device can decide — and one device mask-table row index per
+        position (None where the state is uncacheable or the table
+        is exhausted; plans fall back to dense masks around Nones).
+        Raises AttributeError when the underlying automaton cannot
+        be copied (the caller falls back to one synchronous masked
+        step)."""
+        req = self.slots[slot]
+        walker = req.masker.copy()
+        tail = self._planned_tail[slot] or []
+        for tok in tail:
+            walker.feed(tok)
+        V = self.engine.cfg.vocab_size
+        masks: list = []
+        forced: list = []
+        rows: list = []
+        boundary = False
+        produced = len(req.output_ids) + len(tail)
+        for i in range(horizon):
+            if walker.done():
+                break
+            remaining = req.max_new_tokens - produced - i
+            if remaining <= 0:
+                break
+            closing = remaining <= walker.closing_distance() + 4
+            row, ridx = self._lookup_mask(walker, V, closing,
+                                          remaining)
+            masks.append(row)
+            rows.append(ridx)
+            allowed = np.flatnonzero(row)
+            if allowed.size == 1:
+                tok = int(allowed[0])
+                forced.append(tok)
+                walker.feed(tok)
+            else:
+                boundary = True
+                break
+        return masks, forced, boundary, rows
+
+    def _lookup_mask(self, walker, V: int, closing: bool,
+                     remaining: Optional[int]):
+        """One walked position's allowed-token mask, served through
+        the device-resident row cache when the automaton state is
+        cacheable. A cached entry holds the state's BUDGET-FREE mask
+        plus its recorded slack — the worst closing-distance growth
+        any accepted token causes — and substitutes for the budgeted
+        dense mask exactly when `remaining - 1 >= closing_distance +
+        slack` (past that horizon the budget provably bans nothing).
+        Everything else — closing masks, tight budgets, automatons
+        without a signature, a table exhausted by pinned rows —
+        computes the dense mask host-side. Returns (bits, device row
+        index or None)."""
+        gc = self._gcache
+        if gc is not None and not closing:
+            key_fn = getattr(walker, "cache_key", None)
+            key = key_fn() if key_fn is not None else None
+            if key is not None:
+                ent = gc.get(key)
+                if ent is None:
+                    # compile + install the budget-free mask; its
+                    # slack is only known after compiling, so even a
+                    # position whose budget ends up too tight to use
+                    # it installs the entry for future positions
+                    bits, slack = walker.mask_with_slack(V)
+                    ent = gc.insert(key, bits, slack)
+                    self._g_gmask_resident.set(len(gc))
+                if ent is not None:
+                    bits, ridx, slack = ent
+                    if remaining is None or remaining - 1 \
+                            >= walker.closing_distance() + slack:
+                        return bits, ridx
+        return walker.mask(V, closing=closing,
+                           remaining=remaining), None
+
+    def _draft_masked(self, slot: int, walk, k: int):
+        """Spec through the grammar (docs/structured-outputs.md):
+        build a masked slot's draft from its walk. The forced run
+        drafts verbatim — the masked target distribution puts
+        probability 1 on each forced token at any temperature, so
+        those drafts are accepted with certainty. Past a free
+        boundary the n-gram drafter proposes and every proposal is
+        filtered through the automaton walk: a proposal the grammar
+        rejects truncates the draft (a rejected draft, never an
+        invalid emission). Returns (rows, draft tokens, bonus_free):
+        device mask rows for positions 0..len(drafts) — the verify
+        program masks every position so rejection resampling stays
+        in-grammar — and whether the position after the draft is a
+        free sample (which makes the plan sync). None when position
+        0 itself has no resident row."""
+        w_masks, w_forced, w_boundary, w_rows = walk
+        npos = len(w_masks)
+        if npos == 0 or w_rows[0] is None:
+            return None
+        # longest forced prefix whose positions 0..d all have rows
+        d = min(k, len(w_forced), npos - 1)
+        while d > 0 and any(w_rows[j] is None for j in range(d + 1)):
+            d -= 1
+        rows = [w_rows[j] for j in range(d + 1)]
+        toks = [int(t) for t in w_forced[:d]]
+        bonus_free = d >= len(w_forced) and w_boundary
+        if bonus_free and d < k:
+            req = self.slots[slot]
+            walker = req.masker.copy()
+            tail = self._planned_tail[slot] or []
+            for t in tail:
+                walker.feed(t)
+            for t in toks:
+                walker.feed(t)
+            produced = len(req.output_ids) + len(tail)
+            stream = (list(req.prompt_ids)
+                      + list(req.output_ids[int(self._base_out[slot]):])
+                      + tail + toks)
+            V = self.engine.cfg.vocab_size
+            state = {"bits": w_masks[d], "d": d}
+
+            def accept(t: int) -> bool:
+                if not state["bits"][t]:
+                    return False  # proposal exits the grammar
+                walker.feed(t)
+                rem = (req.max_new_tokens - produced
+                       - (state["d"] + 1))
+                if rem <= 0 or walker.done():
+                    return False
+                closing = rem <= walker.closing_distance() + 4
+                nbits, nrow = self._lookup_mask(walker, V, closing,
+                                                rem)
+                if nrow is None:
+                    return False  # next position not resident
+                toks.append(t)
+                rows.append(nrow)
+                state["bits"] = nbits
+                state["d"] += 1
+                return True
+
+            spec_drafter.grammar_prefix(
+                spec_drafter.propose(stream, k - d), accept)
+        return rows, toks, bonus_free
+
+    def _predict_step(self, plan: StepPlan, walks: Dict[int, tuple],
+                      n: int) -> None:
+        """Extend each slot's predicted tail with what this
+        decode/chunk plan will deterministically emit: forced grammar
+        tokens are exact; a freely sampled position makes the slot's
+        continuation unknown until the step drains. Sync plans drain
+        immediately, so their tails re-anchor at the next plan."""
+        if plan.sync:
+            return
+        for s, r in enumerate(self.slots):
+            if r is None:
+                continue
+            tail = self._planned_tail[s]
+            if tail is None:
+                continue
+            if s in walks:
+                self._planned_tail[s] = tail + walks[s][1][:n]
+            else:
+                self._planned_tail[s] = None
+
+    def _predict_verify(self, plan: StepPlan,
+                        walks: Dict[int, tuple]) -> None:
+        """Predict each slot's continuation through a verify plan:
+        the optimistic outcome is every draft accepted plus the
+        drafter's own guess at the bonus token. Wrong predictions
+        never emit a wrong byte — the drain reconciles against what
+        the device actually produced and the next plan flushes if it
+        needs an alignment the prediction lost."""
+        if plan.sync:
+            return
+        for s, r in enumerate(self.slots):
+            if r is None:
+                continue
+            tail = self._planned_tail[s]
+            if tail is None:
+                continue
+            if s in walks:
+                # a masked slot advances its forced-run draft plus
+                # the bonus: drafted forced tokens are accepted with
+                # certainty (the masked target distribution forces
+                # them) and a non-sync plan's bonus position is
+                # forced too — free-bonus plans are sync and never
+                # reach here
+                d = int(plan.dlen[s]) if plan.dlen is not None else 0
+                self._planned_tail[s] = tail + walks[s][1][:d + 1]
+                continue
+            d = int(plan.dlen[s])
+            if d == 0:
+                # a free position-0 sample: unknown until drained
+                self._planned_tail[s] = None
+                continue
+            drafted = [int(t) for t in plan.drafts[s, :d]]
+            stream = (list(r.prompt_ids)
+                      + list(r.output_ids[int(self._base_out[s]):])
+                      + tail + drafted)
+            bonus = spec_drafter.propose(stream, 1)
+            if bonus.size:
+                self._planned_tail[s] = (tail + drafted
+                                         + [int(bonus[0])])
+            else:
+                self._planned_tail[s] = None
 
     def _execute(self, plan: StepPlan) -> bool:
-        """Dispatch one StepPlan, feed the lag queue, drain."""
+        """Dispatch one StepPlan, feed the lag queue, drain. Every
+        plan takes the same path: one compiled-program call keyed on
+        plan.kind, one lag-queue append, one windowed drain — the
+        generation-counter discard rules do the rest. The executor
+        never decides composition; it only honors plan.sync by
+        running this step's window at depth 0."""
         sampling = self._sampling()
         t0 = time.monotonic()
         gap_s = None
         if self._dispatch_end is not None:
             gap_s = t0 - self._dispatch_end
             self._h_step_gap.observe(gap_s)
-        self.state, toks = self.engine.decode(self.state, *sampling)
+        n_steps = plan.k if plan.kind == "chunk" else 1
+        if plan.kind == "verify":
+            kw = {}
+            if getattr(self.engine, "kv_block", 0):
+                # paged pre-allocation must cover this plan AND every
+                # plan still in flight (their commits have not
+                # advanced the host length mirror yet)
+                kw["lookahead_rows"] = self._inflight_rows() + plan.rows
+            if plan.mask_idx is not None:
+                kw["mask_idx"] = plan.mask_idx
+            elif plan.mask is not None:
+                kw["mask"] = plan.mask
+            self.state, out, acc = self.engine.verify(
+                self.state, plan.drafts, plan.dlen, *sampling, **kw)
+            toks = _SpecStep(out, acc, plan.dlen, t0)
+        elif plan.kind == "chunk":
+            kw = {}
+            if plan.mask_stack_idx is not None:
+                kw["mask_idx"] = plan.mask_stack_idx
+            elif plan.mask_stack is not None:
+                kw["mask"] = plan.mask_stack
+            self.state, out, adv = self.engine.decode_multi(
+                self.state, *sampling, steps=plan.k,
+                budget=plan.budget, stop_ids=self._stop_table(),
+                lookahead_rows=self._inflight_rows() + plan.rows,
+                **kw)
+            toks = _MultiStep(out, adv, plan.k, t0)
+        elif plan.mask_idx is not None:
+            self.state, toks = self.engine.decode(
+                self.state, *sampling, mask_idx=plan.mask_idx)
+        elif plan.mask is not None:
+            self.state, toks = self.engine.decode(
+                self.state, *sampling, mask=plan.mask)
+        else:  # engine wrappers/fakes need no mask kwarg in their API
+            self.state, toks = self.engine.decode(
+                self.state, *sampling)
         self._dispatch_end = time.monotonic()
         dt = self._dispatch_end - t0
-        self._ewma_step_s = dt if self._ewma_step_s is None \
-            else 0.9 * self._ewma_step_s + 0.1 * dt
-        self._h_decode_step.observe(dt)
-        self._ph_dispatch.observe(dt)
-        self._observe_slow_step(dt, gap_s)
-        self._inc("decode_steps_total")
+        # per-STEP time (the queue-wait estimator and step histogram
+        # stay per-token): a K-chunk dispatch amortizes over K steps
+        dt_step = dt / n_steps
+        self._ewma_step_s = dt_step if self._ewma_step_s is None \
+            else 0.9 * self._ewma_step_s + 0.1 * dt_step
+        self._h_decode_step.observe(dt_step)
+        if n_steps > 1:
+            self._ph_device_loop.observe(dt)
+        else:
+            self._ph_dispatch.observe(dt)
+        self._observe_slow_step(dt_step, n_steps, gap_s, plan.mask_s)
+        self._inc("decode_steps_total", n_steps)
+        if plan.kind == "verify":
+            self._inc("spec_steps_total")
+            self._inc("spec_proposed_tokens_total",
+                      int(plan.dlen.sum()))
         self._inflight.append(
             (toks, list(self.slots), list(self._slot_gen)))
         depth = 0 if plan.sync else self.pipeline_depth
         # emit steps older than the pipeline window — with the next
         # step now dispatched, reading them costs no dispatch overlap
         self._drain_inflight(keep=max(depth, 1))
-        # KV pool pressure may have evicted sequences before the step
-        # ran: requeue them without emitting (the generation bump makes
-        # the lag queue discard their pending token); generated-so-far
-        # tokens ride along as prompt for the re-prefill
-        for slot in self.engine.take_preempted():
+        # paged-KV pool pressure may have evicted sequences BEFORE the
+        # step above ran — the token it samples for them is garbage
+        # (their new KV row went to the trash block), so requeue
+        # without emitting: the generation bump makes the lag queue
+        # discard their pending token, and generated-so-far tokens
+        # ride along as prompt for the re-prefill (vLLM recompute
+        # preemption). Their PREVIOUS step's token was valid and was
+        # emitted by the drain above, before output_ids was folded in.
+        take = getattr(self.engine, "take_preempted", None)
+        for slot in (take() if take is not None else ()):
             req = self.slots[slot]
             if req is None:
                 continue
             self.slots[slot] = None
             self._slot_changed(slot)
             self._temp[slot] = 0.0
+            # fold only the tokens generated SINCE this admission:
+            # outputs[:base_out] were folded by a previous preemption
+            # and already sit inside prompt_ids — re-adding them would
+            # corrupt the resume prompt the second time a request is
+            # preempted
             req.prompt_ids = list(req.prompt_ids) + list(
                 req.output_ids[int(self._base_out[slot]):])
             self._flush_decode_chunk(req, final=True)
@@ -1346,29 +2241,107 @@ class Scheduler:
             self._drain_inflight()
         return True
 
-    def _observe_slow_step(self, dt: float, gap_s) -> None:
+    def _observe_slow_step(self, dt_step: float, k_steps: int, gap_s,
+                           mask_s: float) -> None:
         """Slow-step outlier detection against the rolling median of
-        recent step times; warm-up is excluded by requiring a
-        half-full window before judging."""
+        recent per-step times ("slow" relative to this batch shape on
+        this device); warm-up is excluded by requiring a half-full
+        window before judging."""
         win = self._step_window
         if len(win) >= win.maxlen // 2:
             med = sorted(win)[len(win) // 2]
-            if med > 0 and dt > self.slow_step_factor * med:
+            if med > 0 and dt_step > self.slow_step_factor * med:
                 self._c_slow_steps.inc()
                 self._flight_event(
-                    "slow_step", step_ms=round(dt * 1e3, 3),
+                    "slow_step", step_ms=round(dt_step * 1e3, 3),
                     median_ms=round(med * 1e3, 3),
-                    ratio=round(dt / med, 2),
+                    ratio=round(dt_step / med, 2), k_steps=k_steps,
+                    mask_ms=round(mask_s * 1e3, 3),
                     gap_ms=round((gap_s or 0.0) * 1e3, 3))
-        win.append(dt)
+        win.append(dt_step)
+
+    def _spec_headroom(self, k: int) -> bool:
+        """True when every active slot has cache headroom for the k+1
+        speculative KV rows a verify step writes — plus the exact
+        rows every plan still in flight may commit. A near-capacity
+        slot makes the whole step fall back to plain decode (it
+        finishes with reason=length within a step or two anyway);
+        without this, a clamped multi-row cache write would corrupt
+        earlier rows."""
+        need = self._inflight_rows() + (k + 1)
+        for slot, req in enumerate(self.slots):
+            if req is None:
+                continue
+            used = (int(self._true_len[slot]) + len(req.output_ids)
+                    - int(self._base_out[slot]))
+            if used + need > self.engine.max_seq:
+                return False
+        return True
+
+    def _build_drafts(self, k: int):
+        """Per-slot n-gram drafts from each request's host-visible
+        committed stream (prompt + emitted output) EXTENDED by its
+        predicted in-flight tail, so drafts align with where the
+        device will be when the verify runs — the precondition that
+        lets verify steps pipeline. A slot whose tail is unknown
+        drafts from the committed stream alone (the planner flushes
+        before dispatching if that draft would be misaligned).
+        Masked slots never draft: their continuation belongs to the
+        grammar walk, not the n-gram cache. Returns ([B, k] int32
+        drafts, [B] int32 draft lengths); a slot with no match
+        drafts 0 tokens and degenerates to plain decode inside the
+        verify."""
+        B = self.engine.max_slots
+        drafts = np.zeros((B, k), np.int32)
+        dlen = np.zeros((B,), np.int32)
+        for slot, req in enumerate(self.slots):
+            if req is None or req.masker is not None:
+                continue
+            # outputs[:base_out] of a resumed request are already
+            # folded into prompt_ids — slicing keeps the drafter's
+            # view of the stream free of duplicated spans
+            d = spec_drafter.propose(
+                list(req.prompt_ids)
+                + list(req.output_ids[int(self._base_out[slot]):])
+                + (self._planned_tail[slot] or []), k)
+            if d.size:
+                drafts[slot, :d.size] = d
+                dlen[slot] = d.size
+        return drafts, dlen
 
     def _prefill_req(self, req: Request):
-        """Engine prefill for one request."""
+        """Engine prefill for one request; constrained requests pass
+        the grammar mask for their FIRST sampled token."""
         kw = {}
         if req.adapter is not None:
             kw["adapter"] = req.adapter
+        if req.masker is not None:
+            kw["first_mask"] = req.masker.mask(
+                self.engine.cfg.vocab_size,
+                remaining=req.max_new_tokens)
         return self.engine.prefill(req.prompt_ids, req.temperature,
                                    req.top_k, req.top_p, **kw)
+
+    def _build_mask(self):
+        """[B, V] allowed-token mask when any slot is constrained
+        (structured outputs); None otherwise so the maskless step keeps
+        running."""
+        if not any(r is not None and r.masker is not None
+                   for r in self.slots):
+            return None
+        V = self.engine.cfg.vocab_size
+        mask = np.ones((self.engine.max_slots, V), dtype=bool)
+        for slot, r in enumerate(self.slots):
+            if r is not None and r.masker is not None:
+                remaining = r.max_new_tokens - len(r.output_ids)
+                # switch to close-out masks before the budget can
+                # strand an open string/container (valid JSON even at
+                # finish_reason=length); `remaining` additionally bans
+                # tokens whose completion cost overshoots the budget
+                closing = remaining <= r.masker.closing_distance() + 4
+                mask[slot] = r.masker.mask(V, closing=closing,
+                                           remaining=remaining)
+        return mask
 
     def _requeue_for_pool(self, req: Request) -> None:
         """Put `req` back at the head of the queue until the KV pool
@@ -1409,7 +2382,11 @@ class Scheduler:
 
     def _maybe_finish(self, slot: int, tok: int):
         req = self.slots[slot]
-        if tok in req.stop_ids:
+        if req.masker is not None:
+            req.masker.feed(tok)
+        if req.masker is not None and req.masker.done():
+            reason = "stop"  # the grammar accepted a complete value
+        elif tok in req.stop_ids:
             reason = "stop"
         elif req.expired():
             # deadline passed mid-decode: partial output is returned

@@ -5,19 +5,26 @@ the InferenceEngine on one device, the continuous-batching Scheduler
 and the OpenAI-compatible HTTP surface, then serves until SIGTERM (first
 signal drains, a second forces). Runs on CUDA unless `--device cpu`.
 
-    python -m ome_tpu_torch.engine.serve --model-dir DIR --random-weights \\
+    python -m ome_tpu_torch.engine.serve --model-dir DIR [--random-weights] \\
         [--device cpu] [--kv-block 128 [--kv-blocks N] [--kv-dtype int8]] \\
-        [--quantization int8|int4|fp8]
+        [--quantization int8|int4|fp8] [--spec-tokens N] \\
+        [--steps-per-dispatch K]
 
-`--random-weights` draws the weights from `--seed` for the shape in
-DIR/config.json (loading a safetensors checkpoint is not ported yet).
+DIR is a HuggingFace model directory: config.json plus safetensors
+weights (one file, or shards with model.safetensors.index.json), loaded
+by `models/checkpoint.load_params` onto the device;
+`--random-weights` instead draws the weights from `--seed` for the
+shape in DIR/config.json.
 `--kv-block` serves from a paged KV pool (bf16, or int8 with
 `--kv-dtype int8`) whose decode attention runs the paged CUDA kernel;
 a model or block size that kernel does not take exits with the
 engine's message — there is no silent fall back to the dense cache.
 `--quantization` quantizes the weights at load as the reference does
 (`models/quant.quantize_params`); under int4 the eligible projections
-run the int4 CUDA kernel.
+run the int4 CUDA kernel. `--spec-tokens N` verifies up to N n-gram
+drafts per slot in one forward, `--steps-per-dispatch K` runs K decode
+iterations per engine call; both compose with pipelining and with
+`response_format` grammar masks, as in the reference.
 `build_server(argv)` does everything `main` does except block, so a
 caller (chip_smoke.py, the tests) drives the same code in process.
 
@@ -138,14 +145,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--flight-dump-dir", default=None, metavar="DIR",
                    help="auto-dump the flight-recorder ring into DIR on "
                         "engine-fault recovery and permanent death")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="decode iterations per engine call: the host "
+                        "dispatches and syncs once per K-token chunk "
+                        "instead of per token; greedy output is "
+                        "byte-identical to K=1")
+    p.add_argument("--spec-tokens", type=int, default=0,
+                   help="speculative decoding: max draft tokens per slot "
+                        "per step proposed by the host-side n-gram "
+                        "drafter and verified in one batched multi-token "
+                        "forward; 0 = off (default). Greedy output is "
+                        "byte-identical either way")
     # flags of the reference kept for their default only: any other
     # value asks for a feature this port does not have yet
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--task", default="generate")
     p.add_argument("--prefix-cache-host-mb", type=int, default=0)
     p.add_argument("--disaggregation-mode", default="none")
-    p.add_argument("--spec-tokens", type=int, default=0)
-    p.add_argument("--steps-per-dispatch", type=int, default=1)
     p.add_argument("--ledger-mode", default="off")
     return p
 
@@ -154,8 +170,7 @@ def build_parser() -> argparse.ArgumentParser:
 _SLICE_DEFAULTS = {
     "tp": 1, "task": "generate",
     "prefix_cache_host_mb": 0,
-    "disaggregation_mode": "none", "spec_tokens": 0,
-    "steps_per_dispatch": 1, "ledger_mode": "off",
+    "disaggregation_mode": "none", "ledger_mode": "off",
 }
 
 
@@ -181,10 +196,31 @@ def check_slice(args, env=None) -> None:
         raise SystemExit(
             f"multi-host environment ({', '.join(_MULTIHOST_ENV)}) is "
             "not supported by the PyTorch engine yet; serve one host")
-    if not args.random_weights:
-        raise SystemExit(
-            "loading a checkpoint is not ported to the PyTorch engine "
-            "yet; pass --random-weights")
+
+
+def check_plan_preconditions(engine, args):
+    """Validate the explicitly requested step-plan features against the
+    engine BEFORE serving: an operator who asked for a feature on the
+    command line gets an error naming the failed precondition instead
+    of a silently slower server (the scheduler itself only degrades
+    and counts). Returns an error string, or None."""
+    if args.spec_tokens > 0 and not callable(
+            getattr(engine, "verify", None)):
+        return ("--spec-tokens %d: plan precondition engine.verify "
+                "unsatisfied — %s has no spec-verify op, so verify "
+                "plans cannot dispatch; drop --spec-tokens or serve an "
+                "engine with verify"
+                % (args.spec_tokens, type(engine).__name__))
+    if args.steps_per_dispatch > 1 and not (
+            callable(getattr(engine, "decode_multi", None))
+            and getattr(engine, "supports_multi_step", False)):
+        return ("--steps-per-dispatch %d: plan precondition "
+                "engine.decode_multi unsatisfied — %s has no "
+                "multi-step decode op, so chunk plans cannot dispatch; "
+                "drop --steps-per-dispatch or serve an engine with "
+                "decode_multi"
+                % (args.steps_per_dispatch, type(engine).__name__))
+    return None
 
 
 def _load_cfg(model_dir: str, dtype):
@@ -198,23 +234,44 @@ def _load_cfg(model_dir: str, dtype):
     return cfg.replace(dtype=dtype)
 
 
-def load_engine(args):
-    """The InferenceEngine for `args`, with random weights from
-    --seed on --device."""
-    from ..device import resolve_device
+def load_params_cfg(args, device):
+    """(params, cfg) on `device`: the safetensors checkpoint in
+    --model-dir, or random weights from --seed for its config.json."""
+    from ..models import checkpoint
     from ..models.params import init_params, param_count
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    t0 = time.monotonic()
+    if args.random_weights:
+        cfg = _load_cfg(args.model_dir, dtype)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed)
+        params = init_params(cfg, gen, device)
+        log.info("initialized random weights: %.2fM params on %s in "
+                 "%.1fs", param_count(params) / 1e6, device,
+                 time.monotonic() - t0)
+        return params, cfg
+    try:
+        params, cfg = checkpoint.load_params(args.model_dir, dtype=dtype,
+                                             device=device)
+    except (checkpoint.SafetensorsError, NotImplementedError,
+            FileNotFoundError) as e:
+        raise SystemExit(f"--model-dir {args.model_dir}: {e}")
+    log.info("loaded checkpoint from %s: %.2fM params on %s in %.1fs",
+             args.model_dir, param_count(params) / 1e6, device,
+             time.monotonic() - t0)
+    return params, cfg
+
+
+def load_engine(args):
+    """The InferenceEngine for `args` on --device: the checkpoint in
+    --model-dir, or random weights from --seed."""
+    from ..device import resolve_device
     from ..models.quant import quantize_params, quantized_bytes
     from .core import InferenceEngine, PagedKVUnsupported
 
     device = resolve_device(args.device)
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    cfg = _load_cfg(args.model_dir, dtype)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    t0 = time.monotonic()
-    params = init_params(cfg, gen, device)
-    log.info("initialized random weights: %.2fM params on %s in %.1fs",
-             param_count(params) / 1e6, device, time.monotonic() - t0)
+    params, cfg = load_params_cfg(args, device)
     if args.quantization != "none":
         t0 = time.monotonic()
         # leaf by leaf, dropping each bf16 leaf once quantized
@@ -327,6 +384,9 @@ def build_server(argv=None):
 
     args = build_parser().parse_args(argv)
     check_slice(args)
+    if args.spec_tokens < 0 or args.steps_per_dispatch < 1:
+        raise SystemExit("--spec-tokens must be >= 0 and "
+                         "--steps-per-dispatch >= 1")
     if args.faults:
         from .. import faults
         faults.install(args.faults)
@@ -350,7 +410,12 @@ def build_server(argv=None):
     except ValueError as e:
         raise SystemExit(str(e))
     engine = load_engine(args)
+    err = check_plan_preconditions(engine, args)
+    if err is not None:
+        raise SystemExit(err)
     scheduler = Scheduler(engine, overlap=True,
+                          spec_tokens=args.spec_tokens,
+                          steps_per_dispatch=args.steps_per_dispatch,
                           max_restarts=args.max_restarts,
                           max_queue_wait=args.max_queue_wait,
                           pipeline_depth=args.pipeline_depth,
@@ -369,10 +434,12 @@ def build_server(argv=None):
                           request_log=args.request_log,
                           debug_endpoints=args.debug_endpoints)
     log.info("serving %s on %s:%d (device=%s slots=%d max_seq=%d "
-             "kv_block=%d kv_dtype=%s quantization=%s)", name, args.host,
-             server.port, engine.device, engine.max_slots, engine.max_seq,
+             "kv_block=%d kv_dtype=%s quantization=%s spec_tokens=%d "
+             "steps_per_dispatch=%d)", name, args.host, server.port,
+             engine.device, engine.max_slots, engine.max_seq,
              engine.kv_block, args.kv_dtype if engine.kv_block else "-",
-             args.quantization)
+             args.quantization, args.spec_tokens,
+             args.steps_per_dispatch)
     server.start()
     return server, scheduler, engine
 

@@ -7,9 +7,12 @@ http.server keeps the dependency footprint zero; a threading server is
 plenty because request handlers only enqueue work and read token
 queues — the device is driven by the single scheduler thread.
 
-Not in this slice: structured outputs (`response_format` answers 400),
-embeddings, PD prefill, LoRA adapter hot-load and the on-demand
-profiler (`POST /debug/profile` answers 501).
+Structured outputs: `response_format` `json_object` and `json_schema`
+(whose `pattern` keywords take regular expressions) attach a grammar
+masker to the request, as in the reference; `text` is unconstrained.
+
+Not ported yet: embeddings, PD prefill, LoRA adapter hot-load and the
+on-demand profiler (`POST /debug/profile` answers 501).
 """
 
 from __future__ import annotations
@@ -375,12 +378,39 @@ class EngineServer:
                             prompt = list(map(int, prompt))
                         else:
                             prompt = "".join(prompt)
-                if payload.get("response_format"):
-                    # structured outputs (grammar masks) are outside
-                    # this slice: refuse rather than ignore the format
-                    return self._json(400, {
-                        "error": "response_format is not supported yet "
-                                 "by the PyTorch engine"})
+                masker = None
+                rf = payload.get("response_format") or {}
+                if rf:
+                    kind = rf.get("type")
+                    if kind not in ("json_object", "json_schema",
+                                    "text", None):
+                        return self._json(400, {
+                            "error": f"response_format type {kind!r} "
+                                     "is not supported (json_object, "
+                                     "json_schema and text are)"})
+                    if kind in ("json_object", "json_schema"):
+                        from .structured import TokenMasker
+                        if kind == "json_schema":
+                            from .schema import (SchemaAutomaton,
+                                                 SchemaError)
+                            spec = rf.get("json_schema") or {}
+                            if "schema" not in spec:
+                                # a missing schema must not silently
+                                # degrade to unconstrained output
+                                return self._json(400, {
+                                    "error": "response_format "
+                                             "json_schema requires "
+                                             "json_schema.schema"})
+                            try:
+                                auto = SchemaAutomaton(spec["schema"])
+                            except SchemaError as e:
+                                return self._json(400, {
+                                    "error": f"json_schema: {e}"})
+                            masker = TokenMasker(tok, automaton=auto)
+                        else:
+                            # OpenAI json_object means a JSON OBJECT,
+                            # not any value — root must open with '{'
+                            masker = TokenMasker(tok, object_root=True)
                 # multi-LoRA routing: a request whose model id names a
                 # registered adapter decodes with that adapter's
                 # deltas; an id matching NEITHER the base nor an
@@ -438,7 +468,7 @@ class EngineServer:
                     temperature=float(payload.get("temperature", 0.0)),
                     top_k=int(payload.get("top_k", 0)),
                     top_p=float(payload.get("top_p", 1.0)),
-                    adapter=adapter, deadline=deadline,
+                    masker=masker, adapter=adapter, deadline=deadline,
                     # adopt the router's trace (traceparent header) or
                     # mint one, so standalone engines still correlate
                     trace=tracing.from_headers(self.headers),

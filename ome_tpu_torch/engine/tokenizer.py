@@ -3,13 +3,20 @@
 A dependency-free byte-level tokenizer is the default (works with any
 vocab >= 259 and makes CI/zero-egress tests hermetic); when a model dir
 carries a real HF tokenizer, `load_tokenizer` upgrades to it via
-`transformers` (baked into the image).
+`transformers`. Where that tokenizer cannot be loaded (no
+`transformers` installed, or a broken `tokenizer.json`), the byte
+tokenizer is returned as in the reference, with a warning that names
+the directory and the error: a real model served with byte ids gives
+wrong tokens, so the fallback must not be silent.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import List, Optional, Sequence
+
+log = logging.getLogger("ome.engine.tokenizer")
 
 PAD_ID, BOS_ID, EOS_ID = 0, 1, 2
 _BYTE_OFFSET = 3
@@ -79,6 +86,9 @@ def load_tokenizer(model_dir: Optional[str] = None):
         try:
             from transformers import AutoTokenizer
             return HFTokenizer(AutoTokenizer.from_pretrained(model_dir))
-        except Exception:
-            pass
+        except Exception as e:  # noqa: BLE001 — any failure falls back
+            log.warning("%s ships tokenizer.json but it could not be "
+                        "loaded (%s: %s); serving with the byte-level "
+                        "tokenizer instead", model_dir, type(e).__name__,
+                        e)
     return ByteTokenizer()

@@ -33,7 +33,7 @@ from torch import nn
 from ..ops.attention import attention
 from ..ops.flash import quantize_rows
 from ..ops.int4_matmul import int4_eligible, int4_matmul
-from ..ops.paged import paged_attention
+from ..ops.paged import paged_attention, paged_attention_multi
 from .config import ModelConfig
 from .params import Params, check_supported
 from .quant import QTensor
@@ -334,14 +334,16 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 def _append(pool: torch.Tensor, scale_pool: Optional[torch.Tensor],
             rows: torch.Tensor, blk: torch.Tensor, off: torch.Tensor
             ) -> None:
-    """Write one fresh [B, K, D] row per slot into `pool` [N, bs, K, D]
-    at (blk[b], off[b]), in place: one advanced-index assignment per
+    """Write fresh rows [B, S, K, D] into `pool` [N, bs, K, D] at
+    (blk[b, s], off[b, s]), in place: one advanced-index assignment per
     pool, which replaces the reference's scatter into a donated buffer.
-    int8 pools quantize per (row, head) on the way in
-    (`flash.quantize_rows`, the reference's amax/127 rule) and store the
-    f32 scale at the same (block, offset) of `scale_pool` [N, K, bs].
-    Free slots all write into the trash block; which duplicate lands is
-    unordered, and harmless because no live slot's window reads it."""
+    A slot's S rows land on consecutive sequence positions, distinct
+    (block, offset) pairs. int8 pools quantize per (row, head) on the
+    way in (`flash.quantize_rows`, the reference's amax/127 rule) and
+    store the f32 scale at the same (block, offset) of `scale_pool`
+    [N, K, bs]. Free slots all write into the trash block; which
+    duplicate lands is unordered, and harmless because no live slot's
+    window reads it."""
     if scale_pool is not None:
         rows, sc = quantize_rows(rows)
         scale_pool[blk, :, off] = sc
@@ -352,28 +354,30 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: PagedKVCache,
                   freqs: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, PagedKVCache]:
-    """One decode step over a paged (block-pool) KV cache.
+    """Short-sequence decode over a paged (block-pool) KV cache.
 
-    tokens: [B, 1]. Slot b writes its new K/V row into pool block
-    `table[b, index[b] // block]` at offset `index[b] % block` (the
-    engine allocates the covering block beforehand), then attends its
-    block chain through `ops.paged.paged_attention`. Standard GQA
-    models only (the engine guards). Returns (logits [B, 1, vocab]
-    fp32, cache with index + 1); the pools are updated in place."""
+    tokens: [B, S] with small S — 1 for plain decode, k+1 for a
+    speculative verify step. Slot b writes its S new K/V rows into pool
+    blocks `table[b, (index[b]+s) // block]` at offsets
+    `(index[b]+s) % block` (the engine allocates the covering blocks
+    beforehand), then attends its block chain: S == 1 through
+    `ops.paged.paged_attention` (the paged CUDA kernel on a card), S > 1
+    through the plain `paged_attention_multi` with per-query causal
+    masking, as in the reference. Standard GQA models only (the engine
+    guards). Returns (logits [B, S, vocab] fp32, cache with index + S);
+    the pools are updated in place."""
     B, S = tokens.shape
-    if S != 1:
-        raise NotImplementedError(
-            "forward_paged: multi-token steps (the speculative verify "
-            "forward) are not ported yet; S must be 1")
     dev = tokens.device
     bs = cache.k.shape[2]
     M = cache.table.shape[1]
     if freqs is None:
         freqs = rope_frequencies(cfg, dev)
-    positions = cache.index[:, None].to(torch.int32)
+    positions = (cache.index[:, None]
+                 + torch.arange(S, dtype=torch.int32, device=dev)[None, :]
+                 ).to(torch.int32)                          # [B, S]
     kv_len = cache.index + 1
-    rows = torch.arange(B, device=dev)
-    pos = positions[:, 0].long()
+    rows = torch.arange(B, device=dev)[:, None]
+    pos = positions.long()
     # the clamp keeps a free slot whose length outgrew its table row
     # inside the pool: its row points at the trash block by then
     blk = cache.table[rows, (pos // bs).clamp(max=M - 1)].long()
@@ -387,16 +391,23 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         q, k, v = _qkv(h, lp, cfg, freqs, positions)
         ksp = cache.k_scale[i] if quantized else None
         vsp = cache.v_scale[i] if quantized else None
-        _append(cache.k[i], ksp, k[:, 0], blk, off)
-        _append(cache.v[i], vsp, v[:, 0], blk, off)
-        attn = paged_attention(q, cache.k[i], cache.v[i], cache.table,
-                               kv_len, scale=cfg.query_scale,
-                               logit_softcap=cfg.attn_logit_softcap,
-                               k_scale=ksp, v_scale=vsp)
+        _append(cache.k[i], ksp, k, blk, off)
+        _append(cache.v[i], vsp, v, blk, off)
+        if S == 1:
+            attn = paged_attention(q, cache.k[i], cache.v[i], cache.table,
+                                   kv_len, scale=cfg.query_scale,
+                                   logit_softcap=cfg.attn_logit_softcap,
+                                   k_scale=ksp, v_scale=vsp)
+        else:
+            attn = paged_attention_multi(
+                q, cache.k[i], cache.v[i], cache.table, positions,
+                scale=cfg.query_scale,
+                logit_softcap=cfg.attn_logit_softcap,
+                k_scale=ksp, v_scale=vsp)
         x = x + _proj(attn, lp["wo"], cfg.dtype, flatten=2)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
         x = x + dense_mlp(h, lp, cfg.dtype)
-    new_cache = dataclasses.replace(cache, index=cache.index + 1)
+    new_cache = dataclasses.replace(cache, index=cache.index + S)
     return _final_logits(params, cfg, x), new_cache
 
 

@@ -23,8 +23,10 @@ per-(row, head) scales `[N, K, bs]`, S-minor as
 * `paged_attention` dispatches: a CUDA tensor goes to the kernel (an
   uncovered shape raises), a CPU tensor to `paged_attention_xla`.
 
-The multi-query verify path (`paged_attention_multi`) belongs to the
-speculative step plans and is not ported yet.
+* `paged_attention_multi` is the multi-query causal path of the
+  speculative verify forward (Sq = k+1 queries per slot, each at its
+  own position). It is XLA in the reference, so it stays plain PyTorch
+  on both devices: a gather of each slot's chain and a masked softmax.
 """
 
 from __future__ import annotations
@@ -145,3 +147,42 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return paged_attention_xla(q, k_pool, v_pool, table, kv_len, scale,
                                logit_softcap, k_scale=k_scale,
                                v_scale=v_scale)
+
+
+def paged_attention_multi(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, table: torch.Tensor,
+                          q_positions: torch.Tensor,
+                          scale: Optional[float] = None,
+                          logit_softcap: Optional[float] = None,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Multi-query causal paged attention (the speculative verify).
+
+    Like `paged_attention_xla` with Sq >= 1 queries per slot: query s of
+    slot b attends the pool rows at sequence positions <=
+    q_positions[b, s], its own freshly written row included. Rows past
+    a slot's chain sit in trash-block gathers at positions beyond every
+    query, so the one comparison masks both.
+
+    q: [B, Sq, H, D]; pools: [N, bs, K, D]; table: [B, M] int32;
+    q_positions: [B, Sq] int32. Returns [B, Sq, H, D] in q.dtype."""
+    B, Sq, H, D = q.shape
+    _, bs, K, _ = k_pool.shape
+    M = table.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    kg = _gather_dequant(k_pool, k_scale, table)
+    vg = _gather_dequant(v_pool, v_scale, table)
+    G = H // K
+    qh = q.reshape(B, Sq, K, G, D)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qh.float(), kg) * scale
+    if logit_softcap:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
+    col = torch.arange(M * bs, dtype=torch.int32, device=q.device)
+    qp = q_positions.to(device=q.device, dtype=torch.int32)
+    valid = (col[None, None, :] <= qp[:, :, None])[:, None, None]
+    logits = torch.where(valid, logits, torch.full_like(logits, M_INIT))
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(valid, p, torch.zeros_like(p))
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, vg)
+    return out.reshape(B, Sq, H, D).to(q.dtype)

@@ -261,11 +261,20 @@ def test_forward_paged_logits_match_jax(params, pool_dtype):
 
 
 def test_forward_paged_refuses_multi_token_steps(params):
-    _, tparams = params
-    _, tc = _paged_caches(np.random.default_rng(5), "fp32")
-    with pytest.raises(NotImplementedError, match="verify"):
-        llama.forward_paged(tparams, TCFG,
-                            torch.ones((3, 2), dtype=torch.int32), tc)
+    """Multi-token steps (the speculative verify's S = k+1 rows) are
+    served now, through the plain `paged_attention_multi`: their logits
+    and lengths equal the JAX forward_paged's on the same pool."""
+    jparams, tparams = params
+    rng = np.random.default_rng(5)
+    jc, tc = _paged_caches(rng, "fp32")
+    tokens = rng.integers(3, 500, (3, 3)).astype(np.int32)
+    jlogits, jnew = jllama.forward_paged(jparams, JCFG,
+                                         jnp.asarray(tokens), jc)
+    tlogits, tnew = llama.forward_paged(tparams, TCFG, _t(tokens), tc)
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits),
+                               atol=2e-4)
+    np.testing.assert_array_equal(tnew.index.numpy(),
+                                  np.asarray(jnew.index))
 
 
 # -- engine and scheduler --------------------------------------------------

@@ -4,11 +4,13 @@
 runs, minus the signal wait: a tiny config.json, `--device cpu
 --random-weights`, then an OpenAI completion, an SSE stream and the
 health/metrics surface over HTTP; `--quantization int8|int4|fp8`
-servers answer too. Flags outside this slice of the port (and values
-the port refuses, such as `--quantization nf4`, a negative
-`--kv-block` or `--kv-dtype int8` without one) must exit with a message
-that names them, and asking for CUDA where there is no card must
-raise.
+servers answer too. Flags outside the port so far (and values the port
+refuses, such as `--quantization nf4`, a negative `--kv-block`,
+`--kv-dtype int8` without one, a negative `--spec-tokens` or
+`--steps-per-dispatch 0`) must exit with a message that names them, a
+model directory without weights must exit naming `--model-dir` unless
+`--random-weights` is given, and asking for CUDA where there is no card
+must raise.
 """
 
 import json
@@ -100,9 +102,13 @@ def test_health_metrics_and_refusals(served):
         text = r.read().decode()
     assert "ome_engine_tokens_generated_total" in text
     assert "ome_engine_prefix_cache_hits_total" in text
+    status, body = _post(url, {"prompt": "x", "max_tokens": 24,
+                               "response_format": {"type": "json_object"}})
+    assert status == 200
+    assert json.loads(body)["usage"]["completion_tokens"] >= 1
     status, body = _post(url, {"prompt": "x", "response_format":
-                               {"type": "json_object"}})
-    assert status == 400 and b"not supported yet" in body
+                               {"type": "grammar"}})
+    assert status == 400 and b"not supported" in body
     status, _ = _post(url, {}, path="/debug/profile")
     assert status == 501
 
@@ -110,8 +116,8 @@ def test_health_metrics_and_refusals(served):
 @pytest.mark.parametrize("argv", [
     ["--tp", "2"], ["--quantization", "nf4"], ["--kv-block", "-16"],
     ["--kv-dtype", "int8"], ["--prefix-cache-host-mb", "64"],
-    ["--disaggregation-mode", "decode"], ["--spec-tokens", "4"],
-    ["--steps-per-dispatch", "4"], ["--journal", "/nonexistent"],
+    ["--disaggregation-mode", "decode"], ["--spec-tokens", "-1"],
+    ["--steps-per-dispatch", "0"], ["--journal", "/nonexistent"],
     ["--task", "embed"], ["--ledger-mode", "auto"],
     ["--control-port", "9000"], ["--adapter", "a=/nonexistent"],
     ["--lora-slots", "2"],
@@ -155,9 +161,11 @@ def test_multihost_env_and_checkpoints_refuse(model_dir):
         serve.check_slice(args, env={"JAX_COORDINATOR_ADDRESS": "h:1",
                                      "JAX_NUM_PROCESSES": "2"})
     serve.check_slice(args, env={})
-    args = serve.build_parser().parse_args(["--model-dir", model_dir])
-    with pytest.raises(SystemExit, match="--random-weights"):
-        serve.check_slice(args, env={})
+    # without --random-weights the directory must hold a checkpoint:
+    # a config.json alone exits naming --model-dir
+    with pytest.raises(SystemExit, match="--model-dir"):
+        serve.build_server(["--model-dir", model_dir, "--device", "cpu",
+                            "--port", "0"])
 
 
 def test_cuda_without_a_card_raises(model_dir):
