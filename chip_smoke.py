@@ -62,7 +62,27 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
 10. stream identity: fp32 at the Llama-3-8B widths, 4 layers, through
    the engine API: dense decode (B1) and paged decode over fp32 pools
    (B3) give identical 32-token greedy streams; the int8 pool's drift
-   from the fp32 pool over the same streams is reported.
+   from the fp32 pool over the same streams is reported;
+11. checkpoint: a Llama-3-8B-width checkpoint (4 layers, bf16, HF names,
+   two shards + index) written from the port's seeded init under
+   chiprun_out/ (removed after), loaded back bit-equal (load GB/s), and
+   served with `--model-dir` and no `--random-weights`: its first greedy
+   tokens equal an engine's over the in-memory params;
+12. step plans: fp32 at the 8B widths, 4 layers, dense and fp32 paged
+   pool: single steps, `decode_multi` K=4 and the scheduler at
+   spec_tokens 4 / steps_per_dispatch 4 give identical greedy streams
+   for prompts that repeat n-grams, with drafts accepted; B1, B2 (at
+   Sq 5, the dense verify) and B3 launched; the pool conserved;
+13./14. step-plan servers: the bf16 8B server at full depth with
+   `--spec-tokens 4 --steps-per-dispatch 4`, dense then paged
+   (`--kv-block 128`, a burst larger than the pool, conserved at idle):
+   concurrent completions and a `json_schema` request whose output
+   parses; spec proposed/accepted, chunks, launches and TPOT printed
+   beside phases 4 and 5 for the record.
+
+The kernels phase also runs B2 at the dense verify's shape: B 8 slots,
+Sq 5 rows each from its own base (60 to 4090) over a 4096-row cache,
+bf16 and fp32. Each phase's seconds are printed (`[phase]`).
 
 Prints one `{"kernels": [...]}` line, then the card's name and power limit,
 then `{"ok": true, "device": {...}}` as the last line. Any failed phase
@@ -91,6 +111,8 @@ INT4_STEP_DEVICE_MS_BEFORE = 34.8
 PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core bf16
               "fp32": 67e12}       # fp32 outside the tensor cores
 ATOL = {"bf16": 2e-2, "fp32": 2e-4}
+# cache lengths of the 8 slots of the B2 verify cases (Sq = 5 from each)
+VERIFY_BASES = (60, 611, 1187, 1702, 2333, 2901, 3517, 4090)
 OUT_DIR = "chiprun_out"
 
 
@@ -414,6 +436,11 @@ def phase_prefill_kernel(torch, timer, gen):
         prefill_case(torch, timer, gen, "fp32", 2048, 2048, 0),
         prefill_case(torch, timer, gen, "fp32", 512, 2048, 1024),
     ]
+    # the dense speculative verify: k+1 = 5 query rows per slot, each
+    # slot from its own base (its cache length) over a 4096-row cache
+    for dt in ("bf16", "fp32"):
+        cases.append(prefill_case(torch, timer, gen, dt, 5, 4096, 0, B=8,
+                                  bases=VERIFY_BASES))
     for c in cases:
         lc = c["library_causal_ms"]
         log(f"[kernels] flash_prefill {c['case']}: share of bound "
@@ -1966,6 +1993,474 @@ def phase_stream_identity(torch, seed: int = 0, n_layers: int = 4,
             "int8_drift": int8_drift, "launches": launches}
 
 
+# -- phase 11: checkpoint ---------------------------------------------------------
+
+
+def _bits(torch, t):
+    """A tensor's bits as an integer view (bit equality, -0.0 != 0.0)."""
+    return t.view({2: torch.int16, 4: torch.int32,
+                   1: torch.uint8}[t.element_size()])
+
+
+def phase_checkpoint(torch, seed: int = 0, n_layers: int = 4):
+    """A Llama-3-8B-width checkpoint (n_layers deep, bf16, HF names, two
+    shards + model.safetensors.index.json) written from the port's
+    seeded init under chiprun_out/ and removed after: loaded back by
+    `models/checkpoint.load_params` onto the card, every leaf bit-equal
+    to what was written (load GB/s printed), then served with
+    `--model-dir` and no `--random-weights`: its first greedy tokens
+    equal those of an engine over the in-memory params."""
+    import random
+    import shutil
+
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.engine.scheduler import Request
+    from ome_tpu_torch.models import checkpoint
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.models.params import init_params
+
+    cfg = llama3_8b().replace(num_layers=n_layers, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"))
+    d = os.path.join(OUT_DIR, f"ckpt_llama3_8b_{n_layers}l")
+    out = {}
+    try:
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.monotonic()
+        tensors = checkpoint.hf_tensors(params, cfg)
+        files = checkpoint.save_checkpoint(d, tensors, shards=2)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(_hf_config(cfg), f)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+        del tensors
+        out["write_s"] = time.monotonic() - t0
+        out["bytes"] = nbytes
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loaded, lcfg = checkpoint.load_params(d, dtype=torch.bfloat16,
+                                              device="cuda")
+        torch.cuda.synchronize()
+        out["load_s"] = time.monotonic() - t0
+        out["load_gbps"] = nbytes / out["load_s"] / 1e9
+
+        def leaves(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from leaves(v, prefix + k + ".")
+                else:
+                    yield prefix + k, v
+        want = dict(leaves(params))
+        got = dict(leaves(loaded))
+        if got.keys() != want.keys():
+            fail(f"checkpoint: loaded leaves {sorted(got)} != written "
+                 f"{sorted(want)}")
+        for name, t in want.items():
+            if got[name].shape != t.shape or got[name].dtype != t.dtype \
+                    or not torch.equal(_bits(torch, got[name]),
+                                       _bits(torch, t)):
+                fail(f"checkpoint: leaf {name} is not bit-equal to what "
+                     f"was written")
+        del loaded
+        log(f"[checkpoint] Llama-3-8B widths, {n_layers} layers, bf16: "
+            f"{nbytes / 1e9:.3f} GB in {files} + index, written in "
+            f"{out['write_s']:.1f} s; load_params to the card "
+            f"{out['load_s']:.2f} s ({out['load_gbps']:.2f} GB/s); all "
+            f"{len(want)} leaves bit-equal")
+        rng = random.Random(seed + 5)
+        prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+                   for n in (20, 300)]
+        steps = 8
+        t0 = time.monotonic()
+        server, sched, engine = serve.build_server(
+            ["--model-dir", d, "--max-slots", "2", "--max-seq", "1024",
+             "--port", "0", "--host", "127.0.0.1", "--seed", str(seed)])
+        out["serve_startup_s"] = time.monotonic() - t0
+        try:
+            status, raw = _post(f"http://127.0.0.1:{server.port}",
+                                {"prompt": prompts[0], "max_tokens": 4,
+                                 "temperature": 0.0})
+            _completion(status, raw, 4, "checkpoint completion")
+            served = []
+            for ids in prompts:
+                req = sched.submit(Request(prompt_ids=ids,
+                                           max_new_tokens=steps))
+                served.append(list(req.wait_output(300)))
+        finally:
+            server.stop()
+        del server, sched, engine
+        twin = InferenceEngine(params, cfg, max_slots=2, max_seq=1024,
+                               device="cuda", seed=seed)
+        ref, _, _ = _greedy_streams(torch, twin, prompts, steps)
+        del twin
+        out["first_tokens"] = served
+        if served != ref:
+            fail(f"checkpoint: the served checkpoint's greedy tokens "
+                 f"{served} differ from the in-memory engine's {ref}")
+        log(f"[checkpoint] served with --model-dir (no --random-weights, "
+            f"up in {out['serve_startup_s']:.1f} s): first {steps} greedy "
+            f"tokens of {len(prompts)} prompts equal the engine's over "
+            f"the in-memory params")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del params
+    return out
+
+
+# -- phase 12: step-plan identity -------------------------------------------------
+
+
+# embedding scale of phase 12's tied random weights (see its docstring;
+# 4x gave streams with 19-38 distinct tokens in 40 and drafts accepted
+# and rejected, 10x a single repeated token, 3x no repeats)
+EMBED_SCALE = 4.0
+
+
+def _echo_prompts(bases, continuations):
+    """Prompts that repeat n-grams: base + its own greedy continuation +
+    base again. The drafter matches the tail n-gram (the base's end)
+    and proposes the continuation that followed it; where the model's
+    next tokens depend mostly on the last ones (random weights do), the
+    verify accepts them."""
+    return [list(b) + list(c) + list(b)
+            for b, c in zip(bases, continuations)]
+
+
+def _multi_streams(torch, eng, prompts, steps: int, k: int):
+    """Greedy streams of `prompts` through `decode_multi` chunks of `k`
+    (the first token from prefill, then `steps - 1` more), paged chunks
+    committed after each drain."""
+    import numpy as np
+    n = eng.max_slots
+    state = eng.new_state()
+    out = []
+    for slot, ids in enumerate(prompts):
+        tok, kv, t_len, bucket = eng.prefill(ids)
+        state = eng.insert(state, kv, slot, t_len, tok, bucket)
+        out.append([int(tok)])
+    greedy = (np.zeros(n, np.float32), np.zeros(n, np.int32),
+              np.ones(n, np.float32))
+    stops = np.full((n, 4), -1, np.int32)
+    while min(len(s) for s in out) < steps:
+        budget = np.zeros(n, np.int32)
+        for slot, s in enumerate(out):
+            budget[slot] = min(steps - len(s), k)
+        state, toks, adv = eng.decode_multi(state, *greedy, steps=k,
+                                            budget=budget, stop_ids=stops)
+        toks, adv = np.asarray(toks), np.asarray(adv)
+        for slot in range(len(prompts)):
+            out[slot] += [int(t) for t in toks[slot, :int(adv[slot])]]
+            eng.commit_spec(slot, int(adv[slot]))
+    return out
+
+
+def _sched_streams(eng, prompts, steps: int, **kw):
+    """Greedy streams through the port's Scheduler, stepped in this
+    thread; returns (streams, scheduler)."""
+    from ome_tpu_torch.engine.scheduler import Request, Scheduler
+    sched = Scheduler(eng, **kw)
+    reqs = [sched.submit(Request(prompt_ids=ids, max_new_tokens=steps))
+            for ids in prompts]
+    for _ in range(20 * steps):
+        if all(r.done.is_set() for r in reqs):
+            break
+        sched.step()
+    else:
+        fail("step plans: the scheduler did not finish its requests")
+    return [list(r.output_ids) for r in reqs], sched
+
+
+def phase_step_plans(torch, seed: int = 0, n_layers: int = 4,
+                     steps: int = 40):
+    """fp32 at the Llama-3-8B widths, `n_layers` deep, through a dense
+    cache and an fp32 paged pool (kv_block 128): single decode steps,
+    `decode_multi` in chunks of 4, and the Scheduler at spec_tokens 4,
+    steps_per_dispatch 4, pipeline depth 1 give identical greedy
+    streams; drafts are accepted; B1 and B2 launch on the dense cache,
+    B2 at Sq 5 (the verify forward), B3 on the pool; the pool is
+    conserved.
+
+    The weights are the seeded init with the embeddings tied and the
+    table scaled by `EMBED_SCALE`: the greedy streams then run in
+    repeats of a token, broken by context, which the n-gram drafter
+    predicts in part (drafts accepted and rejected). With the untied
+    init at vocabulary 128256 the greedy streams repeat no n-gram in 40
+    tokens, so no draft is ever proposed."""
+    import random
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.ops import flash
+
+    cfg = llama3_8b().replace(num_layers=n_layers, dtype=torch.float32,
+                              tie_word_embeddings=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"))
+    params["embed"].mul_(EMBED_SCALE)
+    rng = random.Random(seed + 3)
+    prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+               for n in (20, 75, 150, 300)]
+    # the query rows of every prefill-kernel launch, read in passing
+    sq_seen = []
+    prefill = flash.flash_prefill
+
+    def recording_prefill(q, *a, **kw):
+        sq_seen.append(int(q.shape[1]))
+        return prefill(q, *a, **kw)
+    flash.flash_prefill = recording_prefill
+    out, streams = {}, {}
+    try:
+        for name, kw in (("dense", {}), ("paged", {"kv_block": 128})):
+            eng = InferenceEngine(params, cfg, max_slots=4, max_seq=2048,
+                                  device="cuda", seed=seed, **kw)
+            flash.reset_launches()
+            del sq_seen[:]
+            t0 = time.monotonic()
+            single, gaps, _ = _greedy_streams(torch, eng, prompts, steps)
+            multi = _multi_streams(torch, eng, prompts, steps, k=4)
+            planned, sched = _sched_streams(
+                eng, prompts, steps, pipeline_depth=1, spec_tokens=4,
+                steps_per_dispatch=4)
+            torch.cuda.synchronize()
+            launches = dict(flash.LAUNCHES)
+            st = sched.stats
+            ok, _ = eng.kv_conservation()
+            free = eng.kv_pool_stats["kv_blocks_free"]
+            res = {"secs": time.monotonic() - t0, "launches": launches,
+                   "verify_sq": sorted(set(sq_seen) & {5}),
+                   "spec_steps": st["spec_steps_total"],
+                   "spec_proposed": st["spec_proposed_tokens_total"],
+                   "spec_accepted": st["spec_accepted_tokens_total"],
+                   "chunks": sched._ph_device_loop.count,
+                   "decode_steps": st["decode_steps_total"],
+                   "min_top2_gap": min(float(g[:len(prompts)].min())
+                                       for g in gaps),
+                   "kv_conservation": ok}
+            out[name] = res
+            streams[name] = (single, multi, planned)
+            for what, got in (("decode_multi K=4", multi),
+                              ("scheduler spec 4 K 4", planned)):
+                if got != single:
+                    slot = next(i for i, (a, b) in
+                                enumerate(zip(single, got)) if a != b)
+                    fail(f"step plans {name}: {what} stream of prompt "
+                         f"{slot} differs from single steps: {got[slot]} "
+                         f"vs {single[slot]}")
+            if res["spec_accepted"] <= 0:
+                fail(f"step plans {name}: no draft was accepted "
+                     f"({res['spec_proposed']} proposed)")
+            if name == "dense":
+                if launches["flash_decode"] <= 0 or 5 not in sq_seen:
+                    fail(f"step plans dense: B1 or B2 at Sq 5 did not "
+                         f"run ({launches}, prefill Sq {set(sq_seen)})")
+            elif launches["flash_paged_decode"] <= 0 or \
+                    free != eng.kv_blocks - 1 or not ok:
+                fail(f"step plans paged: B3 launches "
+                     f"{launches['flash_paged_decode']}, pool conserved "
+                     f"{ok}, free {free} of {eng.kv_blocks}")
+            log(f"[step plans] fp32 {name}, Llama-3-8B widths, {n_layers} "
+                f"layers: single steps, decode_multi K=4 and the "
+                f"scheduler (spec 4, K 4, depth 1) give identical "
+                f"{steps}-token streams for {len(prompts)} prompts "
+                f"(smallest top-2 gap {res['min_top2_gap']:.3e}); spec "
+                f"steps {res['spec_steps']}, proposed "
+                f"{res['spec_proposed']}, accepted {res['spec_accepted']}; "
+                f"chunks {res['chunks']}; launches {launches}; prefill Sq "
+                f"seen {sorted(set(sq_seen))}; pool conserved {ok}; "
+                f"{res['secs']:.1f} s")
+            del eng, sched
+        if streams["dense"][0] != streams["paged"][0]:
+            fail("step plans: dense and paged fp32 streams differ")
+    finally:
+        flash.flash_prefill = prefill
+    del params
+    return out
+
+
+# -- phase 13/14: step-plan servers -------------------------------------------------
+
+
+SERVE_SCHEMA = {"type": "object",
+                "properties": {"name": {"type": "string",
+                                        "pattern": "^[a-z]{1,12}$"},
+                               "count": {"type": "integer", "minimum": 0,
+                                         "maximum": 999},
+                               "ok": {"type": "boolean"}},
+                "required": ["name", "count", "ok"],
+                "additionalProperties": False}
+
+
+def phase_serve_stepplan(torch, paged: bool, seed: int = 0, before=None):
+    """The bf16 Llama-3-8B server at full depth with `--spec-tokens 4
+    --steps-per-dispatch 4`, dense (`--max-slots 8`) or paged
+    (`--kv-block 128 --max-slots 16 --kv-blocks 129`): concurrent
+    completions of prompts that repeat n-grams, a `json_schema` request
+    whose output must parse against its schema and, paged, a burst
+    larger than the pool with the pool conserved at idle. Spec
+    proposed/accepted, chunks, launches and TPOT are printed beside
+    `before` (phase 4's or 5's run) for the record."""
+    import concurrent.futures
+    import random
+    import tempfile
+
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.ops import flash
+
+    cfg = llama3_8b()
+    rng = random.Random(seed + 7)
+    tag = "[serve spec paged]" if paged else "[serve spec]"
+    out = {"paged": paged}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(_hf_config(cfg), f)
+        reqlog = os.path.join(tmp, "requests.jsonl")
+        argv = ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
+                "--max-seq", "4096", "--port", "0", "--host", "127.0.0.1",
+                "--request-log", reqlog, "--spec-tokens", "4",
+                "--steps-per-dispatch", "4"]
+        argv += (["--max-slots", "16", "--kv-block", "128", "--kv-blocks",
+                  "129"] if paged else ["--max-slots", "8"])
+        t0 = time.monotonic()
+        server, sched, engine = serve.build_server(argv)
+        torch.cuda.synchronize()
+        out["startup_s"] = time.monotonic() - t0
+        url = f"http://127.0.0.1:{server.port}"
+
+        def post_all(bodies, what):
+            with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
+                futs = [ex.submit(_post, url, b) for b in bodies]
+                return [_completion(*fut.result(), b["max_tokens"],
+                                    f"{what} {i}")
+                        for i, (fut, b) in enumerate(zip(futs, bodies))]
+        seen = []
+        submit = sched.submit
+
+        def recording_submit(req):
+            # keyed by the prompt as sent: a preempted request's
+            # prompt_ids later take its generated tokens in
+            seen.append((tuple(req.prompt_ids), req))
+            return submit(req)
+        sched.submit = recording_submit
+        try:
+            flash.reset_launches()
+            lengths = ([20, 90, 175, 280, 400, 535, 690, 1200, 50, 130,
+                        225, 340, 465, 610, 780, 8] if paged
+                       else [8, 50, 200, 400, 750, 1100, 1300, 1500])
+            # each base prompt's own greedy continuation, read from the
+            # server, then base + continuation + base: prompts that
+            # repeat n-grams
+            bases = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+                     for n in lengths]
+            post_all([{"prompt": b, "max_tokens": 12, "temperature": 0.0}
+                      for b in bases], "base request")
+            conts = {key: r.output_ids for key, r in seen}
+            bodies = [{"prompt": p, "max_tokens": 32, "temperature": 0.0}
+                      for p in _echo_prompts(
+                          bases, [conts[tuple(b)] for b in bases])]
+            t_batch = time.monotonic()
+            docs = post_all(bodies, "request")
+            out["batch_s"] = time.monotonic() - t_batch
+            out["batch_completion_tokens"] = sum(
+                d["usage"]["completion_tokens"] for d in docs)
+            status, raw = _post(url, {
+                "prompt": "Describe the item as JSON:", "max_tokens": 64,
+                "temperature": 0.0, "response_format": {
+                    "type": "json_schema",
+                    "json_schema": {"name": "item",
+                                    "schema": SERVE_SCHEMA}}})
+            if status != 200:
+                fail(f"{tag} json_schema request: HTTP {status}")
+            text = json.loads(raw)["choices"][0]["text"]
+            try:
+                doc = json.loads(text)
+            except ValueError:
+                fail(f"{tag} json_schema output does not parse: {text!r}")
+            if set(doc) != {"name", "count", "ok"} or \
+                    not 0 <= doc["count"] <= 999:
+                fail(f"{tag} json_schema output breaks its schema: {doc}")
+            out["json_schema_output"] = doc
+            if paged:
+                burst = [{"prompt": [rng.randrange(3, cfg.vocab_size)
+                                     for _ in range(2040)],
+                          "max_tokens": 32, "temperature": 0.0}
+                         for _ in range(12)]
+                t_burst = time.monotonic()
+                post_all(burst, "burst request")
+                out["burst_s"] = time.monotonic() - t_burst
+            _wait_idle(sched)
+            torch.cuda.synchronize()
+            launches = dict(flash.LAUNCHES)
+            st = dict(sched.stats)
+            out["chunks"] = sched._ph_device_loop.count
+            out["dispatches"] = (sched._ph_dispatch.count
+                                 + sched._ph_device_loop.count)
+            out["degradations"] = sched.degradations
+            if paged:
+                ok, owned = engine.kv_conservation()
+                free = engine.kv_pool_stats["kv_blocks_free"]
+                out.update(kv_conservation=ok, kv_blocks_free=free)
+        finally:
+            server.stop()
+        with open(reqlog) as f:
+            recs = [json.loads(line) for line in f]
+    out["launches"] = launches
+    for key in ("spec_steps_total", "spec_proposed_tokens_total",
+                "spec_accepted_tokens_total", "decode_steps_total",
+                "preemptions_total", "tokens_generated_total"):
+        out[key] = st[key]
+    tpot = sorted(r["tpot_s"] for r in recs if r.get("tpot_s"))
+    ttft = sorted(r["ttft_s"] for r in recs if r.get("ttft_s") is not None)
+    out["tpot_median_s"] = statistics.median(tpot)
+    out["ttft_median_s"] = statistics.median(ttft)
+    if out["spec_steps_total"] + out["chunks"] <= 0:
+        fail(f"{tag}: neither a verify step nor a chunk ran")
+    need = ["flash_prefill"] + (["flash_paged_decode"] if paged
+                                else ["flash_decode"])
+    for name in need:
+        if launches[name] <= 0:
+            fail(f"{tag}: kernel {name} was never launched while serving")
+    if paged:
+        if launches["flash_decode"]:
+            fail(f"{tag}: the dense decode kernel launched during paged "
+                 f"serving")
+        if not out["kv_conservation"] or \
+                out["kv_blocks_free"] != engine.kv_blocks - 1:
+            fail(f"{tag}: the pool is not conserved at idle "
+                 f"({out['kv_conservation']}, free "
+                 f"{out['kv_blocks_free']} of {engine.kv_blocks})")
+    prop = out["spec_proposed_tokens_total"]
+    acc = out["spec_accepted_tokens_total"]
+    prev = (f"{before['tpot_median_s'] * 1e3:.2f} ms"
+            if before and before.get("tpot_median_s") else "not measured")
+    log(f"{tag} Llama-3-8B, bf16, full depth, --spec-tokens 4 "
+        f"--steps-per-dispatch 4: up in {out['startup_s']:.1f} s; "
+        f"{len(bodies)} concurrent completions, "
+        f"{out['batch_completion_tokens']} tokens in {out['batch_s']:.2f} "
+        f"s; json_schema output parses: {out['json_schema_output']}"
+        + (f"; burst of 12 x 2040 tokens in {out['burst_s']:.2f} s, pool "
+           f"conserved at idle (preemptions {out['preemptions_total']})"
+           if paged else ""))
+    out["accept_rate"] = acc / prop if prop else None
+    out["accepted_per_verify"] = acc / max(out["spec_steps_total"], 1)
+    out["tokens_per_dispatch"] = (out["tokens_generated_total"]
+                                  / max(out["dispatches"], 1))
+    log(f"{tag} spec steps {out['spec_steps_total']}, proposed {prop}, "
+        f"accepted {acc} (accept rate {out['accept_rate']}, accepted per "
+        f"verify step {out['accepted_per_verify']:.3f}); chunks "
+        f"{out['chunks']}; engine dispatches {out['dispatches']}, decode "
+        f"tokens {out['tokens_generated_total']} "
+        f"({out['tokens_per_dispatch']:.2f} per dispatch); degradations "
+        f"{out['degradations']}; launches {launches}; TPOT median "
+        f"{out['tpot_median_s'] * 1e3:.2f} ms (without the step flags, "
+        f"phase {'5' if paged else '4'}: {prev}); TTFT median "
+        f"{out['ttft_median_s'] * 1e3:.1f} ms")
+    return out
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -1995,22 +2490,38 @@ def main() -> int:
              "run from the root of the repository")
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
-    report["build_s"] = phase_build()
-    report["kernel_cases"] = phase_kernels(torch)
-    report["serve"] = phase_serve(torch)
-    _free_device(torch, "the dense server")
-    report["paged_bf16"] = phase_serve_paged(torch, "bf16")
-    _free_device(torch, "the paged bf16 server")
-    report["paged_int8"] = phase_serve_paged(
-        torch, "int8", first_tokens=report["paged_bf16"]["first_tokens"])
-    _free_device(torch, "the paged int8 server")
-    report["serve_int4"] = phase_serve(torch, quantization="int4")
-    _free_device(torch, "the int4 server")
-    report["step_turns"] = phase_step_turns(torch)
-    _free_device(torch, "the step-time engines")
-    report["quant_turns"] = phase_quant_turns(torch)
-    _free_device(torch, "the weight-quantization engines")
-    report["stream_identity"] = phase_stream_identity(torch)
+    phase_s = report["phase_s"] = {}
+
+    def run(key, fn, *a, free=None, **kw):
+        t = time.monotonic()
+        report[key] = fn(*a, **kw)
+        phase_s[key] = time.monotonic() - t
+        log(f"[phase] {key}: {phase_s[key]:.1f} s")
+        if free:
+            _free_device(torch, free)
+    run("build_s", phase_build)
+    run("kernel_cases", phase_kernels, torch)
+    run("serve", phase_serve, torch, free="the dense server")
+    run("paged_bf16", phase_serve_paged, torch, "bf16",
+        free="the paged bf16 server")
+    run("paged_int8", phase_serve_paged, torch, "int8",
+        first_tokens=report["paged_bf16"]["first_tokens"],
+        free="the paged int8 server")
+    run("serve_int4", phase_serve, torch, quantization="int4",
+        free="the int4 server")
+    run("step_turns", phase_step_turns, torch,
+        free="the step-time engines")
+    run("quant_turns", phase_quant_turns, torch,
+        free="the weight-quantization engines")
+    run("stream_identity", phase_stream_identity, torch,
+        free="the stream-identity engines")
+    run("checkpoint", phase_checkpoint, torch, free="the checkpoint")
+    run("step_plans", phase_step_plans, torch,
+        free="the step-plan engines")
+    run("serve_spec", phase_serve_stepplan, torch, False,
+        before=report["serve"], free="the spec server")
+    run("serve_spec_paged", phase_serve_stepplan, torch, True,
+        before=report["paged_bf16"], free="the paged spec server")
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -96,41 +96,25 @@ class SafetensorsFile:
         return t.view(view) if view is not None else t
 
 
-def _raw(arr) -> Tuple[str, bytes, tuple]:
-    """(safetensors dtype, bytes, shape) of a torch tensor or a numpy
-    array (a numpy bf16 array, as `ml_dtypes` makes it, goes by name)."""
-    if isinstance(arr, torch.Tensor):
-        t = arr.detach().cpu().contiguous()
-        dt = _TORCH_NAMES.get(t.dtype)
-        if dt is None:
-            raise SafetensorsError(f"unsupported dtype {t.dtype}")
-        if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
-            t = t.view(torch.int16 if t.dtype == torch.bfloat16
-                       else torch.uint8)
-        return dt, t.numpy().tobytes(), tuple(arr.shape)
-    a = np.ascontiguousarray(arr)
-    name = a.dtype.name
-    if name == "bfloat16":
-        return "BF16", a.view(np.uint16).tobytes(), a.shape
-    if name == "float8_e4m3fn":
-        return "F8_E4M3", a.view(np.uint8).tobytes(), a.shape
-    for st, (dt, view) in _DTYPES.items():
-        if view is None and dt == a.dtype:
-            return st, a.tobytes(), a.shape
-    raise SafetensorsError(f"unsupported dtype {a.dtype}")
-
-
-def save_safetensors(path: str, tensors: Dict[str, Any],
+def save_safetensors(path: str, tensors: Dict[str, torch.Tensor],
                      metadata: Optional[Dict[str, str]] = None) -> None:
-    """Write a safetensors file from torch tensors or numpy arrays."""
+    """Write a safetensors file (tests, chip_smoke.py, export)."""
     header: Dict[str, Any] = {}
     if metadata:
         header["__metadata__"] = metadata
     offset = 0
     blobs = []
     for name, arr in tensors.items():
-        dt, blob, shape = _raw(arr)
-        header[name] = {"dtype": dt, "shape": list(shape),
+        dt = _TORCH_NAMES.get(arr.dtype)
+        if dt is None:
+            raise SafetensorsError(f"unsupported dtype {arr.dtype}")
+        t = arr.detach().cpu().contiguous()
+        if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+            # numpy has neither: their bytes travel as integers
+            t = t.view(torch.int16 if t.dtype == torch.bfloat16
+                       else torch.uint8)
+        blob = t.numpy().tobytes()
+        header[name] = {"dtype": dt, "shape": list(arr.shape),
                         "data_offsets": [offset, offset + len(blob)]}
         blobs.append(blob)
         offset += len(blob)
@@ -186,13 +170,6 @@ class Checkpoint:
 # -- HF -> llama.py param tree ---------------------------------------------
 
 
-def _torch_dtype(dtype) -> torch.dtype:
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    return {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
-            "float32": torch.float32, "float16": torch.float16}[str(dtype)]
-
-
 class _Stacker:
     """Fills [L, ...] stacked tensors on `device` one layer at a time
     (no 2x peak)."""
@@ -230,7 +207,7 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
     `load_params` refuses those the model cannot run.
     """
     dev = torch.device(device)
-    t_dt = _torch_dtype(dtype or "bfloat16")
+    t_dt = dtype or torch.bfloat16
     f32 = torch.float32
     L, D, H, K, Dh = (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                       cfg.num_kv_heads, cfg.head_dim)
@@ -531,8 +508,8 @@ def load_params(model_dir: str, cfg=None, dtype=None,
     cfg defaults to ModelConfig.from_hf_config(config.json) behind the
     architecture gate; a configuration the port cannot run
     (`params.check_supported`) is refused before any weight is read.
-    `dtype` (a torch dtype or its name; default bfloat16) is the
-    weights' and the compute dtype."""
+    `dtype` (a torch dtype; default bfloat16) is the weights' and the
+    compute dtype."""
     from ..device import resolve_device
     from .params import check_supported
     dev = resolve_device(device)
@@ -542,5 +519,5 @@ def load_params(model_dir: str, cfg=None, dtype=None,
     ckpt = Checkpoint(model_dir)
     params = convert_llama(ckpt, cfg, dtype=dtype, device=dev)
     if dtype is not None:
-        cfg = cfg.replace(dtype=_torch_dtype(dtype))
+        cfg = cfg.replace(dtype=dtype)
     return params, cfg
