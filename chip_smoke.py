@@ -2111,9 +2111,8 @@ def phase_checkpoint(torch, seed: int = 0, n_layers: int = 4):
 # -- phase 12: step-plan identity -------------------------------------------------
 
 
-# embedding scale of phase 12's tied random weights (see its docstring;
-# 4x gave streams with 19-38 distinct tokens in 40 and drafts accepted
-# and rejected, 10x a single repeated token, 3x no repeats)
+# embedding scale of phase 12's tied random weights: `draft_probe`
+# measures the drafter on 1x, 3x, 4x and 10x (PERF.md, PR 8)
 EMBED_SCALE = 4.0
 
 
@@ -2125,6 +2124,74 @@ def _echo_prompts(bases, continuations):
     verify accepts them."""
     return [list(b) + list(c) + list(b)
             for b, c in zip(bases, continuations)]
+
+
+def _drafts_kept(prompt, stream, k: int = 4):
+    """(proposed, accepted) of the n-gram drafter along a greedy stream:
+    at each step, what `spec.propose` offers from the stream so far and
+    how many of those tokens the stream then takes, in order."""
+    from ome_tpu_torch.engine import spec
+    proposed = accepted = 0
+    for i in range(1, len(stream)):
+        draft = spec.propose(list(prompt) + stream[:i], k)
+        proposed += len(draft)
+        for j, t in enumerate(draft):
+            if i + j >= len(stream) or stream[i + j] != int(t):
+                break
+            accepted += 1
+    return proposed, accepted
+
+
+def draft_probe(torch, seed: int = 0, n_layers: int = 4, steps: int = 40,
+                n_prompts: int = 16):
+    """How the n-gram drafter fares on seeded random weights at the
+    Llama-3-8B widths (fp32, `n_layers` deep): for the untied init, the
+    tied init, tied with the embedding table scaled 3x / 4x / 10x, and
+    the untied init on echo prompts (base + its continuation + base),
+    the drafts proposed and kept along `n_prompts` greedy streams and
+    the distinct tokens per stream. Not part of the main run: phase 12's
+    `EMBED_SCALE` rests on it."""
+    import random
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.models.params import init_params
+
+    out = {}
+    for name, tie, scale in (("untied", False, 1.0), ("tied", True, 1.0),
+                             ("tied 3x", True, 3.0), ("tied 4x", True, 4.0),
+                             ("tied 10x", True, 10.0)):
+        cfg = llama3_8b().replace(num_layers=n_layers, dtype=torch.float32,
+                                  tie_word_embeddings=tie)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        params = init_params(cfg, gen, torch.device("cuda"))
+        params["embed"].mul_(scale)
+        eng = InferenceEngine(params, cfg, max_slots=n_prompts,
+                              max_seq=2048, device="cuda", seed=seed)
+        rng = random.Random(seed + 3)
+        prompts = [[rng.randrange(3, cfg.vocab_size)
+                    for _ in range(rng.choice((6, 20, 75, 300)))]
+                   for _ in range(n_prompts)]
+        runs = [(name, prompts)]
+        if name == "untied":
+            conts, _, _ = _greedy_streams(torch, eng, prompts, 12)
+            runs.append(("untied echo", _echo_prompts(prompts, conts)))
+        for label, ps in runs:
+            streams, _, _ = _greedy_streams(torch, eng, ps, steps)
+            kept = [_drafts_kept(p, s) for p, s in zip(ps, streams)]
+            out[label] = {
+                "proposed": sum(k[0] for k in kept),
+                "accepted": sum(k[1] for k in kept),
+                "distinct": [len(set(s)) for s in streams]}
+            log(f"[draft probe] {label}: {n_prompts} prompts x {steps} "
+                f"greedy tokens: proposed {out[label]['proposed']}, kept "
+                f"{out[label]['accepted']}; distinct tokens per stream "
+                f"{min(out[label]['distinct'])}-"
+                f"{max(out[label]['distinct'])}")
+        del eng, params
+        torch.cuda.empty_cache()
+    return out
 
 
 def _multi_streams(torch, eng, prompts, steps: int, k: int):
