@@ -2112,7 +2112,7 @@ def phase_checkpoint(torch, seed: int = 0, n_layers: int = 4):
 
 
 # embedding scale of phase 12's tied random weights: `draft_probe`
-# measures the drafter on 1x, 3x, 4x and 10x (PERF.md, PR 8)
+# measures the drafter on 1x, 3x, 4x and 10x (PERF.md)
 EMBED_SCALE = 4.0
 
 

@@ -1,11 +1,12 @@
 """Regex -> byte NFA for JSON-Schema `pattern` constrained decoding.
 
-Copied unchanged from ome_tpu/engine/repattern.py (it imports no jax): the
-port keeps its own copy, as it imports nothing of the JAX package.
+Copied from ome_tpu/engine/repattern.py (it imports no jax), code
+unchanged: the port keeps its own copy, as it imports nothing of the
+JAX package.
 
 The reference gets `pattern` support from xgrammar's regex->grammar
-compiler inside its SGLang runtime images (SURVEY.md L0, e.g.
-/root/reference/config/runtimes/srt/ --grammar-backend); here a small
+compiler inside its SGLang runtime images (SURVEY.md L0, the
+`--grammar-backend` flag of its runtime configs); here a small
 Thompson-construction NFA walks byte sets so the schema automaton
 (engine/schema.py) can mask tokens byte-by-byte AND steer a minimal
 close-out path (shortest distance-to-accept is precomputed per state,

@@ -1,7 +1,8 @@
 """Structured outputs: grammar-constrained decoding (JSON mode).
 
-Copied unchanged from ome_tpu/engine/structured.py (it imports no jax): the
-port keeps its own copy, as it imports nothing of the JAX package.
+Copied from ome_tpu/engine/structured.py (it imports no jax), code
+unchanged: the port keeps its own copy, as it imports nothing of the
+JAX package.
 
 The reference serves structured output through SGLang's constrained
 decoding (xgrammar/outlines compile grammars to token-level FSMs on
@@ -485,7 +486,7 @@ def _build_token_table(tok) -> list:
 
 
 class TokenMasker:
-    """Tokenizer-aware mask builder over a JsonAutomaton.
+    """Tokenizer-aware token masker over a JsonAutomaton.
 
     The token->bytes table compiles once per tokenizer into a
     maskcache.CompiledTokenTable (weakref-evicted, so a collected
