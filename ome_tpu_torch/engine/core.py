@@ -272,9 +272,6 @@ class InferenceEngine:
     verify) over one dense Llama model on one device, with a dense or a
     paged KV cache."""
 
-    # the scheduler's K-step chunk plans need decode_multi
-    supports_multi_step = True
-
     def __init__(self, params: Params, cfg: ModelConfig,
                  max_slots: int = 8, max_seq: Optional[int] = None,
                  prefill_buckets: Optional[List[int]] = None,

@@ -176,10 +176,9 @@ class StepPlan:
 
 # degradation causes the planner can count — a fixed enum so the
 # counter's label cardinality is bounded. `masked` counts only a masker
-# whose automaton cannot be copied (no grammar walk); `spec_verify`
-# names an old carve-out and stays 0.
-DEGRADE_CAUSES = ("masked", "spec_verify", "spec_realign",
-                  "engine_multi_step", "engine_verify")
+# whose automaton cannot be copied (no grammar walk); `spec_realign` a
+# pipeline flush that re-anchors drafts.
+DEGRADE_CAUSES = ("masked", "spec_realign")
 
 
 # fixed width of the per-slot device stop table: stop ids past this
@@ -456,20 +455,6 @@ class Scheduler:
         # multi-token decode: K decode iterations per engine call
         # (decode_multi), the host syncing once per K-token chunk
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)
-        init_degrades = []
-        if self.steps_per_dispatch > 1 and not (
-                callable(getattr(engine, "decode_multi", None))
-                and getattr(engine, "supports_multi_step", False)):
-            log.warning("steps_per_dispatch=%d requested but engine %s "
-                        "has no multi-step decode; running at 1",
-                        self.steps_per_dispatch, type(engine).__name__)
-            self.steps_per_dispatch = 1
-            init_degrades.append("engine_multi_step")
-        # speculative verify needs the engine's verify op; engines
-        # without one run plain (counted once, not per step)
-        self._spec_ok = callable(getattr(engine, "verify", None))
-        if self.spec_tokens > 0 and not self._spec_ok:
-            init_degrades.append("engine_verify")
         # per-slot predicted continuation beyond the committed stream:
         # [] = in sync with the device, a token list = exactly what the
         # plans still in flight will emit (forced grammar tokens,
@@ -663,19 +648,16 @@ class Scheduler:
             "ome_engine_flight_dumps_total",
             "Flight-recorder dumps written on crash recovery")
         # step-plan degradations: counted whenever the planner gives up
-        # a composition feature (a pipeline flush to re-anchor drafts,
-        # an engine capability clamp); children pre-created for the
+        # a composition feature (a masker it cannot walk, a pipeline
+        # flush to re-anchor drafts); children pre-created for the
         # fixed cause enum so absent causes scrape as explicit zeros
         _deg = R.counter(
             "ome_engine_step_degradations_total",
             "Steps where the planner degraded a composition feature, "
-            "by cause (masked / spec_verify / spec_realign / "
-            "engine_multi_step / engine_verify)",
+            "by cause (masked / spec_realign)",
             labelnames=("cause",))
         self._c_degrade = {c: _deg.labels(cause=c)
                            for c in DEGRADE_CAUSES}
-        for cause in init_degrades:
-            self._c_degrade[cause].inc()
         # device-resident grammar-mask cache (engine/maskcache.py):
         # compiled automaton-state masks live as rows of the engine's
         # [S, V] device mask table and plans reference them by row index
@@ -1734,7 +1716,7 @@ class Scheduler:
         # future positions for whichever plan shape wins (one mask
         # each, jumping ahead through forced tokens). Rows looked up
         # during this plan are pinned until the next one.
-        spec_on = self.spec_tokens > 0 and self._spec_ok
+        spec_on = self.spec_tokens > 0
         horizon = max(k_steps, self.spec_tokens + 1 if spec_on else 1,
                       1)
         if self._gcache is not None and masked_slots:

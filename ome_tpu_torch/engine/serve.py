@@ -198,31 +198,6 @@ def check_slice(args, env=None) -> None:
             "not supported by the PyTorch engine yet; serve one host")
 
 
-def check_plan_preconditions(engine, args):
-    """Validate the explicitly requested step-plan features against the
-    engine BEFORE serving: an operator who asked for a feature on the
-    command line gets an error naming the failed precondition instead
-    of a silently slower server (the scheduler itself only degrades
-    and counts). Returns an error string, or None."""
-    if args.spec_tokens > 0 and not callable(
-            getattr(engine, "verify", None)):
-        return ("--spec-tokens %d: plan precondition engine.verify "
-                "unsatisfied — %s has no spec-verify op, so verify "
-                "plans cannot dispatch; drop --spec-tokens or serve an "
-                "engine with verify"
-                % (args.spec_tokens, type(engine).__name__))
-    if args.steps_per_dispatch > 1 and not (
-            callable(getattr(engine, "decode_multi", None))
-            and getattr(engine, "supports_multi_step", False)):
-        return ("--steps-per-dispatch %d: plan precondition "
-                "engine.decode_multi unsatisfied — %s has no "
-                "multi-step decode op, so chunk plans cannot dispatch; "
-                "drop --steps-per-dispatch or serve an engine with "
-                "decode_multi"
-                % (args.steps_per_dispatch, type(engine).__name__))
-    return None
-
-
 def _load_cfg(model_dir: str, dtype):
     from ..models.config import ModelConfig, tiny_test
     cfg_path = os.path.join(model_dir, "config.json")
@@ -410,9 +385,6 @@ def build_server(argv=None):
     except ValueError as e:
         raise SystemExit(str(e))
     engine = load_engine(args)
-    err = check_plan_preconditions(engine, args)
-    if err is not None:
-        raise SystemExit(err)
     scheduler = Scheduler(engine, overlap=True,
                           spec_tokens=args.spec_tokens,
                           steps_per_dispatch=args.steps_per_dispatch,

@@ -196,9 +196,8 @@ class EngineServer:
                             sched, "spec_tokens", 0),
                         "steps_per_dispatch": getattr(
                             sched, "steps_per_dispatch", 1),
-                        # per-cause planner degradation counts
-                        # (docs/step-plan.md): a nonzero `masked` or
-                        # `spec_verify` here means a composition
+                        # per-cause planner degradation counts: a
+                        # nonzero `masked` here means a composition
                         # regression, visible without a metrics scrape
                         "degradations": getattr(
                             sched, "degradations", {}),

@@ -18,7 +18,8 @@ equals the reference's `load_params(..., device_put=False)` leaf for
 leaf. `load_params` puts the leaves on an explicit device (default
 CUDA, through `device.resolve_device`) one layer at a time, and refuses
 what the reference's architecture gate refuses and what the port does
-not serve yet (`params.check_supported`).
+not serve yet (`params.check_supported`); `convert_llama` keeps only
+the dense GQA branches of the reference's.
 """
 
 from __future__ import annotations
@@ -201,21 +202,18 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
     Each tensor is read, moved to `device`, widened to float32 and
     rounded once to `dtype` (default bfloat16), as the reference does.
 
-    The branches of the reference for the families the port does not
-    serve yet (MLA, MoE, fused phi3 projections, layernorm, sinks) are
-    kept, so a tree of any supported architecture converts the same;
-    `load_params` refuses those the model cannot run.
+    Converts the dense GQA family: separate or fused (phi3) q/k/v and
+    gate/up projections, and q/k/v(/o) biases (Qwen2), which
+    `load_params` still refuses. The reference's other families (MLA,
+    MoE, layernorm, post-block norms, sinks) are not converted;
+    `load_params` refuses them before any weight is read.
     """
     dev = torch.device(device)
     t_dt = dtype or torch.bfloat16
     f32 = torch.float32
     L, D, H, K, Dh = (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                       cfg.num_kv_heads, cfg.head_dim)
-    mla = getattr(cfg, "mla", False)
-    n_dense = cfg.first_k_dense if (cfg.is_moe
-                                    and cfg.first_k_dense) else 0
-    st_main = _Stacker(L - n_dense, t_dt, dev)
-    st_dense = _Stacker(n_dense, t_dt, dev) if n_dense else None
+    st = _Stacker(L, t_dt, dev)
 
     def take(name: str) -> torch.Tensor:
         if name not in ckpt and name.startswith("model."):
@@ -227,74 +225,17 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
     def linear_in_out(name: str) -> torch.Tensor:
         return take(name).t()  # [out,in] -> [in,out]
 
-    for li in range(L):
-        p = f"model.layers.{li}."
-        if li < n_dense:
-            st, i = st_dense, li
-        else:
-            st, i = st_main, li - n_dense
-        layer_is_moe = cfg.is_moe and li >= n_dense
-        layernorm = getattr(cfg, "norm_type", "rmsnorm") == "layernorm"
+    for i in range(L):
+        p = f"model.layers.{i}."
         st.put("attn_norm", i, take(p + "input_layernorm.weight"))
-        if layernorm:  # phimoe: torch LayerNorm biases ride along
-            st.put("attn_norm_bias", i,
-                   take(p + "input_layernorm.bias"))
-        if getattr(cfg, "post_block_norms", False):
-            # gemma2 block: post_attention_layernorm normalizes the
-            # attention OUTPUT (pre-residual); the MLP pre-norm is
-            # pre_feedforward_layernorm
-            st.put("attn_post_norm", i,
-                   take(p + "post_attention_layernorm.weight"))
-            st.put("mlp_norm", i,
-                   take(p + "pre_feedforward_layernorm.weight"))
-            st.put("mlp_post_norm", i,
-                   take(p + "post_feedforward_layernorm.weight"))
-        elif getattr(cfg, "parallel_block", False):
-            pass  # command-r: one shared input norm feeds attn AND mlp
-        else:
-            st.put("mlp_norm", i,
-                   take(p + "post_attention_layernorm.weight"))
-            if layernorm:
-                st.put("mlp_norm_bias", i,
-                       take(p + "post_attention_layernorm.bias"))
-        if mla:
-            qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-            r, vd = cfg.kv_lora_rank, cfg.v_head_dim
-            if cfg.q_lora_rank:
-                st.put("wq_a", i,
-                       linear_in_out(p + "self_attn.q_a_proj.weight"))
-                st.put("q_a_norm", i,
-                       take(p + "self_attn.q_a_layernorm.weight"))
-                st.put("wq_b", i,
-                       take(p + "self_attn.q_b_proj.weight").t().reshape(
-                           cfg.q_lora_rank, H, qk))
-            else:
-                st.put("wq", i,
-                       take(p + "self_attn.q_proj.weight").t().reshape(
-                           D, H, qk))
-            st.put("wkv_a", i, linear_in_out(
-                p + "self_attn.kv_a_proj_with_mqa.weight"))
-            st.put("kv_a_norm", i,
-                   take(p + "self_attn.kv_a_layernorm.weight"))
-            # kv_b_proj [H*(nope+v), r] carries both absorbed factors
-            kv_b = take(p + "self_attn.kv_b_proj.weight").reshape(
-                H, cfg.qk_nope_head_dim + vd, r)
-            st.put("w_uk", i, kv_b[:, :cfg.qk_nope_head_dim])
-            st.put("w_uv", i,
-                   kv_b[:, cfg.qk_nope_head_dim:].permute(0, 2, 1))
-            st.put("wo", i,
-                   take(p + "self_attn.o_proj.weight").t().reshape(
-                       H, vd, D))
-        elif p + "self_attn.qkv_proj.weight" in ckpt:
+        st.put("mlp_norm", i, take(p + "post_attention_layernorm.weight"))
+        if p + "self_attn.qkv_proj.weight" in ckpt:
             # phi3: fused qkv — rows are [H*Dh | K*Dh | K*Dh]
             qkv = take(p + "self_attn.qkv_proj.weight")
             st.put("wq", i, qkv[:H * Dh].t().reshape(D, H, Dh))
             st.put("wk", i,
                    qkv[H * Dh:(H + K) * Dh].t().reshape(D, K, Dh))
             st.put("wv", i, qkv[(H + K) * Dh:].t().reshape(D, K, Dh))
-            st.put("wo", i,
-                   take(p + "self_attn.o_proj.weight").t().reshape(
-                       H, Dh, D))
         else:
             st.put("wq", i,
                    take(p + "self_attn.q_proj.weight").t().reshape(
@@ -305,10 +246,9 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
             st.put("wv", i,
                    take(p + "self_attn.v_proj.weight").t().reshape(
                        D, K, Dh))
-            st.put("wo", i,
-                   take(p + "self_attn.o_proj.weight").t().reshape(
-                       H, Dh, D))
-        if getattr(cfg, "attn_bias", False):
+        st.put("wo", i,
+               take(p + "self_attn.o_proj.weight").t().reshape(H, Dh, D))
+        if cfg.attn_bias:
             st.put("bq", i,
                    take(p + "self_attn.q_proj.bias").reshape(H, Dh))
             st.put("bk", i,
@@ -317,96 +257,27 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
                    take(p + "self_attn.v_proj.bias").reshape(K, Dh))
             if p + "self_attn.o_proj.bias" in ckpt:
                 st.put("bo", i, take(p + "self_attn.o_proj.bias"))
-        if getattr(cfg, "attn_sinks", False):
-            st.put("sinks", i, take(p + "self_attn.sinks"), dtype=f32)
-        if cfg.qk_norm:
-            st.put("q_norm", i, take(p + "self_attn.q_norm.weight"))
-            st.put("k_norm", i, take(p + "self_attn.k_norm.weight"))
-        if layer_is_moe and p + "mlp.experts.gate_up_proj" in ckpt:
-            # gpt_oss: fused per-expert parameters, stored [in, out]
-            # already (bmm layout); gate/up are INTERLEAVED on the
-            # last dim, router is a biased linear
-            st.put("router", i, linear_in_out(p + "mlp.router.weight"))
-            st.put("router_b", i, take(p + "mlp.router.bias"), dtype=f32)
-            gu = take(p + "mlp.experts.gate_up_proj")    # [E, D, 2I]
-            st.put("we_gate", i, gu[..., ::2])
-            st.put("we_up", i, gu[..., 1::2])
-            gub = take(p + "mlp.experts.gate_up_proj_bias")  # [E, 2I]
-            st.put("we_gate_b", i, gub[..., ::2])
-            st.put("we_up_b", i, gub[..., 1::2])
-            st.put("we_down", i, take(p + "mlp.experts.down_proj"))
-            st.put("we_down_b", i,
-                   take(p + "mlp.experts.down_proj_bias"))
-        elif layer_is_moe:
-            # router: mixtral block_sparse_moe.gate / qwen-moe+deepseek
-            # mlp.gate
-            for rn in ("block_sparse_moe.gate.weight", "mlp.gate.weight"):
-                if p + rn in ckpt:
-                    st.put("router", i, linear_in_out(p + rn))
-                    break
-            else:
-                raise SafetensorsError(f"no MoE router for layer {li}")
-            if getattr(cfg, "router_bias", False):
-                # selection bias stays fp32: bf16 rounding could flip
-                # expert choices
-                st.put("router_bias", i,
-                       take(p + "mlp.gate.e_score_correction_bias"),
-                       dtype=f32)
-            gates, ups, downs = [], [], []
-            for e in range(cfg.num_experts):
-                if f"{p}block_sparse_moe.experts.{e}.w1.weight" in ckpt:
-                    en = f"{p}block_sparse_moe.experts.{e}."
-                    g, u, d = en + "w1.weight", en + "w3.weight", \
-                        en + "w2.weight"
-                else:
-                    en = f"{p}mlp.experts.{e}."
-                    g, u, d = en + "gate_proj.weight", \
-                        en + "up_proj.weight", en + "down_proj.weight"
-                gates.append(linear_in_out(g))
-                ups.append(linear_in_out(u))
-                downs.append(linear_in_out(d))
-            st.put("we_gate", i, torch.stack(gates))
-            st.put("we_up", i, torch.stack(ups))
-            st.put("we_down", i, torch.stack(downs))
-            if cfg.num_shared_experts > 0:
-                for sn in ("mlp.shared_experts.", "mlp.shared_expert."):
-                    if p + sn + "gate_proj.weight" in ckpt:
-                        st.put("ws_gate", i,
-                               linear_in_out(p + sn + "gate_proj.weight"))
-                        st.put("ws_up", i,
-                               linear_in_out(p + sn + "up_proj.weight"))
-                        st.put("ws_down", i,
-                               linear_in_out(p + sn + "down_proj.weight"))
-                        break
-        elif p + "mlp.gate_up_proj.weight" in ckpt:
+        if p + "mlp.gate_up_proj.weight" in ckpt:
             # phi3: fused gate|up rows (Phi3MLP chunks in halves)
             guw = take(p + "mlp.gate_up_proj.weight")
             half = guw.shape[0] // 2
             st.put("w_gate", i, guw[:half].t())
             st.put("w_up", i, guw[half:].t())
-            st.put("w_down", i, linear_in_out(p + "mlp.down_proj.weight"))
         else:
             st.put("w_gate", i, linear_in_out(p + "mlp.gate_proj.weight"))
             st.put("w_up", i, linear_in_out(p + "mlp.up_proj.weight"))
-            st.put("w_down", i, linear_in_out(p + "mlp.down_proj.weight"))
+        st.put("w_down", i, linear_in_out(p + "mlp.down_proj.weight"))
 
     params: Dict[str, Any] = {
         "embed": take("model.embed_tokens.weight").to(t_dt),
         "final_norm": take("model.norm.weight").to(t_dt),
-        "layers": st_main.out,
+        "layers": st.out,
     }
-    if getattr(cfg, "norm_type", "rmsnorm") == "layernorm":
-        params["final_norm_bias"] = take("model.norm.bias").to(t_dt)
-    if st_dense is not None:
-        params["dense_layers"] = st_dense.out
-    if not cfg.tie_word_embeddings:
-        if "lm_head.weight" in ckpt:
-            params["lm_head"] = linear_in_out(
-                "lm_head.weight").to(t_dt).contiguous()
+    if not cfg.tie_word_embeddings and "lm_head.weight" in ckpt:
         # some checkpoints omit lm_head despite tie=False in config:
-        # fall back to tied embeddings (forward() handles the absence)
-    if getattr(cfg, "lm_head_bias", False) and "lm_head.bias" in ckpt:
-        params["lm_head_bias"] = take("lm_head.bias")
+        # the model then falls back to the tied embeddings
+        params["lm_head"] = linear_in_out(
+            "lm_head.weight").to(t_dt).contiguous()
     return params
 
 
@@ -467,10 +338,9 @@ def save_checkpoint(model_dir: str, tensors: Dict[str, Any],
     return files
 
 
-# architectures whose math ome_tpu/models/llama.py implements; a
-# config.json outside this list loads only with allow_unsupported. The
-# port serves the subset `params.check_supported` admits and refuses
-# the rest by name.
+# architectures whose math the reference's models/llama.py implements;
+# a config.json outside this list is refused. The port serves the
+# subset `params.check_supported` admits and refuses the rest by name.
 SUPPORTED_ARCHITECTURES = frozenset({
     "LlamaForCausalLM", "MistralForCausalLM", "Qwen2ForCausalLM",
     "Qwen3ForCausalLM", "MixtralForCausalLM", "Gemma2ForCausalLM",
@@ -481,26 +351,23 @@ SUPPORTED_ARCHITECTURES = frozenset({
 })
 
 
-def load_config(model_dir: str, allow_unsupported: bool = False):
+def load_config(model_dir: str):
     """ModelConfig of a HF model directory, behind the reference's
     architecture gate."""
     from .config import ModelConfig
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     archs = hf.get("architectures") or []
-    if not allow_unsupported and archs and \
-            not set(archs) & SUPPORTED_ARCHITECTURES:
+    if archs and not set(archs) & SUPPORTED_ARCHITECTURES:
         raise SafetensorsError(
             f"architecture {archs} is not faithfully implemented by "
             f"models/llama.py (supported: "
-            f"{sorted(SUPPORTED_ARCHITECTURES)}); pass "
-            f"allow_unsupported=True to force-load")
+            f"{sorted(SUPPORTED_ARCHITECTURES)})")
     return ModelConfig.from_hf_config(hf)
 
 
 def load_params(model_dir: str, cfg=None, dtype=None,
-                device: Optional[Union[str, torch.device]] = None,
-                allow_unsupported: bool = False
+                device: Optional[Union[str, torch.device]] = None
                 ) -> Tuple[Dict[str, Any], Any]:
     """Load (params, cfg) from a HF model directory onto `device`
     (default CUDA; 'cpu' only when asked for).
@@ -514,7 +381,7 @@ def load_params(model_dir: str, cfg=None, dtype=None,
     from .params import check_supported
     dev = resolve_device(device)
     if cfg is None:
-        cfg = load_config(model_dir, allow_unsupported)
+        cfg = load_config(model_dir)
     check_supported(cfg)
     ckpt = Checkpoint(model_dir)
     params = convert_llama(ckpt, cfg, dtype=dtype, device=dev)

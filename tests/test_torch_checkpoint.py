@@ -1,12 +1,14 @@
 """Safetensors checkpoints in the port: models/checkpoint.py and serving them.
 
-Tiny Llama, Mistral and Qwen2 checkpoints are written in `tmp_path`
+Tiny Llama, Mistral, Qwen2 and Phi3 checkpoints are written in `tmp_path`
 from seeded numpy weights under HuggingFace names: a two-shard Llama
 with model.safetensors.index.json and an untied lm_head (BF16, written
 by the port's `save_checkpoint`), a Mistral with tied embeddings (F32,
 written by the JAX package's `save_safetensors`) and a Qwen2 with
 attention biases and tied embeddings (BF16, one file written by the
-port's `save_safetensors`). Then:
+port's `save_safetensors`) and a Phi3 with fused qkv and gate|up
+projections (F32, one file written by the port's `save_checkpoint`).
+Then:
 
 * the port's tree equals the JAX package's
   `load_params(..., device_put=False)` leaf for leaf, byte for byte, in
@@ -50,6 +52,8 @@ CONFIGS = {
                     sliding_window=None),
     "qwen2": dict(BASE, architectures=["Qwen2ForCausalLM"],
                   model_type="qwen2", tie_word_embeddings=True),
+    "phi3": dict(BASE, architectures=["Phi3ForCausalLM"],
+                 model_type="phi3", tie_word_embeddings=False),
 }
 
 
@@ -89,6 +93,14 @@ def _hf_weights(hf: dict, seed: int) -> dict:
             out[p + "self_attn.q_proj.bias"] = w(H * Dh)
             out[p + "self_attn.k_proj.bias"] = w(K * Dh)
             out[p + "self_attn.v_proj.bias"] = w(K * Dh)
+        if hf["model_type"] == "phi3":
+            # phi3 fuses q|k|v and gate|up into single projections
+            out[p + "self_attn.qkv_proj.weight"] = np.concatenate(
+                [out.pop(p + f"self_attn.{n}_proj.weight")
+                 for n in "qkv"])
+            out[p + "mlp.gate_up_proj.weight"] = np.concatenate(
+                [out.pop(p + f"mlp.{n}_proj.weight")
+                 for n in ("gate", "up")])
     return out
 
 
@@ -107,6 +119,9 @@ def ckpts(tmp_path_factory):
             assert (d / "model.safetensors.index.json").exists()
         elif name == "mistral":
             jckpt.save_safetensors(str(d / "model.safetensors"), weights)
+        elif name == "phi3":
+            checkpoint.save_checkpoint(
+                str(d), {k: torch.from_numpy(v) for k, v in weights.items()})
         else:
             checkpoint.save_safetensors(
                 str(d / "model.safetensors"),
@@ -142,7 +157,7 @@ def _assert_trees_equal(port_tree, ref_tree):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("name", ["llama", "mistral"])
+@pytest.mark.parametrize("name", ["llama", "mistral", "phi3"])
 def test_tree_equals_reference_leaf_for_leaf(ckpts, name, dtype):
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
@@ -152,7 +167,7 @@ def test_tree_equals_reference_leaf_for_leaf(ckpts, name, dtype):
                                        device="cpu")
     _assert_trees_equal(got, ref)
     assert tcfg.dtype == tdt
-    assert ("lm_head" in got) == (name == "llama")
+    assert ("lm_head" in got) == (name != "mistral")
     for field in ("num_layers", "hidden_size", "num_heads",
                   "num_kv_heads", "head_dim", "vocab_size",
                   "tie_word_embeddings", "rope_theta"):
@@ -197,7 +212,7 @@ def test_each_package_reads_the_others_files(ckpts, tmp_path):
                                   src["c"].view(np.uint16))
 
 
-@pytest.mark.parametrize("name", ["llama", "mistral"])
+@pytest.mark.parametrize("name", ["llama", "mistral", "phi3"])
 def test_logits_match_reference(ckpts, name):
     ref, jcfg = jckpt.load_params(ckpts[name], dtype=jnp.float32,
                                   device_put=False)
