@@ -4,7 +4,8 @@
 
 Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
 
-1. device: the card's name and power limit, TF32 off;
+1. device: the card's name and power limit, TF32 off, and
+   `torch._grouped_mm` present (the MoE ragged dispatch needs it);
 2. build: the hand-written CUDA kernels, compiled from `ome_tpu_torch/ops/
    csrc/` with nvcc for sm_90a (one nvcc per source, in parallel);
 3. kernels: each kernel against its plain PyTorch version (fp32, same
@@ -34,7 +35,14 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    with its share of the bound and its time with the kernel it replaced,
    beside `_weight_int4pack_mm` and a bf16 `torch.mm` over the
    dequantized weight as yardsticks; the main case and wk at m 1 (the
-   most K splits) must give the same bits on a second launch;
+   most K splits) must give the same bits on a second launch. B1, B2,
+   B3 and B5 also run at group sizes G = H/K that are not powers of two
+   (`GROUP_SHAPES`: G 3, 5, 6, 7 at D 128 and G 7 at D 64; B1 in bf16
+   and fp32, B2 causal 2048 in bf16, and at G 7: B2 in fp32, a NaN-
+   tailed chunk, a suffix chunk and the verify shape with its per-slot
+   check; B3 over bf16 and int8 pools and B5 at every one of them, and
+   at G 7 also over an fp32 pool, with bitwise repeats and with NaN
+   outside the windows);
 4. serve: the OpenAI HTTP server from `ome_tpu_torch.engine.serve.
    build_server` at the Llama-3-8B shape (random bf16 weights from a
    seed), answering concurrent completions, a stream, a prefix-cache hit
@@ -78,7 +86,22 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    (`--kv-block 128`, a burst larger than the pool, conserved at idle):
    concurrent completions and a `json_schema` request whose output
    parses; spec proposed/accepted, chunks, launches and TPOT printed
-   beside phases 4 and 5 for the record.
+   beside phases 4 and 5 for the record;
+15./16. Qwen2.5-7B at full size (`QWEN25_7B`, 28 layers, G 7, q/k/v
+   biases drawn non-zero), bf16: the dense server as phase 4 (B1, B2)
+   and the paged bf16 server as phase 5 (B3, a burst larger than the
+   pool, conserved at idle);
+17. Qwen3-8B widths (`QWEN3_8B`, per-head q/k RMSNorm, scales drawn
+   away from 1), 4 layers, fp32: dense and paged streams identical;
+18. Mixtral-8x7B at full width (`MIXTRAL_8X7B`), 16 of its 32 layers
+   in bf16 (~47 GB): the dense server as phase 4 through the ragged
+   dispatch, then `torch._grouped_mm` against its plain version, a
+   decode step under torch's sync debug mode (no host sync), the MoE
+   block's device time per layer at decode and at a 2048-token prefill,
+   and the experts (and expert bytes) a decode step of 8 slots hits;
+19. Mixtral-8x7B widths, 4 layers, fp32: the ragged single-step,
+   `decode_multi` K=4 and spec-4 / K-4 scheduler streams and the dense
+   impl's are identical.
 
 The kernels phase also runs B2 at the dense verify's shape: B 8 slots,
 Sq 5 rows each from its own base (60 to 4090) over a 4096-row cache,
@@ -117,6 +140,65 @@ VERIFY_BASES = (60, 611, 1187, 1702, 2333, 2901, 3517, 4090)
 # rows), so each slot's max |kernel - plain| is also held against that
 # slot's rms of the plain output
 VERIFY_REL_TOL = {"bf16": 5e-2, "fp32": 1e-4}
+# The published configurations the later phases run, typed in from each
+# model's public config.json (nothing is downloaded; weights are random
+# from a seed). "_source" names the file; from_hf_config ignores it.
+LLAMA32_3B = {"_source": "meta-llama/Llama-3.2-3B config.json",
+              "architectures": ["LlamaForCausalLM"], "vocab_size": 128256,
+              "hidden_size": 3072, "num_hidden_layers": 28,
+              "num_attention_heads": 24, "num_key_value_heads": 8,
+              "head_dim": 128, "intermediate_size": 8192,
+              "rope_theta": 500000.0, "rms_norm_eps": 1e-5,
+              "max_position_embeddings": 131072,
+              "tie_word_embeddings": True,
+              "rope_scaling": {"rope_type": "llama3", "factor": 32.0,
+                               "low_freq_factor": 1.0,
+                               "high_freq_factor": 4.0,
+                               "original_max_position_embeddings": 8192}}
+QWEN25_7B = {"_source": "Qwen/Qwen2.5-7B config.json",
+             "architectures": ["Qwen2ForCausalLM"], "model_type": "qwen2",
+             "vocab_size": 152064, "hidden_size": 3584,
+             "num_hidden_layers": 28, "num_attention_heads": 28,
+             "num_key_value_heads": 4, "intermediate_size": 18944,
+             "rope_theta": 1000000.0, "rms_norm_eps": 1e-6,
+             "max_position_embeddings": 131072,
+             "use_sliding_window": False, "sliding_window": 131072,
+             "max_window_layers": 28, "tie_word_embeddings": False}
+QWEN3_8B = {"_source": "Qwen/Qwen3-8B config.json",
+            "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+            "vocab_size": 151936, "hidden_size": 4096,
+            "num_hidden_layers": 36, "num_attention_heads": 32,
+            "num_key_value_heads": 8, "head_dim": 128,
+            "intermediate_size": 12288, "rope_theta": 1000000.0,
+            "rms_norm_eps": 1e-6, "max_position_embeddings": 40960,
+            "attention_bias": False, "use_sliding_window": False,
+            "sliding_window": None, "tie_word_embeddings": False}
+MIXTRAL_8X7B = {"_source": "mistralai/Mixtral-8x7B-v0.1 config.json",
+                "architectures": ["MixtralForCausalLM"],
+                "model_type": "mixtral", "vocab_size": 32000,
+                "hidden_size": 4096, "num_hidden_layers": 32,
+                "num_attention_heads": 32, "num_key_value_heads": 8,
+                "intermediate_size": 14336, "num_local_experts": 8,
+                "num_experts_per_tok": 2, "rope_theta": 1000000.0,
+                "rms_norm_eps": 1e-5, "max_position_embeddings": 32768,
+                "sliding_window": None, "tie_word_embeddings": False}
+# Mixtral-8x7B in bf16 is ~93 GB at 32 layers; the card has 80 GB, so
+# the served model keeps 16 of its layers (~47 GB), at full width
+MIXTRAL_SERVED_LAYERS = 16
+
+
+def _heads(hf):
+    return (hf["num_attention_heads"], hf["num_key_value_heads"],
+            hf.get("head_dim") or hf["hidden_size"]
+            // hf["num_attention_heads"])
+
+
+# (H, K, D) of the kernel cases at group sizes G = H/K that are not
+# powers of two: G 3 (Llama-3.2-3B), G 5 (Qwen2.5-14B and -32B: 40 / 8),
+# G 6 (Qwen2.5-1.5B: 12 / 2), G 7 (Qwen2.5-7B) and G 7 at D 64
+# (Qwen2.5-0.5B: 14 / 2)
+GROUP_SHAPES = (_heads(LLAMA32_3B), (40, 8, 128), (12, 2, 128),
+                _heads(QWEN25_7B), (14, 2, 64))
 OUT_DIR = "chiprun_out"
 
 
@@ -186,6 +268,9 @@ def phase_device(torch):
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0].strip()
+    if not hasattr(torch, "_grouped_mm"):
+        fail(f"torch {torch.__version__} has no torch._grouped_mm: the "
+             "MoE ragged dispatch (models/llama.py::_grouped) needs it")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"[device] nvidia-smi: {card}")
@@ -429,7 +514,9 @@ def phase_prefill_kernel(torch, timer, gen):
     2048-token prompt. Causal buckets 64 to 4096, a suffix chunk into a
     filled cache, window + softcap, G 1 and 8, D 64, two sequences with
     their own bases, a ragged chunk whose cache tail past kv_hi is NaN,
-    and the fp32 kernel's two cases."""
+    the fp32 kernel's two cases, the verify shape, and the group sizes
+    that do not divide 64 (`GROUP_SHAPES`; at G 7 also fp32, a NaN
+    tail, a suffix chunk and the verify shape)."""
     cases = [prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0)]
     for n in (64, 256, 4096):
         cases.append(prefill_case(torch, timer, gen, "bf16", n, n, 0))
@@ -452,6 +539,23 @@ def phase_prefill_kernel(torch, timer, gen):
     for dt in ("bf16", "fp32"):
         cases.append(prefill_case(torch, timer, gen, dt, 5, 4096, 0, B=8,
                                   bases=VERIFY_BASES,
+                                  rel_tol=VERIFY_REL_TOL[dt]))
+    # group sizes that do not divide 64 (floor(64 / G) positions per
+    # warpgroup, the rest of its rows idle): causal 2048 in bf16, G 7 in
+    # fp32, a ragged NaN-tailed chunk and the verify shape at G 7
+    for H, K, D in GROUP_SHAPES:
+        cases.append(prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0,
+                                  H=H, K=K, D=D))
+    cases += [
+        prefill_case(torch, timer, gen, "fp32", 512, 2048, 1024, H=28, K=4),
+        prefill_case(torch, timer, gen, "bf16", 1000, 1024, 0, H=28, K=4,
+                     nan_tail=True),
+        prefill_case(torch, timer, gen, "bf16", 512, 2048, 1024, H=28,
+                     K=4),
+    ]
+    for dt in ("bf16", "fp32"):
+        cases.append(prefill_case(torch, timer, gen, dt, 5, 4096, 0, B=8,
+                                  bases=VERIFY_BASES, H=28, K=4,
                                   rel_tol=VERIFY_REL_TOL[dt]))
     for c in cases:
         lc = c["library_causal_ms"]
@@ -608,9 +712,12 @@ def phase_paged_kernels(torch, timer, gen):
     """B3 in its three pool dtypes, with a trash-table slot, with NaN in
     every pool row outside the windows (bf16 and int8), at the engine's
     shape (16 slots of 32 blocks), with 32-row blocks (two TMA boxes per
-    tile) and at G 16, D 64; and B5; each against its plain version. The
-    main case, first, and the int8 pool repeat their bits and give a
-    sequence the same bits alone as in the batch."""
+    tile) and at G 16, D 64; and B5; then B3 over bf16 and int8 pools
+    and B5 at each of `GROUP_SHAPES`, and at G 7 (H 28, K 4) also over
+    the fp32 pool and with NaN outside the windows; each against its
+    plain version. The main case, first, the int8 pool and the G 7 bf16
+    and int8 pools repeat their bits and give a sequence the same bits
+    alone as in the batch."""
     lengths = [1, 17, 128, 300, 1023, 2049, 4095, 4096]
     cases = {"flash_paged_decode": [], "flash_decode_quantized": []}
     add = cases["flash_paged_decode"].append
@@ -631,6 +738,20 @@ def phase_paged_kernels(torch, timer, gen):
                    M=64, N=513))
     cases["flash_decode_quantized"].append(quantized_case(
         torch, timer, gen, [0, 1, 17, 128, 300, 1023, 2049, 4095]))
+    # group sizes that are not powers of two: B3 over bf16 and int8
+    # pools and B5 at each of `GROUP_SHAPES`; at G 7 (Qwen2.5-7B: H 28,
+    # K 4) also the fp32 pool, NaN outside the windows and bitwise repeats
+    for H, K, D in GROUP_SHAPES:
+        for pool_name in ("bf16", "int8"):
+            add(paged_case(torch, timer, gen, pool_name, lengths, H=H, K=K,
+                           D=D, check_bits=(H, K, D) == (28, 4, 128)))
+        cases["flash_decode_quantized"].append(quantized_case(
+            torch, timer, gen, [0, 1, 17, 128, 300, 1023, 2049, 4095], H=H,
+            K=K, D=D))
+    add(paged_case(torch, timer, gen, "fp32", lengths, H=28, K=4))
+    for pool_name in ("bf16", "int8"):
+        add(paged_case(torch, timer, gen, pool_name, lengths, H=28, K=4,
+                       nan_outside=True))
     for name, rows in cases.items():
         _log_decode_cases(name, rows)
     return cases
@@ -651,9 +772,11 @@ def phase_decode_kernels(torch, timer, gen):
     """B1 at the Llama-3-8B decode shape (B 8, S 4096, H 32, K 8, D 128)
     in bf16 and fp32, with window + softcap, with NaN in every cache row
     outside the windows at S 4000 (a tile past S reads the next
-    sequence's rows) with and without a window, at G 1 and 16 and D 64.
-    The main case, first, repeats its bits and gives a sequence the same
-    bits alone as in the batch."""
+    sequence's rows) with and without a window, at G 1 and 16 and D 64,
+    and at the `GROUP_SHAPES` in bf16 and fp32 (G 7 also with NaN
+    outside the windows). The main case, first, and G 7 in bf16 repeat
+    their bits and give a sequence the same bits alone as in the
+    batch."""
     lengths = [0, 1, 17, 128, 300, 1023, 2049, 4095]
     cases = [decode_case(torch, timer, gen, "bf16", lengths,
                          check_bits=True),
@@ -669,6 +792,16 @@ def phase_decode_kernels(torch, timer, gen):
              decode_case(torch, timer, gen, "bf16", lengths, K=32),
              decode_case(torch, timer, gen, "bf16", lengths, K=2),
              decode_case(torch, timer, gen, "bf16", lengths, D=64)]
+    # group sizes that are not powers of two (padded to 8 or 16 query
+    # rows on the tensor cores, G warps on the CUDA cores)
+    for H, K, D in GROUP_SHAPES:
+        cases.append(decode_case(torch, timer, gen, "bf16", lengths, H=H,
+                                 K=K, D=D, check_bits=(H, K) == (28, 4)))
+        cases.append(decode_case(torch, timer, gen, "fp32", lengths, H=H,
+                                 K=K, D=D))
+    cases.append(decode_case(torch, timer, gen, "bf16",
+                             [1, 17, 63, 64, 300, 3999, 4000, 2049], S=4000,
+                             H=28, K=4, nan_outside=True))
     _log_decode_cases("flash_decode", cases)
     return {"flash_decode": cases}
 
@@ -960,46 +1093,68 @@ def core_variants(torch, unit_rows=(128, 256, 512), iters: int = 30):
     return results
 
 
-def decode_ab(torch, other_root: str):
-    """B1, B3 and B5 over this script's decode cases (`phase_decode_
-    kernels`, `phase_paged_kernels`) with the `ome_tpu_torch` package
-    under `other_root` (e.g. a `git archive` of an earlier commit) and
-    with this checkout's, in turns in one call: other, this, this,
-    other, each in a process of its own that builds its kernels.
-    Returns {case: [ms, ms, ms, ms]}; the table in `DECODE_MS_BEFORE`
-    comes from such a run. Run alone:
+def _ab_cases(torch, timer, gen):
+    """The main cases of B1 (bf16, fp32), B2 (causal 2048, the verify
+    shape), B3 (bf16 and int8 pools) and B5: shapes every version of the
+    kernels takes (G 4), for `kernels_ab`."""
+    lengths = [0, 1, 17, 128, 300, 1023, 2049, 4095]
+    pool = [1, 17, 128, 300, 1023, 2049, 4095, 4096]
+    return [decode_case(torch, timer, gen, "bf16", lengths),
+            decode_case(torch, timer, gen, "fp32", lengths),
+            prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0),
+            prefill_case(torch, timer, gen, "bf16", 5, 4096, 0, B=8,
+                         bases=VERIFY_BASES),
+            paged_case(torch, timer, gen, "bf16", pool),
+            paged_case(torch, timer, gen, "int8", pool),
+            quantized_case(torch, timer, gen, lengths)]
+
+
+def kernels_ab(torch, other_root: str):
+    """The main cases of B1, B2, B3 and B5 (`_ab_cases`) with the
+    `ome_tpu_torch` package under `other_root` (e.g. a `git archive` of
+    an earlier commit) and with this checkout's, in turns in one call:
+    other, this, this, other, each in a process of its own that builds
+    its kernels. Returns {case: [ms, ms, ms, ms]}. (An earlier form of
+    it timed every decode case; `DECODE_MS_BEFORE` comes from that run.)
+    Run alone:
 
         python3 -c "import chip_smoke as c, torch; c.phase_device(torch);
-            c.decode_ab(torch, 'DIR')"
+            c.kernels_ab(torch, 'DIR')"
     """
     here = os.path.dirname(os.path.abspath(__file__))
+    # this script's cases, loaded by path, over the package under root
+    # (whose own chip_smoke.py is not the one imported)
     code = (
-        "import sys, json; sys.path[:0] = [{root!r}, {here!r}]\n"
-        "import torch, chip_smoke as c\n"
+        "import sys, json, importlib.util; sys.path[:0] = [{root!r}]\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', "
+        "{script!r})\n"
+        "c = importlib.util.module_from_spec(spec)\n"
+        "sys.modules['chip_smoke'] = c\n"
+        "spec.loader.exec_module(c)\n"
+        "import torch\n"
         "c.fail = lambda msg: print('NOTE ' + msg, flush=True)\n"
         "c.phase_build()\n"
         "g = torch.Generator(device='cuda'); g.manual_seed(0)\n"
         "t = c.Timer(torch, torch.device('cuda'))\n"
-        "cases = c.phase_decode_kernels(torch, t, g)\n"
-        "cases.update(c.phase_paged_kernels(torch, t, g))\n"
-        "print('AB ' + json.dumps({{r['case']: r['ms'] for rows in "
-        "cases.values() for r in rows}}))\n")
+        "cases = c.check_cases({{'ab': c._ab_cases(torch, t, g)}})['ab']\n"
+        "print('AB ' + json.dumps({{r['case']: r['ms'] for r in cases}}))\n")
     times = {}
     for root in (other_root, here, here, other_root):
         proc = subprocess.run(
-            [sys.executable, "-c", code.format(root=os.path.abspath(root),
-                                               here=here)],
+            [sys.executable, "-c", code.format(
+                root=os.path.abspath(root),
+                script=os.path.abspath(__file__))],
             capture_output=True, text=True, timeout=900)
         line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
         if proc.returncode != 0 or not line:
-            fail(f"decode_ab {root}: {proc.stderr[-2000:]}")
+            fail(f"kernels_ab {root}: {proc.stderr[-2000:]}")
         # a check that fails is reported, and the case still timed; this
         # checkout's kernels must pass every check
         notes = [x for x in proc.stdout.splitlines() if x.startswith("NOTE ")]
         for note in notes:
             log(f"[ab] {root}: {note[5:]}")
         if notes and root == here:
-            fail(f"decode_ab: this checkout failed a check: {notes[0]}")
+            fail(f"kernels_ab: this checkout failed a check: {notes[0]}")
         for case, ms in json.loads(line[0][3:]).items():
             times.setdefault(case, []).append(ms)
     for case, row in times.items():
@@ -1035,7 +1190,7 @@ def _int4_library(torch, qt):
 
 # B1, B3 and B5 at each case with the split-KV kernels the decode core
 # replaced (two launches per call, the CUDA cores): the mean of the two
-# runs of that package in `decode_ab`'s turns, on an NVIDIA H100 80GB
+# runs of that package in an earlier A/B's turns, on an NVIDIA H100 80GB
 # HBM3 at 700 W; printed beside this run's. (On the int8 pool with NaN
 # scales outside the windows those kernels gave non-finite output.)
 DECODE_MS_BEFORE = {
@@ -1429,32 +1584,62 @@ def _step_times(torch, engine, prompt, iters: int = 10,
     return res
 
 
-def phase_serve(torch, seed: int = 0, quantization: str = "none"):
+def _model_hf(model):
+    """(HF config dict, label, ModelConfig) of a phase's model: the
+    Llama-3-8B shape unless `model` names another (a dict with "hf",
+    "label" and optionally "bias_std", "layers")."""
+    from ome_tpu_torch.models.config import ModelConfig, llama3_8b
+    if model is None:
+        return _hf_config(llama3_8b()), "Llama-3-8B", llama3_8b()
+    hf = dict(model["hf"])
+    if model.get("layers"):
+        hf["num_hidden_layers"] = model["layers"]
+    return hf, model["label"], ModelConfig.from_hf_config(hf)
+
+
+def _randomize_biases(torch, engine, seed: int, std: float) -> None:
+    """Replace the init's zero q/k/v biases with seeded N(0, std) values
+    in place, so that a wrong bias term shows in the output."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 77)
+    lay = engine.model.params["layers"]
+    for name in ("bq", "bk", "bv"):
+        t = lay[name]
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device)
+                .mul_(std))
+
+
+def phase_serve(torch, seed: int = 0, quantization: str = "none",
+                model=None):
     """The dense server at the Llama-3-8B shape, bf16 weights or
     `--quantization int4` (whose decode steps and prefills of up to 256
     tokens run B4, and whose longer prefills take the dequantizing
-    route)."""
+    route); or, with `model`, another published configuration in bf16
+    (its q/k/v biases drawn non-zero where it has them; a MoE model also
+    reports its MoE block's device time and the experts a decode step
+    reads)."""
     import concurrent.futures
     import random
     import tempfile
     import urllib.request
 
     from ome_tpu_torch.engine import serve
-    from ome_tpu_torch.models.config import llama3_8b
     from ome_tpu_torch.models.quant import quantized_bytes
     from ome_tpu_torch.ops import flash
 
-    cfg = llama3_8b()
+    hf, name, cfg = _model_hf(model)
     rng = random.Random(seed)
     tag = "[serve]" if quantization == "none" else f"[serve {quantization}]"
+    if model is not None:
+        tag = f"[serve {name}]"
 
     def prompt(n):
         return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
 
-    out = {"quantization": quantization}
+    out = {"quantization": quantization, "model": name}
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "config.json"), "w") as f:
-            json.dump(_hf_config(cfg), f)
+            json.dump(hf, f)
         reqlog = os.path.join(tmp, "requests.jsonl")
         t0 = time.monotonic()
         server, sched, engine = serve.build_server(
@@ -1462,11 +1647,16 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none"):
              "--max-slots", "8", "--max-seq", "4096", "--port", "0",
              "--host", "127.0.0.1", "--request-log", reqlog,
              "--quantization", quantization])
+        if cfg.attn_bias:
+            _randomize_biases(torch, engine, seed, model["bias_std"])
+        if cfg.is_moe and engine.cfg.moe_impl != "ragged":
+            fail(f"{tag}: the MoE server runs moe_impl "
+                 f"{engine.cfg.moe_impl!r}, not the ragged dispatch")
         torch.cuda.synchronize()
         out["startup_s"] = time.monotonic() - t0
         out["device_gib_after_startup"] = torch.cuda.memory_allocated() / 2**30
         out["weight_bytes"] = quantized_bytes(engine.model.params)
-        log(f"{tag} Llama-3-8B shape, random "
+        log(f"{tag} {name} shape, random "
             f"{weight_label(engine.model.params)} weights (seed {seed}), "
             f"{cfg.num_layers} layers, slots 8, max_seq 4096: server up "
             f"in {out['startup_s']:.1f} s; weights "
@@ -1546,6 +1736,8 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none"):
         finally:
             server.stop()
         out["step"] = _step_times(torch, engine, prompt)
+        if cfg.is_moe:
+            out["moe"] = _moe_profile(torch, engine, prompt)
         with open(reqlog) as f:
             recs = [json.loads(line) for line in f]
     out["launches"] = launches
@@ -1569,6 +1761,133 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none"):
         f"(TPOT {out['tpot_median_s'] * 1e3:.2f} ms); concurrent phase "
         f"{out['batch_completion_tokens'] / out['batch_s']:.1f} tok/s")
     log(f"{tag} kernel launches while serving: {launches}")
+    return out
+
+
+def _moe_profile(torch, engine, prompt):
+    """A served MoE model's expert dispatch on the card: the grouped
+    product (`torch._grouped_mm`) against its plain version at the decode
+    step's and a 2048-token prefill's rows (one expert given no rows);
+    the MoE block's device time per layer at both (torch.profiler, layer
+    0's weights, random normal inputs); and the experts a decode step of
+    the armed slots hits per layer (router picks recorded in one step),
+    with the expert bytes that step reads."""
+    import numpy as np
+
+    from ome_tpu_torch.models import llama
+    cfg, dev = engine.cfg, torch.device("cuda")
+    lp = {n: t[0] for n, t in engine.model.params["layers"].items()}
+    D, E, k = cfg.hidden_size, cfg.num_experts, cfg.experts_per_token
+    Fm = cfg.moe_intermediate_size or cfg.intermediate_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    timer = Timer(torch, dev)
+    out = {"grouped": [], "block": {}}
+    for rows in (engine.max_slots * k, 2048 * k):
+        ids = torch.randint(0, E - 1, (rows,), generator=gen, device=dev)
+        ids = ids + (ids >= 3).long()       # expert 3 gets no rows
+        ids = torch.sort(ids).values
+        offs = (ids[:, None] == torch.arange(E, device=dev)).sum(0) \
+            .cumsum(0).to(torch.int32)
+        xs = torch.randn(rows, D, generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = lp["we_gate"]
+        got = llama._grouped(xs, w, ids, offs)
+        ref = llama.grouped_ref(xs.float(), w.float(), ids)
+        torch.cuda.synchronize()
+        err = (got.float() - ref).abs().max().item()
+        case = {"rows": rows, "max_abs_err": err, "atol": ATOL["bf16"],
+                "ms": timer.ms(lambda: llama._grouped(xs, w, ids, offs)),
+                "plain_bf16_ms": timer.ms(
+                    lambda: llama.grouped_ref(xs, w, ids), iters=5)}
+        out["grouped"].append(case)
+        log(f"[moe] torch._grouped_mm x we_gate [{E}, {D}, {Fm}] at "
+            f"{rows} rows (expert 3 empty): max_abs_err {err:.3e} (tol "
+            f"{ATOL['bf16']}); {case['ms']:.4f} ms, plain bf16 loop "
+            f"{case['plain_bf16_ms']:.4f} ms")
+        if not err <= ATOL["bf16"]:
+            fail(f"moe: torch._grouped_mm disagrees with its plain "
+                 f"version at {rows} rows ({err:.3e})")
+    # a decode step of the model (all layers, the ragged dispatch) makes
+    # no host sync: torch's sync debug mode raises on any
+    cache = llama.KVCache.create(cfg, engine.max_slots, 256, device=dev)
+    cache.index = torch.arange(engine.max_slots, dtype=torch.int32,
+                               device=dev) * 20 + 7
+    toks = torch.randint(3, cfg.vocab_size, (engine.max_slots, 1),
+                         generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        llama.forward(engine.model.params, cfg, toks, cache=cache,
+                      freqs=engine.model.freqs)
+    except RuntimeError as e:
+        fail(f"moe: a decode step synchronized with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    del cache
+    log("[moe] a decode step through the ragged dispatch ran under "
+        "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    for what, shape in (("decode", (engine.max_slots, 1)),
+                        ("prefill_2048", (1, 2048))):
+        h = torch.randn(*shape, D, generator=gen, device=dev).to(cfg.dtype)
+
+        def block():
+            return llama.moe_mlp(h, lp, cfg)
+        block()
+        torch.cuda.synchronize()
+        busy, top, _ = _device_profile(torch, block, 5)
+        out["block"][what] = {"device_ms": busy, "top": top}
+        log(f"[moe] MoE block ({cfg.moe_impl}), one layer, {what} "
+            f"{shape[0] * shape[1]} tokens: device {busy:.3f} ms "
+            f"(torch.profiler)")
+        for ms, count, key in top:
+            log(f"[moe]   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
+    # the experts one decode step hits, layer by layer
+    state = engine.new_state()
+    for slot in range(engine.max_slots):
+        tok, kv, n, bucket = engine.prefill(prompt(64 + 300 * slot))
+        state = engine.insert(state, kv, slot, n, tok, bucket)
+    greedy = (np.zeros(engine.max_slots, np.float32),
+              np.zeros(engine.max_slots, np.int32),
+              np.ones(engine.max_slots, np.float32))
+    picks = []
+    route = llama._route
+
+    def recording_route(x, p, c):
+        weights, idx = route(x, p, c)
+        picks.append(idx.reshape(-1))
+        return weights, idx
+    llama._route = recording_route
+    try:
+        engine.decode(state, *greedy)
+        torch.cuda.synchronize()
+    finally:
+        llama._route = route
+    hits = [int(torch.unique(i).numel()) for i in picks]
+    per_expert = 3 * D * Fm * 2
+    expert_bytes = sum(hits) * per_expert
+    # the step's least traffic: the experts hit, every other weight but
+    # the embedding table (of which it reads one row per slot), and the
+    # K/V rows of the armed slots (prompt + the new token)
+    lay = engine.model.params["layers"]
+    other = sum(t.numel() * t.element_size() for n, t in lay.items()
+                if not n.startswith("we_"))
+    other += sum(t.numel() * t.element_size() for n, t in
+                 engine.model.params.items() if n not in ("layers", "embed"))
+    other += engine.max_slots * D * 2
+    rows = sum(64 + 300 * slot + 1 for slot in range(engine.max_slots))
+    kv_bytes = rows * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 4
+    step_bytes = expert_bytes + other + kv_bytes
+    out.update(experts_hit=hits, mean_hit=statistics.mean(hits),
+               expert_bytes_per_step=expert_bytes,
+               step_bytes=step_bytes,
+               step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3)
+    log(f"[moe] decode step of {engine.max_slots} slots: experts hit per "
+        f"layer {hits} (mean {out['mean_hit']:.2f} of {E}); expert bytes "
+        f"read {expert_bytes / 1e9:.3f} GB, other weights "
+        f"{other / 1e9:.3f} GB, K/V {kv_bytes / 1e9:.3f} GB: byte bound "
+        f"of the step {out['step_bound_ms']:.2f} ms")
     return out
 
 
@@ -1601,42 +1920,47 @@ def _first_token_prompts(seed: int, vocab: int):
 
 
 def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
-                      first_tokens=None):
+                      first_tokens=None, model=None):
     """The paged server at the Llama-3-8B shape: `--kv-block 128
     --max-slots 16 --max-seq 4096 --kv-blocks 129` (128 usable blocks,
     16384 rows: a quarter of the dense-equivalent 512 blocks), in bf16
     or int8. bf16: 16 concurrent completions whose prompts fill about
     3/4 of the pool plus two twins, then a burst larger than the pool
     (admission backpressure, preemption); int8: the first-token
-    prompts, whose first tokens must equal the bf16 server's."""
+    prompts, whose first tokens must equal the bf16 server's. With
+    `model`, another published configuration (see `phase_serve`) on the
+    bf16 pool."""
     import concurrent.futures
     import random
     import tempfile
 
     from ome_tpu_torch.engine import serve
-    from ome_tpu_torch.models.config import llama3_8b
     from ome_tpu_torch.ops import flash
 
-    cfg = llama3_8b()
+    hf, name, cfg = _model_hf(model)
     rng = random.Random(seed + 1)
 
     def prompt(n):
         return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
 
-    out = {"kv_dtype": kv_dtype}
+    out = {"kv_dtype": kv_dtype, "model": name}
+    tag = f"[paged {kv_dtype}]" if model is None else \
+        f"[paged {kv_dtype} {name}]"
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "config.json"), "w") as f:
-            json.dump(_hf_config(cfg), f)
+            json.dump(hf, f)
         t0 = time.monotonic()
         server, sched, engine = serve.build_server(
             ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
              "--max-slots", "16", "--max-seq", "4096", "--kv-block", "128",
              "--kv-blocks", "129", "--kv-dtype", kv_dtype, "--port", "0",
              "--host", "127.0.0.1"])
+        if cfg.attn_bias:
+            _randomize_biases(torch, engine, seed, model["bias_std"])
         torch.cuda.synchronize()
         out["startup_s"] = time.monotonic() - t0
         out["device_gib_after_startup"] = torch.cuda.memory_allocated() / 2**30
-        log(f"[paged {kv_dtype}] Llama-3-8B shape, seed {seed}, slots 16, "
+        log(f"{tag} {name} shape, seed {seed}, slots 16, "
             f"max_seq 4096, kv_block 128, kv_blocks 129 "
             f"({engine.kv_row_bytes()} bytes per cached token): server up "
             f"in {out['startup_s']:.1f} s; device memory "
@@ -1690,7 +2014,7 @@ def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
                         twins[0].output_ids != twins[1].output_ids:
                     fail("paged serve: the twin prompts gave different "
                          "outputs")
-                log(f"[paged bf16] 16 concurrent completions (prompts "
+                log(f"{tag} 16 concurrent completions (prompts "
                     f"{sum(lengths)} tokens, 3/4 of the pool's 16384 rows) "
                     f"+ 2 twins: all 200, "
                     f"{out['batch_completion_tokens']} tokens in "
@@ -1703,7 +2027,7 @@ def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
                 t_burst = time.monotonic()
                 post_all(burst, "burst request")
                 out["burst_s"] = time.monotonic() - t_burst
-                log(f"[paged bf16] burst of 12 x 2040-token prompts (24480 "
+                log(f"{tag} burst of 12 x 2040-token prompts (24480 "
                     f"rows > the pool's 16384): all 200 in "
                     f"{out['burst_s']:.2f} s")
             _wait_idle(sched)
@@ -1717,7 +2041,7 @@ def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
         finally:
             server.stop()
     out["launches"] = launches
-    log(f"[paged {kv_dtype}] idle: kv_conservation {ok} (owned {owned}), "
+    log(f"{tag} idle: kv_conservation {ok} (owned {owned}), "
         f"free blocks {free} of {engine.kv_blocks}; preemptions "
         f"{out['preemptions']}, requeues {out['kv_requeues']}; launches "
         f"{launches}")
@@ -2299,6 +2623,151 @@ def phase_step_plans(torch, seed: int = 0, n_layers: int = 4,
     return out
 
 
+# -- phases 17 and 19: the other families in fp32 ----------------------------------
+
+
+def phase_qk_norm_identity(torch, seed: int = 0, n_layers: int = 4,
+                           steps: int = 32):
+    """Qwen3-8B widths (per-head q/k RMSNorm), `n_layers` deep, fp32,
+    through the engine API: the dense engine (B1) and the paged engine
+    over fp32 pools (B3) give identical greedy streams for 4 prompts.
+    The init's unit q/k norm scales are replaced by seeded 1 + N(0, 0.3)
+    values, so that a missing or misplaced norm shows."""
+    import random
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models.config import ModelConfig
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.ops import flash
+
+    cfg = ModelConfig.from_hf_config(QWEN3_8B).replace(
+        num_layers=n_layers, dtype=torch.float32)
+    if not cfg.qk_norm:
+        fail("qk_norm identity: the Qwen3-8B config has no qk_norm")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"))
+    for name in ("q_norm", "k_norm"):
+        t = params["layers"][name]
+        t.add_(torch.randn(t.shape, generator=gen, device=t.device)
+               .mul_(0.3))
+    rng = random.Random(seed + 4)
+    prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+               for n in (37, 200, 515, 1000)]
+    streams, gaps = {}, {}
+    flash.reset_launches()
+    for name, kw in (("dense", {}), ("paged", {"kv_block": 128})):
+        eng = InferenceEngine(params, cfg, max_slots=4, max_seq=2048,
+                              device="cuda", seed=seed, **kw)
+        streams[name], gaps[name], _ = _greedy_streams(torch, eng, prompts,
+                                                       steps)
+        del eng
+    launches = dict(flash.LAUNCHES)
+    if launches["flash_decode"] <= 0 or launches["flash_paged_decode"] <= 0:
+        fail(f"qk_norm identity: a decode kernel did not run ({launches})")
+    for slot in range(len(prompts)):
+        a, b = streams["dense"][slot], streams["paged"][slot]
+        if a != b:
+            step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            fail(f"qk_norm identity: prompt {slot} differs at step {step} "
+                 f"(dense {a[step]}, paged {b[step]})")
+    min_gap = min(float(g[:len(prompts)].min()) for g in gaps["dense"])
+    log(f"[qwen3] fp32, Qwen3-8B widths (qk_norm, G 4), {n_layers} layers: "
+        f"dense (flash_decode) and paged fp32 pool (flash_paged_decode) "
+        f"give identical {steps}-token greedy streams for {len(prompts)} "
+        f"prompts (smallest top-2 logit gap {min_gap:.3e}); launches "
+        f"{launches}")
+    del params
+    return {"streams_identical": True, "steps": steps,
+            "prompts": len(prompts), "min_top2_gap": min_gap,
+            "launches": launches}
+
+
+def phase_moe_identity(torch, seed: int = 0, n_layers: int = 4,
+                       steps: int = 24):
+    """Mixtral-8x7B widths, `n_layers` deep, fp32, dense cache, through
+    the engine API: the ragged dispatch (single steps, `decode_multi`
+    K=4, and the Scheduler at spec_tokens 4 / steps_per_dispatch 4) and
+    the dense impl give identical greedy streams; the n-gram drafter
+    proposes, so the verify forward (B2 at Sq 5, through the MoE block)
+    runs. As in phase 12, the embeddings are tied and scaled by
+    `EMBED_SCALE`, so that the random model's greedy streams repeat
+    tokens for the drafter to match (untied, they repeat none)."""
+    import random
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models.config import ModelConfig
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.ops import flash
+
+    cfg = ModelConfig.from_hf_config(MIXTRAL_8X7B).replace(
+        num_layers=n_layers, dtype=torch.float32, moe_impl="ragged",
+        tie_word_embeddings=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"))
+    params["embed"].mul_(EMBED_SCALE)
+    rng = random.Random(seed + 5)
+    prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+               for n in (20, 75, 150, 300)]
+    sq_seen = []
+    prefill = flash.flash_prefill
+
+    def recording_prefill(q, *a, **kw):
+        sq_seen.append(int(q.shape[1]))
+        return prefill(q, *a, **kw)
+    flash.flash_prefill = recording_prefill
+    flash.reset_launches()
+    t0 = time.monotonic()
+    try:
+        eng = InferenceEngine(params, cfg, max_slots=4, max_seq=1024,
+                              device="cuda", seed=seed)
+        single, gaps, _ = _greedy_streams(torch, eng, prompts, steps)
+        multi = _multi_streams(torch, eng, prompts, steps, k=4)
+        planned, sched = _sched_streams(eng, prompts, steps,
+                                        pipeline_depth=1, spec_tokens=4,
+                                        steps_per_dispatch=4)
+        st = dict(sched.stats)
+        del eng, sched
+        eng = InferenceEngine(params, cfg.replace(moe_impl="dense"),
+                              max_slots=4, max_seq=1024, device="cuda",
+                              seed=seed)
+        dense, _, _ = _greedy_streams(torch, eng, prompts, steps)
+        del eng
+        torch.cuda.synchronize()
+    finally:
+        flash.flash_prefill = prefill
+    launches = dict(flash.LAUNCHES)
+    for what, got in (("dense impl", dense), ("decode_multi K=4", multi),
+                      ("scheduler spec 4 K 4", planned)):
+        if got != single:
+            slot = next(i for i, (a, b) in enumerate(zip(single, got))
+                        if a != b)
+            fail(f"moe identity: the {what} stream of prompt {slot} "
+                 f"differs from the ragged single steps: {got[slot]} vs "
+                 f"{single[slot]}")
+    if st["spec_proposed_tokens_total"] <= 0 or 5 not in sq_seen:
+        fail(f"moe identity: the verify forward did not run (proposed "
+             f"{st['spec_proposed_tokens_total']}, prefill Sq "
+             f"{sorted(set(sq_seen))})")
+    min_gap = min(float(g[:len(prompts)].min()) for g in gaps)
+    res = {"streams_identical": True, "steps": steps,
+           "prompts": len(prompts), "min_top2_gap": min_gap,
+           "spec_steps": st["spec_steps_total"],
+           "spec_proposed": st["spec_proposed_tokens_total"],
+           "spec_accepted": st["spec_accepted_tokens_total"],
+           "launches": launches, "secs": time.monotonic() - t0}
+    log(f"[mixtral] fp32, Mixtral-8x7B widths, {n_layers} layers: ragged "
+        f"single steps, ragged decode_multi K=4, the ragged scheduler "
+        f"(spec 4, K 4) and the dense impl give identical {steps}-token "
+        f"streams for {len(prompts)} prompts (smallest top-2 gap "
+        f"{min_gap:.3e}); spec steps {res['spec_steps']}, proposed "
+        f"{res['spec_proposed']}, accepted {res['spec_accepted']}; "
+        f"launches {launches}; {res['secs']:.1f} s")
+    del params
+    return res
+
+
 # -- phase 13/14: step-plan servers -------------------------------------------------
 
 
@@ -2541,6 +3010,19 @@ def main() -> int:
         before=report["serve"], free="the spec server")
     run("serve_spec_paged", phase_serve_stepplan, torch, True,
         before=report["paged_bf16"], free="the paged spec server")
+    qwen = {"hf": QWEN25_7B, "label": "Qwen2.5-7B", "bias_std": 0.5}
+    run("serve_qwen25_7b", phase_serve, torch, model=qwen,
+        free="the Qwen2.5-7B server")
+    run("paged_qwen25_7b", phase_serve_paged, torch, "bf16", model=qwen,
+        free="the paged Qwen2.5-7B server")
+    run("qwen3_identity", phase_qk_norm_identity, torch,
+        free="the Qwen3-width engines")
+    run("serve_mixtral", phase_serve, torch,
+        model={"hf": MIXTRAL_8X7B, "label": "Mixtral-8x7B",
+               "layers": MIXTRAL_SERVED_LAYERS},
+        free="the Mixtral server")
+    run("mixtral_identity", phase_moe_identity, torch,
+        free="the Mixtral-width engines")
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

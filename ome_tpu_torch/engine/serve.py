@@ -247,6 +247,11 @@ def load_engine(args):
 
     device = resolve_device(args.device)
     params, cfg = load_params_cfg(args, device)
+    if cfg.is_moe:
+        # one device: the ragged grouped-product dispatch, as the
+        # reference serves with tp 1 (the dense impl computes every
+        # expert for every token)
+        cfg = cfg.replace(moe_impl="ragged")
     if args.quantization != "none":
         t0 = time.monotonic()
         # leaf by leaf, dropping each bf16 leaf once quantized

@@ -18,8 +18,9 @@ equals the reference's `load_params(..., device_put=False)` leaf for
 leaf. `load_params` puts the leaves on an explicit device (default
 CUDA, through `device.resolve_device`) one layer at a time, and refuses
 what the reference's architecture gate refuses and what the port does
-not serve yet (`params.check_supported`); `convert_llama` keeps only
-the dense GQA branches of the reference's.
+not serve yet (`params.check_supported`); `convert_llama` keeps the
+reference's GQA branches with q/k/v(/o) biases, qk_norm and the
+Mixtral-style experts and router.
 """
 
 from __future__ import annotations
@@ -202,11 +203,13 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
     Each tensor is read, moved to `device`, widened to float32 and
     rounded once to `dtype` (default bfloat16), as the reference does.
 
-    Converts the dense GQA family: separate or fused (phi3) q/k/v and
-    gate/up projections, and q/k/v(/o) biases (Qwen2), which
-    `load_params` still refuses. The reference's other families (MLA,
-    MoE, layernorm, post-block norms, sinks) are not converted;
-    `load_params` refuses them before any weight is read.
+    Converts the GQA family: separate or fused (phi3) q/k/v and gate/up
+    projections, q/k/v(/o) biases (Qwen2), the per-head q/k norms
+    (Qwen3) and Mixtral's `block_sparse_moe`: the router and each
+    layer's experts stacked into [E, ...] leaves. The reference's other
+    families (MLA, shared experts, layernorm, post-block norms, sinks,
+    gpt-oss's fused experts) are not converted; `load_params` refuses
+    them before any weight is read.
     """
     dev = torch.device(device)
     t_dt = dtype or torch.bfloat16
@@ -257,7 +260,20 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
                    take(p + "self_attn.v_proj.bias").reshape(K, Dh))
             if p + "self_attn.o_proj.bias" in ckpt:
                 st.put("bo", i, take(p + "self_attn.o_proj.bias"))
-        if p + "mlp.gate_up_proj.weight" in ckpt:
+        if cfg.qk_norm:
+            st.put("q_norm", i, take(p + "self_attn.q_norm.weight"))
+            st.put("k_norm", i, take(p + "self_attn.k_norm.weight"))
+        if cfg.is_moe:
+            # Mixtral's block_sparse_moe: the router, then each expert's
+            # w1 (gate), w3 (up) and w2 (down), stacked into [E, ...]
+            moe = p + "block_sparse_moe."
+            st.put("router", i, linear_in_out(moe + "gate.weight"))
+            for leaf, hf in (("we_gate", "w1"), ("we_up", "w3"),
+                             ("we_down", "w2")):
+                st.put(leaf, i, torch.stack([
+                    linear_in_out(f"{moe}experts.{e}.{hf}.weight")
+                    for e in range(cfg.num_experts)]))
+        elif p + "mlp.gate_up_proj.weight" in ckpt:
             # phi3: fused gate|up rows (Phi3MLP chunks in halves)
             guw = take(p + "mlp.gate_up_proj.weight")
             half = guw.shape[0] // 2
@@ -266,7 +282,8 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
         else:
             st.put("w_gate", i, linear_in_out(p + "mlp.gate_proj.weight"))
             st.put("w_up", i, linear_in_out(p + "mlp.up_proj.weight"))
-        st.put("w_down", i, linear_in_out(p + "mlp.down_proj.weight"))
+        if not cfg.is_moe:
+            st.put("w_down", i, linear_in_out(p + "mlp.down_proj.weight"))
 
     params: Dict[str, Any] = {
         "embed": take("model.embed_tokens.weight").to(t_dt),
@@ -282,10 +299,11 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
 
 
 def hf_tensors(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """The inverse of `convert_llama` for the dense GQA family the port
-    serves (attention biases included): the param tree as HF-named
-    [out, in] tensors, in the tree's dtypes. Used to write checkpoints
-    from seeded weights (tests, chip_smoke.py)."""
+    """The inverse of `convert_llama` for the families the port serves
+    (attention biases, qk_norm and Mixtral's `block_sparse_moe` experts
+    included): the param tree as HF-named [out, in] tensors, in the
+    tree's dtypes. Used to write checkpoints from seeded weights (tests,
+    chip_smoke.py)."""
     L, D, H, K, Dh = (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                       cfg.num_kv_heads, cfg.head_dim)
     lay = params["layers"]
@@ -307,6 +325,20 @@ def hf_tensors(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
                     lay["b" + name][i].reshape(heads * Dh)
         out[p + "self_attn.o_proj.weight"] = \
             lay["wo"][i].reshape(H * Dh, D).t().contiguous()
+        if "bo" in lay:
+            out[p + "self_attn.o_proj.bias"] = lay["bo"][i]
+        for name in ("q_norm", "k_norm"):
+            if name in lay:
+                out[p + f"self_attn.{name}.weight"] = lay[name][i]
+        if "router" in lay:
+            moe = p + "block_sparse_moe."
+            out[moe + "gate.weight"] = lay["router"][i].t().contiguous()
+            for leaf, hf in (("we_gate", "w1"), ("we_up", "w3"),
+                             ("we_down", "w2")):
+                for e in range(lay[leaf].shape[1]):
+                    out[moe + f"experts.{e}.{hf}.weight"] = \
+                        lay[leaf][i, e].t().contiguous()
+            continue
         for name in ("gate", "up", "down"):
             out[p + f"mlp.{name}_proj.weight"] = \
                 lay["w_" + name][i].t().contiguous()

@@ -1,8 +1,12 @@
-"""Dense Llama-family decoder in PyTorch (port of ome_tpu/models/llama.py).
+"""Llama-family decoder in PyTorch (port of ome_tpu/models/llama.py).
 
-The dense GQA RMSNorm subset of the reference: RMSNorm in fp32,
-rotate-half RoPE with default/linear/llama3 frequency scaling, the SiLU
-gated MLP, GQA attention through `ops.attention`, and fp32 logits.
+The GQA RMSNorm subset of the reference: RMSNorm in fp32, rotate-half
+RoPE with default/linear/llama3 frequency scaling, the SiLU gated MLP,
+GQA attention through `ops.attention`, and fp32 logits; with the Qwen2
+q/k/v (and o) projection biases, the Qwen3 per-head q/k RMSNorm and the
+Mixtral top-k MoE MLP (`moe_mlp`: the reference's dense impl and its
+ragged dispatch, grouped products through `torch._grouped_mm` on the
+card).
 
 Layout follows the reference so the tests compare like with like:
 parameters are a nested dict with the reference's leaf names and the
@@ -194,6 +198,109 @@ def dense_mlp(x: torch.Tensor, p, dtype) -> torch.Tensor:
     return _proj(F.silu(gate) * up, p["w_down"], dtype)
 
 
+# -- mixture of experts (Mixtral) ------------------------------------------
+
+
+def _w(w, dtype) -> torch.Tensor:
+    """An expert-stacked weight in the compute dtype: a QTensor is
+    dequantized whole at use (reference `_w`)."""
+    return w.dequant(dtype) if isinstance(w, QTensor) else w
+
+
+def _route(x: torch.Tensor, p, cfg: ModelConfig):
+    """Mixtral router (reference `_route`, router_scoring "mixtral"):
+    the router product in x's dtype, widened to fp32 logits; the top k
+    by a stable descending sort, so that tied logits are taken lower
+    expert id first, as `lax.top_k` takes them; then a softmax over the
+    k picked logits. Returns (weights [B, S, k] fp32, ids [B, S, k])."""
+    logits = torch.einsum("bsd,de->bse", x, p["router"]).float()
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    k = cfg.experts_per_token
+    return torch.softmax(vals[..., :k], dim=-1), idx[..., :k]
+
+
+def _moe_act(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return F.silu(gate) * up
+
+
+def moe_mlp_dense(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE computing every expert for every token and mixing by
+    router weight (reference `moe_mlp_dense`): O(E) products, static
+    shapes; the fp32 cross-check of the ragged dispatch."""
+    weights, idx = _route(x, p, cfg)
+    gate = torch.einsum("bsd,edf->bsef", x, _w(p["we_gate"], cfg.dtype))
+    up = torch.einsum("bsd,edf->bsef", x, _w(p["we_up"], cfg.dtype))
+    expert_out = torch.einsum("bsef,efd->bsed", _moe_act(gate, up),
+                              _w(p["we_down"], cfg.dtype))
+    onehot = F.one_hot(idx, cfg.num_experts).to(weights.dtype)
+    mix = torch.einsum("bske,bsk->bse", onehot, weights)
+    return torch.einsum("bsed,bse->bsd", expert_out,
+                        mix.to(expert_out.dtype))
+
+
+def grouped_ref(xs: torch.Tensor, w: torch.Tensor,
+                ids: torch.Tensor) -> torch.Tensor:
+    """Plain version of the grouped product: each expert's product for
+    every row, in expert order, keeping that expert's rows (`ids` [R]
+    the rows' experts). No host read."""
+    out = xs.new_zeros(xs.shape[0], w.shape[-1])
+    for e in range(w.shape[0]):
+        out = torch.where((ids == e)[:, None], xs @ w[e], out)
+    return out
+
+
+def _grouped(xs: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
+             offs: torch.Tensor) -> torch.Tensor:
+    """Rows xs [R, K] sorted by expert (expert ids `ids` [R], group ends
+    `offs` [E] int32) times their expert's w[e] [K, N]: the reference's
+    `lax.ragged_dot`, which is XLA there, not Pallas. bf16 on the card
+    runs `torch._grouped_mm` with the offsets on the device; elsewhere
+    (the CPU, fp32) `grouped_ref`. Neither reads anything back to the
+    host."""
+    if xs.is_cuda and xs.dtype == torch.bfloat16:
+        return torch._grouped_mm(xs, w, offs=offs)
+    return grouped_ref(xs, w, ids)
+
+
+def moe_mlp_ragged(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """Dropless ragged dispatch (reference `moe_mlp_ragged`): sort the
+    T k (token, expert) pairs by expert with a stable sort (as
+    `jnp.argsort`), run the grouped products, weight each row, put the
+    rows back in (token, pick) order and add each token's k rows in pick
+    order in the rows' dtype, then cast to x's dtype. Static shapes and
+    no host read, so a `decode_multi` chunk stays free of syncs."""
+    B, S, D = x.shape
+    k, E = cfg.experts_per_token, cfg.num_experts
+    T = B * S
+    weights, idx = _route(x, p, cfg)
+    expert_ids = idx.reshape(T * k)
+    order = torch.argsort(expert_ids, stable=True)
+    sorted_ids = expert_ids[order]
+    xs = x.reshape(T, D)[order // k]
+    offs = (expert_ids[:, None] == torch.arange(E, device=x.device)
+            ).sum(0).cumsum(0).to(torch.int32)
+    gate = _grouped(xs, _w(p["we_gate"], cfg.dtype), sorted_ids, offs)
+    up = _grouped(xs, _w(p["we_up"], cfg.dtype), sorted_ids, offs)
+    out_sorted = _grouped(_moe_act(gate, up), _w(p["we_down"], cfg.dtype),
+                          sorted_ids, offs)
+    w_sorted = weights.reshape(T * k)[order]
+    contrib = out_sorted * w_sorted[:, None].to(out_sorted.dtype)
+    rows = torch.empty_like(contrib).index_copy_(0, order, contrib)
+    rows = rows.reshape(T, k, D)
+    out = rows[:, 0]
+    for j in range(1, k):
+        out = out + rows[:, j]
+    return out.reshape(B, S, D).to(x.dtype)
+
+
+def moe_mlp(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE block (reference `moe_mlp`; shared experts are not
+    ported and `params.check_supported` refuses them)."""
+    if cfg.moe_impl == "ragged":
+        return moe_mlp_ragged(x, p, cfg)
+    return moe_mlp_dense(x, p, cfg)
+
+
 # -- forward ---------------------------------------------------------------
 
 
@@ -225,14 +332,32 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor,
 
 def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
          positions: torch.Tensor):
+    """Projected, biased (Qwen2), per-head RMS-normed (Qwen3) and roped
+    q/k/v, in the reference's order; shared by the dense and paged
+    paths."""
     q = _proj(h, lp["wq"], cfg.dtype,
               out_dims=(cfg.num_heads, cfg.head_dim))
     k = _proj(h, lp["wk"], cfg.dtype,
               out_dims=(cfg.num_kv_heads, cfg.head_dim))
     v = _proj(h, lp["wv"], cfg.dtype,
               out_dims=(cfg.num_kv_heads, cfg.head_dim))
+    if cfg.attn_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
+        k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
     return (apply_rope(q, positions, freqs),
             apply_rope(k, positions, freqs), v)
+
+
+def _out_proj(attn: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
+    """o_proj, plus its bias where the checkpoint carries one."""
+    a = _proj(attn, lp["wo"], cfg.dtype, flatten=2)
+    if "bo" in lp:
+        a = a + lp["bo"]
+    return a
 
 
 def _mha(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
@@ -251,7 +376,7 @@ def _mha(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
                      sliding_window=cfg.sliding_window,
                      scale=cfg.query_scale,
                      logit_softcap=cfg.attn_logit_softcap)
-    return _proj(attn, lp["wo"], cfg.dtype, flatten=2)
+    return _out_proj(attn, lp, cfg)
 
 
 def _layer(x: torch.Tensor, lp, cfg: ModelConfig, freqs, positions,
@@ -260,7 +385,9 @@ def _layer(x: torch.Tensor, lp, cfg: ModelConfig, freqs, positions,
     x = x + _mha(h, lp, cfg, freqs, positions, kv_len, cache_kv,
                  cache_index)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    return x + dense_mlp(h, lp, cfg.dtype)
+    mlp_out = moe_mlp(h, lp, cfg) if cfg.is_moe \
+        else dense_mlp(h, lp, cfg.dtype)
+    return x + mlp_out
 
 
 def _final_logits(params: Params, cfg: ModelConfig,
@@ -363,9 +490,10 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     beforehand), then attends its block chain: S == 1 through
     `ops.paged.paged_attention` (the paged CUDA kernel on a card), S > 1
     through the plain `paged_attention_multi` with per-query causal
-    masking, as in the reference. Standard GQA models only (the engine
-    guards). Returns (logits [B, S, vocab] fp32, cache with index + S);
-    the pools are updated in place."""
+    masking, as in the reference. Dense-MLP GQA models only (the
+    engine refuses paged KV for MoE, as the reference's does). Returns
+    (logits [B, S, vocab] fp32, cache with index + S); the pools are
+    updated in place."""
     B, S = tokens.shape
     dev = tokens.device
     bs = cache.k.shape[2]
@@ -404,7 +532,7 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 scale=cfg.query_scale,
                 logit_softcap=cfg.attn_logit_softcap,
                 k_scale=ksp, v_scale=vsp)
-        x = x + _proj(attn, lp["wo"], cfg.dtype, flatten=2)
+        x = x + _out_proj(attn, lp, cfg)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
         x = x + dense_mlp(h, lp, cfg.dtype)
     new_cache = dataclasses.replace(cache, index=cache.index + S)

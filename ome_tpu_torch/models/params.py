@@ -15,7 +15,8 @@ tensors stacked on a leading [L, ...] axis (`layers["wq"]` is
 * `init_params(cfg, generator, device)` is the port's own random init
   for `--random-weights`: the same leaf names, shapes and dtypes, normal
   with std 0.02 (the residual output projections scaled by
-  1/sqrt(2 * depth)) as `llama.init_params` — but drawn from a
+  1/sqrt(2 * depth)), zero q/k/v biases and unit norm scales (qk_norm
+  included) as `llama.init_params` — but drawn from a
   `torch.Generator`, so its numbers are not the JAX init's.
 """
 
@@ -78,13 +79,23 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense GQA RMSNorm Llama subset; refuse the
-    rest by name instead of computing a different model."""
+    """The port serves GQA RMSNorm Llama models with the Qwen2 q/k/v
+    biases, the Qwen3 per-head q/k RMSNorm and the Mixtral top-k MoE
+    MLP; refuse the rest by name instead of computing a different
+    model."""
+    moe = cfg.is_moe
     unsupported = {
-        "mixture-of-experts": cfg.is_moe,
         "MLA attention": cfg.mla,
-        "qk_norm": cfg.qk_norm,
-        "attention biases": cfg.attn_bias,
+        "shared experts": moe and cfg.num_shared_experts > 0,
+        "first_k_dense layers": moe and cfg.first_k_dense > 0,
+        f"router_scoring {cfg.router_scoring!r}":
+            moe and cfg.router_scoring != "mixtral",
+        "router bias": moe and cfg.router_bias,
+        "expert biases (moe_bias)": moe and cfg.moe_bias,
+        f"moe_activation {cfg.moe_activation!r}":
+            moe and cfg.moe_activation != "silu",
+        f"qk_norm with norm_type {cfg.norm_type!r}":
+            cfg.qk_norm and cfg.norm_type != "rmsnorm",
         "post-block norms": cfg.post_block_norms,
         "embed_scale": cfg.embed_scale,
         "unit-offset norms": cfg.unit_offset_norm,
@@ -102,7 +113,8 @@ def check_supported(cfg: ModelConfig) -> None:
     names = [k for k, on in unsupported.items() if on]
     if names:
         raise NotImplementedError(
-            "the PyTorch port serves dense GQA RMSNorm Llama models; "
+            "the PyTorch port serves GQA RMSNorm Llama models (with "
+            "Qwen2 biases, Qwen3 qk_norm or a Mixtral MoE MLP); "
             f"not ported yet: {', '.join(names)}")
 
 
@@ -110,7 +122,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: Union[str, torch.device]) -> Params:
     """Random weights for `cfg` on `device` (the generator must live on
     the same device). Each stacked leaf is filled one layer at a time,
-    so the fp32 draw stays one layer large."""
+    and an expert leaf [L, E, ...] one expert at a time, so the fp32
+    draw stays one layer (or one expert) large."""
     check_supported(cfg)
     device = torch.device(device)
     D, H, K, Dh, F = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
@@ -118,9 +131,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     L = cfg.num_layers
     out_std = 0.02 / math.sqrt(2 * L)
 
-    def normal(shape, std=0.02):
+    def normal(shape, std=0.02, per_expert=False):
         out = torch.empty(shape, dtype=cfg.dtype, device=device)
-        slabs = out if len(shape) >= 3 else out[None]
+        slabs = (out.flatten(0, 1) if per_expert
+                 else out if len(shape) >= 3 else out[None])
         for slab in slabs:
             slab.copy_(torch.randn(slab.shape, generator=generator,
                                    device=device,
@@ -130,19 +144,38 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def ones(*shape):
         return torch.ones(shape, dtype=cfg.dtype, device=device)
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=cfg.dtype, device=device)
+
+    embed = normal((cfg.vocab_size, D))  # drawn first, as it always was
+    layers: Params = {
+        "attn_norm": ones(L, D),
+        "mlp_norm": ones(L, D),
+        "wq": normal((L, D, H, Dh)),
+        "wk": normal((L, D, K, Dh)),
+        "wv": normal((L, D, K, Dh)),
+        "wo": normal((L, H, Dh, D), out_std),
+    }
+    if cfg.qk_norm:
+        layers["q_norm"] = ones(L, Dh)
+        layers["k_norm"] = ones(L, Dh)
+    if cfg.attn_bias:
+        layers["bq"] = zeros(L, H, Dh)
+        layers["bk"] = zeros(L, K, Dh)
+        layers["bv"] = zeros(L, K, Dh)
+    if cfg.is_moe:
+        E, Fm = cfg.num_experts, cfg.moe_intermediate_size or F
+        layers["router"] = normal((L, D, E))
+        layers["we_gate"] = normal((L, E, D, Fm), per_expert=True)
+        layers["we_up"] = normal((L, E, D, Fm), per_expert=True)
+        layers["we_down"] = normal((L, E, Fm, D), out_std, per_expert=True)
+    else:
+        layers["w_gate"] = normal((L, D, F))
+        layers["w_up"] = normal((L, D, F))
+        layers["w_down"] = normal((L, F, D), out_std)
     params: Params = {
-        "embed": normal((cfg.vocab_size, D)),
-        "layers": {
-            "attn_norm": ones(L, D),
-            "mlp_norm": ones(L, D),
-            "wq": normal((L, D, H, Dh)),
-            "wk": normal((L, D, K, Dh)),
-            "wv": normal((L, D, K, Dh)),
-            "wo": normal((L, H, Dh, D), out_std),
-            "w_gate": normal((L, D, F)),
-            "w_up": normal((L, D, F)),
-            "w_down": normal((L, F, D), out_std),
-        },
+        "embed": embed,
+        "layers": layers,
         "final_norm": ones(D),
     }
     if not cfg.tie_word_embeddings:

@@ -207,7 +207,10 @@ def _per_layer(fn, v: torch.Tensor, axes) -> QTensor:
 
 def quantize_params(params: Params, mode: str = "int8",
                     group: int = 128, consume: bool = False) -> Params:
-    """Quantize the big matmul weights; norms stay full precision.
+    """Quantize the big matmul weights (the experts of a MoE layer
+    included, over D); norms, biases and the MoE router stay full
+    precision, as in the reference (tiny, and routing is
+    precision-sensitive).
 
     mode="int8": per-output-channel symmetric int8 everywhere.
     mode="fp8": per-output-channel scaled float8_e4m3fn everywhere.

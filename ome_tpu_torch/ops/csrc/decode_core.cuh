@@ -71,6 +71,12 @@
 //     body, whose cp.async loads never read a row outside [lo, hi), on the
 //     same units, persistent walk and in-launch merge. Dense and paged fp32
 //     run the same code on the same units, so they give the same bits.
+//   * Any group size G = H / K from 1 to kMaxGroup (16), as the reference
+//     kernel takes any G: decode_tc pads the G query heads with zero rows
+//     to NG = 8 or 16 and stores only the G real ones; decode_scalar runs
+//     one warp per query head with G read at run time. Nothing assumes
+//     that G divides NG or is a power of two (the merge, the partials and
+//     the column reductions all index heads by c < G).
 
 #pragma once
 
@@ -83,6 +89,7 @@ namespace {
 
 constexpr int kTileRows = 64;   // rows of a tile (TILE_ROWS in ops/flash.py)
 constexpr int kMaxBatch = 1024; // sequences a launch takes (MAX_BATCH)
+constexpr int kMaxGroup = 16;   // query heads per KV head (MAX_GROUP)
 constexpr int kMaxStages = 4;   // ring depth of decode_tc
 constexpr int kCons = 128;      // decode_tc's consumer threads (a warpgroup)
 constexpr int kTcThreads = kCons + 32;  // and its producer warp
@@ -745,15 +752,16 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
 
 // -- decode_scalar: fp32, on the CUDA cores -------------------------------------
 
-// Grid `grid` (persistent), G warps: warp g is query head g of the unit's
-// KV head. The unit's rows in 32-row tiles: the whole block copies the
-// K/V rows inside [lo, hi) (and, int8, the tile's scale runs) into shared
-// memory with cp.async (rows outside are zero-filled, never read), two
-// stages deep for int8; lane r of warp g scores row r for head g, one max
-// and one sum per tile update the online softmax, and lane r accumulates
-// dims [r D/32, (r + 1) D/32) of P V.
-template <typename TKV, int D, int G, bool PAGED>
-__global__ void __launch_bounds__(G * 32)
+// Grid `grid` (persistent), G = g.G warps (G * 32 threads, G at most
+// kMaxGroup): warp g is query head g of the unit's KV head. The unit's
+// rows in 32-row tiles: the whole block copies the K/V rows inside
+// [lo, hi) (and, int8, the tile's scale runs) into shared memory with
+// cp.async (rows outside are zero-filled, never read), two stages deep for
+// int8; lane r of warp g scores row r for head g, one max and one sum per
+// tile update the online softmax, and lane r accumulates dims
+// [r D/32, (r + 1) D/32) of P V.
+template <typename TKV, int D, bool PAGED>
+__global__ void __launch_bounds__(kMaxGroup * 32)
 decode_scalar(const float* __restrict__ q, const TKV* __restrict__ kpool,
               const TKV* __restrict__ vpool,
               const float* __restrict__ kscale,
@@ -764,7 +772,8 @@ decode_scalar(const float* __restrict__ q, const TKV* __restrict__ kpool,
               float scale, float softcap) {
   constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   constexpr int kT = 32;                      // rows per tile
-  constexpr int NT = G * 32;                  // threads
+  const int G = g.G;
+  const int NT = G * 32;                      // threads
   constexpr int EPC = 16 / sizeof(TKV);       // elements per 16-byte chunk
   constexpr int CPR = D / EPC;                // chunks per row
   constexpr int RS = D + EPC;                 // padded smem row (elements)
@@ -774,8 +783,8 @@ decode_scalar(const float* __restrict__ q, const TKV* __restrict__ kpool,
   __shared__ __align__(16) TKV Vs[STAGES][kT][RS];
   // int8 only: [stage][k or v][row] scales of the tile and KV head
   __shared__ __align__(16) float Ss[STAGES][2][QUANT ? kT : 4];
-  __shared__ __align__(16) float qs[G][D];
-  __shared__ float ps[G][kT];
+  __shared__ __align__(16) float qs[kMaxGroup][D];
+  __shared__ float ps[kMaxGroup][kT];
   __shared__ int prefix[kMaxBatch + 1];
   __shared__ int is_last;
 
@@ -976,9 +985,9 @@ cudaError_t dispatch_tc(const DecodeArgs& a) {
                       : launch_tc<D, 16, INT8, PAGED>(a);
 }
 
-template <typename TKV, int D, int G, bool PAGED>
-cudaError_t launch_scalar(const DecodeArgs& a) {
-  decode_scalar<TKV, D, G, PAGED><<<a.grid, G * 32, 0, a.stream>>>(
+template <typename TKV, int D, bool PAGED>
+cudaError_t dispatch_scalar(const DecodeArgs& a) {
+  decode_scalar<TKV, D, PAGED><<<a.grid, a.geo.G * 32, 0, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.k_scale, a.v_scale, a.table, a.lo,
       a.hi, static_cast<float*>(a.out), a.part, a.cnt, a.geo, a.scale,
@@ -986,23 +995,11 @@ cudaError_t launch_scalar(const DecodeArgs& a) {
   return cudaGetLastError();
 }
 
-template <typename TKV, int D, bool PAGED>
-cudaError_t dispatch_scalar(const DecodeArgs& a) {
-  switch (a.geo.G) {
-    case 1: return launch_scalar<TKV, D, 1, PAGED>(a);
-    case 2: return launch_scalar<TKV, D, 2, PAGED>(a);
-    case 4: return launch_scalar<TKV, D, 4, PAGED>(a);
-    case 8: return launch_scalar<TKV, D, 8, PAGED>(a);
-    case 16: return launch_scalar<TKV, D, 16, PAGED>(a);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // The checks every launch shares: batch, heads, groups, units, grid.
 inline bool decode_geo_ok(const Geo& g, int D, int grid) {
   const int G = g.G;
   return g.B >= 1 && g.B <= kMaxBatch && g.K >= 1 && g.H == g.K * G &&
-         (G == 1 || G == 2 || G == 4 || G == 8 || G == 16) &&
+         G >= 1 && G <= kMaxGroup &&
          (D == 64 || D == 128) && g.unit_rows >= kTileRows &&
          g.unit_rows % kTileRows == 0 && grid >= 1 && g.limit >= 0;
 }

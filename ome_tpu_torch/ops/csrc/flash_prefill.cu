@@ -23,13 +23,19 @@
 //     the A layout of one k16 step), and O stays in registers for the
 //     whole KV walk. One wgmma reads each K/V tile once per warpgroup
 //     from shared memory, not once per warp.
-//   * The G query heads of a KV head are folded into the rows (64/G
-//     positions x G heads per warpgroup, as _prefill_kernel folds them
-//     into the MXU rows), and a block runs two consumer warpgroups: 128
-//     folded rows share every staged K/V tile, so K/V are staged half as
-//     often as with one 64-row tile. When that grid would not fill the
-//     SMs (the short buckets), a one-consumer instance of the same
-//     template runs instead.
+//   * The G query heads of a KV head are folded into the rows (PG =
+//     floor(64 / G) positions x G heads per warpgroup, as _prefill_kernel
+//     folds them into the MXU rows), and a block runs two consumer
+//     warpgroups: up to 128 folded rows share every staged K/V tile, so
+//     K/V are staged half as often as with one 64-row tile. When that grid
+//     would not fill the SMs (the short buckets), a one-consumer instance
+//     of the same template runs instead. Any G from 1 to 16 folds, as the
+//     reference takes any G: where G does not divide 64 (G 3, 5, 6, 7, 9
+//     ...), the last 64 - PG G rows of each warpgroup are idle (G 7: 9
+//     positions, 63 rows, row 63 idle). The Q copy fills only the PG G
+//     real rows, the idle rows are zeroed once, so their logits are 0 and
+//     finite, and they are never stored; a row's softmax and its O row
+//     read no other row, so an idle row changes no real one.
 //   * Loads are off the math threads: a producer warpgroup (its
 //     registers cut to 24 by setmaxnreg, the consumers' raised to 240)
 //     has one thread start TMA copies into a ring of shared-memory
@@ -88,7 +94,8 @@ __device__ __forceinline__ float fast_exp2(float x) {
 }
 
 // Shared memory of one block: Q as NC x D/64 boxes of 64 folded rows x 64
-// dims (128-byte rows, 8 KB each), then STAGES K tiles and STAGES V
+// dims (128-byte rows, 8 KB each, of which the first PG G rows are
+// copied), then STAGES K tiles and STAGES V
 // tiles of D/64 boxes of BN rows x 64 dims; every box 1024-byte aligned
 // for the 128-byte swizzle.
 template <int D, int BN, int NC, int STAGES>
@@ -201,8 +208,9 @@ __device__ __forceinline__ void softmax_tile(
   l_b = l_b * al_b + rs_b;
 }
 
-// Grid (K, B, ceil(Sq / (64 NC / G))), 128 (NC + 1) threads: NC consumer
-// warpgroups of 64 folded rows each, then one producer warpgroup.
+// Grid (K, B, ceil(Sq / (NC floor(64 / G)))), 128 (NC + 1) threads: NC
+// consumer warpgroups of 64 folded rows each (the first floor(64 / G) G
+// of them real), then one producer warpgroup.
 template <int D, int BN, int NC, int STAGES>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
 prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
@@ -225,7 +233,8 @@ prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
 
   const int kh = blockIdx.x, b = blockIdx.y;
   const int qt = gridDim.z - 1 - blockIdx.z;  // heaviest q tiles first
-  const int BQ = 64 * NC / G;                 // positions per block
+  const int PG = 64 / G;                      // positions per warpgroup
+  const int BQ = NC * PG;                     // positions per block
   const int base = base_arr[b];
   const int kv_hi = min(kvhi_arr[b], S);
   const int q0 = qt * BQ;
@@ -251,11 +260,13 @@ prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
     // ---- producer: one thread keeps the ring full -----------------------
     if constexpr (NC > 1) setmaxnreg_dec<24>();
     if (threadIdx.x == NC * 128) {
-      mbar_arrive_expect_tx(qbar, P::kQBytes);
+      // PG positions x G heads = PG G rows of 128 bytes per box (the box
+      // counts in full, rows past Sq included: TMA zero-fills them)
+      mbar_arrive_expect_tx(qbar, NC * P::kDB * PG * G * 128);
       for (int c = 0; c < NC; ++c)
         for (int j = 0; j < P::kDB; ++j)
           tma_load_4d(Qs + (c * P::kDB + j) * P::kBoxQ, &tmq, qbar, j * 64,
-                      kh * G, q0 + c * (64 / G), b);
+                      kh * G, q0 + c * PG, b);
       for (int i = 0; i < ntiles; ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
@@ -277,9 +288,25 @@ prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
   const int tid = threadIdx.x % 128;
   const int warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
-  // this thread's two folded rows of the block: ra and ra + 8
-  const int ra = wg * 64 + warp * 16 + gid, rb = ra + 8;
-  const int pa = base + q0 + ra / G, pb = base + q0 + rb / G;
+  // this thread's two folded rows of its warpgroup: la and la + 8, row
+  // l holding position wg PG + l / G of the block and query head l % G;
+  // rows from PG G on are idle (their position is past the warpgroup's)
+  const int la = warp * 16 + gid, lb = la + 8;
+  const int pa = base + q0 + wg * PG + la / G;
+  const int pb = base + q0 + wg * PG + lb / G;
+  if (PG * G < 64) {
+    // zero the idle rows of this warpgroup's Q boxes (the TMA copy never
+    // writes them), for the async proxy that wgmma reads through
+    for (int idx = tid; idx < P::kDB * (64 - PG * G) * 8; idx += 128) {
+      const int j = idx / ((64 - PG * G) * 8);
+      const int rem = idx - j * (64 - PG * G) * 8;
+      reinterpret_cast<uint4*>(Qs + (wg * P::kDB + j) * P::kBoxQ +
+                               (PG * G + rem / 8) * 128)[rem % 8] =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    fence_proxy_async();
+    named_bar_sync(1, 128 * NC);  // every consumer takes this branch
+  }
 
   float o[D / 2];
 #pragma unroll
@@ -344,11 +371,12 @@ prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? rb : ra;
-    if (r / G >= nq) continue;
+    const int l = half ? lb : la;
+    const int qi = wg * PG + l / G;  // position in the block
+    if (l >= PG * G || qi >= nq) continue;
     const float inv = half ? inv_b : inv_a;
     uint16_t* dst =
-        out + (((size_t)b * Sq + q0 + r / G) * H + kh * G + r % G) * D +
+        out + (((size_t)b * Sq + q0 + qi) * H + kh * G + l % G) * D +
         tig * 2;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i)
@@ -362,8 +390,9 @@ prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
 constexpr int kBNf = 32;  // KV rows per tile
 constexpr int kThreadsF = 256;  // 4 threads per folded row
 
-// Grid (ceil(Sq / (64 / G)), K, B), 256 threads. Thread t owns folded row
-// t / 4, KV columns (t % 4) + 4j of each tile and output dims (t % 4) + 4j.
+// Grid (ceil(Sq / floor(64 / G)), K, B), 256 threads. Thread t owns folded
+// row t / 4, KV columns (t % 4) + 4j of each tile and output dims
+// (t % 4) + 4j; rows from floor(64 / G) G on are idle.
 template <int D>
 __global__ void __launch_bounds__(kThreadsF)
 prefill_f32(const float* __restrict__ q, const float* __restrict__ k,
@@ -524,7 +553,7 @@ cudaError_t launch_wgmma(const uint16_t* q, const uint16_t* k,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (err != cudaSuccess) return err;
-  const int bq = 64 * NC / G;
+  const int bq = NC * (64 / G);
   kern<<<dim3(K, B, (Sq + bq - 1) / bq), P::kThreads, P::kSmem, st>>>(
       tmq, tmk, tmv, base, kvhi, out, Sq, S, H, G, scale, softcap, window);
   return cudaGetLastError();
@@ -538,7 +567,8 @@ cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k,
                         uint16_t* out, int B, int Sq, int S, int H, int K,
                         int G, float scale, float softcap, int window,
                         cudaStream_t st) {
-  const long blocks2 = (long)K * B * ((Sq + 128 / G - 1) / (128 / G));
+  const int bq2 = 2 * (64 / G);  // positions of a two-consumer block
+  const long blocks2 = (long)K * B * ((Sq + bq2 - 1) / bq2);
   if (blocks2 >= sm_count())
     return launch_wgmma<D, 2>(q, k, v, base, kvhi, out, B, Sq, S, H, K, G,
                               scale, softcap, window, st);
@@ -550,7 +580,7 @@ cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k,
 
 // q [B, Sq, H, D]; k, v [B, S, K, D] (contiguous, same dtype); base, kv_hi
 // [B] int32; out [B, Sq, H, D]. window <= 0 disables the sliding window,
-// softcap <= 0 the softcap. G = H / K must divide 64. Returns the CUDA
+// softcap <= 0 the softcap. G = H / K must be 1 to 16. Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int ome_flash_prefill(const void* q, const void* k, const void* v,
                                  const int* base, const int* kv_hi, void* out,
@@ -559,7 +589,7 @@ extern "C" int ome_flash_prefill(const void* q, const void* k, const void* v,
                                  int is_bf16, void* stream) {
   if (K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   const int G = H / K;
-  if (G > kBM || kBM % G != 0) return cudaErrorInvalidValue;
+  if (G < 1 || G > 16) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return cudaSuccess;
   if (S == 0)  // nothing to attend: every row is 0, as l clamps to 1e-30

@@ -34,6 +34,10 @@ ctypes on PyTorch's current stream.
   table[b, 0] = b. Bound: the int8 K/V bytes in [lo, hi) plus their
   scales. As in the reference it is not wired into serving.
 
+All three take every GQA group size G = H/K from 1 to MAX_GROUP (16),
+as the reference's kernels take any G; G > 16 is refused by name
+(`check_group`).
+
 Beside each kernel sits its plain PyTorch version (`flash_decode_ref`,
 `flash_prefill_ref`, `flash_decode_quantized_ref`). A wrapper uses the
 plain version only for a tensor on the CPU; for a CUDA tensor it
@@ -60,13 +64,26 @@ LAUNCHES = {"flash_decode": 0, "flash_prefill": 0,
             "int4_matmul": 0}
 
 _DIMS = (64, 128)
-_GROUPS = (1, 2, 4, 8, 16)  # query heads per KV head the decode kernels take
+# query heads per KV head (G = H / K) the kernels take: 1 to 16, any of
+# them (kMaxGroup in csrc/decode_core.cuh). The reference's kernels also
+# take G > 16 (MQA-style); the port refuses it by name.
+MAX_GROUP = 16
 _RECIP_127 = 1.0 / 127.0    # rounded to f32 where it multiplies a f32 tensor
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def check_group(name: str, H: int, K: int) -> None:
+    """Raise NotImplementedError unless H query heads over K KV heads
+    form a group size G = H / K the CUDA kernels take (1 to MAX_GROUP)."""
+    if K <= 0 or H % K or not 1 <= H // K <= MAX_GROUP:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels take G = H/K query heads per KV "
+            f"head from 1 to {MAX_GROUP}, got H={H}, K={K}; G > "
+            f"{MAX_GROUP} (MQA-style) is not ported")
 
 
 # -- plain versions ---------------------------------------------------------
@@ -121,6 +138,17 @@ def flash_prefill_ref(q, k, v, base, kv_hi, scale: float,
     return _masked_softmax_attention(q, k, v, valid, scale, softcap)
 
 
+PREFILL_ROWS = 64  # folded query rows of a consumer warpgroup (kBM)
+
+
+def prefill_block_positions(G: int, consumers: int) -> int:
+    """Query positions of one bf16 prefill block (BQ in
+    `csrc/flash_prefill.cu`): each of its `consumers` warpgroups folds
+    floor(64 / G) positions x G heads into its 64 rows, the rest idle.
+    The block's q tile is positions q0 .. q0 + BQ - 1, q0 = BQ x tile."""
+    return consumers * (PREFILL_ROWS // G)
+
+
 def prefill_tile_plan(base: int, kv_hi: int, q0: int, nq: int, bn: int,
                       window: Optional[int] = None):
     """The KV-tile walk of one prefill q tile: the rule the bf16 kernel
@@ -128,7 +156,8 @@ def prefill_tile_plan(base: int, kv_hi: int, q0: int, nq: int, bn: int,
     at the head of the kernel, `tile_full` in the consumer loop).
 
     The q tile holds positions base + q0 .. base + q0 + nq - 1 (nq >= 1
-    valid rows); KV tiles are `bn` rows. Returns (t0, ntiles, full):
+    valid rows; q0 a multiple of `prefill_block_positions`); KV tiles
+    are `bn` rows. Returns (t0, ntiles, full):
     the walk is tiles t0 .. t0 + ntiles - 1, every one of which holds a
     valid (row, column) pair, and full[i] says that every pair of tile
     t0 + i is valid (column <= position, column < kv_hi and, with a
@@ -373,10 +402,10 @@ def flash_decode(q, k, v, lo, hi, scale: float,
     _check_cuda("flash_decode", q, k, v)
     B, Sq, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
-    if Sq != 1 or H % K or H // K not in _GROUPS:
+    if Sq != 1:
         raise NotImplementedError(
-            f"flash_decode: needs Sq == 1 and H/K in (1, 2, 4, 8, 16), "
-            f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
+            f"flash_decode: needs Sq == 1, got q {tuple(q.shape)}")
+    check_group("flash_decode", H, K)
     _check_batch("flash_decode", B)
     from . import _build
     fn = _build.kernel("flash_decode")
@@ -408,9 +437,7 @@ def flash_prefill(q, k, v, base, kv_hi, scale: float,
     _check_cuda("flash_prefill", q, k, v)
     B, Sq, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
-    if H % K or 64 % (H // K):
-        raise NotImplementedError(
-            f"flash_prefill: needs H/K dividing 64, got H={H}, K={K}")
+    check_group("flash_prefill", H, K)
     from . import _build
     fn = _build.kernel("flash_prefill")
     dev = q.device
@@ -432,15 +459,16 @@ def check_paged_coverage(block: int, head_dim: int, num_heads: int,
                          num_kv_heads: int) -> None:
     """Raise ValueError unless the paged decode kernel takes this
     shape: pool blocks a multiple of its 32-row tile, head_dim 64 or
-    128, and H / K in (1, 2, 4, 8, 16)."""
-    G = num_heads // num_kv_heads if num_kv_heads else 0
+    128, and G = H / K from 1 to MAX_GROUP."""
+    G = num_heads // num_kv_heads if num_kv_heads > 0 else 0
     if block <= 0 or block % 32 or head_dim not in _DIMS or \
-            num_heads % max(num_kv_heads, 1) or G not in _GROUPS:
+            num_heads % max(num_kv_heads, 1) or not 1 <= G <= MAX_GROUP:
         raise ValueError(
             f"the CUDA paged decode kernel needs a KV block that is a "
-            f"multiple of 32, head_dim 64 or 128 and H/K in "
-            f"{_GROUPS} (got kv_block={block}, head_dim={head_dim}, "
-            f"heads={num_heads}, kv_heads={num_kv_heads})")
+            f"multiple of 32, head_dim 64 or 128 and G = H/K from 1 to "
+            f"{MAX_GROUP} (got kv_block={block}, head_dim={head_dim}, "
+            f"heads={num_heads}, kv_heads={num_kv_heads}; G > "
+            f"{MAX_GROUP}, MQA-style, is not ported)")
 
 
 def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,

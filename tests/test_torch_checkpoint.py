@@ -14,9 +14,10 @@ Then:
   `load_params(..., device_put=False)` leaf for leaf, byte for byte, in
   bf16 and in fp32; each package reads the other's files;
 * logits of the loaded trees agree within 2e-4 (fp32);
-* an architecture outside the gate is refused by both packages, and
-  Qwen2 (attention biases, not served by the port yet) converts to the
-  same tree but `load_params` refuses it by name;
+* an architecture outside the gate is refused by both packages;
+  Qwen2 (attention biases) converts to the same tree and `load_params`
+  serves it, while the same checkpoint under a config that asks for
+  shared experts (not ported) is refused by name;
 * `--quantization int4` quantizes the loaded tree to the reference's
   bytes, and `serve --model-dir DIR` (no `--random-weights`) answers
   with the greedy tokens of an engine over the same weights.
@@ -174,7 +175,9 @@ def test_tree_equals_reference_leaf_for_leaf(ckpts, name, dtype):
         assert getattr(tcfg, field) == getattr(jcfg, field), field
 
 
-def test_qwen2_converts_equal_but_is_refused_by_name(ckpts):
+def test_qwen2_converts_equal_but_is_refused_by_name(ckpts, tmp_path):
+    # Qwen2's biases are served now: the loaded tree is the reference's;
+    # a config that asks for what stays unported is still refused by name
     d = ckpts["qwen2"]
     ref, _ = jckpt.load_params(d, dtype=jnp.bfloat16, device_put=False)
     cfg = checkpoint.load_config(d)
@@ -182,8 +185,14 @@ def test_qwen2_converts_equal_but_is_refused_by_name(ckpts):
                                    dtype=torch.bfloat16)
     _assert_trees_equal(got, ref)
     assert "bq" in got["layers"]
-    with pytest.raises(NotImplementedError, match="attention biases"):
-        checkpoint.load_params(d, device="cpu")
+    loaded, _ = checkpoint.load_params(d, dtype=torch.bfloat16,
+                                       device="cpu")
+    _assert_trees_equal(loaded, ref)
+    hf = dict(CONFIGS["qwen2"], num_experts=4, num_experts_per_tok=2,
+              n_shared_experts=1)
+    (tmp_path / "config.json").write_text(json.dumps(hf))
+    with pytest.raises(NotImplementedError, match="shared experts"):
+        checkpoint.load_params(str(tmp_path), device="cpu")
 
 
 def test_each_package_reads_the_others_files(ckpts, tmp_path):

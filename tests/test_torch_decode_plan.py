@@ -25,7 +25,8 @@ the kernel relies on:
   per probability, and the output is a convex combination of V rows
   whose entries here stay below 5 in magnitude (2^-9 x 5 < 1e-2); the
   plain versions keep P in fp32. The emulation lands on the same bits
-  whatever order the units are visited in.
+  whatever order the units are visited in. The walks run at G 4 and
+  at the group sizes that are not powers of two (G 3, 5, 6, 7).
 """
 
 import jax.numpy as jnp
@@ -307,6 +308,50 @@ def test_emulated_paged_walk_matches_the_plain_versions(bs, int8):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
     np.testing.assert_allclose(got, jref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("G", [3, 5, 6, 7])
+@pytest.mark.parametrize("int8", [False, True])
+def test_emulated_walk_at_group_sizes_that_are_not_powers_of_two(G, int8):
+    """The walk and the merge of units of G query heads (G 3, 5, 6, 7:
+    the kernel pads them to 8 and keeps G) over a paged pool with a
+    trash-table slot, against flash_paged_decode_ref, dense addressing
+    through a one-block-per-sequence table included (B5's layout)."""
+    rng = np.random.default_rng(10 + G)
+    Hg, bs = K * G, 64
+    M = 256 // bs
+    N = B * M + 1
+    kp, vp, ks, vs = _pool(rng, N, bs, int8)
+    table = (rng.permutation(N - 1)[:B * M] + 1).reshape(B, M)
+    table = table.astype(np.int32)
+    table[2] = 0                                     # a free slot
+    kv_len = np.array([1, 63, 300, 64, 256, 129])
+    q = _bf16(rng.standard_normal((B, Hg, D)).astype(np.float32))
+
+    def rows(pool):
+        def get(b, r):
+            blk = table[b, np.minimum(r // bs, M - 1)]
+            return pool[blk, r % bs].astype(np.float32)
+        return get
+
+    def scale_rows(sp):
+        def get(b, r):
+            blk = table[b, np.minimum(r // bs, M - 1)]
+            return sp[blk, :, r % bs]
+        return get
+    plan = flash.decode_plan(np.zeros(B, int), kv_len, K, M * bs, 132,
+                             unit_rows=128)
+    got = _check_orders(
+        plan, q, rows(kp), rows(vp), D ** -0.5, None,
+        rows_ks=scale_rows(ks) if int8 else None,
+        rows_vs=scale_rows(vs) if int8 else None)
+    t = torch.from_numpy
+    ref = paged.flash_paged_decode_ref(
+        t(q)[:, None], t(kp), t(vp), t(table), torch.zeros(B, dtype=int),
+        t(kv_len), D ** -0.5, k_scale=t(ks) if int8 else None,
+        v_scale=t(vs) if int8 else None)[:, 0].numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
 
 
 class _FakeCuda(torch.Tensor):

@@ -186,8 +186,19 @@ def test_llama3_8b_preset_and_hf_config_match_reference():
 
 
 def test_unsupported_architectures_refuse_by_name():
-    with pytest.raises(NotImplementedError, match="mixture-of-experts"):
-        check_supported(tiny_test(moe=True))
-    with pytest.raises(NotImplementedError, match="qk_norm"):
-        check_supported(tiny_test().replace(qk_norm=True))
+    # MoE with shared experts (DeepSeek) or the sparsemixer router
+    # (Phi-3.5-MoE), and the command-r LayerNorm form of qk_norm, stay
+    # refused; Mixtral's MoE and Qwen3's RMSNorm qk_norm are served
+    with pytest.raises(NotImplementedError, match="shared experts"):
+        check_supported(tiny_test(moe=True).replace(num_shared_experts=1))
+    with pytest.raises(NotImplementedError, match="sparsemixer"):
+        check_supported(tiny_test(moe=True).replace(
+            router_scoring="sparsemixer"))
+    with pytest.raises(NotImplementedError, match="qk_norm with norm_type"):
+        check_supported(tiny_test().replace(
+            qk_norm=True, norm_type="layernorm_nobias"))
+    with pytest.raises(NotImplementedError, match="MLA attention"):
+        check_supported(tiny_test().replace(mla=True))
     check_supported(llama3_8b())
+    check_supported(tiny_test(moe=True))
+    check_supported(tiny_test().replace(qk_norm=True, attn_bias=True))

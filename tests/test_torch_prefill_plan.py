@@ -6,12 +6,15 @@ prefill_tile_plan`, held against the reference and a brute-force mask.
   (the reference's own tiling), the plan walks every tile the Pallas
   kernel processes except those that hold no valid pair (the reference
   can process one such tile where the window starts past kv_hi, all of
-  it masked), over seeded bases, kv_hi, windows and q tiles.
+  it masked), over seeded bases, kv_hi, windows and q tiles; and the
+  same at the CUDA kernel's q tiles for group sizes that do not divide
+  64 (G 3, 5, 6, 7: floor(64 / G) positions per warpgroup).
 * Against the mask `flash_prefill_ref` applies, at the CUDA kernel's
-  tile sizes (KV tiles of 64 and 128 rows; q tiles of 64/G and 128/G
-  positions, G in 1, 2, 4, 8): every valid (row, column) pair lies in a
-  walked tile, every walked tile holds a valid pair, and every tile
-  marked full has all its pairs valid.
+  tile sizes (KV tiles of 64 and 128 rows; q tiles of
+  `prefill_block_positions(G, 1 or 2)` positions, G in 1-8 and 16):
+  every valid (row, column) pair lies in a walked tile, every walked
+  tile holds a valid pair, and every tile marked full has all its pairs
+  valid.
 * Edge cases: kv_hi inside a tile, the window starting inside a tile,
   a partial last q tile, kv_hi <= base (an empty walk), a base past the
   cache.
@@ -22,7 +25,7 @@ import numpy as np
 import pytest
 
 from ome_tpu.ops.flash import _prefill_block_range
-from ome_tpu_torch.ops.flash import prefill_tile_plan
+from ome_tpu_torch.ops.flash import prefill_block_positions, prefill_tile_plan
 
 
 def _valid(base, kv_hi, q0, nq, window, cols):
@@ -82,6 +85,34 @@ def test_plan_matches_reference_block_range(seed):
             assert len(full) == ntiles
 
 
+@pytest.mark.parametrize("G", [3, 5, 6, 7])
+@pytest.mark.parametrize("consumers", [1, 2])
+def test_plan_matches_reference_at_folded_q_tiles(G, consumers):
+    """The reference's block range at the CUDA kernel's q tile for a G
+    that does not divide 64, over KV tiles of 64 and 128 rows."""
+    bq = prefill_block_positions(G, consumers)
+    assert bq == consumers * (64 // G)
+    rng = np.random.default_rng(100 * G + consumers)
+    for _ in range(40):
+        bs = int(rng.choice([64, 128]))
+        S = bs * int(rng.integers(2, 9))
+        Sq = bq * int(rng.integers(1, 12))
+        base = int(rng.integers(0, S))
+        kv_hi = int(rng.integers(0, S + 1))
+        window = None if rng.random() < 0.4 else int(rng.integers(1, S))
+        for qi in range(Sq // bq):
+            ref = _reference_tiles(base, kv_hi, qi, bq, bs, window,
+                                   S // bs)
+            t0, ntiles, full = prefill_tile_plan(base, kv_hi, qi * bq, bq,
+                                                 bs, window)
+            valid = _valid(base, kv_hi, qi * bq, bq, window, S + bs)
+            useful = [t for t in ref
+                      if valid[:, t * bs:(t + 1) * bs].any()]
+            assert list(range(t0, t0 + ntiles)) == useful, (
+                bs, S, base, kv_hi, window, qi)
+            assert len(full) == ntiles
+
+
 def _check_against_mask(base, kv_hi, q0, nq, bn, window, S):
     cols = max(S, kv_hi, base + q0 + nq) + bn
     valid = _valid(base, kv_hi, q0, nq, window, cols)
@@ -99,11 +130,11 @@ def _check_against_mask(base, kv_hi, q0, nq, bn, window, S):
 
 
 @pytest.mark.parametrize("bn", [64, 128])
-@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 3, 5, 6, 7, 16])
 @pytest.mark.parametrize("consumers", [1, 2])
 def test_plan_against_brute_force_mask(bn, G, consumers):
     rng = np.random.default_rng(1000 * bn + 10 * G + consumers)
-    bq = 64 * consumers // G
+    bq = prefill_block_positions(G, consumers)
     for _ in range(25):
         S = int(rng.integers(1, 1200))
         Sq = int(rng.integers(1, 700))
