@@ -101,7 +101,23 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    and the experts (and expert bytes) a decode step of 8 slots hits;
 19. Mixtral-8x7B widths, 4 layers, fp32: the ragged single-step,
    `decode_multi` K=4 and spec-4 / K-4 scheduler streams and the dense
-   impl's are identical.
+   impl's are identical;
+20. group sizes above 16 (`MQA_SHAPES`: G 24 = H 48 / K 2 and G 32 =
+   H 32 / K 1, D 128): B1 in bf16 and fp32 at the 8B lengths, B2 causal
+   2048 in bf16, B3 over bf16 and int8 pools and B5, each against its
+   plain version, with two kernel launches per call (one per head chunk,
+   `flash.head_split`) counted;
+21. G 32 stream identity: fp32, 8B widths at H 32, K 1, 4 layers: dense
+   and paged streams identical;
+22. host tier: the 8B server with `--prefix-cache-mb 256
+   --prefix-cache-host-mb 2048` (`phase_host_tier`): spills, swap-ins,
+   their GB/s and bits, TTFT by kind of hit, streams from swapped-in
+   blocks equal to device-hit streams, both conservation checks at idle;
+23. PD: 8B prefill and decode nodes against a monolithic server
+   (`phase_pd`), bf16 dense and int8 paged, with each fetch's split,
+   failover across two prefill URLs and `--pd-local-fallback`;
+24. cross-replica prefix reuse (`phase_peering`): an `X-OME-Prefix-Peer`
+   fetch from a donor replica, streams equal, one peer fetch counted.
 
 The kernels phase also runs B2 at the dense verify's shape: B 8 slots,
 Sq 5 rows each from its own base (60 to 4090) over a 4096-row cache,
@@ -116,6 +132,7 @@ exits non-zero without that line. Longer per-case results go to
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2949,6 +2966,851 @@ def phase_serve_stepplan(torch, paged: bool, seed: int = 0, before=None):
     return out
 
 
+# -- phases 20-24: group sizes above 16; KV that leaves the card --------------
+
+# (H, K, D) of the kernel cases at G = H/K above 16: G 24 (48 query heads
+# over 2 KV heads) and G 32 (MQA-style, 32 over 1), D 128. The wrappers
+# cut G into ceil(G / 16) = 2 head chunks, one launch each
+# (flash.head_split), so each call reads K/V twice.
+MQA_SHAPES = ((48, 2, 128), (32, 1, 128))
+# prompt lengths of the PD phases' 13 requests
+PD_LENGTHS = (64, 100, 180, 256, 333, 512, 700, 900, 1024, 1300, 1600,
+              1900, 2048)
+
+
+def _launches_per_call(torch, H, K, D):
+    """Kernel launches of one call of each wrapper at (H, K, D), on small
+    inputs: the split's chunk count, counted where the kernels launch."""
+    from ome_tpu_torch.ops import flash, paged
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    q1 = torch.randn(1, 1, H, D, device=dev).to(bf)
+    kv = torch.randn(1, 128, K, D, device=dev).to(bf)
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    pool = torch.randn(2, 128, K, D, device=dev).to(bf)
+    table = torch.ones(1, 1, dtype=torch.int32, device=dev)
+    kq, ks = flash.quantize_kv_block(kv)
+    calls = {
+        "flash_decode": lambda: flash.flash_decode(q1, kv, kv, zero, one,
+                                                   D ** -0.5),
+        "flash_prefill": lambda: flash.flash_prefill(
+            torch.randn(1, 64, H, D, device=dev).to(bf), kv, kv, zero,
+            one * 64, D ** -0.5),
+        "flash_paged_decode": lambda: paged.paged_flash_decode(
+            q1, pool, pool, table, one * 100),
+        "flash_decode_quantized": lambda: flash.flash_decode_quantized(
+            q1, kq, kq, ks, ks, one[:, None] * 99, one * 100),
+    }
+    out = {}
+    for name, fn in calls.items():
+        before = flash.LAUNCHES[name]
+        fn()
+        torch.cuda.synchronize()
+        out[name] = flash.LAUNCHES[name] - before
+    return out
+
+
+def phase_mqa_kernels(torch):
+    """B1 (bf16 and fp32 at the 8B lengths), B2 (causal 2048, bf16), B3
+    (bf16 and int8 pools) and B5 at G 24 and G 32, D 128, each against
+    its plain version with its existing tolerance, timed beside its bound
+    and (B1, B2) masked SDPA; the bf16 decode cases repeat their bits and
+    give a sequence alone the bits it has in the batch. Each wrapper's
+    launches per call are counted (2 at both group sizes)."""
+    from ome_tpu_torch.ops import flash
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    timer = Timer(torch, torch.device("cuda"))
+    lengths = [0, 1, 17, 128, 300, 1023, 2049, 4095]
+    plens = [1, 17, 128, 300, 1023, 2049, 4095, 4096]
+    cases = {"flash_decode": [], "flash_prefill": [],
+             "flash_paged_decode": [], "flash_decode_quantized": []}
+    per_call = {}
+    for H, K, D in MQA_SHAPES:
+        G = H // K
+        per_call[G] = _launches_per_call(torch, H, K, D)
+        want = len(flash.group_chunks(G))
+        if any(n != want for n in per_call[G].values()):
+            fail(f"G {G}: launches per call {per_call[G]}, expected {want} "
+                 f"(one per head chunk)")
+        made = {"flash_decode": [decode_case(
+                    torch, timer, gen, dt, lengths, H=H, K=K, D=D,
+                    check_bits=dt == "bf16") for dt in ("bf16", "fp32")],
+                "flash_prefill": [prefill_case(
+                    torch, timer, gen, "bf16", 2048, 2048, 0, H=H, K=K,
+                    D=D)],
+                "flash_paged_decode": [paged_case(
+                    torch, timer, gen, pool_name, plens, H=H, K=K, D=D,
+                    check_bits=True) for pool_name in ("bf16", "int8")],
+                "flash_decode_quantized": [quantized_case(
+                    torch, timer, gen, lengths, H=H, K=K, D=D)]}
+        for name, rows in made.items():
+            for c in rows:
+                c["G"], c["launches_per_call"] = G, per_call[G][name]
+                lib = c["library_ms"]
+                log(f"[mqa] {name} G {G}: {c['case']}: ms {c['ms']:.4f}, "
+                    f"bound {c['bound_ms']:.4f} ms ({c['bound_by']}), share "
+                    f"{c['bound_ms'] / c['ms']:.3f}, plain "
+                    f"{c['plain_ms']:.4f} ms, masked SDPA "
+                    f"{'null' if lib is None else f'{lib:.4f} ms'}; "
+                    f"{c['launches_per_call']} launches per call (K/V read "
+                    f"{c['launches_per_call']}x)")
+            cases[name] += rows
+    check_cases(cases)
+    return {"cases": cases, "launches_per_call": per_call}
+
+
+def phase_mqa_identity(torch, seed: int = 0, n_layers: int = 4,
+                       steps: int = 32):
+    """Llama-3-8B widths at H 32, K 1 (G 32), `n_layers` deep, fp32,
+    through the engine API: the dense engine (B1, two head chunks per
+    call) and the paged engine over fp32 pools (B3, two head chunks)
+    give identical greedy streams for 4 prompts."""
+    import random
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.ops import flash
+
+    cfg = llama3_8b().replace(num_layers=n_layers, num_kv_heads=1,
+                              dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"))
+    rng = random.Random(seed + 6)
+    prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+               for n in (37, 200, 515, 1000)]
+    streams, gaps = {}, {}
+    flash.reset_launches()
+    for name, kw in (("dense", {}), ("paged", {"kv_block": 128})):
+        eng = InferenceEngine(params, cfg, max_slots=4, max_seq=2048,
+                              device="cuda", seed=seed, **kw)
+        streams[name], gaps[name], _ = _greedy_streams(torch, eng, prompts,
+                                                       steps)
+        del eng
+    launches = dict(flash.LAUNCHES)
+    for name in ("flash_decode", "flash_paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            fail(f"G 32 identity: {name} did not run ({launches})")
+    for slot in range(len(prompts)):
+        a, b = streams["dense"][slot], streams["paged"][slot]
+        if a != b:
+            step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            fail(f"G 32 identity: prompt {slot} differs at step {step} "
+                 f"(dense {a[step]}, paged {b[step]})")
+    min_gap = min(float(g[:len(prompts)].min()) for g in gaps["dense"])
+    log(f"[mqa] fp32, Llama-3-8B widths at H 32, K 1 (G 32), {n_layers} "
+        f"layers: dense (flash_decode) and paged fp32 pool "
+        f"(flash_paged_decode) give identical {steps}-token greedy "
+        f"streams for {len(prompts)} prompts (smallest top-2 logit gap "
+        f"{min_gap:.3e}); launches {launches}")
+    del params
+    return {"streams_identical": True, "min_top2_gap": min_gap,
+            "launches": launches}
+
+
+class _Node:
+    """One server of phases 22-24, built through serve.build_server
+    on the 8B shape (bf16, random weights from the seed), with its
+    request log and every Request it admitted, read back in process."""
+
+    def __init__(self, tmp: str, name: str, seed: int, *argv):
+        from ome_tpu_torch.engine import serve
+        self.reqlog = os.path.join(tmp, f"{name}.jsonl")
+        self.server, self.sched, self.engine = serve.build_server(
+            ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
+             "--max-slots", "8", "--max-seq", "4096", "--port", "0",
+             "--host", "127.0.0.1", "--request-log", self.reqlog, *argv])
+        self.url = f"http://127.0.0.1:{self.server.port}"
+        self.seen = []
+        submit = getattr(self.sched, "submit")
+
+        def recording_submit(req):
+            self.seen.append(req)
+            return submit(req)
+        self.sched.submit = recording_submit
+
+    def request(self, ids):
+        """The last Request this node admitted for the prompt `ids`."""
+        for req in reversed(self.seen):
+            if list(req.prompt_ids) == list(ids):
+                return req
+        fail(f"no request with a {len(ids)}-token prompt was admitted")
+
+    def stream(self, ids):
+        return list(self.request(ids).output_ids)
+
+    def records(self):
+        with open(self.reqlog) as f:
+            return [json.loads(line) for line in f]
+
+    def stop(self):
+        self.server.stop()
+
+
+def _post_h(url: str, body: dict, headers=None, timeout: float = 600):
+    import urllib.request
+    req = urllib.request.Request(
+        url + "/v1/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, r.read()
+
+
+def _send_all(node, prompts, max_tokens=32, what="request"):
+    """The prompts at once (a thread each), greedy; all must answer."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(len(prompts)) as ex:
+        futs = [ex.submit(_post_h, node.url, {"prompt": p,
+                                              "max_tokens": max_tokens,
+                                              "temperature": 0.0})
+                for p in prompts]
+        for i, f in enumerate(futs):
+            _completion(*f.result(), max_tokens, f"{what} {i}")
+    return [node.stream(p) for p in prompts]
+
+
+def _medians(records):
+    ttft = [r["ttft_s"] for r in records if r.get("ttft_s") is not None]
+    tpot = [r["tpot_s"] for r in records if r.get("tpot_s")]
+    return statistics.median(ttft), statistics.median(tpot)
+
+
+def _bits_equal(torch, a, b) -> bool:
+    return a.shape == b.shape and bool(torch.equal(
+        _bits(torch, a.cpu()), _bits(torch, b.cpu())))
+
+
+def _pinned_pool_ab(torch, shape, n: int = 64):
+    """Seconds per block of a device-to-host copy of one bf16 plane of
+    `shape` into freshly allocated pinned memory (the host tier's way,
+    through the caching host allocator) and into slices of one pinned
+    pool allocated up front, each copy waited on, in turns."""
+    block = torch.randn(shape, device="cuda").to(torch.bfloat16)
+    pool = torch.empty((n,) + tuple(block.shape), dtype=block.dtype,
+                       pin_memory=True)
+    times = {}
+    for name in ("per_block", "pool", "per_block", "pool"):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for i in range(n):
+            dst = (torch.empty(block.shape, dtype=block.dtype,
+                               pin_memory=True) if name == "per_block"
+                   else pool[i])
+            dst.copy_(block, non_blocking=True)
+            torch.cuda.current_stream().synchronize()
+        times.setdefault(name, []).append((time.monotonic() - t0) / n)
+    return {k: min(v) for k, v in times.items()}
+
+
+def _stall_probe(torch, node, steps, load, window_s: float = 1.5):
+    """The median decode step period of one request decoding alone, over
+    `window_s` before this thread runs `load(deadline)` and over the
+    `window_s` while it runs. Returns (before ms, during ms, periods
+    before, periods during, what `load` returned)."""
+    import concurrent.futures
+    ex = concurrent.futures.ThreadPoolExecutor(1)
+    fut = ex.submit(_post_h, node.url, {"prompt": list(range(3, 15)),
+                                        "max_tokens": 120,
+                                        "temperature": 0.0})
+    time.sleep(0.5)
+    t_before = time.monotonic()
+    time.sleep(window_s)
+    t0 = time.monotonic()
+    got = load(t0 + window_s)
+    t1 = time.monotonic()
+    _completion(*fut.result(), 120, "the probe's decoding request")
+    ex.shutdown()
+
+    def median_in(a, b):
+        ps = [y - x for x, y in zip(steps, steps[1:]) if x >= a and y <= b]
+        return (statistics.median(ps) * 1e3 if ps else None), len(ps)
+    before, n_b = median_in(t_before, t0)
+    during, n_d = median_in(t0, t1)
+    return before, during, n_b, n_d, got
+
+
+def _spill_stall_probes(torch, node, spill, block, steps, block_shape):
+    """Does a spill stall a decode step? Three loads, each run by this
+    thread beside one decoding request (`_stall_probe`): the tier's own
+    `spill` of 4 MiB blocks made beforehand (paths no prompt has), the
+    same blocks' planes copied into one pinned pool allocated up front
+    (no tier, no pinned allocation per block), and a pure-Python loop
+    that touches no CUDA (what holding the interpreter lock alone
+    costs). Returns each load's (before ms, during ms, periods, GB/s)."""
+    src = [tuple(torch.randn(block_shape, device="cuda").to(torch.bfloat16)
+                 for _ in range(2)) for _ in range(64)]
+    pool = torch.empty((len(src), 2) + tuple(block_shape),
+                       dtype=torch.bfloat16, pin_memory=True)
+    stream = torch.cuda.Stream()
+    nbytes = 2 * math.prod(block_shape) * 2
+    torch.cuda.synchronize()
+    counter = [0]
+
+    def tier_spill(deadline):
+        n = 0
+        while time.monotonic() < deadline:
+            items = []
+            for kv in src[:16]:
+                counter[0] += 1
+                items.append((tuple([-counter[0]] * block),
+                              {"kv": kv, "ready": None, "children": {},
+                               "last": 0}))
+            spill(items)
+            n += len(items)
+        return n
+
+    def pool_copy(deadline):
+        n = 0
+        while time.monotonic() < deadline:
+            for i, (k, v) in enumerate(src[:16]):
+                with torch.cuda.stream(stream):
+                    pool[i, 0].copy_(k, non_blocking=True)
+                    pool[i, 1].copy_(v, non_blocking=True)
+                stream.synchronize()
+            n += 16
+        return n
+
+    def python_loop(deadline):
+        n = 0
+        while time.monotonic() < deadline:
+            n += sum(range(1000)) > 0
+        return 0
+    out = {}
+    for name, load in (("tier_spill", tier_spill), ("pinned_pool", pool_copy),
+                       ("python_loop", python_loop)):
+        t0 = time.monotonic()
+        before, during, n_b, n_d, blocks = _stall_probe(torch, node, steps,
+                                                        load)
+        out[name] = {"before_ms": before, "during_ms": during,
+                     "periods": [n_b, n_d], "blocks": blocks,
+                     "gbps": blocks * nbytes / 1.5 / 1e9}
+        out[name]["s"] = time.monotonic() - t0
+    return out
+
+
+def phase_host_tier(torch, seed: int = 0):
+    """The prefix cache's host tier at the Llama-3-8B shape, full depth,
+    bf16, through `serve.build_server` with `--prefix-cache-mb 256
+    --prefix-cache-host-mb 2048` (4 MiB blocks of 32 tokens: the device
+    tier holds one 2048-token prefix). Six seeded 2048-token prefixes are
+    sent twice in a row, each time with its own 16-token tail (the second
+    send hits on the device), while a long request decodes beside them;
+    two fresh 2048-token prompts then push the rest out to the host;
+    then each prefix's second prompt again: a host hit queues the
+    swap-in and recomputes, and after `drain_swapins` the same prompt
+    hits on the swapped-in blocks. Prints the blocks and GB spilled,
+    spill and swap-in GB/s, host bytes, host hits, recomputes, TTFT of
+    cold, device-hit and swapped-in requests, and the decode step period
+    while a spill is in flight against the rest. Holds: a swapped-in
+    block's bits equal its spill and the block first computed; the
+    streams served from swapped-in blocks equal those served from
+    device-resident hits of the same length; tier and pool conservation
+    at idle."""
+    import random
+    import tempfile
+
+    from ome_tpu_torch.models.config import llama3_8b
+
+    cfg = llama3_8b()
+    rng = random.Random(seed + 10)
+
+    def prompt(n):
+        return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+    block = 32
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(_hf_config(cfg), f)
+        node = _Node(tmp, "host_tier", seed, "--prefix-cache-mb", "256",
+                     "--prefix-cache-host-mb", "2048")
+        eng, pc = node.engine, node.engine.prefix_cache
+        spills, uploads, matched, steps = [], [], {}, []
+        orig_spill, orig_upload = pc._spill, pc._upload
+        orig_match, orig_decode = pc.match, eng.decode
+
+        def timed_spill(items):
+            # the wait for the blocks' own copy-out (behind the prefill
+            # that made them) is timed apart from the copies
+            t0 = time.monotonic()
+            for _, nd in items:
+                if nd.get("ready") is not None:
+                    nd["ready"].synchronize()
+            t1 = time.monotonic()
+            nbytes = sum(pc._leaf_bytes(*nd["kv"]) for _, nd in items)
+            orig_spill(items)
+            if items:
+                spills.append((t0, time.monotonic(), len(items), nbytes,
+                               t1 - t0))
+
+        def timed_upload(ks, vs):
+            t0 = time.monotonic()
+            kd, vd = orig_upload(ks, vs)
+            uploads.append((time.monotonic() - t0, pc._leaf_bytes(kd, vd),
+                            kd.data_ptr()))
+            return kd, vd
+
+        def recorded_match(ids, usable=None):
+            hit = orig_match(ids, usable)
+            matched[tuple(ids)] = 0 if hit is None else hit[2]
+            return hit
+
+        def timed_decode(*a, **kw):
+            steps.append(time.monotonic())
+            return orig_decode(*a, **kw)
+        pc._spill, pc._upload, pc.match = timed_spill, timed_upload, \
+            recorded_match
+        eng.decode = timed_decode
+        try:
+            prefixes = [prompt(2048) for _ in range(6)]
+            tails = [(prompt(16), prompt(16)) for _ in range(6)]
+            import concurrent.futures
+            bg_ex = concurrent.futures.ThreadPoolExecutor(1)
+            # a 12-token prompt: under the cache's 16-token minimum, so
+            # the long request takes no room in the device tier
+            bg = bg_ex.submit(_post_h, node.url, {
+                "prompt": prompt(12), "max_tokens": 256,
+                "temperature": 0.0})
+            ttft = {"cold": [], "device_hit": [], "swapped_in": []}
+
+            def send(ids, kind):
+                _completion(*_post_h(node.url, {"prompt": ids,
+                                                "max_tokens": 8,
+                                                "temperature": 0.0}),
+                            8, kind)
+                req = node.request(ids)
+                if kind in ttft:
+                    ttft[kind].append(req.first_token_at - req.created)
+                return list(req.output_ids)
+            first_hit = {}
+            first_block = None
+            for i, (p, (ta, tb)) in enumerate(zip(prefixes, tails)):
+                send(p + ta, "cold")
+                if i == 0:
+                    nd = pc._root[tuple(p[:block])]
+                    first_block = nd["kv"][0].cpu()
+                ids = p + tb
+                first_hit[i] = (send(ids, "device_hit"), matched[tuple(ids)])
+            for _ in range(2):
+                send(prompt(2048), "push")
+            _completion(*bg.result(), 256, "the long request")
+            bg_ex.shutdown()
+            _wait_idle(node.sched)
+            path0 = tuple(prefixes[0][:block])
+            if path0 not in pc._host:
+                fail("host tier: the first prefix's first block was not "
+                     "spilled to the host tier")
+            spilled0 = pc._host[path0][0].clone()
+            out["after_spills"] = {
+                "device_bytes": pc.bytes, "host_bytes": pc.host_bytes,
+                "evictions": pc.evictions,
+                "spilled_blocks": sum(s[2] for s in spills),
+                "spilled_bytes": sum(s[3] for s in spills)}
+            swapped, host_hits0 = {}, pc.host_hits
+            for i, (p, (_, tb)) in enumerate(zip(prefixes, tails)):
+                ids = p + tb
+                send(ids, "host_hit")          # recomputes, queues swap-in
+                pc.drain_swapins(timeout=120.0)
+                swapped[i] = (send(ids, "swapped_in"), matched[tuple(ids)])
+                if i == 0:
+                    node0 = pc._root[path0]["kv"][0]
+                    uploaded = {u[2] for u in uploads}
+                    out["block0_swapped_in"] = node0.data_ptr() in uploaded
+                    out["block0_bits_equal_spill"] = _bits_equal(
+                        torch, node0, spilled0)
+                    out["spill_bits_equal_first"] = _bits_equal(
+                        torch, spilled0, first_block)
+            out["stall_probe"] = _spill_stall_probes(
+                torch, node, orig_spill, block, steps, first_block.shape)
+            _wait_idle(node.sched)
+            out["tier_conservation"] = pc.tier_conservation()
+            out["kv_conservation"] = eng.kv_conservation()
+        finally:
+            pc._spill, pc._upload, pc.match = orig_spill, orig_upload, \
+                orig_match
+            eng.decode = orig_decode
+            node.stop()
+        block_bytes = 2 * first_block.numel() * first_block.element_size()
+    if not (out["block0_swapped_in"] and out["block0_bits_equal_spill"]
+            and out["spill_bits_equal_first"]):
+        fail(f"host tier: the first prefix's first block: swapped in "
+             f"{out['block0_swapped_in']}, bits equal to its spill "
+             f"{out['block0_bits_equal_spill']}, spill equal to the block "
+             f"first computed {out['spill_bits_equal_first']}")
+    same = [i for i in range(6) if first_hit[i][1] == swapped[i][1]]
+    if 0 not in same:
+        fail(f"host tier: prefix 0's swapped-in hit ({swapped[0][1]} "
+             f"tokens) is not the length of its device hit "
+             f"({first_hit[0][1]})")
+    for i in same:
+        if first_hit[i][0] != swapped[i][0]:
+            fail(f"host tier: prefix {i}: the stream from swapped-in blocks "
+                 f"differs from the device-hit stream of the same length "
+                 f"({first_hit[i][1]} tokens)")
+    if not out["tier_conservation"][0] or not out["kv_conservation"][0]:
+        fail(f"host tier: at idle tier_conservation "
+             f"{out['tier_conservation']}, kv_conservation "
+             f"{out['kv_conservation']}")
+    spill_s = sum(s[1] - s[0] - s[4] for s in spills)
+    spill_wait_s = sum(s[4] for s in spills)
+    spill_b = sum(s[3] for s in spills)
+    up_s = sum(u[0] for u in uploads)
+    up_b = sum(u[1] for u in uploads)
+    periods = [(b - a, any(s[0] < b and s[1] > a for s in spills))
+               for a, b in zip(steps, steps[1:])]
+    during = [p for p, hit in periods if hit]
+    outside = [p for p, hit in periods if not hit]
+    out.update({
+        "spills": len(spills), "spilled_blocks": sum(s[2] for s in spills),
+        "spilled_gb": spill_b / 1e9, "spill_s": spill_s,
+        "spill_wait_s": spill_wait_s,
+        "spill_gbps": spill_b / spill_s / 1e9 if spill_s else None,
+        "swapins": pc.host_swapins, "swapin_gb": up_b / 1e9,
+        "swapin_s": up_s,
+        "swapin_gbps": up_b / up_s / 1e9 if up_s else None,
+        "host_bytes": pc.host_bytes, "host_hits": pc.host_hits,
+        "host_hits_final_round": pc.host_hits - host_hits0,
+        "host_recomputes": pc.host_recomputes, "hits": pc.hits,
+        "block_bytes": block_bytes,
+        "ttft_median_s": {k: statistics.median(v) for k, v in ttft.items()},
+        "ttft_s": ttft,
+        "hit_tokens": {i: (first_hit[i][1], swapped[i][1])
+                       for i in range(6)},
+        "streams_equal_prefixes": same,
+        "step_period_median_ms": {
+            "spill_in_flight": statistics.median(during) * 1e3
+            if during else None,
+            "otherwise": statistics.median(outside) * 1e3
+            if outside else None,
+            "n": [len(during), len(outside)]},
+    })
+    ab = _pinned_pool_ab(torch, (cfg.num_layers, 1, block,
+                                 cfg.num_kv_heads, cfg.head_dim))
+    out["pinned_ms_per_block"] = {k: v * 1e3 for k, v in ab.items()}
+    log(f"[host tier] Llama-3-8B, bf16, --prefix-cache-mb 256 "
+        f"--prefix-cache-host-mb 2048, {block_bytes / 2**20:.0f} MiB per "
+        f"block (k + v): {out['spilled_blocks']} blocks "
+        f"({out['spilled_gb']:.3f} GB) spilled in {len(spills)} spills at "
+        f"{out['spill_gbps']:.2f} GB/s of copies (besides "
+        f"{spill_wait_s * 1e3:.1f} ms waiting for the blocks' prefills); "
+        f"{out['swapins']} blocks swapped in "
+        f"({out['swapin_gb']:.3f} GB) at {out['swapin_gbps']:.2f} GB/s; "
+        f"host bytes {out['host_bytes'] / 2**20:.0f} MiB; host hits "
+        f"{out['host_hits']}, recomputes {out['host_recomputes']}, device "
+        f"hits {out['hits']}")
+    log(f"[host tier] TTFT medians (ms): cold "
+        f"{out['ttft_median_s']['cold'] * 1e3:.1f}, device hit "
+        f"{out['ttft_median_s']['device_hit'] * 1e3:.1f}, swapped in "
+        f"{out['ttft_median_s']['swapped_in'] * 1e3:.1f}; hit tokens "
+        f"(device hit, swapped in) per prefix {out['hit_tokens']}")
+    log(f"[host tier] a swapped-in block's bits equal its spill and the "
+        f"block first computed; streams from swapped-in blocks equal the "
+        f"device-hit streams of the same hit length for prefixes {same}; "
+        f"at idle tier_conservation {out['tier_conservation']}, "
+        f"kv_conservation {out['kv_conservation']}")
+    sp = out["step_period_median_ms"]
+    log(f"[host tier] decode step period of the long request beside the "
+        f"traffic: median {sp['spill_in_flight']} ms while a spill was in "
+        f"flight, {sp['otherwise']} ms otherwise ({sp['n']} periods; those "
+        f"spills run right after the prefill that caused them); a "
+        f"device-to-host copy of one plane of a block into fresh pinned "
+        f"memory {out['pinned_ms_per_block']['per_block']:.3f} ms, into one "
+        f"pinned pool {out['pinned_ms_per_block']['pool']:.3f} ms")
+    for name, pr in out["stall_probe"].items():
+        log(f"[host tier] stall probe, {name} beside one decoding request: "
+            f"median step period {pr['during_ms']} ms during, "
+            f"{pr['before_ms']} ms in the window before (periods before, "
+            f"during: {pr['periods']}); {pr['blocks']} blocks at "
+            f"{pr['gbps']:.2f} GB/s")
+    return out
+
+
+def _pd_breakdown(pre_handler, dec_engine, n):
+    """The last `n` PD fetches, in order: the prefill node's prefill and
+    gather + serialize seconds beside the decode node's HTTP (less the
+    prefill node's work), deserialize, upload and insert seconds."""
+    pre = list(pre_handler.timings)[-n:]
+    dec = list(dec_engine.timings)[-n:]
+    rows = []
+    for p, d in zip(pre, dec):
+        if p["bytes"] != d["bytes"]:
+            fail(f"PD: the fetch records are out of step ({p['bytes']} vs "
+                 f"{d['bytes']} bytes)")
+        rows.append({"prompt_tokens": p["prompt_tokens"],
+                     "bucket": p["bucket"], "bytes": p["bytes"],
+                     "prefill_s": p["prefill_s"],
+                     "serialize_s": p["serialize_s"],
+                     "http_s": d["http_s"] - p["prefill_s"]
+                     - p["serialize_s"],
+                     "deserialize_s": d["deserialize_s"],
+                     "upload_s": d["upload_s"],
+                     "insert_s": d.get("insert_s")})
+    return rows
+
+
+def _first_diff(a, b):
+    """The first token index where two streams differ (None: equal)."""
+    if a == b:
+        return None
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def _pd_pair(torch, tmp, seed, prompts, mono_streams, flags, tag):
+    """A prefill node and a decode node with `flags`, the prompts sent to
+    the decode node at once: the streams against the monolithic
+    server's (bf16: identical; int8 pools: the first tokens identical and
+    the drift reported, see phase_pd), the launches of the run, the
+    per-request split of the fetch."""
+    from ome_tpu_torch.ops import flash
+    pre = _Node(tmp, f"{tag}_prefill", seed, "--disaggregation-mode",
+                "prefill", *flags)
+    dec = _Node(tmp, f"{tag}_decode", seed, "--disaggregation-mode",
+                "decode", "--prefill-url", pre.url, *flags)
+    try:
+        flash.reset_launches()
+        streams = _send_all(dec, prompts, what=f"{tag} PD request")
+        _wait_idle(dec.sched)
+        torch.cuda.synchronize()
+        launches = dict(flash.LAUNCHES)
+        drift = [_first_diff(a, b) for a, b in zip(mono_streams, streams)]
+        for i, step in enumerate(drift):
+            if step is not None and (not flags or step == 0):
+                fail(f"PD {tag}: request {i} ({len(prompts[i])} tokens) "
+                     f"differs from the monolithic stream at token {step}")
+        rows = _pd_breakdown(pre.server.pd_prefill, dec.engine,
+                             len(prompts))
+        out = {"launches": launches, "fetches": rows, "drift": drift,
+               "kv_conservation": dec.engine.kv_conservation(),
+               "ttft_tpot_median_s": _medians(dec.records())}
+        if dec.engine.local_fallbacks or dec.engine.failovers:
+            fail(f"PD {tag}: {dec.engine.failovers} failovers, "
+                 f"{dec.engine.local_fallbacks} local fallbacks with a live "
+                 f"prefill node")
+    finally:
+        dec.stop()
+    return pre, out
+
+
+def phase_pd(torch, seed: int = 0):
+    """PD disaggregation at the Llama-3-8B shape, full depth, bf16: a
+    monolithic server answers 13 requests of 64 to 2048 tokens; then a
+    prefill node (`--disaggregation-mode prefill`) and a decode node
+    (`--disaggregation-mode decode --prefill-url`) answer the same
+    requests with identical greedy streams, the prefill node launching B2
+    and the decode node B1; per request the blob bytes and the fetch's
+    split (prefill, gather + serialize, HTTP, deserialize, upload,
+    insert), and the TTFT and TPOT medians against the monolithic
+    server's. Then with `--kv-block 128 --kv-dtype int8` on every server:
+    int8 blobs at about half the bytes, B3 on the decode node, the pool
+    conserved, first tokens identical to an int8 monolithic server's and
+    each stream's drift from it reported — the wire quantizer (numpy,
+    amax / 127) and the pool's (amax x f32(1/127), as XLA compiles the
+    reference's) round a few values to neighbouring steps, in the
+    reference as here, so the decode node's pool is not the monolithic
+    pool bit for bit. Then failover: a decode node with two prefill URLs
+    whose first node is stopped after its third fetch completes every
+    request with the monolithic streams; and `--pd-local-fallback` with
+    no live peer computes the prefill itself."""
+    import random
+    import tempfile
+
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.ops import flash
+
+    cfg = llama3_8b()
+    rng = random.Random(seed + 20)
+    prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+               for n in PD_LENGTHS]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(_hf_config(cfg), f)
+        for tag, flags in (("bf16", ()),
+                           ("int8", ("--kv-block", "128", "--kv-dtype",
+                                     "int8"))):
+            mono = _Node(tmp, f"{tag}_mono", seed, *flags)
+            try:
+                flash.reset_launches()
+                mono_streams = _send_all(mono, prompts,
+                                         what=f"{tag} monolithic request")
+                _wait_idle(mono.sched)
+                mono_launches = dict(flash.LAUNCHES)
+                mono_med = _medians(mono.records())
+            finally:
+                mono.stop()
+            del mono
+            _free_device(torch, f"the {tag} monolithic server")
+            pre, res = _pd_pair(torch, tmp, seed, prompts, mono_streams,
+                                flags, tag)
+            res["mono_launches"] = mono_launches
+            res["mono_ttft_tpot_median_s"] = mono_med
+            out[tag] = res
+            lk = res["launches"]
+            need = ["flash_prefill"] + (["flash_paged_decode"] if flags
+                                        else ["flash_decode"])
+            for name in need:
+                if lk[name] <= 0:
+                    fail(f"PD {tag}: {name} was never launched ({lk})")
+            if not res["kv_conservation"][0]:
+                fail(f"PD {tag}: the decode node's pool is not conserved "
+                     f"at idle ({res['kv_conservation']})")
+            (ttft, tpot), (mttft, mtpot) = (res["ttft_tpot_median_s"],
+                                            mono_med)
+            same = ("greedy streams identical to the monolithic server's"
+                    if not any(res["drift"]) else
+                    f"first tokens identical to the monolithic server's, "
+                    f"first differing token per request {res['drift']}")
+            log(f"[pd {tag}] 13 requests (prompts {PD_LENGTHS[0]}-"
+                f"{PD_LENGTHS[-1]} tokens): {same}; TTFT median "
+                f"{ttft * 1e3:.1f} ms "
+                f"(monolithic {mttft * 1e3:.1f}), TPOT median "
+                f"{tpot * 1e3:.2f} ms (monolithic {mtpot * 1e3:.2f}); "
+                f"launches {lk} (monolithic {mono_launches})")
+            for r in res["fetches"]:
+                log(f"[pd {tag}] {r['prompt_tokens']} tokens (bucket "
+                    f"{r['bucket']}): blob {r['bytes'] / 2**20:.2f} MiB; "
+                    f"prefill {r['prefill_s'] * 1e3:.1f} ms, gather + "
+                    f"serialize {r['serialize_s'] * 1e3:.1f}, HTTP "
+                    f"{r['http_s'] * 1e3:.1f}, deserialize "
+                    f"{r['deserialize_s'] * 1e3:.1f}, upload "
+                    f"{r['upload_s'] * 1e3:.1f}, insert (decode thread) "
+                    f"{(r['insert_s'] or 0) * 1e3:.2f}")
+            if tag == "bf16":
+                # failover: a second prefill node; the first is stopped
+                # once three requests have answered
+                pre2 = _Node(tmp, "prefill2", seed, "--disaggregation-mode",
+                             "prefill")
+                dec = _Node(tmp, "failover_decode", seed,
+                            "--disaggregation-mode", "decode",
+                            "--prefill-url", pre.url, "--prefill-url",
+                            pre2.url)
+                fetched = []
+                blob = dec.engine.prefill_blob
+
+                def stop_first_after_three(*a, **kw):
+                    data = blob(*a, **kw)
+                    fetched.append(dec.engine._last_peer)
+                    if fetched.count(pre.url) == 3:
+                        pre.stop()  # the admission thread waits for it
+                    return data
+                dec.engine.prefill_blob = stop_first_after_three
+                try:
+                    streams = _send_all(dec, prompts,
+                                        what="failover request")
+                    if streams != mono_streams:
+                        fail("PD failover: a stream differs from the "
+                             "monolithic server's")
+                    out["failover"] = {
+                        "failovers": dec.engine.failovers,
+                        "fetched_from": fetched}
+                finally:
+                    dec.stop()
+                    pre2.stop()
+                if out["failover"]["failovers"] < 1:
+                    fail("PD failover: no fetch failed over after the first "
+                         "prefill node stopped")
+                log(f"[pd failover] two prefill URLs, the first stopped "
+                    f"after its third fetch: all 13 requests completed with "
+                    f"the monolithic streams; "
+                    f"{out['failover']['failovers']} failed fetches failed "
+                    f"over")
+                del pre2, dec
+                _free_device(torch, "the failover servers")
+                local = _Node(tmp, "fallback_decode", seed,
+                              "--disaggregation-mode", "decode",
+                              "--prefill-url", "http://127.0.0.1:9",
+                              "--pd-local-fallback",
+                              "--pd-attempt-timeout", "5")
+                try:
+                    streams = _send_all(local, prompts[:3],
+                                        what="local fallback request")
+                    if streams != mono_streams[:3]:
+                        fail("PD local fallback: a stream differs from the "
+                             "monolithic server's")
+                    out["local_fallbacks"] = local.engine.local_fallbacks
+                finally:
+                    local.stop()
+                if out["local_fallbacks"] < 3:
+                    fail(f"PD local fallback: {out['local_fallbacks']} local "
+                         f"prefills for 3 requests")
+                log(f"[pd fallback] --pd-local-fallback with no live peer: "
+                    f"3 requests computed locally "
+                    f"({out['local_fallbacks']} fallbacks), streams equal "
+                    f"the monolithic server's")
+                del local
+            pre.stop()  # again after the failover run: a no-op then
+            del pre
+            _free_device(torch, f"the {tag} PD servers")
+    bf16_bytes = {r["prompt_tokens"]: r["bytes"]
+                  for r in out["bf16"]["fetches"]}
+    ratio = [r["bytes"] / bf16_bytes[r["prompt_tokens"]]
+             for r in out["int8"]["fetches"]]
+    out["int8_bytes_ratio"] = (min(ratio), max(ratio))
+    if max(ratio) > 0.6:
+        fail(f"PD int8: blobs at {max(ratio):.3f} of the bf16 bytes")
+    log(f"[pd int8] int8 blobs at {min(ratio):.4f}-{max(ratio):.4f} of the "
+        f"bf16 blobs' bytes")
+    return out
+
+
+def phase_peering(torch, seed: int = 0):
+    """Cross-replica prefix reuse at the Llama-3-8B shape, bf16: a donor
+    replica (any replica with a prefix cache serves /pd/prefill) holds a
+    1500-token prompt's prefix; a plain replica asked for the same prompt
+    with `X-OME-Prefix-Peer` naming the donor fetches the KV instead of
+    computing it. Holds: its stream equals the one the donor serves from
+    its own cache for that prompt, and equals its own next answer from
+    the cache the fetch seeded; the peer-fetch counter reads 1."""
+    import random
+    import tempfile
+    import urllib.request
+
+    from ome_tpu_torch.models.config import llama3_8b
+
+    cfg = llama3_8b()
+    rng = random.Random(seed + 30)
+    ids = [rng.randrange(3, cfg.vocab_size) for _ in range(1500)]
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(_hf_config(cfg), f)
+        donor = _Node(tmp, "donor", seed)
+        plain = _Node(tmp, "plain", seed)
+        try:
+            body = {"prompt": ids, "max_tokens": 32, "temperature": 0.0}
+            _completion(*_post_h(donor.url, body), 32, "donor cold")
+            _completion(*_post_h(donor.url, body), 32, "donor hit")
+            want = donor.stream(ids)
+            _completion(*_post_h(plain.url, body,
+                                 {"X-OME-Prefix-Peer": donor.url}), 32,
+                        "peer fetch")
+            got = plain.stream(ids)
+            client = plain.sched._peer_client
+            fetches = client.fetches if client is not None else 0
+            _completion(*_post_h(plain.url, body), 32, "seeded hit")
+            again = plain.stream(ids)
+            with urllib.request.urlopen(plain.url + "/metrics",
+                                        timeout=30) as r:
+                metrics = r.read().decode()
+            counter = [ln for ln in metrics.splitlines() if ln.startswith(
+                "ome_engine_prefix_peer_fetches_total")]
+        finally:
+            donor.stop()
+            plain.stop()
+    if fetches != 1 or counter != ["ome_engine_prefix_peer_fetches_total 1"]:
+        fail(f"peering: peer fetches {fetches}, metric {counter}")
+    if got != want or again != want:
+        fail("peering: the peer-fetched stream (or the seeded-cache one) "
+             "differs from the donor's")
+    log(f"[peering] 1500-token prompt with X-OME-Prefix-Peer naming the "
+        f"donor: 1 peer fetch ({counter[0]}); the stream equals the donor's "
+        f"own answer from its cache, and the replica's next answer from the "
+        f"cache the fetch seeded")
+    return {"peer_fetches": fetches, "streams_identical": True}
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -3023,6 +3885,12 @@ def main() -> int:
         free="the Mixtral server")
     run("mixtral_identity", phase_moe_identity, torch,
         free="the Mixtral-width engines")
+    run("mqa_kernels", phase_mqa_kernels, torch)
+    run("mqa_identity", phase_mqa_identity, torch,
+        free="the G 32 engines")
+    run("host_tier", phase_host_tier, torch, free="the host-tier server")
+    run("pd", phase_pd, torch, free="the PD servers")
+    run("peering", phase_peering, torch, free="the peering replicas")
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -47,25 +47,36 @@ The scheduler's step plans run through the ops below (the reference's
     (`_mask_table`, filled row by row by `set_mask_row`); `prefill`
     takes a `first_mask` for the first sampled token.
 
-Multi-LoRA adapters and the prefix cache's host tier are not ported
-yet: the serve flags that would ask for them refuse (engine/serve.py).
+The prefix cache keeps its host-memory spill tier (`prefix_host_bytes`,
+serve's `--prefix-cache-host-mb`): evicted blocks are copied to host
+memory and swapped back in by a background thread on a later hit.
+`insert` also takes host planes — a fetched PD or peer KV blob
+(engine/pd.py, engine/peering.py) — and carries them to the slot's rows
+or pool blocks. Multi-LoRA adapters are not ported yet: the serve flags
+that would ask for them refuse (engine/serve.py).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import logging
+import queue
 import threading
+import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, to_device, to_host
 from ..models import llama
 from ..models.config import ModelConfig
 from ..models.params import Params
 from ..ops.flash import check_paged_coverage, quantize_rows
 from .sampling import sample, spec_verify
+
+log = logging.getLogger("ome.engine.core")
 
 
 @dataclasses.dataclass
@@ -159,19 +170,36 @@ class TokenHandle:
 
 class PrefixCache:
     """Radix (token-block trie) cache of prompt-prefix KV with a device
-    byte budget — the device tier of the reference's PrefixCache (the
-    host-memory spill tier is not ported yet).
+    byte budget and an optional host-memory spill tier — port of the
+    reference's PrefixCache (ome_tpu/engine/core.py:110-363).
 
     Prompts are split into fixed token BLOCKS; each trie node owns one
     block's KV ([L, 1, block, K, Dh] tensors, copied out of the prefill
-    so a node holds only its own bytes). Sibling prompts share every
-    common leading block. Eviction is byte-accounted LRU over leaf
-    nodes: device bytes never exceed `capacity_bytes`. A hit returns
-    the concatenated leading blocks."""
+    so a node holds only its own bytes; nothing writes them after
+    `put`). Sibling prompts share every common leading block. Eviction
+    is byte-accounted LRU over leaf nodes: device bytes never exceed
+    `capacity_bytes`. A hit returns the concatenated leading blocks.
+
+    Host tier (`host_capacity_bytes` > 0, serve's
+    `--prefix-cache-host-mb`): an evicted leaf is copied to host memory
+    (an LRU keyed by the block's full token path) instead of being
+    dropped. A match that continues into host-resident blocks only
+    ENQUEUES their swap-in and returns the device-resident prefix: the
+    admitting request recomputes the rest, and the next same-prefix
+    request hits on the device. On a card a spill copies on a side
+    stream into pinned memory, after the node's own copy-out and
+    nothing else (`ready` event), so it never waits for the decode
+    steps queued before it; the swap thread uploads on its own stream
+    and attaches the node to the trie only after that copy completed.
+    Spills run outside the lock (the nodes are never written after
+    `put`), on the thread whose put or swap-in evicted."""
 
     def __init__(self, capacity_bytes: int = 0, block: int = 32,
-                 min_prefix: int = 16):
+                 min_prefix: int = 16, host_capacity_bytes: int = 0,
+                 device: Optional[torch.device] = None):
         self.capacity_bytes = capacity_bytes
+        # where swapped-in blocks go
+        self.device = device or torch.device("cpu")
         self.block = block
         self.min_prefix = min_prefix
         self._root: Dict[tuple, dict] = {}
@@ -180,7 +208,16 @@ class PrefixCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
-        self._lock = threading.Lock()
+        self.host_capacity_bytes = host_capacity_bytes
+        self.host_bytes = 0
+        self.host_hits = 0
+        self.host_swapins = 0
+        self.host_recomputes = 0
+        # path -> (host k, host v, nbytes); insertion order = LRU order
+        self._host: "collections.OrderedDict" = collections.OrderedDict()
+        self._tier_lock = threading.Lock()
+        self._swap_q: "queue.Queue" = queue.Queue()
+        self._swap_thread: Optional[threading.Thread] = None
 
     @staticmethod
     def _leaf_bytes(k, v) -> int:
@@ -188,13 +225,14 @@ class PrefixCache:
 
     def put(self, ids, k, v, true_len: int, bucket: int):
         """Store the KV of `ids[:true_len]` block by block. k/v:
-        [L, 1, S >= true_len, K, D] (rows past true_len are padding and
-        never stored)."""
+        [L, 1, S >= true_len, K, D] on the cache's device (rows past
+        true_len are padding and never stored)."""
         if self.capacity_bytes <= 0 or true_len < self.min_prefix:
             return
-        with self._lock:
+        with self._tier_lock:
             node_map = self._root
             self._tick += 1
+            made = []
             for off in range(0, (true_len // self.block) * self.block,
                              self.block):
                 key = tuple(ids[off:off + self.block])
@@ -203,68 +241,242 @@ class PrefixCache:
                     ks = k[:, :, off:off + self.block].clone()
                     vs = v[:, :, off:off + self.block].clone()
                     node = {"kv": (ks, vs), "children": {},
-                            "last": self._tick}
+                            "last": self._tick, "ready": None}
                     node_map[key] = node
+                    made.append(node)
                     self.bytes += self._leaf_bytes(ks, vs)
+                    # the device copy is authoritative again: a stale
+                    # host copy of the same path only wastes host budget
+                    ent = self._host.pop(tuple(ids[:off + self.block]),
+                                         None)
+                    if ent is not None:
+                        self.host_bytes -= ent[2]
                 node["last"] = self._tick
                 node_map = node["children"]
-            self._evict_locked()
+            if made and k.is_cuda and self.host_capacity_bytes > 0:
+                # what a later spill of these nodes waits for: their
+                # copy-out, not the decode steps queued after it
+                ev = torch.cuda.Event()
+                ev.record()
+                for node in made:
+                    node["ready"] = ev
+            spills = self._evict_locked()
+        self._spill(spills)
 
-    def _evict_locked(self) -> None:
+    def _evict_locked(self):
         """Drop least-recently-used LEAF nodes until within budget
-        (parents stay useful for the prompts that still share them)."""
+        (parents stay useful for the prompts that still share them).
+        With the host tier on, an evicted leaf is returned as
+        (path, node) for the caller to spill AFTER releasing the lock —
+        the device-to-host copy waits, and a lock region must never
+        reach a wait."""
+        spills = []
         while self.bytes > self.capacity_bytes:
             leaves = []
-            stack = [self._root]
+            stack = [(self._root, ())]
             while stack:
-                node_map = stack.pop()
+                node_map, path = stack.pop()
                 for key, node in node_map.items():
                     if node["children"]:
-                        stack.append(node["children"])
+                        stack.append((node["children"], path + key))
                     else:
-                        leaves.append((node["last"], node_map, key, node))
+                        leaves.append((node["last"], node_map, key, node,
+                                       path + key))
             if not leaves:
-                return
+                return spills
             leaves.sort(key=lambda t: t[0])
-            for _, parent_map, key, node in leaves:
+            for _, parent_map, key, node, path in leaves:
                 if self.bytes <= self.capacity_bytes:
-                    return
+                    return spills
                 self.bytes -= self._leaf_bytes(*node["kv"])
                 self.evictions += 1
+                if self.host_capacity_bytes > 0:
+                    spills.append((path, node))
                 del parent_map[key]
+        return spills
+
+    def _spill(self, spills) -> None:
+        """Copy evicted blocks' KV to the host tier, outside the lock,
+        re-acquiring it only for the dict edits. A put() that re-created
+        the same path while the copy ran wins — its device copy is
+        authoritative, so the stale spill is dropped."""
+        for path, node in spills:
+            ks, vs = (to_host(x, after=node["ready"]) for x in node["kv"])
+            nbytes = self._leaf_bytes(ks, vs)
+            with self._tier_lock:
+                parent = self._parent_map_locked(path)
+                if parent is not None and path[-self.block:] in parent:
+                    continue  # device-resident again
+                old = self._host.pop(path, None)
+                if old is not None:
+                    self.host_bytes -= old[2]
+                self._host[path] = (ks, vs, nbytes)
+                self.host_bytes += nbytes
+                while self.host_bytes > self.host_capacity_bytes \
+                        and self._host:
+                    _, (_, _, nb) = self._host.popitem(last=False)
+                    self.host_bytes -= nb
+
+    def _request_swapin(self, ids, eff: int) -> bool:
+        """Queue every consecutive host-resident continuation block past
+        the device hit for swap-in (called under the lock; the upload
+        runs on the swap thread, so admission never waits on it).
+        Returns whether anything was queued."""
+        paths = []
+        while eff + self.block <= len(ids) - 1:
+            path = tuple(ids[:eff + self.block])
+            if path not in self._host:
+                break
+            self._host.move_to_end(path)  # refresh the host LRU
+            paths.append(path)
+            eff += self.block
+        if not paths:
+            return False
+        self.host_hits += len(paths)
+        # this request cannot use host blocks (the swap must never gate
+        # admission): it recomputes the remainder
+        self.host_recomputes += 1
+        for path in paths:
+            self._swap_q.put(path)
+        return True
+
+    def _ensure_swap_thread(self) -> None:
+        if self._swap_thread is not None and self._swap_thread.is_alive():
+            return
+        self._swap_thread = threading.Thread(
+            target=self._swap_loop, name="prefix-swap", daemon=True)
+        self._swap_thread.start()
+
+    def _swap_loop(self) -> None:
+        """Swap-in worker: re-attach host-tier blocks to the device
+        trie. A block whose parent chain was evicted in the meantime
+        stays in the host tier (a later deeper hit re-queues it)."""
+        while True:
+            path = self._swap_q.get()
+            try:
+                self._swapin_one(path)
+            except Exception:  # noqa: BLE001 — a failed swap-in only
+                log.exception("prefix swap-in failed")  # costs a recompute
+            finally:
+                self._swap_q.task_done()
+
+    def _parent_map_locked(self, path: tuple):
+        """The children map the block at `path` hangs from, or None when
+        its parent chain is not device-resident."""
+        node_map = self._root
+        for off in range(0, len(path) - self.block, self.block):
+            node = node_map.get(path[off:off + self.block])
+            if node is None:
+                return None
+            node_map = node["children"]
+        return node_map
+
+    def _swapin_one(self, path: tuple) -> None:
+        with self._tier_lock:
+            ent = self._host.get(path)
+            parent = self._parent_map_locked(path)
+            if ent is None or parent is None \
+                    or path[-self.block:] in parent:
+                return
+            ks, vs, _ = ent
+        # the upload runs outside the lock: the host copy stays in the
+        # tier (and counted) until the node is attached below
+        kd, vd = self._upload(ks, vs)
+        with self._tier_lock:
+            key = path[-self.block:]
+            parent = self._parent_map_locked(path)
+            if self._host.get(path) is not ent or parent is None \
+                    or key in parent:
+                return  # evicted, re-put or swapped in meanwhile
+            del self._host[path]
+            self.host_bytes -= ent[2]
+            self._tick += 1
+            parent[key] = {"kv": (kd, vd), "children": {},
+                           "last": self._tick, "ready": None}
+            self.bytes += self._leaf_bytes(kd, vd)
+            self.host_swapins += 1
+            spills = self._evict_locked()
+        self._spill(spills)
+
+    def _upload(self, ks: torch.Tensor, vs: torch.Tensor):
+        """A host block on the cache's device, complete on return."""
+        return to_device(ks, self.device), to_device(vs, self.device)
+
+    def drain_swapins(self, timeout: float = 5.0) -> None:
+        """Block until every queued swap-in has been applied — a test
+        and smoke-run hook, never called from the serving path."""
+        deadline = time.monotonic() + timeout
+        while self._swap_q.unfinished_tasks:
+            if time.monotonic() >= deadline:
+                return
+            time.sleep(0.005)
+
+    def tier_conservation(self) -> Tuple[bool, int, int]:
+        """Two-tier accounting: recounted device-trie bytes and host-tier
+        bytes equal the running counters, no block is resident in both
+        tiers, and the host tier is within its budget. Returns (ok,
+        device_blocks, host_blocks)."""
+        with self._tier_lock:
+            dev_bytes = dev_blocks = 0
+            overlap = False
+            stack = [(self._root, ())]
+            while stack:
+                node_map, path = stack.pop()
+                for key, node in node_map.items():
+                    dev_blocks += 1
+                    dev_bytes += self._leaf_bytes(*node["kv"])
+                    if path + key in self._host:
+                        overlap = True
+                    stack.append((node["children"], path + key))
+            host_bytes = sum(e[2] for e in self._host.values())
+            ok = (dev_bytes == self.bytes and host_bytes == self.host_bytes
+                  and not overlap
+                  and host_bytes <= max(self.host_capacity_bytes, 0))
+            return ok, dev_blocks, len(self._host)
 
     def match(self, ids, usable=None) -> Optional[tuple]:
         """Longest cached STRICT prefix of `ids` in whole blocks (the
         last prompt token must re-run so its logits exist for
         sampling). Returns (k, v, eff, eff) with k/v concatenated over
         the matched blocks. `usable(eff) -> bool` vetoes prefix lengths
-        the caller's budget cannot use before the hit is counted."""
+        the caller's budget cannot use before the hit is counted.
+        Host-tier blocks never serve the current request: a match that
+        continues into the host tier queues their swap-in and returns
+        the device-resident prefix only (possibly None)."""
         if self.capacity_bytes <= 0:
             return None
-        with self._lock:
-            limit = len(ids) - 1
-            node_map = self._root
-            slices = []
-            eff = 0
-            self._tick += 1
-            while eff + self.block <= limit:
-                node = node_map.get(tuple(ids[eff:eff + self.block]))
-                if node is None:
-                    break
-                node["last"] = self._tick
-                slices.append(node["kv"])
-                eff += self.block
-                node_map = node["children"]
-            while slices and usable is not None and not usable(eff):
-                slices.pop()
-                eff -= self.block
-            if eff < self.min_prefix:
-                self.misses += 1
-                return None
-            self.hits += 1
-            k = torch.cat([s[0] for s in slices], dim=2)
-            v = torch.cat([s[1] for s in slices], dim=2)
-            return (k, v, eff, eff)
+        queued = False
+        try:
+            with self._tier_lock:
+                limit = len(ids) - 1
+                node_map = self._root
+                slices = []
+                eff = 0
+                self._tick += 1
+                while eff + self.block <= limit:
+                    node = node_map.get(tuple(ids[eff:eff + self.block]))
+                    if node is None:
+                        break
+                    node["last"] = self._tick
+                    slices.append(node["kv"])
+                    eff += self.block
+                    node_map = node["children"]
+                if self.host_capacity_bytes > 0:
+                    queued = self._request_swapin(ids, eff)
+                while slices and usable is not None and not usable(eff):
+                    slices.pop()
+                    eff -= self.block
+                if eff < self.min_prefix:
+                    self.misses += 1
+                    return None
+                self.hits += 1
+                k = torch.cat([s[0] for s in slices], dim=2)
+                v = torch.cat([s[1] for s in slices], dim=2)
+                return (k, v, eff, eff)
+        finally:
+            # the thread starts outside the lock region
+            if queued:
+                self._ensure_swap_thread()
 
 
 class InferenceEngine:
@@ -276,6 +488,7 @@ class InferenceEngine:
                  max_slots: int = 8, max_seq: Optional[int] = None,
                  prefill_buckets: Optional[List[int]] = None,
                  prefix_cache_bytes: int = 0,
+                 prefix_host_bytes: int = 0,
                  kv_block: int = 0, kv_blocks: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None,
@@ -349,7 +562,9 @@ class InferenceEngine:
                 b *= 2
             prefill_buckets.append(self.max_seq)
         self.prefill_buckets = prefill_buckets
-        self.prefix_cache = PrefixCache(prefix_cache_bytes)
+        self.prefix_cache = PrefixCache(
+            prefix_cache_bytes, host_capacity_bytes=prefix_host_bytes,
+            device=self.device)
         # adapter id each decode slot decodes with (always 0, the base
         # model: multi-LoRA is not in this slice)
         self._slot_adapters = np.zeros(max_slots, np.int32)
@@ -575,9 +790,11 @@ class InferenceEngine:
         trash block), no block may appear twice, block 0 may never be
         owned, and the block table must mirror the host owned lists.
         Returns (ok, owned_count). Authoritative at quiescence; a
-        concurrent insert can make a mid-step scrape read False."""
+        concurrent insert can make a mid-step scrape read False. The
+        prefix cache's tier check applies to the dense cache too (the
+        reference checks it for paged engines only)."""
         if not self.kv_block:
-            return True, 0
+            return self.prefix_cache.tier_conservation()[0], 0
         free = list(self._free_blocks)
         owned_all: List[int] = []
         for slot in range(self.max_slots):
@@ -591,7 +808,11 @@ class InferenceEngine:
         ok = (len(blocks) == self.kv_blocks - 1
               and len(set(blocks)) == len(blocks)
               and 0 not in blocks)
-        return ok, len(owned_all)
+        # the prefix cache's two tiers must account exactly too (device
+        # trie + host LRU, no block in both): one check for the whole
+        # KV hierarchy, as in the reference
+        return ok and self.prefix_cache.tier_conservation()[0], \
+            len(owned_all)
 
     def blocks_needed(self, n_tokens: int) -> int:
         """Pool blocks covering `n_tokens` KV rows + the next write —
@@ -696,8 +917,13 @@ class InferenceEngine:
         """Copy a prefill's KV [L, 1, bucket, ...] into `slot` of the
         decode cache, in place, and arm the slot at `true_len`. Paged:
         allocate the slot's blocks first (KVPoolExhausted when the pool
-        cannot cover the prompt and the next write)."""
+        cannot cover the prompt and the next write); an int8 pool
+        quantizes the rows on the way in. `kv` is a local prefill's
+        device tensors or host planes (a fetched PD or peer blob: CPU
+        tensors or float numpy arrays), which are copied to the device
+        in the cache's dtype first."""
         aid = self.adapter_id(adapter)
+        kv = self.device_kv(kv)
         if self.kv_block:
             self.free_slot(slot)  # BEFORE recording the adapter ref
             need = self.blocks_needed(true_len)
@@ -723,6 +949,17 @@ class InferenceEngine:
         state.tokens[slot] = token
         state.adapters[slot] = aid
         return state
+
+    def device_kv(self, kv):
+        """The (k, v) planes of a prefill on the engine's device in the
+        cache dtype: tensors already there pass through untouched, host
+        planes (CPU tensors, numpy arrays) are copied over."""
+        out = []
+        for x in kv:
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            out.append(x.to(device=self.device, dtype=self.cfg.dtype))
+        return tuple(out)
 
     def _insert_paged(self, state: DecodeState, kv, ids: List[int],
                       bucket: int) -> None:

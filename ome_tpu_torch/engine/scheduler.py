@@ -42,9 +42,18 @@ whose prompt does not fit the free blocks waits in the requeue
 ranked by `_preempt_rank`; their generated tokens fold into the prompt
 of the requeued request. `/metrics` carries the pool gauges.
 
+PD and cross-replica reuse: on a PD decode node (engine/pd.py
+RemotePrefillEngine) the prefill is a fetch from the prefill pool, given
+the request's deadline, priority and trace; the engine's
+`transient_prefill_errors` fail that one request on the admission and
+insert paths, never the scheduler. A request that names a prefix peer
+(`Request.prefix_peer`, the X-OME-Prefix-Peer header) fetches the
+prefix KV from that replica first (engine/peering.py) and falls back to
+a local prefill. `/metrics` carries the prefix cache's host-tier
+counters and the PD pool's gauges.
+
 Not ported yet (the serve flags that would need them refuse): the
-request journal, PD and cross-replica prefix fetches and the program
-cost ledger / HBM accountant gauges.
+request journal and the program cost ledger / HBM accountant gauges.
 """
 
 from __future__ import annotations
@@ -69,7 +78,8 @@ from ..priority import class_wait_caps as _wait_caps_table
 from ..priority import class_weights as _weights_table
 from ..telemetry import Registry
 from ..telemetry.flight import FlightRecorder
-from ..telemetry.tracing import Span, coerce_span_log, new_trace
+from ..telemetry.tracing import (Span, SpanContext, coerce_span_log,
+                                 new_trace)
 from . import spec as spec_drafter
 from .core import (DecodeState, InferenceEngine, KVPoolExhausted,
                    UnknownAdapterError)
@@ -340,6 +350,10 @@ class Request:
     masker: Optional[object] = None
     # multi-LoRA adapter name; None = base (the only model served here)
     adapter: Optional[str] = None
+    # cross-replica prefix reuse: a peer replica that holds this
+    # prompt's prefix (X-OME-Prefix-Peer); admission tries fetching the
+    # prefix KV from it before computing the prefill locally
+    prefix_peer: Optional[str] = None
     # multi-tenant priority class: drives the WDRR pick order and the
     # per-class admission caps
     priority: str = DEFAULT_PRIORITY
@@ -442,6 +456,9 @@ class Scheduler:
         self.flight = flight if flight is not None else FlightRecorder()
         self.flight_dump_dir = flight_dump_dir
         self._flight_dumps = 0
+        # cross-replica prefix reuse (engine/peering.py): built on the
+        # first X-OME-Prefix-Peer request; holds per-peer breakers
+        self._peer_client = None
         # decode pipelining: number of decode steps dispatched ahead of
         # token emission. 0 = fetch every step synchronously; 1 = step
         # k's tokens are read only after step k+1 was dispatched
@@ -619,6 +636,30 @@ class Scheduler:
         self._g_pc_bytes = R.gauge(
             "ome_engine_prefix_cache_bytes",
             "Device bytes resident in the prefix cache")
+        # host-memory spill tier (zeros unless --prefix-cache-host-mb)
+        self._c_pc_host_hits = R.counter(
+            "ome_engine_prefix_host_hits_total",
+            "Prefix blocks found host-resident on match (each kicks "
+            "an async swap-in; the current request recomputes)")
+        self._c_pc_host_swapins = R.counter(
+            "ome_engine_prefix_host_swapins_total",
+            "Prefix blocks promoted host -> device by the swap thread")
+        self._c_pc_host_recomputes = R.counter(
+            "ome_engine_prefix_host_recomputes_total",
+            "Requests that recomputed a host-resident prefix locally "
+            "instead of waiting for the swap-in")
+        self._g_pc_host_bytes = R.gauge(
+            "ome_engine_prefix_host_bytes",
+            "Host bytes resident in the prefix-cache spill tier")
+        # engines with metrics of their own (the PD prefill pool) attach
+        # them to the shared registry, and log their peer failovers into
+        # the same lifecycle ring as the scheduler's events
+        bind = getattr(engine, "bind_registry", None)
+        if callable(bind):
+            bind(self.registry)
+        bindf = getattr(engine, "bind_flight", None)
+        if callable(bindf):
+            bindf(self.flight)
         # step-phase attribution from timestamps the loop already
         # crosses: dispatch (the decode call), mask_apply (grammar mask
         # build), device_wait (blocking at the lag-queue read),
@@ -987,11 +1028,17 @@ class Scheduler:
             for counter, value in ((self._c_pc_hits, pc.hits),
                                    (self._c_pc_misses, pc.misses),
                                    (self._c_pc_evictions,
-                                    pc.evictions)):
+                                    pc.evictions),
+                                   (self._c_pc_host_hits, pc.host_hits),
+                                   (self._c_pc_host_swapins,
+                                    pc.host_swapins),
+                                   (self._c_pc_host_recomputes,
+                                    pc.host_recomputes)):
                 delta = value - counter.value
                 if delta > 0:
                     counter.inc(delta)
             self._g_pc_bytes.set(pc.bytes)
+            self._g_pc_host_bytes.set(pc.host_bytes)
         pool = getattr(self.engine, "kv_pool_stats", None)
         if pool and pool.get("kv_block_tokens"):  # paged engines only
             total = pool.get("kv_blocks", 0)
@@ -1014,6 +1061,9 @@ class Scheduler:
                 "1 when free + owned blocks account for the whole pool "
                 "(checked per scrape; authoritative when idle)").set(
                 1 if ok else 0)
+        pd = getattr(self.engine, "update_pd_gauges", None)
+        if callable(pd):
+            pd()
 
     # -- public --------------------------------------------------------
 
@@ -1270,11 +1320,14 @@ class Scheduler:
                 pspan = self._begin_prefill_span(req)
                 t0 = time.monotonic()
                 try:
-                    tok, kv, true_len, bucket = self._prefill_req(req)
-                except UnknownAdapterError as e:
-                    # the request's own problem, never an engine fault
-                    log.warning("prefill failure for request %s: %s",
-                                req.id, e)
+                    tok, kv, true_len, bucket = self._prefill_req(
+                        req, span=pspan)
+                except self._transient_errors() as e:
+                    # the request's own problem, never an engine fault:
+                    # an unknown adapter, or (PD decode nodes) a peer
+                    # fetch that failed over the whole pool
+                    log.warning("transient prefill failure for request "
+                                "%s: %s", req.id, e)
                     req.finish("error")
                     self._free_slots.release()
                     continue
@@ -1338,7 +1391,9 @@ class Scheduler:
                 self._requeue_for_pool(req)
                 self._free_slots.release()
                 continue
-            except UnknownAdapterError:
+            except self._transient_errors():
+                # a PD insert of fetched KV failed: this request fails,
+                # the node stays up
                 req.finish("error")
                 self._free_slots.release()
                 continue
@@ -1379,7 +1434,8 @@ class Scheduler:
                 pspan = self._begin_prefill_span(req)
                 t0 = time.monotonic()
                 try:
-                    tok, kv, true_len, bucket = self._prefill_req(req)
+                    tok, kv, true_len, bucket = self._prefill_req(
+                        req, span=pspan)
                     self._h_prefill.observe(time.monotonic() - t0)
                     self._end_prefill_span(req, pspan)
                     ikw = {} if req.adapter is None \
@@ -1392,7 +1448,9 @@ class Scheduler:
                     # running streams have freed blocks
                     self._requeue_for_pool(req)
                     break
-                except UnknownAdapterError:
+                except self._transient_errors():
+                    # an unknown adapter, or a PD fetch/insert failure
+                    # on a synchronous-step node: fails ONE request
                     req.finish("error")
                     continue
                 except Exception:
@@ -2291,9 +2349,53 @@ class Scheduler:
                 dlen[slot] = d.size
         return drafts, dlen
 
-    def _prefill_req(self, req: Request):
+    def _transient_errors(self) -> tuple:
+        """Errors that fail one request, never the engine: an unknown
+        adapter, and what the engine declares transient (a PD decode
+        node's peer fetch and insert failures)."""
+        return (UnknownAdapterError,) + tuple(
+            getattr(self.engine, "transient_prefill_errors", ()))
+
+    def _peer_prefill(self, req: Request, peer: str):
+        """Try fetching this prompt's prefix KV from the peer replica
+        named by X-OME-Prefix-Peer — an engine.prefill-shaped result, or
+        None, and then the caller computes the prefill locally. A fetch
+        seeds the LOCAL prefix cache, so the next same-prefix request
+        hits on the device without any peer. Runs on the admission path
+        (the admission thread under overlap), like a local prefill."""
+        if self._peer_client is None:
+            from .peering import PrefixPeerClient
+            self._peer_client = PrefixPeerClient(registry=self.registry)
+        res = self._peer_client.fetch(
+            peer, req.prompt_ids, temperature=req.temperature,
+            top_k=req.top_k, top_p=req.top_p, deadline=req.deadline,
+            priority=req.priority, trace=req.trace)
+        if res is None:
+            self.flight.record("prefix_peer_fallback", peer=peer,
+                               request_id=req.id)
+            return None
+        token, (k, v), true_len, bucket = res
+        from .pd import upload_planes
+        eng = self.engine
+        k, v = upload_planes(k, v, eng.device, eng.cfg.dtype)
+        eng.prefix_cache.put(list(req.prompt_ids)[-true_len:], k, v,
+                             true_len, bucket)
+        self.flight.record("prefix_peer_fetch", peer=peer,
+                           request_id=req.id, prefix_len=true_len)
+        return token, (k, v), true_len, bucket
+
+    def _prefill_req(self, req: Request, span: Optional[Span] = None):
         """Engine prefill for one request; constrained requests pass
-        the grammar mask for their FIRST sampled token."""
+        the grammar mask for their FIRST sampled token. An eligible
+        request (base model, unconstrained, not a PD decode node) whose
+        router named a prefix peer tries that peer first; any failure
+        falls through to the local prefill."""
+        pd_node = getattr(self.engine, "pd_request_context", False)
+        if (req.prefix_peer and req.adapter is None and req.masker is None
+                and not pd_node):
+            fetched = self._peer_prefill(req, req.prefix_peer)
+            if fetched is not None:
+                return fetched
         kw = {}
         if req.adapter is not None:
             kw["adapter"] = req.adapter
@@ -2301,6 +2403,18 @@ class Scheduler:
             kw["first_mask"] = req.masker.mask(
                 self.engine.cfg.vocab_size,
                 remaining=req.max_new_tokens)
+        if pd_node:
+            # PD decode nodes cap each fetch attempt at the request's
+            # deadline and stamp its traceparent on the wire; the
+            # priority class rides along. The prefill span is the
+            # context, so per-peer attempt spans nest under it
+            kw["deadline"] = req.deadline
+            kw["priority"] = req.priority
+            trace = req.trace
+            if span is not None:
+                trace = SpanContext(trace_id=span.trace_id,
+                                    span_id=span.span_id)
+            kw["trace"] = trace
         return self.engine.prefill(req.prompt_ids, req.temperature,
                                    req.top_k, req.top_p, **kw)
 

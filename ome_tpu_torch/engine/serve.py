@@ -8,7 +8,10 @@ signal drains, a second forces). Runs on CUDA unless `--device cpu`.
     python -m ome_tpu_torch.engine.serve --model-dir DIR [--random-weights] \\
         [--device cpu] [--kv-block 128 [--kv-blocks N] [--kv-dtype int8]] \\
         [--quantization int8|int4|fp8] [--spec-tokens N] \\
-        [--steps-per-dispatch K]
+        [--steps-per-dispatch K] [--prefix-cache-host-mb MB] \\
+        [--disaggregation-mode prefill | --disaggregation-mode decode \\
+         --prefill-url URL [--prefill-url URL ...] [--pd-local-fallback] \\
+         [--pd-attempt-timeout S]]
 
 DIR is a HuggingFace model directory: config.json plus safetensors
 weights (one file, or shards with model.safetensors.index.json), loaded
@@ -25,6 +28,14 @@ run the int4 CUDA kernel. `--spec-tokens N` verifies up to N n-gram
 drafts per slot in one forward, `--steps-per-dispatch K` runs K decode
 iterations per engine call; both compose with pipelining and with
 `response_format` grammar masks, as in the reference.
+`--prefix-cache-host-mb` gives the prefix cache a host-memory spill
+tier. `--disaggregation-mode prefill` serves `/pd/prefill` only (no
+decode loop; completions answer 503); `--disaggregation-mode decode`
+fetches each prompt's KV from the `--prefill-url` pool
+(`engine/pd.py`), failing over between peers, and with
+`--pd-local-fallback` computes the prefill itself when every peer is
+out. A plain replica with a prefix cache also serves `/pd/prefill` as a
+donor of cross-replica prefix reuse (`engine/peering.py`).
 `build_server(argv)` does everything `main` does except block, so a
 caller (chip_smoke.py, the tests) drives the same code in process.
 
@@ -150,6 +161,35 @@ def build_parser() -> argparse.ArgumentParser:
                         "dispatches and syncs once per K-token chunk "
                         "instead of per token; greedy output is "
                         "byte-identical to K=1")
+    p.add_argument("--prefix-cache-host-mb", type=int, default=0,
+                   help="host-memory budget (MiB) of the prefix cache's "
+                        "spill tier (0 disables): evicted blocks spill "
+                        "to host memory instead of being dropped and swap "
+                        "back in asynchronously on the next hit")
+    p.add_argument("--disaggregation-mode",
+                   choices=("none", "prefill", "decode"), default="none",
+                   help="PD-disaggregated serving role: 'prefill' exports "
+                        "KV over /pd/prefill; 'decode' fetches KV from "
+                        "the --prefill-url pool instead of computing "
+                        "prefill locally")
+    p.add_argument("--prefill-peer", default=None,
+                   help="single prefill peer URL (alias of --prefill-url, "
+                        "merged first into the pool)")
+    p.add_argument("--prefill-url", action="append", default=None,
+                   metavar="URL",
+                   help="prefill pool peer URL; repeatable. A decode node "
+                        "tracks each peer's health (the router's breaker/"
+                        "draining discipline) and fails a dropped "
+                        "/pd/prefill fetch over to the next healthy peer")
+    p.add_argument("--pd-local-fallback", action="store_true",
+                   help="decode role: when every prefill peer is out of "
+                        "rotation, compute the prefill locally instead of "
+                        "failing the request")
+    p.add_argument("--pd-attempt-timeout", type=float, default=120.0,
+                   metavar="SECONDS",
+                   help="per-attempt /pd/prefill fetch timeout; each "
+                        "attempt is further capped by the request's own "
+                        "deadline")
     p.add_argument("--spec-tokens", type=int, default=0,
                    help="speculative decoding: max draft tokens per slot "
                         "per step proposed by the host-side n-gram "
@@ -160,18 +200,12 @@ def build_parser() -> argparse.ArgumentParser:
     # value asks for a feature this port does not have yet
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--task", default="generate")
-    p.add_argument("--prefix-cache-host-mb", type=int, default=0)
-    p.add_argument("--disaggregation-mode", default="none")
     p.add_argument("--ledger-mode", default="off")
     return p
 
 
 # flag -> the only value this slice serves
-_SLICE_DEFAULTS = {
-    "tp": 1, "task": "generate",
-    "prefix_cache_host_mb": 0,
-    "disaggregation_mode": "none", "ledger_mode": "off",
-}
+_SLICE_DEFAULTS = {"tp": 1, "task": "generate", "ledger_mode": "off"}
 
 
 def check_slice(args, env=None) -> None:
@@ -190,12 +224,30 @@ def check_slice(args, env=None) -> None:
     if args.kv_dtype == "int8" and not args.kv_block:
         raise SystemExit("--kv-dtype int8 quantizes the paged block pool; "
                          "enable paged KV (--kv-block) to use it")
+    if args.prefix_cache_host_mb < 0:
+        raise SystemExit(f"--prefix-cache-host-mb "
+                         f"{args.prefix_cache_host_mb}: must be >= 0")
+    if args.disaggregation_mode == "decode" and not prefill_urls(args):
+        raise SystemExit("--disaggregation-mode decode requires at least "
+                         "one --prefill-url (or --prefill-peer)")
+    if args.disaggregation_mode != "decode" and (
+            prefill_urls(args) or args.pd_local_fallback):
+        raise SystemExit("--prefill-url/--prefill-peer/--pd-local-fallback "
+                         "configure a PD decode node: they need "
+                         "--disaggregation-mode decode")
     env = os.environ if env is None else env
     if env.get(_MULTIHOST_ENV[0]) and \
             int(env.get(_MULTIHOST_ENV[1], "1") or 1) > 1:
         raise SystemExit(
             f"multi-host environment ({', '.join(_MULTIHOST_ENV)}) is "
             "not supported by the PyTorch engine yet; serve one host")
+
+
+def prefill_urls(args):
+    """The PD prefill pool: --prefill-peer first, then each
+    --prefill-url."""
+    return (([args.prefill_peer] if args.prefill_peer else [])
+            + list(args.prefill_url or []))
 
 
 def _load_cfg(model_dir: str, dtype):
@@ -265,6 +317,7 @@ def load_engine(args):
         return InferenceEngine(
             params, cfg, max_slots=args.max_slots, max_seq=max_seq,
             prefix_cache_bytes=args.prefix_cache_mb << 20,
+            prefix_host_bytes=args.prefix_cache_host_mb << 20,
             kv_block=args.kv_block, kv_blocks=args.kv_blocks,
             kv_dtype=args.kv_dtype if args.kv_block else None,
             device=device, seed=args.seed)
@@ -272,6 +325,48 @@ def load_engine(args):
         # the paged guards (model family, the CUDA kernel's coverage):
         # exit with the engine's reason instead of serving another cache
         raise SystemExit(f"--kv-block {args.kv_block}: {e}")
+
+
+class _NullScheduler:
+    """A scheduler that drives nothing: a node without a decode loop."""
+
+    healthy = True
+    status = "ok"
+    reject = "this node runs no decode loop"
+
+    def __init__(self):
+        from ..telemetry import Registry
+        from ..telemetry.flight import FlightRecorder
+        self.stats: dict = {}
+        self.registry = Registry()
+        self.flight = FlightRecorder()
+
+    def start(self):
+        pass
+
+    def stop(self):
+        pass
+
+    def submit(self, req):
+        raise RuntimeError(self.reject)
+
+    def begin_drain(self):
+        pass
+
+    def drain_idle(self):
+        return True  # nothing in flight to wait for
+
+
+class _PrefillNodeScheduler(_NullScheduler):
+    """PD prefill nodes have no decode loop; completions are rejected
+    and the work arrives through /pd/prefill instead."""
+
+    reject = ("this node serves PD prefill only (route completions to "
+              "the decode pool)")
+
+    def __init__(self, engine):
+        super().__init__()
+        self.engine = engine
 
 
 class DrainController:
@@ -358,6 +453,9 @@ def build_server(argv=None):
     Returns (server, scheduler, engine); the caller stops the server."""
     from ..priority import coerce_priority, parse_weight_spec
     from ..telemetry.flight import FlightRecorder
+    from ..telemetry.reqlog import coerce as coerce_reqlog
+    from ..telemetry.tracing import SpanLog
+    from .pd import RemotePrefillEngine, make_pd_prefill_handler
     from .scheduler import Scheduler
     from .server import EngineServer
     from .tokenizer import load_tokenizer
@@ -390,33 +488,58 @@ def build_server(argv=None):
     except ValueError as e:
         raise SystemExit(str(e))
     engine = load_engine(args)
-    scheduler = Scheduler(engine, overlap=True,
-                          spec_tokens=args.spec_tokens,
-                          steps_per_dispatch=args.steps_per_dispatch,
-                          max_restarts=args.max_restarts,
-                          max_queue_wait=args.max_queue_wait,
-                          pipeline_depth=args.pipeline_depth,
-                          span_log=args.span_log,
-                          flight=FlightRecorder(
-                              capacity=max(args.flight_events, 16)),
-                          flight_dump_dir=args.flight_dump_dir,
-                          class_weights=class_weights,
-                          class_wait_caps=class_wait_caps,
-                          priority_scheduling=not
-                          args.no_priority_scheduling)
+    reqlog = coerce_reqlog(args.request_log)
+    span_log = SpanLog(args.span_log, component="engine") \
+        if args.span_log else None
+    pd_prefill = None
+    if args.disaggregation_mode == "prefill":
+        pd_prefill = make_pd_prefill_handler(engine)
+        scheduler = _PrefillNodeScheduler(engine)
+    else:
+        if args.disaggregation_mode == "decode":
+            # one reqlog for the server's request records and the PD
+            # client's peer-failure records, joinable by trace id
+            engine = RemotePrefillEngine(
+                engine, peer_urls=prefill_urls(args),
+                timeout=args.pd_attempt_timeout,
+                local_fallback=args.pd_local_fallback,
+                request_log=reqlog, span_log=span_log)
+            log.info("PD decode node: prefill pool %s%s",
+                     prefill_urls(args),
+                     " (local fallback)" if args.pd_local_fallback else "")
+        elif args.prefix_cache_mb > 0:
+            # a replica with a prefix cache is also a prefix DONOR: peers
+            # fetch hot prefix KV over the same /pd/prefill path
+            pd_prefill = make_pd_prefill_handler(engine)
+        scheduler = Scheduler(engine, overlap=True,
+                              spec_tokens=args.spec_tokens,
+                              steps_per_dispatch=args.steps_per_dispatch,
+                              max_restarts=args.max_restarts,
+                              max_queue_wait=args.max_queue_wait,
+                              pipeline_depth=args.pipeline_depth,
+                              span_log=span_log,
+                              flight=FlightRecorder(
+                                  capacity=max(args.flight_events, 16)),
+                              flight_dump_dir=args.flight_dump_dir,
+                              class_weights=class_weights,
+                              class_wait_caps=class_wait_caps,
+                              priority_scheduling=not
+                              args.no_priority_scheduling)
     name = args.model_name or args.model_dir.rstrip("/").rsplit("/", 1)[-1]
     server = EngineServer(scheduler, tokenizer=load_tokenizer(
                               args.model_dir),
                           model_name=name, host=args.host, port=args.port,
-                          request_log=args.request_log,
+                          request_log=reqlog, pd_prefill=pd_prefill,
                           debug_endpoints=args.debug_endpoints)
     log.info("serving %s on %s:%d (device=%s slots=%d max_seq=%d "
              "kv_block=%d kv_dtype=%s quantization=%s spec_tokens=%d "
-             "steps_per_dispatch=%d)", name, args.host, server.port,
+             "steps_per_dispatch=%d prefix_cache_host_mb=%d "
+             "disaggregation_mode=%s)", name, args.host, server.port,
              engine.device, engine.max_slots, engine.max_seq,
              engine.kv_block, args.kv_dtype if engine.kv_block else "-",
              args.quantization, args.spec_tokens,
-             args.steps_per_dispatch)
+             args.steps_per_dispatch, args.prefix_cache_host_mb,
+             args.disaggregation_mode)
     server.start()
     return server, scheduler, engine
 

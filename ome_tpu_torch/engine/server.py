@@ -11,8 +11,13 @@ Structured outputs: `response_format` `json_object` and `json_schema`
 (whose `pattern` keywords take regular expressions) attach a grammar
 masker to the request, as in the reference; `text` is unconstrained.
 
-Not ported yet: embeddings, PD prefill, LoRA adapter hot-load and the
-on-demand profiler (`POST /debug/profile` answers 501).
+PD and prefix reuse: `POST /pd/prefill` runs the `pd_prefill` handler
+(engine/pd.py) of a PD prefill node or of a replica that donates its
+prefix cache, and answers the KV wire blob; a completion's
+`X-OME-Prefix-Peer` header names the replica to fetch its prefix from.
+
+Not ported yet: embeddings, LoRA adapter hot-load and the on-demand
+profiler (`POST /debug/profile` answers 501).
 """
 
 from __future__ import annotations
@@ -92,8 +97,12 @@ class EngineServer:
                  registry: Optional[Registry] = None,
                  request_log=None,
                  debug_endpoints: bool = False,
-                 fetch_bps: Optional[float] = None):
+                 fetch_bps: Optional[float] = None,
+                 pd_prefill=None):
         self.scheduler = scheduler
+        # engine/pd.py make_pd_prefill_handler: a PD prefill node's, or
+        # a prefix donor's, POST /pd/prefill (None: 404)
+        self.pd_prefill = pd_prefill
         self.tokenizer = tokenizer or load_tokenizer()
         self.model_name = model_name
         # measured weight-fetch throughput from the published fetch
@@ -341,12 +350,31 @@ class EngineServer:
                     return self._complete(payload, chat=False)
                 if self.path == "/v1/chat/completions":
                     return self._complete(payload, chat=True)
-                if self.path in ("/v1/embeddings", "/pd/prefill",
-                                 "/v1/adapters"):
+                if self.path == "/pd/prefill":
+                    return self._pd_prefill(payload)
+                if self.path in ("/v1/embeddings", "/v1/adapters"):
                     return self._json(404, {
                         "error": f"{self.path} is not ported to the "
                                  "PyTorch engine yet"})
                 self._json(404, {"error": "not found"})
+
+            def _pd_prefill(self, payload):
+                if outer.pd_prefill is None:
+                    return self._json(404, {
+                        "error": "this node does not serve PD prefill "
+                                 "(--disaggregation-mode prefill, or a "
+                                 "prefix cache)"})
+                try:
+                    blob = outer.pd_prefill(payload)
+                except Exception as e:  # noqa: BLE001 — surface to the
+                    # decode node, which fails the one request
+                    return self._json(500, {"error": str(e)})
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "application/octet-stream")
+                self.send_header("Content-Length", str(len(blob)))
+                self.end_headers()
+                self.wfile.write(blob)
 
             def _profile(self):
                 """POST /debug/profile — the on-demand profiler capture
@@ -468,6 +496,11 @@ class EngineServer:
                     top_k=int(payload.get("top_k", 0)),
                     top_p=float(payload.get("top_p", 1.0)),
                     masker=masker, adapter=adapter, deadline=deadline,
+                    # router-injected donor peer for cross-replica
+                    # prefix reuse; admission fetches the prefix KV
+                    # from it (engine/peering.py) or recomputes
+                    prefix_peer=self.headers.get("X-OME-Prefix-Peer")
+                    or None,
                     # adopt the router's trace (traceparent header) or
                     # mint one, so standalone engines still correlate
                     trace=tracing.from_headers(self.headers),

@@ -34,9 +34,15 @@ ctypes on PyTorch's current stream.
   table[b, 0] = b. Bound: the int8 K/V bytes in [lo, hi) plus their
   scales. As in the reference it is not wired into serving.
 
-All three take every GQA group size G = H/K from 1 to MAX_GROUP (16),
-as the reference's kernels take any G; G > 16 is refused by name
-(`check_group`).
+All three take every GQA group size G = H/K, as the reference's
+kernels do. One launch folds at most MAX_GROUP (16) query heads of a KV
+head into its rows; for G > 16 the wrapper splits the query heads, not
+the kernel (`head_split`): the G axis is cut into ceil(G / 16) chunks of
+sizes that differ by at most one, each chunk runs the same kernel with
+H' = K G_c query heads over the same K/V, and its output is written back
+into its heads. Head kh G_c + j of a chunk still maps to KV head kh, so
+every head's arithmetic is the kernel's at G <= 16; the price is that
+K/V is read once per chunk.
 
 Beside each kernel sits its plain PyTorch version (`flash_decode_ref`,
 `flash_prefill_ref`, `flash_decode_quantized_ref`). A wrapper uses the
@@ -64,9 +70,9 @@ LAUNCHES = {"flash_decode": 0, "flash_prefill": 0,
             "int4_matmul": 0}
 
 _DIMS = (64, 128)
-# query heads per KV head (G = H / K) the kernels take: 1 to 16, any of
-# them (kMaxGroup in csrc/decode_core.cuh). The reference's kernels also
-# take G > 16 (MQA-style); the port refuses it by name.
+# query heads per KV head (G = H / K) one launch takes: 1 to 16, any of
+# them (kMaxGroup in csrc/decode_core.cuh). A larger G is split into
+# chunks of at most MAX_GROUP heads (`head_split`), one launch each.
 MAX_GROUP = 16
 _RECIP_127 = 1.0 / 127.0    # rounded to f32 where it multiplies a f32 tensor
 
@@ -78,12 +84,47 @@ def reset_launches() -> None:
 
 def check_group(name: str, H: int, K: int) -> None:
     """Raise NotImplementedError unless H query heads over K KV heads
-    form a group size G = H / K the CUDA kernels take (1 to MAX_GROUP)."""
-    if K <= 0 or H % K or not 1 <= H // K <= MAX_GROUP:
+    form a whole group size G = H / K >= 1 (any G: one launch takes up
+    to MAX_GROUP heads per KV head, `head_split` cuts a larger G)."""
+    if K <= 0 or H < K or H % K:
         raise NotImplementedError(
-            f"{name}: the CUDA kernels take G = H/K query heads per KV "
-            f"head from 1 to {MAX_GROUP}, got H={H}, K={K}; G > "
-            f"{MAX_GROUP} (MQA-style) is not ported")
+            f"{name}: the CUDA kernels take G = H/K >= 1 whole query heads "
+            f"per KV head, got H={H}, K={K}")
+
+
+def group_chunks(G: int) -> List[Tuple[int, int]]:
+    """(first head, heads) of each chunk of a group of G query heads:
+    ceil(G / MAX_GROUP) chunks whose sizes differ by at most one, larger
+    first. One chunk (0, G) for G <= MAX_GROUP."""
+    n = -(-G // MAX_GROUP)
+    size, extra = divmod(G, n)
+    out, g0 = [], 0
+    for i in range(n):
+        gc = size + (i < extra)
+        out.append((g0, gc))
+        g0 += gc
+    return out
+
+
+def head_split(launch, q: torch.Tensor, K: int) -> torch.Tensor:
+    """Run `launch(q')` on each chunk of q's query heads and put the
+    outputs back in their heads. q [B, Sq, H, D] with G = H / K heads
+    per KV head, viewed as [B, Sq, K, G, D]; chunk (g0, gc) is the
+    contiguous [B, Sq, K gc, D] tensor of heads g0 .. g0 + gc - 1 of
+    every KV head, so its head kh gc + j still attends KV head kh.
+    `launch` maps such a q' to an output of its shape. G <= MAX_GROUP
+    calls `launch(q)` once, unchanged."""
+    B, Sq, H, D = q.shape
+    G = H // K
+    chunks = group_chunks(G)
+    if len(chunks) == 1:
+        return launch(q)
+    qg = q.reshape(B, Sq, K, G, D)
+    out = torch.empty_like(qg)
+    for g0, gc in chunks:
+        qc = qg[:, :, :, g0:g0 + gc].reshape(B, Sq, K * gc, D).contiguous()
+        out[:, :, :, g0:g0 + gc] = launch(qc).reshape(B, Sq, K, gc, D)
+    return out.reshape(B, Sq, H, D)
 
 
 # -- plain versions ---------------------------------------------------------
@@ -411,18 +452,22 @@ def flash_decode(q, k, v, lo, hi, scale: float,
     fn = _build.kernel("flash_decode")
     dev = q.device
     lo, hi = _int32(lo, dev), _int32(hi, dev)
-    grid, unit_rows, part, cnt, stream = _decode_workspace(
-        "flash_decode", q, K, S)
-    out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), out.data_ptr(), part.data_ptr(), cnt.data_ptr(),
-            B, S, H, K, D, unit_rows, grid, float(scale),
-            float(softcap or 0.0), int(q.dtype == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_decode: kernel launch failed with "
-                           f"CUDA error {rc}")
-    LAUNCHES["flash_decode"] += 1
-    return out
+
+    def launch(qc):
+        grid, unit_rows, part, cnt, stream = _decode_workspace(
+            "flash_decode", qc, K, S)
+        out = torch.empty_like(qc)
+        rc = fn(qc.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
+                hi.data_ptr(), out.data_ptr(), part.data_ptr(),
+                cnt.data_ptr(), B, S, qc.shape[2], K, D, unit_rows, grid,
+                float(scale), float(softcap or 0.0),
+                int(q.dtype == torch.bfloat16), stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_decode: kernel launch failed with "
+                               f"CUDA error {rc}")
+        LAUNCHES["flash_decode"] += 1
+        return out
+    return head_split(launch, q, K)
 
 
 def flash_prefill(q, k, v, base, kv_hi, scale: float,
@@ -442,33 +487,35 @@ def flash_prefill(q, k, v, base, kv_hi, scale: float,
     fn = _build.kernel("flash_prefill")
     dev = q.device
     base, kv_hi = _int32(base, dev), _int32(kv_hi, dev)
-    out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), base.data_ptr(),
-            kv_hi.data_ptr(), out.data_ptr(), B, Sq, S, H, K, D,
-            float(scale), float(softcap or 0.0), int(window or 0),
-            int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_prefill: kernel launch failed with "
-                           f"CUDA error {rc}")
-    LAUNCHES["flash_prefill"] += 1
-    return out
+
+    def launch(qc):
+        out = torch.empty_like(qc)
+        rc = fn(qc.data_ptr(), k.data_ptr(), v.data_ptr(), base.data_ptr(),
+                kv_hi.data_ptr(), out.data_ptr(), B, Sq, S, qc.shape[2], K,
+                D, float(scale), float(softcap or 0.0), int(window or 0),
+                int(q.dtype == torch.bfloat16),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"flash_prefill: kernel launch failed with "
+                               f"CUDA error {rc}")
+        LAUNCHES["flash_prefill"] += 1
+        return out
+    return head_split(launch, q, K)
 
 
 def check_paged_coverage(block: int, head_dim: int, num_heads: int,
                          num_kv_heads: int) -> None:
     """Raise ValueError unless the paged decode kernel takes this
     shape: pool blocks a multiple of its 32-row tile, head_dim 64 or
-    128, and G = H / K from 1 to MAX_GROUP."""
-    G = num_heads // num_kv_heads if num_kv_heads > 0 else 0
+    128, and a whole G = H / K >= 1 (any G: `head_split` cuts G > 16)."""
     if block <= 0 or block % 32 or head_dim not in _DIMS or \
-            num_heads % max(num_kv_heads, 1) or not 1 <= G <= MAX_GROUP:
+            num_kv_heads <= 0 or num_heads < num_kv_heads or \
+            num_heads % num_kv_heads:
         raise ValueError(
             f"the CUDA paged decode kernel needs a KV block that is a "
-            f"multiple of 32, head_dim 64 or 128 and G = H/K from 1 to "
-            f"{MAX_GROUP} (got kv_block={block}, head_dim={head_dim}, "
-            f"heads={num_heads}, kv_heads={num_kv_heads}; G > "
-            f"{MAX_GROUP}, MQA-style, is not ported)")
+            f"multiple of 32, head_dim 64 or 128 and a whole G = H/K >= 1 "
+            f"(got kv_block={block}, head_dim={head_dim}, "
+            f"heads={num_heads}, kv_heads={num_kv_heads})")
 
 
 def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,
@@ -530,22 +577,25 @@ def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,
     hi = _int32(hi, dev)
     lo = None if lo is None else _int32(lo, dev)
     M = table.shape[1]
-    grid, unit_rows, part, cnt, stream = _decode_workspace(name, q, K,
-                                                           M * bs)
-    out = torch.empty_like(q)
-    rc = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            k_scale.data_ptr() if quantized else None,
-            v_scale.data_ptr() if quantized else None,
-            table.data_ptr(), None if lo is None else lo.data_ptr(),
-            hi.data_ptr(), out.data_ptr(),
-            part.data_ptr(), cnt.data_ptr(), B, N, bs, M, H, K, D,
-            unit_rows, grid, float(scale), float(softcap or 0.0),
-            int(q.dtype == torch.bfloat16), int(quantized), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{rc}")
-    LAUNCHES[name] += 1
-    return out
+
+    def launch(qc):
+        grid, unit_rows, part, cnt, stream = _decode_workspace(
+            name, qc, K, M * bs)
+        out = torch.empty_like(qc)
+        rc = fn(qc.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                k_scale.data_ptr() if quantized else None,
+                v_scale.data_ptr() if quantized else None,
+                table.data_ptr(), None if lo is None else lo.data_ptr(),
+                hi.data_ptr(), out.data_ptr(),
+                part.data_ptr(), cnt.data_ptr(), B, N, bs, M, qc.shape[2],
+                K, D, unit_rows, grid, float(scale), float(softcap or 0.0),
+                int(q.dtype == torch.bfloat16), int(quantized), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
+                               f"error {rc}")
+        LAUNCHES[name] += 1
+        return out
+    return head_split(launch, q, K)
 
 
 def _kv_hi(kv_len, B: int, S: int, device) -> torch.Tensor:

@@ -20,8 +20,9 @@ term), bridged to the port with `from_jax_params`. Then, on the CPU:
 * int8 and int4 quantization of a bf16 Qwen2 / Qwen3 tree gives the
   reference's bytes for every quantized leaf and leaves the biases and
   the q/k norm scales in full precision, as the reference does;
-* the kernels' group-size gates take every G from 1 to 16 and refuse
-  G > 16 by name, before any launch.
+* the kernels' group-size gates take every whole G (above 16 through
+  head chunks) and refuse a group that is not whole by name, before any
+  launch; G 17 on a CUDA tensor goes to the kernel, not the plain path.
 """
 
 import json
@@ -271,15 +272,19 @@ def test_quantized_tree_matches_reference_bytes(family, mode):
 @pytest.mark.parametrize("G", [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13,
                                14, 15, 16, 17, 24, 32])
 def test_group_gates_take_1_to_16_and_refuse_more_by_name(G):
+    # every whole G is taken: up to 16 in one launch, more in
+    # ceil(G / 16) head chunks (flash.head_split); a group that is not
+    # whole is refused by name
     H, K = 2 * G, 2
-    if G <= flash.MAX_GROUP:
-        flash.check_group("flash_decode", H, K)
-        flash.check_paged_coverage(128, 128, H, K)
-        return
-    with pytest.raises(NotImplementedError, match="MQA-style"):
-        flash.check_group("flash_prefill", H, K)
-    with pytest.raises(ValueError, match="MQA-style"):
-        flash.check_paged_coverage(128, 128, H, K)
+    flash.check_group("flash_decode", H, K)
+    flash.check_paged_coverage(128, 128, H, K)
+    chunks = flash.group_chunks(G)
+    assert len(chunks) == -(-G // flash.MAX_GROUP)
+    assert all(gc <= flash.MAX_GROUP for _, gc in chunks)
+    with pytest.raises(NotImplementedError, match="G = H/K"):
+        flash.check_group("flash_prefill", H + 1, K)
+    with pytest.raises(ValueError, match="G = H/K"):
+        flash.check_paged_coverage(128, 128, H + 1, K)
 
 
 class _FakeCuda(torch.Tensor):
@@ -292,15 +297,31 @@ class _FakeCuda(torch.Tensor):
 
 
 @pytest.mark.parametrize("entry", ["decode", "prefill"])
-def test_wrappers_refuse_g_over_16_before_any_launch(entry):
+def test_wrappers_refuse_g_over_16_before_any_launch(entry, monkeypatch):
+    # G 17 on a CUDA tensor goes to the kernel (split into head chunks),
+    # never to the plain path: here the build is stubbed to stop there.
+    # A group that is not whole is refused before any launch.
+    from ome_tpu_torch.ops import _build
+
+    class Built(Exception):
+        pass
+
+    def kernel(name):
+        raise Built(name)
+    monkeypatch.setattr(_build, "kernel", kernel)
     before = dict(flash.LAUNCHES)
     k = torch.zeros(1, 8, 1, 64)
     q = torch.zeros(1, 1 if entry == "decode" else 4, 17, 64)
     q = q.as_subclass(_FakeCuda)
-    with pytest.raises(NotImplementedError, match="G = H/K"):
+
+    def call(q, k):
         if entry == "decode":
-            flash.flash_decode(q, k, k, torch.zeros(1), torch.ones(1), 0.125)
-        else:
-            flash.flash_prefill(q, k, k, torch.zeros(1), torch.ones(1),
-                                0.125)
+            return flash.flash_decode(q, k, k, torch.zeros(1), torch.ones(1),
+                                      0.125)
+        return flash.flash_prefill(q, k, k, torch.zeros(1), torch.ones(1),
+                                   0.125)
+    with pytest.raises(Built, match=f"flash_{entry}"):
+        call(q, k)
+    with pytest.raises(NotImplementedError, match="G = H/K"):
+        call(q, torch.zeros(1, 8, 2, 64))
     assert flash.LAUNCHES == before

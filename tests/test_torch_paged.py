@@ -195,8 +195,10 @@ def test_cuda_coverage_check():
     flash.check_paged_coverage(32, 64, 8, 8)
     flash.check_paged_coverage(128, 128, 24, 8)   # G 3: Llama-3.2-3B
     flash.check_paged_coverage(128, 128, 28, 4)   # G 7: Qwen2.5-7B
+    flash.check_paged_coverage(128, 128, 34, 2)   # G 17: two head chunks
+    flash.check_paged_coverage(128, 128, 32, 1)   # G 32 (MQA)
     for bad in ((48, 128, 32, 8), (0, 128, 32, 8), (128, 96, 32, 8),
-                (128, 16, 8, 4), (128, 128, 34, 2), (128, 128, 32, 1)):
+                (128, 16, 8, 4), (128, 128, 33, 2), (128, 128, 1, 2)):
         with pytest.raises(ValueError, match="kv_block"):
             flash.check_paged_coverage(*bad)
 

@@ -7,10 +7,17 @@ health/metrics surface over HTTP; `--quantization int8|int4|fp8`
 servers answer too. Flags outside the port so far (and values the port
 refuses, such as `--quantization nf4`, a negative `--kv-block`,
 `--kv-dtype int8` without one, a negative `--spec-tokens` or
-`--steps-per-dispatch 0`) must exit with a message that names them, a
+`--steps-per-dispatch 0`, `--disaggregation-mode decode` without a
+prefill URL, a prefill URL without it) must exit with a message that
+names them, a
 model directory without weights must exit naming `--model-dir` unless
 `--random-weights` is given, and asking for CUDA where there is no card
-must raise.
+must raise. The flags of the host tier and of PD disaggregation are
+served: `--prefix-cache-host-mb`, a `--disaggregation-mode prefill` node
+(completions 503, `/pd/prefill` answers), a `--disaggregation-mode
+decode` node whose pool is `--prefill-peer` plus `--prefill-url`
+(`--pd-attempt-timeout`) answering what a monolithic server answers,
+and `--pd-local-fallback` serving with no live peer.
 """
 
 import json
@@ -115,7 +122,7 @@ def test_health_metrics_and_refusals(served):
 
 @pytest.mark.parametrize("argv", [
     ["--tp", "2"], ["--quantization", "nf4"], ["--kv-block", "-16"],
-    ["--kv-dtype", "int8"], ["--prefix-cache-host-mb", "64"],
+    ["--kv-dtype", "int8"], ["--profile-dir", "/nonexistent"],
     ["--disaggregation-mode", "decode"], ["--spec-tokens", "-1"],
     ["--steps-per-dispatch", "0"], ["--journal", "/nonexistent"],
     ["--task", "embed"], ["--ledger-mode", "auto"],
@@ -177,3 +184,74 @@ def test_cuda_without_a_card_raises(model_dir):
     with pytest.raises(RuntimeError, match="is_available"):
         serve.build_server(["--model-dir", model_dir, "--random-weights",
                             "--port", "0"])
+
+
+def _cpu_server(model_dir, *argv):
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return serve.build_server(
+            ["--model-dir", model_dir, "--random-weights", "--device", "cpu",
+             "--host", "127.0.0.1", "--port", "0", "--max-slots", "2",
+             "--max-seq", "128", "--dtype", "float32", *argv])
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_host_tier_flag_is_served(model_dir):
+    server, sched, engine = _cpu_server(
+        model_dir, "--prefix-cache-mb", "1", "--prefix-cache-host-mb", "64")
+    try:
+        pc = engine.prefix_cache
+        assert (pc.capacity_bytes, pc.host_capacity_bytes) == (1 << 20,
+                                                               64 << 20)
+        url = f"http://127.0.0.1:{server.port}"
+        body = {"prompt": list(range(5, 45)), "max_tokens": 3}
+        assert _post(url, body)[0] == 200
+        with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+            text = r.read().decode()
+        assert "ome_engine_prefix_host_bytes" in text
+        assert engine.kv_conservation()[0]
+    finally:
+        server.stop()
+
+
+def test_pd_flags_are_served(model_dir):
+    mono = _cpu_server(model_dir)[0]
+    pre = _cpu_server(model_dir, "--disaggregation-mode", "prefill")[0]
+    dead = "http://127.0.0.1:9"
+    dec, _, eng = _cpu_server(
+        model_dir, "--disaggregation-mode", "decode",
+        "--prefill-peer", dead,
+        "--prefill-url", f"http://127.0.0.1:{pre.port}",
+        "--pd-attempt-timeout", "5")
+    alone = _cpu_server(model_dir, "--disaggregation-mode", "decode",
+                        "--prefill-url", dead, "--pd-local-fallback")[0]
+    try:
+        assert eng.pool.urls == [dead, f"http://127.0.0.1:{pre.port}"]
+        assert eng.timeout == 5.0 and not eng.local_fallback
+        body = {"prompt": list(range(5, 45)), "max_tokens": 5}
+        want = json.loads(_post(f"http://127.0.0.1:{mono.port}", body)[1])
+        for srv in (dec, alone):
+            status, got = _post(f"http://127.0.0.1:{srv.port}", body)
+            assert status == 200
+            assert json.loads(got)["choices"] == want["choices"]
+        status, _ = _post(f"http://127.0.0.1:{pre.port}", body)
+        assert status == 503
+        status, blob = _post(f"http://127.0.0.1:{pre.port}",
+                             {"ids": [5, 6, 7]}, path="/pd/prefill")
+        assert status == 200 and len(blob) > 4
+        # a plain replica with a prefix cache donates its prefixes too
+        status, _ = _post(f"http://127.0.0.1:{mono.port}",
+                          {"ids": [5, 6, 7]}, path="/pd/prefill")
+        assert status == 200
+    finally:
+        for srv in (mono, pre, dec, alone):
+            srv.stop()
+
+
+def test_prefill_urls_need_the_decode_mode(model_dir):
+    with pytest.raises(SystemExit, match="--disaggregation-mode decode"):
+        serve.build_server(["--model-dir", model_dir, "--random-weights",
+                            "--device", "cpu", "--prefill-url",
+                            "http://127.0.0.1:9"])
