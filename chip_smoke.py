@@ -43,6 +43,14 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    check; B3 over bf16 and int8 pools and B5 at every one of them, and
    at G 7 also over an fp32 pool, with bitwise repeats and with NaN
    outside the windows);
+3a. head_dim 96 and 256 (`HEAD_DIM_SHAPES`: Phi-3-mini's H 32, K 32,
+   D 96 and Gemma-2-9B's H 16, K 8, D 256): B1 in bf16 and fp32 and with
+   window + softcap, B2 causal 2048 and window + softcap in bf16 and a
+   suffix chunk in fp32, B3 over bf16, fp32 and int8 pools (at D 96
+   also with Phi-3-mini's 64-row blocks and 2047-row window, lo > 0 and
+   off the tile grid, NaN outside the windows), B5, each against its
+   plain version; at D 96 B1 and B3 (bf16 and int8 pools) repeat their
+   bits;
 4. serve: the OpenAI HTTP server from `ome_tpu_torch.engine.serve.
    build_server` at the Llama-3-8B shape (random bf16 weights from a
    seed), answering concurrent completions, a stream, a prefix-cache hit
@@ -117,7 +125,20 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    (`phase_pd`), bf16 dense and int8 paged, with each fetch's split,
    failover across two prefill URLs and `--pd-local-fallback`;
 24. cross-replica prefix reuse (`phase_peering`): an `X-OME-Prefix-Peer`
-   fetch from a donor replica, streams equal, one peer fetch counted.
+   fetch from a donor replica, streams equal, one peer fetch counted;
+25./26. Phi-3-mini-4k at full size (`PHI3_MINI_4K`: 32 layers, D 96,
+   G 1, window 2047), bf16: the dense server as phase 4 (prompts of up
+   to 3000 tokens, past the window: B1 and B2 at D 96 through their
+   window paths) and the paged bf16 server as phase 5 with 64-row
+   blocks (B3 at D 96, the window's first row as lo);
+27. Phi-3-mini widths, 4 layers, fp32: dense and paged (64-row blocks)
+   streams identical, prompts of up to 2500 tokens;
+28. durable requests (`phase_journal`): a `--journal` server killed
+   mid-decode (`engine_step.raise@N`, `--max-restarts 0`) and a fresh
+   server resuming from the same directory: at 4 fp32 layers of
+   Phi-3-mini widths the resumed stream is byte-identical to an
+   uninterrupted server's; at full size in bf16 the first differing
+   token is reported; journal bytes, appends and the replay time.
 
 The kernels phase also runs B2 at the dense verify's shape: B 8 slots,
 Sq 5 rows each from its own base (60 to 4090) over a 4096-row cache,
@@ -202,6 +223,19 @@ MIXTRAL_8X7B = {"_source": "mistralai/Mixtral-8x7B-v0.1 config.json",
 # Mixtral-8x7B in bf16 is ~93 GB at 32 layers; the card has 80 GB, so
 # the served model keeps 16 of its layers (~47 GB), at full width
 MIXTRAL_SERVED_LAYERS = 16
+PHI3_MINI_4K = {"_source": "microsoft/Phi-3-mini-4k-instruct config.json",
+                "architectures": ["Phi3ForCausalLM"], "model_type": "phi3",
+                "vocab_size": 32064, "hidden_size": 3072,
+                "num_hidden_layers": 32, "num_attention_heads": 32,
+                "num_key_value_heads": 32, "intermediate_size": 8192,
+                "rope_theta": 10000.0, "rope_scaling": None,
+                "rms_norm_eps": 1e-5, "max_position_embeddings": 4096,
+                "original_max_position_embeddings": 4096,
+                "sliding_window": 2047, "hidden_act": "silu",
+                "attention_bias": False, "tie_word_embeddings": False}
+# Gemma-2-9B's attention shape (16 query heads over 8 KV heads of 256;
+# google/gemma-2-9b config.json): the kernel cases at head_dim 256
+GEMMA2_9B_HEADS = (16, 8, 256)
 
 
 def _heads(hf):
@@ -216,6 +250,9 @@ def _heads(hf):
 # (Qwen2.5-0.5B: 14 / 2)
 GROUP_SHAPES = (_heads(LLAMA32_3B), (40, 8, 128), (12, 2, 128),
                 _heads(QWEN25_7B), (14, 2, 64))
+# (H, K, D) of the kernel cases at the head_dims past 64 and 128:
+# Phi-3-mini (D 96, G 1) and Gemma-2-9B (D 256, G 2)
+HEAD_DIM_SHAPES = (_heads(PHI3_MINI_4K), GEMMA2_9B_HEADS)
 OUT_DIR = "chiprun_out"
 
 
@@ -304,13 +341,17 @@ def phase_device(torch):
 
 
 def phase_build():
+    """Build the kernels; log ptxas's registers and spills, each under
+    the `Function properties for` line that names its kernel, and any
+    compiler warning."""
     from ome_tpu_torch.ops import _build
     secs = _build.build()
     log(f"[build] nvcc sm_90a build of {sorted(_build.SOURCES)}: "
         f"{secs:.1f} s")
     for name, text in sorted(_build.build_logs.items()):
         for line in text.splitlines():
-            if any(w in line for w in ("registers", "spill", "warning")):
+            if any(w in line for w in ("Function properties for",
+                                       "registers", "spill", "warning")):
                 log(f"[build] {name}: {line.strip()}")
     return secs
 
@@ -592,17 +633,18 @@ def _bound(nbytes, flops, dtype_name):
 
 def paged_case(torch, timer, gen, pool_name, lengths, trash_slot=None,
                B=8, H=32, K=8, D=128, bs=128, M=32, N=257,
-               nan_outside=False, check_bits=False):
+               nan_outside=False, check_bits=False, window=None):
     """B3 over a pool of N blocks with a random permutation table (no
     two sequences share a block; block 0 stays the trash block). A
     `trash_slot` gets an all-zero table row, as a free engine slot has,
-    and a length past M * bs: its output must be finite. `nan_outside`:
-    every pool row outside the windows is NaN (int8: its scales), the
-    blocks outside every table row and the rows of a sequence's blocks
-    past its length; the plain version reads them as 0. `check_bits`:
-    a second launch gives the same bits, and the sequence with the
-    longest window launched alone gives the same bits as in the
-    batch."""
+    and a length past M * bs: its output must be finite. `window`: the
+    served sliding window W, which the wrapper passes on as each
+    sequence's first row lo = length - W. `nan_outside`: every pool row
+    outside the windows is NaN (int8: its scales), the blocks outside
+    every table row and the rows of a sequence's blocks outside
+    [lo, length); the plain version reads them as 0. `check_bits`: a
+    second launch gives the same bits, and the sequence with the longest
+    window launched alone gives the same bits as in the batch."""
     from ome_tpu_torch.ops import flash, paged
     dev = torch.device("cuda")
     qdt = torch.float32 if pool_name == "fp32" else torch.bfloat16
@@ -623,52 +665,53 @@ def paged_case(torch, timer, gen, pool_name, lengths, trash_slot=None,
     if trash_slot is not None:
         table[trash_slot] = 0
     scale = D ** -0.5
+    hi = kv_len.clamp(max=M * bs)
+    lo = paged._window_lo(kv_len, window).clamp(max=M * bs)
     kr, vr, ksr, vsr = kp, vp, ks, vs
     if nan_outside:
-        hi = kv_len.clamp(max=M * bs)
-
         def rows_of(b, r):  # pool row of sequence b's row r
             return table[b, r // bs].long() * bs + r % bs
-        zero = torch.zeros_like(hi)
         if ks is None:
-            kp = _nan_outside(torch, kp, zero, hi, rows_of)
-            vp = _nan_outside(torch, vp, zero, hi, rows_of)
+            kp = _nan_outside(torch, kp, lo, hi, rows_of)
+            vp = _nan_outside(torch, vp, lo, hi, rows_of)
         else:  # int8 values are finite: the scales carry the NaN
             def scales(x):
                 t = x.transpose(1, 2).contiguous()       # [N, bs, K]
-                t = _nan_outside(torch, t, zero, hi, rows_of)
+                t = _nan_outside(torch, t, lo, hi, rows_of)
                 return t.transpose(1, 2).contiguous()
             ks, vs = scales(ks), scales(vs)
 
     def kernel():
         return paged.paged_flash_decode(q, kp, vp, table, kv_len, scale,
-                                        k_scale=ks, v_scale=vs)
+                                        k_scale=ks, v_scale=vs,
+                                        sliding_window=window)
 
     def plain(kk, vv, sk, sv):
         return paged.flash_paged_decode_ref(
             q.float(), kk if sk is not None else kk.float(),
-            vv if sv is not None else vv.float(), table,
-            torch.zeros_like(kv_len), kv_len, scale, k_scale=sk,
-            v_scale=sv)
+            vv if sv is not None else vv.float(), table, lo, kv_len,
+            scale, k_scale=sk, v_scale=sv)
     out, ref = kernel(), plain(kr, vr, ksr, vsr)
     torch.cuda.synchronize()
     label = (f"paged {pool_name} B={B} H={H} K={K} D={D} bs={bs} M={M} "
              f"N={N} lengths={lengths} trash_slot={trash_slot}"
+             + (f" window={window}" if window else "")
              + (" nan_outside" if nan_outside else ""))
     if not torch.isfinite(out.float()).all():
         fail(f"flash_paged_decode {label}: non-finite output")
     err = (out.float() - ref).abs().max().item()
     same = inv = None
     if check_bits:
-        b = int(kv_len.clamp(max=M * bs).argmax())
+        b = int((hi - lo).argmax())
         sl = slice(b, b + 1)
         same, inv = _check_bits(
             torch, f"flash_paged_decode {label}", out, kernel(),
             paged.paged_flash_decode(q[sl], kp, vp, table[sl], kv_len[sl],
-                                     scale, k_scale=ks, v_scale=vs), sl)
+                                     scale, k_scale=ks, v_scale=vs,
+                                     sliding_window=window), sl)
     ms = timer.ms(kernel)
     plain_ms = timer.ms(lambda: plain(kp, vp, ks, vs), iters=5)
-    rows = int(kv_len.clamp(max=M * bs).sum())
+    rows = int((hi - lo).sum())
     esize = kp.element_size()
     nbytes = (2 * rows * K * D * esize + 2 * q.numel() * q.element_size()
               + B * M * 4 + B * 4)
@@ -1177,6 +1220,56 @@ def kernels_ab(torch, other_root: str):
     for case, row in times.items():
         log(f"[ab] {case}: other, this, this, other = {row}")
     return times
+
+
+def serve_ab(torch, other_root: str):
+    """`phase_serve` (the dense Llama-3-8B bf16 server, then its engine
+    step times) with the `ome_tpu_torch` package under `other_root` (a
+    `git archive` of an earlier commit) and with this checkout's, in
+    turns in one call: other, this, this, other, each in a process of
+    its own. Returns {metric: [value x 4]}: the decode step's and the
+    cold 2048-token prefill's wall and device ms and idle share, and
+    the served requests' TTFT and TPOT medians. Run alone:
+
+        python3 -c "import chip_smoke as c, torch; c.phase_device(torch);
+            c.serve_ab(torch, 'DIR')"
+    """
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import sys, json, importlib.util; sys.path[:0] = [{root!r}]\n"
+        "spec = importlib.util.spec_from_file_location('chip_smoke', "
+        "{script!r})\n"
+        "c = importlib.util.module_from_spec(spec)\n"
+        "sys.modules['chip_smoke'] = c\n"
+        "spec.loader.exec_module(c)\n"
+        "import torch\n"
+        "c.phase_build()\n"
+        "r = c.phase_serve(torch)\n"
+        "out = {{'ttft_median_ms': r['ttft_median_s'] * 1e3,\n"
+        "       'tpot_median_ms': r['tpot_median_s'] * 1e3}}\n"
+        "for step, v in r['step'].items():\n"
+        "    for k in ('wall_ms', 'device_ms', 'idle_share'):\n"
+        "        out[step + ' ' + k] = v[k]\n"
+        "print('AB ' + json.dumps(out))\n")
+    rows = {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for turn, root in enumerate((other_root, here, here, other_root)):
+        proc = subprocess.run(
+            [sys.executable, "-c", code.format(
+                root=os.path.abspath(root),
+                script=os.path.abspath(__file__))],
+            capture_output=True, text=True, timeout=900)
+        # each turn's whole log (kernel and host tops of its steps)
+        with open(os.path.join(OUT_DIR, f"serve_ab_{turn}.log"), "w") as f:
+            f.write(f"# {root}\n{proc.stdout}{proc.stderr}")
+        line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
+        if proc.returncode != 0 or not line:
+            fail(f"serve_ab {root}: {proc.stderr[-2000:]}")
+        for key, value in json.loads(line[0][3:]).items():
+            rows.setdefault(key, []).append(value)
+    for key, row in rows.items():
+        log(f"[serve ab] {key}: other, this, this, other = {row}")
+    return rows
 
 
 def _int4_library(torch, qt):
@@ -1937,7 +2030,7 @@ def _first_token_prompts(seed: int, vocab: int):
 
 
 def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
-                      first_tokens=None, model=None):
+                      first_tokens=None, model=None, kv_block: int = 128):
     """The paged server at the Llama-3-8B shape: `--kv-block 128
     --max-slots 16 --max-seq 4096 --kv-blocks 129` (128 usable blocks,
     16384 rows: a quarter of the dense-equivalent 512 blocks), in bf16
@@ -1946,7 +2039,8 @@ def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
     (admission backpressure, preemption); int8: the first-token
     prompts, whose first tokens must equal the bf16 server's. With
     `model`, another published configuration (see `phase_serve`) on the
-    bf16 pool."""
+    bf16 pool; `kv_block` another block size over the same 16384
+    rows."""
     import concurrent.futures
     import random
     import tempfile
@@ -1960,17 +2054,19 @@ def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
     def prompt(n):
         return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
 
-    out = {"kv_dtype": kv_dtype, "model": name}
+    out = {"kv_dtype": kv_dtype, "model": name, "kv_block": kv_block}
     tag = f"[paged {kv_dtype}]" if model is None else \
         f"[paged {kv_dtype} {name}]"
+    n_blocks = 16384 // kv_block + 1
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "config.json"), "w") as f:
             json.dump(hf, f)
         t0 = time.monotonic()
         server, sched, engine = serve.build_server(
             ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
-             "--max-slots", "16", "--max-seq", "4096", "--kv-block", "128",
-             "--kv-blocks", "129", "--kv-dtype", kv_dtype, "--port", "0",
+             "--max-slots", "16", "--max-seq", "4096", "--kv-block",
+             str(kv_block), "--kv-blocks", str(n_blocks), "--kv-dtype",
+             kv_dtype, "--port", "0",
              "--host", "127.0.0.1"])
         if cfg.attn_bias:
             _randomize_biases(torch, engine, seed, model["bias_std"])
@@ -1978,7 +2074,7 @@ def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
         out["startup_s"] = time.monotonic() - t0
         out["device_gib_after_startup"] = torch.cuda.memory_allocated() / 2**30
         log(f"{tag} {name} shape, seed {seed}, slots 16, "
-            f"max_seq 4096, kv_block 128, kv_blocks 129 "
+            f"max_seq 4096, kv_block {kv_block}, kv_blocks {n_blocks} "
             f"({engine.kv_row_bytes()} bytes per cached token): server up "
             f"in {out['startup_s']:.1f} s; device memory "
             f"{out['device_gib_after_startup']:.1f} GiB")
@@ -2036,9 +2132,9 @@ def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
                     f"+ 2 twins: all 200, "
                     f"{out['batch_completion_tokens']} tokens in "
                     f"{out['batch_s']:.2f} s; twins identical")
-                # 2040-token prompts take 16 blocks each and need a 17th
-                # at their 9th token: with the pool full of them, decode
-                # growth has to preempt
+                # 2040-token prompts fill 2048 / kv_block blocks each and
+                # need one more at their 9th token: with the pool full of
+                # them, decode growth has to preempt
                 burst = [{"prompt": prompt(2040), "max_tokens": 32,
                           "temperature": 0.0} for _ in range(12)]
                 t_burst = time.monotonic()
@@ -2966,6 +3062,300 @@ def phase_serve_stepplan(torch, paged: bool, seed: int = 0, before=None):
     return out
 
 
+# -- head_dim 96 and 256 ------------------------------------------------------
+
+
+def phase_headdim_kernels(torch):
+    """B1, B2, B3 and B5 at head_dim 96 (Phi-3-mini: H 32, K 32) and
+    256 (Gemma-2-9B: H 16, K 8), each against its plain version with
+    its existing tolerance: B1 in bf16 and fp32 at the 8B lengths and
+    with window + softcap; B2 causal 2048 and window + softcap in bf16,
+    a suffix chunk in fp32; B3 over bf16, fp32 and int8 pools, at D 96
+    first as the Phi-3-mini paged server calls it (64-row blocks, window
+    2047, so lo > 0 and off the tile grid); B5. At D 96, B1 and B3 (bf16
+    and int8 pools) repeat their bits and give a sequence alone the bits
+    it has in the batch."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    timer = Timer(torch, torch.device("cuda"))
+    lengths = [0, 1, 17, 128, 300, 1023, 2049, 4095]
+    plens = [1, 17, 128, 300, 1023, 2049, 4095, 4096]
+    # lengths around and past Phi-3-mini's 2047-row window: lo = 0, 0,
+    # 1, 53, 483, 954, 1953, 2049
+    wlens = [5, 2047, 2048, 2100, 2530, 3001, 4000, 4096]
+    cases = {"flash_decode": [], "flash_prefill": [],
+             "flash_paged_decode": [], "flash_decode_quantized": []}
+    for H, K, D in HEAD_DIM_SHAPES:
+        bits = D == 96
+        kw = {"H": H, "K": K, "D": D}
+        cases["flash_decode"] += [
+            decode_case(torch, timer, gen, "bf16", lengths, check_bits=bits,
+                        **kw),
+            decode_case(torch, timer, gen, "fp32", lengths, **kw),
+            decode_case(torch, timer, gen, "bf16", lengths, window=256,
+                        softcap=30.0, **kw)]
+        cases["flash_prefill"] += [
+            prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0, **kw),
+            prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0,
+                         window=512, softcap=50.0, **kw),
+            prefill_case(torch, timer, gen, "fp32", 512, 2048, 1024, **kw)]
+        if D == 96:
+            # the Phi-3-mini paged server's shape: 64-row blocks and its
+            # 2047-row window, whose first rows (lo) fall inside tiles;
+            # NaN outside the windows shows that no row before lo counts
+            cases["flash_paged_decode"] += [
+                paged_case(torch, timer, gen, pool, wlens, bs=64, M=64,
+                           N=8 * 64 + 1, window=2047, nan_outside=True,
+                           check_bits=pool != "fp32", **kw)
+                for pool in ("bf16", "fp32", "int8")]
+        cases["flash_paged_decode"] += [
+            paged_case(torch, timer, gen, pool, plens,
+                       check_bits=bits and pool != "fp32", **kw)
+            for pool in ("bf16", "fp32", "int8")]
+        cases["flash_decode_quantized"].append(
+            quantized_case(torch, timer, gen, lengths, **kw))
+    for name, rows in cases.items():
+        for c in rows:
+            lib = c["library_ms"]
+            log(f"[head_dim] {name}: {c['case']}: ms {c['ms']:.4f}, bound "
+                f"{c['bound_ms']:.4f} ms ({c['bound_by']}), share "
+                f"{c['bound_ms'] / c['ms']:.3f}, plain {c['plain_ms']:.4f} "
+                f"ms, masked SDPA "
+                f"{'null' if lib is None else f'{lib:.4f} ms'}"
+                + ("" if c.get("same_bits") is None else
+                   f"; two launches bitwise equal {c['same_bits']}; "
+                   f"alone = in batch {c['batch_invariant']}"))
+    return check_cases(cases)
+
+
+def phase_phi3_identity(torch, seed: int = 0, n_layers: int = 4,
+                        steps: int = 32):
+    """Phi-3-mini widths (`PHI3_MINI_4K`: D 96, G 1, window 2047),
+    `n_layers` deep, fp32, through the engine API: the dense engine (B1)
+    and the paged engine over fp32 pools of 64-row blocks (B3, the
+    window's first row as its lo) give identical greedy streams for 4
+    prompts, two of them longer than the window."""
+    import random
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models.config import ModelConfig
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.ops import flash
+
+    cfg = ModelConfig.from_hf_config(PHI3_MINI_4K).replace(
+        num_layers=n_layers, dtype=torch.float32)
+    if cfg.head_dim != 96 or cfg.sliding_window != 2047:
+        fail(f"phi3 identity: head_dim {cfg.head_dim}, window "
+             f"{cfg.sliding_window}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"))
+    rng = random.Random(seed + 8)
+    prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+               for n in (37, 700, 2100, 2500)]
+    streams, gaps = {}, {}
+    flash.reset_launches()
+    for name, kw in (("dense", {}), ("paged", {"kv_block": 64})):
+        eng = InferenceEngine(params, cfg, max_slots=4, max_seq=4096,
+                              device="cuda", seed=seed, **kw)
+        streams[name], gaps[name], _ = _greedy_streams(torch, eng, prompts,
+                                                       steps)
+        del eng
+    launches = dict(flash.LAUNCHES)
+    for name in ("flash_decode", "flash_paged_decode", "flash_prefill"):
+        if launches[name] <= 0:
+            fail(f"phi3 identity: {name} did not run ({launches})")
+    for slot in range(len(prompts)):
+        a, b = streams["dense"][slot], streams["paged"][slot]
+        if a != b:
+            step = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            fail(f"phi3 identity: prompt {slot} differs at step {step} "
+                 f"(dense {a[step]}, paged {b[step]})")
+    min_gap = min(float(g[:len(prompts)].min()) for g in gaps["dense"])
+    log(f"[phi3] fp32, Phi-3-mini widths (D 96, G 1, window 2047), "
+        f"{n_layers} layers: dense (flash_decode) and paged fp32 pool of "
+        f"64-row blocks (flash_paged_decode) give identical {steps}-token "
+        f"greedy streams for prompts of {[len(p) for p in prompts]} tokens "
+        f"(smallest top-2 logit gap {min_gap:.3e}); launches {launches}")
+    del params
+    return {"streams_identical": True, "min_top2_gap": min_gap,
+            "launches": launches}
+
+
+def _journal_run(torch, tmp, hf, dtype, prompts, max_tokens, tag):
+    """A prompt, greedy, through three servers built by
+    `serve.build_server` over the same model (random weights from seed
+    0): an uninterrupted one; one with `--journal` whose scheduler dies
+    halfway through that stream (`engine_step.raise@N`, `--max-restarts
+    0`); and a fresh one over the same journal directory, which resumes
+    the request before it serves. The prompt is the first of `prompts`
+    whose uninterrupted stream runs 8 tokens or more before a stop id
+    (random weights may pick the tokenizer's eos). Returns the
+    uninterrupted stream, the journal's whole stream, the tokens before
+    the kill, the launches of the resume, the journal's bytes and
+    appends, and the seconds of `resume_from_journal` and of the
+    resumed request."""
+    from ome_tpu_torch import faults
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.engine.journal import FILENAME
+    from ome_tpu_torch.engine.scheduler import Scheduler
+    from ome_tpu_torch.ops import flash
+
+    model = os.path.join(tmp, "model")
+    os.makedirs(model, exist_ok=True)
+    with open(os.path.join(model, "config.json"), "w") as f:
+        json.dump(hf, f)
+    jdir = os.path.join(tmp, "journal")
+    base = ["--model-dir", model, "--random-weights", "--seed", "0",
+            "--dtype", dtype, "--max-slots", "4", "--max-seq", "4096",
+            "--port", "0", "--host", "127.0.0.1"]
+    body = {"max_tokens": max_tokens, "temperature": 0.0}
+
+    def serve_one(argv, expect_fault=False):
+        server, sched, _ = serve.build_server(argv)
+        seen = []
+        submit = sched.submit
+        sched.submit = lambda r: (seen.append(r), submit(r))[1]
+        try:
+            try:
+                _post(f"http://127.0.0.1:{server.port}", body)
+            except Exception as e:  # noqa: BLE001 — the killed server
+                if not expect_fault:
+                    raise
+                log(f"{tag} the killed server answered {type(e).__name__}")
+            if expect_fault:
+                t0 = time.monotonic()
+                while sched.status != "dead":
+                    if time.monotonic() - t0 > 60:
+                        fail(f"{tag} the scheduler did not die")
+                    time.sleep(0.01)
+            torch.cuda.synchronize()
+        finally:
+            server.stop()
+            if sched.journal is not None:
+                sched.journal.close()
+        return seen[0], (sched.journal.appends if sched.journal else 0)
+
+    for prompt in prompts:
+        body["prompt"] = prompt
+        want, _ = serve_one(base)
+        if len(want.output_ids) >= 8:
+            break
+    else:
+        fail(f"{tag} every prompt's stream stopped before 8 tokens")
+    # the n - 1 decode steps of an n-token stream fire engine_step; the
+    # fault at the (n // 2)-th leaves about half the stream to resume
+    kill_at = len(want.output_ids) // 2
+    try:
+        killed, appends = serve_one(
+            base + ["--journal", jdir, "--journal-fsync", "always",
+                    "--max-restarts", "0", "--faults",
+                    f"engine_step.raise@{kill_at}"], expect_fault=True)
+    finally:
+        faults.reset()
+    if killed.finish_reason != "engine_fault":
+        fail(f"{tag} the killed request finished {killed.finish_reason}")
+    before = list(killed.output_ids)
+    if not 0 < len(before) < len(want.output_ids):
+        fail(f"{tag} the kill came after {len(before)} tokens")
+    resume_s = []
+    resume = Scheduler.resume_from_journal
+
+    def timed(self):
+        t = time.perf_counter()
+        n = resume(self)
+        resume_s.append(time.perf_counter() - t)
+        return n
+    Scheduler.resume_from_journal = timed
+    flash.reset_launches()
+    t0 = time.monotonic()
+    try:
+        server, sched, _ = serve.build_server(base + ["--journal", jdir])
+    finally:
+        Scheduler.resume_from_journal = resume
+    try:
+        if sched.journal.replayed != 1:
+            fail(f"{tag} the new server resumed "
+                 f"{sched.journal.replayed} requests")
+        # done when its tombstone is written (the scheduler's drain_idle
+        # can read idle while the admission thread holds a request it
+        # has taken from the queue and not yet counted, as in the
+        # reference)
+        while sched.journal.replay():
+            if time.monotonic() - t0 > 120:
+                fail(f"{tag} the resumed request did not finish")
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        done_s = time.monotonic() - t0
+        launches = dict(flash.LAUNCHES)
+        appends += sched.journal.appends
+    finally:
+        server.stop()
+        sched.journal.close()
+    path = os.path.join(jdir, FILENAME)
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    got = sum((r["toks"] for r in recs if r["t"] == "prog"), [])
+    if recs[-1].get("t") != "fin" or got[:len(before)] != before:
+        fail(f"{tag} the journal does not hold the stream: {recs[-3:]}")
+    for name in ("flash_prefill", "flash_decode"):
+        if launches[name] <= 0:
+            fail(f"{tag} the resume launched no {name}: {launches}")
+    return {"want": list(want.output_ids), "got": got, "before": before,
+            "launches": launches, "journal_bytes": os.path.getsize(path),
+            "appends": appends, "records": len(recs),
+            "resume_s": resume_s[0], "resumed_request_s": done_s}
+
+
+def phase_journal(torch, seed: int = 0):
+    """Durable requests on the card: the 4-layer fp32 Phi-3-width server
+    (D 96, so B1 and B2 at head_dim 96 carry it) killed mid-decode
+    and resumed by a fresh server over the same `--journal` directory
+    gives a greedy stream byte-identical to an uninterrupted server's;
+    then the full-size bf16 Phi-3-mini server, whose resumed stream is
+    reported with its first token that differs from the uninterrupted
+    one (the resume re-prefills through B2 the tokens B1 decoded, so
+    bf16 rounding may differ there; identity is required in fp32 only).
+    A prompt of 2100 tokens, past the 2047-token window."""
+    import random
+    import tempfile
+
+    rng = random.Random(seed + 9)
+    prompts = [[rng.randrange(3, PHI3_MINI_4K["vocab_size"])
+                for _ in range(2100)] for _ in range(4)]
+    out = {}
+    for label, layers, dtype, tokens in (
+            ("fp32, 4 layers", 4, "float32", 32),
+            ("bf16, full size", None, "bfloat16", 24)):
+        hf = dict(PHI3_MINI_4K)
+        if layers:
+            hf["num_hidden_layers"] = layers
+        tag = f"[journal {label}]"
+        with tempfile.TemporaryDirectory() as tmp:
+            r = _journal_run(torch, tmp, hf, dtype, prompts, tokens, tag)
+        first_diff = next((i for i, (a, b) in enumerate(
+            zip(r["want"], r["got"])) if a != b), None)
+        if len(r["got"]) != len(r["want"]) and first_diff is None:
+            first_diff = min(len(r["got"]), len(r["want"]))
+        r["first_diff"] = first_diff
+        log(f"{tag} Phi-3-mini widths, killed after {len(r['before'])} of "
+            f"{len(r['want'])} tokens, resumed by a fresh server over the same "
+            f"journal: first token differing from the uninterrupted "
+            f"stream {first_diff} (None = byte-identical); journal "
+            f"{r['journal_bytes']} bytes, {r['records']} records, "
+            f"{r['appends']} appends, fsync always; replay "
+            f"(resume_from_journal) {r['resume_s'] * 1e3:.2f} ms, resumed "
+            f"request done in {r['resumed_request_s']:.2f} s; launches of "
+            f"the resume {r['launches']}")
+        if layers and first_diff is not None:
+            fail(f"{tag} the resumed fp32 stream differs from the "
+                 f"uninterrupted one at token {first_diff}")
+        out[label] = {k: v for k, v in r.items() if k not in ("want",
+                                                              "got")}
+        _free_device(torch, f"the {label} journal servers")
+    return out
+
+
 # -- phases 20-24: group sizes above 16; KV that leaves the card --------------
 
 # (H, K, D) of the kernel cases at G = H/K above 16: G 24 (48 query heads
@@ -3849,8 +4239,9 @@ def main() -> int:
         log(f"[phase] {key}: {phase_s[key]:.1f} s")
         if free:
             _free_device(torch, free)
-    run("build_s", phase_build)
+    run("build", phase_build)
     run("kernel_cases", phase_kernels, torch)
+    run("headdim_kernels", phase_headdim_kernels, torch)
     run("serve", phase_serve, torch, free="the dense server")
     run("paged_bf16", phase_serve_paged, torch, "bf16",
         free="the paged bf16 server")
@@ -3891,6 +4282,14 @@ def main() -> int:
     run("host_tier", phase_host_tier, torch, free="the host-tier server")
     run("pd", phase_pd, torch, free="the PD servers")
     run("peering", phase_peering, torch, free="the peering replicas")
+    phi3 = {"hf": PHI3_MINI_4K, "label": "Phi-3-mini-4k"}
+    run("serve_phi3", phase_serve, torch, model=phi3,
+        free="the Phi-3-mini server")
+    run("paged_phi3", phase_serve_paged, torch, "bf16", model=phi3,
+        kv_block=64, free="the paged Phi-3-mini server")
+    run("phi3_identity", phase_phi3_identity, torch,
+        free="the Phi-3-width engines")
+    run("journal", phase_journal, torch)
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -3903,17 +4302,28 @@ def main() -> int:
     for name in ("flash_paged_decode", "flash_decode_quantized"):
         launches[name] = report["paged_bf16"]["launches"][name]
     launches["int4_matmul"] = report["serve_int4"]["launches"]["int4_matmul"]
-    kernels = []
-    for name, (source, replaces) in SOURCES.items():
-        main_case = report["kernel_cases"][name][0]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": main_case["max_abs_err"],
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"],
-            "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"]})
+    # at head_dim 96 the Phi-3-mini servers' (dense: B1, B2; paged: B3);
+    # no server runs head_dim 256
+    d96 = dict(report["serve_phi3"]["launches"])
+    d96["flash_paged_decode"] = report["paged_phi3"]["launches"][
+        "flash_paged_decode"]
+    d96["flash_decode_quantized"] = 0
+
+    def entry(name, label, case, n):
+        source, replaces = SOURCES[name]
+        return {"name": label, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n,
+                "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+                "bound_by": case["bound_by"],
+                "library_ms": case["library_ms"]}
+    kernels = [entry(name, name, report["kernel_cases"][name][0],
+                     launches[name]) for name in SOURCES]
+    # (the first case of each D: at D 96 B3's is the served shape)
+    for name, rows in report["headdim_kernels"].items():
+        for D, n in ((96, d96[name]), (256, 0)):
+            case = next(c for c in rows if f" D={D} " in c["case"])
+            kernels.append(entry(name, f"{name} head_dim {D}", case, n))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

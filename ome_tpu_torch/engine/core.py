@@ -73,7 +73,8 @@ from ..device import resolve_device, to_device, to_host
 from ..models import llama
 from ..models.config import ModelConfig
 from ..models.params import Params
-from ..ops.flash import check_paged_coverage, quantize_rows
+from ..ops.flash import (check_head_dim, check_paged_coverage,
+                         quantize_rows)
 from .sampling import sample, spec_verify
 
 log = logging.getLogger("ome.engine.core")
@@ -494,6 +495,9 @@ class InferenceEngine:
                  device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0, mask_table_rows: int = 64):
         self.device = resolve_device(device)
+        # every attention step on a card runs the CUDA kernels: refuse a
+        # head_dim they do not take here, not at the first prefill
+        check_head_dim(cfg.head_dim, self.device)
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_seq = max_seq or cfg.max_seq_len
@@ -519,14 +523,18 @@ class InferenceEngine:
         self._preempt_rank_fn = None
         self._growing_slot: Optional[int] = None
         if self.kv_block:
+            # a model-wide sliding window is served paged (the decode
+            # kernel's window start is lo), where the reference refuses
+            # it; alternating windows are not
             if (cfg.mla or cfg.is_moe or cfg.first_k_dense
-                    or cfg.sliding_window or cfg.alt_sliding_window
+                    or cfg.alt_sliding_window
                     or cfg.norm_type != "rmsnorm" or cfg.parallel_block
                     or cfg.attn_sinks):
                 raise PagedKVUnsupported(
-                    "paged KV supports standard rmsnorm GQA models; "
-                    "MLA/MoE/sliding-window/parallel-block/layernorm/"
-                    "sink models use the dense cache")
+                    "paged KV supports standard rmsnorm GQA models, with "
+                    "or without one sliding window; MLA/MoE/alternating-"
+                    "window/parallel-block/layernorm/sink models use the "
+                    "dense cache")
             if self.device.type == "cuda":
                 # every paged decode step runs the CUDA kernel; refuse a
                 # shape it does not take here rather than at the first

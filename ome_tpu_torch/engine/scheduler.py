@@ -52,8 +52,16 @@ prefix KV from that replica first (engine/peering.py) and falls back to
 a local prefill. `/metrics` carries the prefix cache's host-tier
 counters and the PD pool's gauges.
 
-Not ported yet (the serve flags that would need them refuse): the
-request journal and the program cost ledger / HBM accountant gauges.
+Durable requests: with a `journal` (engine/journal.py), every unmasked
+admission is journaled with the scheduler lock released, progress
+records append at each step boundary, and a `shutdown` eviction (or an
+`engine_fault` once the scheduler is dead) leaves the entry live;
+`resume_from_journal` re-admits what a killed process left, its
+generated tokens folded into the prompt, so a greedy stream continues
+byte-identical to an uninterrupted run.
+
+Not ported yet: the program cost ledger and the HBM accountant gauges
+(`--ledger-mode` refuses every value but off).
 """
 
 from __future__ import annotations
@@ -363,6 +371,10 @@ class Request:
     # request-lifecycle tracing: the SpanContext the HTTP layer adopted
     # (or minted) for this request
     trace: Optional[object] = None
+    # durable requests (engine/journal.py): the journal id this request
+    # is recorded under; assigned at admit, carried by restart-resumed
+    # requests so progress keeps appending to the original entry
+    journal_id: Optional[int] = None
     id: int = field(default_factory=lambda: next(_ids))
     created: float = field(default_factory=time.monotonic)
     # results
@@ -427,6 +439,7 @@ class Scheduler:
                  max_queue_wait: float = 30.0,
                  pipeline_depth: int = 1,
                  registry: Optional[Registry] = None,
+                 journal=None,
                  span_log=None,
                  flight: Optional[FlightRecorder] = None,
                  flight_dump_dir: Optional[str] = None,
@@ -459,6 +472,13 @@ class Scheduler:
         # cross-replica prefix reuse (engine/peering.py): built on the
         # first X-OME-Prefix-Peer request; holds per-peer breakers
         self._peer_client = None
+        # durable requests (engine/journal.py): when set, every unmasked
+        # admission is journaled, progress records append at each step
+        # boundary, and restart resume replays whatever has no
+        # tombstone. Masked (structured-output) requests are NOT
+        # journaled — their grammar state is not serializable, so a
+        # resumed fold could not rebuild it.
+        self.journal = journal
         # decode pipelining: number of decode steps dispatched ahead of
         # token emission. 0 = fetch every step synchronously; 1 = step
         # k's tokens are read only after step k+1 was dispatched
@@ -482,6 +502,8 @@ class Scheduler:
         # shared telemetry registry: the EngineServer scrapes it on
         # /metrics; stats-dict counters below are mirrored into it
         self.registry = registry or Registry()
+        if self.journal is not None:
+            self.journal.bind(self.registry)
         # crash recovery: consecutive engine-fault restarts tolerated
         # before going permanently dead (0 = first fault is fatal)
         self.max_restarts = max_restarts
@@ -777,6 +799,8 @@ class Scheduler:
         # only the decode thread touches it
         self._step_window: "collections.deque[float]" = \
             collections.deque(maxlen=64)
+        self._journal_compactions_seen = (
+            self.journal.compactions if self.journal is not None else 0)
 
     @property
     def status(self) -> str:
@@ -864,8 +888,13 @@ class Scheduler:
                     (end - req.first_token_at) / (n - 1))
 
     def _request_finished(self, req: Request):
-        """Installed as req.on_finish at submit: latency observations
-        plus the request's closing spans."""
+        """Installed as req.on_finish at submit: latency observations,
+        the request's closing spans and the journal's terminal record.
+        A `shutdown` finish (drain-timeout eviction) or an
+        `engine_fault` from a dead scheduler leaves the journal entry
+        live — the process is going away and a restart resumes the
+        work; every other reason means the request is DONE and
+        tombstones it."""
         self._observe_finish(req)
         self._flush_decode_chunk(req, final=True)
         span = getattr(req, "_span", None)
@@ -875,6 +904,11 @@ class Scheduler:
                      prompt_tokens=len(req.prompt_ids),
                      output_tokens=len(req.output_ids))
             self.span_log.write(span)
+        if self.journal is not None:
+            resumable = req.finish_reason == "shutdown" or (
+                req.finish_reason == "engine_fault"
+                and self._status == "dead")
+            self.journal.finish(req, resumable=resumable)
 
     def _mark_scheduled(self, req: Request):
         """First time a request leaves the queue for a decode slot: the
@@ -979,7 +1013,8 @@ class Scheduler:
             req._chunk = None
 
     def debug_state(self) -> dict:
-        """Point-in-time JSON snapshot behind GET /debug/state. Reads
+        """Point-in-time JSON snapshot behind GET /debug/state: live
+        slots, queue/pool/journal counters, flight-ring state. Reads
         are lock-free on purpose (the scheduler thread owns the
         structures); a concurrent mutation can skew one field."""
         slots = []
@@ -987,6 +1022,7 @@ class Scheduler:
             if req is None:
                 continue
             slots.append({"slot": slot, "request": req.id,
+                          "journal_id": req.journal_id,
                           "prompt_tokens": len(req.prompt_ids),
                           "committed_tokens": len(req.output_ids),
                           "adapter": req.adapter,
@@ -1009,6 +1045,11 @@ class Scheduler:
         pool = getattr(self.engine, "kv_pool_stats", None)
         if pool and pool.get("kv_block_tokens"):
             state["kv_pool"] = dict(pool)
+        j = self.journal
+        state["journal"] = None if j is None else {
+            "path": j.path, "appends": j.appends, "errors": j.errors,
+            "compactions": j.compactions, "replayed": j.replayed,
+            "degraded": j.degraded, "bytes": j._bytes}
         return state
 
     def update_gauges(self):
@@ -1145,16 +1186,55 @@ class Scheduler:
                 # the request immediately
                 req._span = Span.begin("engine.request", ctx=req.trace,
                                        start_mono=req.created)
-            try:
-                self.pending.put_nowait(req)
-            except queue.Full:
-                self._inc_locked("rejected_total")
-                self._c_class_rejected[cls].inc()
-                raise SchedulerOverloaded(
-                    f"{cls} pending queue full", retry_after=1.0)
-            self._flight_event("admit", request=req.id, cls=cls,
-                               depth=depth + 1)
+            journal_it = self.journal is not None and req.masker is None
+        # journal the admit with the scheduler lock RELEASED: the append
+        # fsyncs (policy "always"), and the decode thread takes
+        # self._lock per emitted token. Writing before the queue put
+        # also pins the replay ordering: once the request is visible, a
+        # fast finish may call journal.finish at once, and the tombstone
+        # must land after an admit record, not before one.
+        if journal_it:
+            self.journal.admit(req)
+        reject: Optional[Tuple[str, Exception]] = None
+        with self._lock:
+            # re-check what can have flipped while the journal synced
+            if self._stop.is_set() or self._status == "dead":
+                reject = ("shutdown",
+                          RuntimeError("scheduler unavailable"))
+            elif self._draining:
+                reject = ("draining", SchedulerDraining(
+                    "scheduler draining (shutdown signal received); "
+                    "resubmit to another replica"))
+            else:
+                depth = self.pending.qsize()
+                try:
+                    self.pending.put_nowait(req)
+                except queue.Full:
+                    self._inc_locked("rejected_total")
+                    self._c_class_rejected[cls].inc()
+                    reject = ("rejected", SchedulerOverloaded(
+                        f"{cls} pending queue full", retry_after=1.0))
+                else:
+                    self._flight_event("admit", request=req.id, cls=cls,
+                                       depth=depth + 1)
+        if reject is not None:
+            # tombstone OUTSIDE the lock too — it appends + fsyncs
+            self._journal_tombstone(req, journal_it, reject[0])
+            raise reject[1]
         return req
+
+    def _journal_tombstone(self, req: Request, journal_it: bool,
+                           reason: str):
+        """A request was journaled as admitted but then rejected in the
+        re-check window (stop/drain/queue-full raced the journal
+        fsync). Without the tombstone the admit record stays live and
+        the next process would replay a request the client was told to
+        retry elsewhere — a duplicate."""
+        if not journal_it:
+            return
+        if req.finish_reason is None:
+            req.finish_reason = reason
+        self.journal.finish(req, resumable=False)
 
     def start(self):
         # idempotent: EngineServer.start() also starts its scheduler
@@ -1203,6 +1283,75 @@ class Scheduler:
                 and self._ready.empty() and not self._inflight
                 and self._admitting == 0
                 and all(r is None for r in self.slots))
+
+    # -- restart resume ------------------------------------------------
+
+    def resume_from_journal(self) -> int:
+        """Re-admit every unfinished request the journal replays, with
+        generated-so-far tokens folded into the prompt — the
+        recompute-resume fold paged-KV preemption uses — so a greedy
+        stream continues byte-identical to an uninterrupted run.
+        Original deadlines are honored (journaled as epoch, converted
+        back to this process's monotonic clock); an entry that expired
+        while the replica was down finishes `timeout` through the
+        normal dead-on-arrival shedding. On a PD decode node the
+        resumed prompt re-prefills through the prefill pool like any
+        other. Returns the number of requests re-admitted."""
+        j = self.journal
+        if j is None:
+            return 0
+        t0_mono = time.monotonic()
+        t0_wall = time.time()
+        try:
+            entries = j.replay()
+        except Exception:  # noqa: BLE001 — a corrupt journal must not
+            # stop the replica from serving new work
+            log.exception("journal replay failed; starting empty")
+            j._count(j._c_errors, "errors")
+            return 0
+        n = 0
+        now_mono = time.monotonic()
+        now_wall = time.time()
+        for e in entries:
+            deadline = None
+            if e.deadline_epoch is not None:
+                deadline = now_mono + (e.deadline_epoch - now_wall)
+            req = Request(
+                prompt_ids=list(e.prompt_ids) + list(e.output_ids),
+                max_new_tokens=e.max_new_tokens,
+                temperature=e.temperature, top_k=e.top_k,
+                top_p=e.top_p, stop_ids=list(e.stop_ids),
+                adapter=e.adapter, deadline=deadline,
+                priority=e.cls, journal_id=e.jid,
+                output_ids=list(e.output_ids))
+            if len(req.output_ids) >= req.max_new_tokens:
+                # it had already produced its whole budget; only the
+                # tombstone was lost to the crash
+                req.finish("length")
+                j.finish(req)
+                continue
+            try:
+                self.submit(req)
+            except SchedulerOverloaded:
+                # more journal than queue: leave the entry live for the
+                # next restart rather than dropping it
+                log.warning("journal: queue full, request %d not resumed "
+                            "(stays journaled)", e.jid)
+                continue
+            n += 1
+        if n:
+            j.note_replayed(n)
+            log.info("journal: resumed %d unfinished request(s)", n)
+        self._flight_event("journal_replay", entries=len(entries),
+                           resumed=n)
+        if self.span_log.enabled:
+            s = Span("engine.journal_replay",
+                     trace_id=self._span_ctx.trace_id,
+                     parent_id=self._span_ctx.span_id,
+                     start_mono=t0_mono, start_wall=t0_wall)
+            s.end().set(entries=len(entries), resumed=n)
+            self.span_log.write(s)
+        return n
 
     def _next_pending(self) -> Request:
         """Requeued requests go first; raises queue.Empty like
@@ -1275,6 +1424,15 @@ class Scheduler:
             active = any(r is not None for r in self.slots)
             admitted = self._admit(limit=1 if active else None)
         decoded = self._decode()
+        if self.journal is not None:
+            # progress records cover everything emitted up to this step
+            # boundary, so a crash never loses a token a client already
+            # saw; the batch fsync policy piggybacks here
+            self.journal.poll()
+            comp = self.journal.compactions
+            if comp > self._journal_compactions_seen:
+                self._journal_compactions_seen = comp
+                self._flight_event("journal_compaction", count=comp)
         with self._lock:
             self.stats["queue_depth"] = self.pending.qsize()
             self.stats["active_slots"] = sum(

@@ -9,6 +9,8 @@ signal drains, a second forces). Runs on CUDA unless `--device cpu`.
         [--device cpu] [--kv-block 128 [--kv-blocks N] [--kv-dtype int8]] \\
         [--quantization int8|int4|fp8] [--spec-tokens N] \\
         [--steps-per-dispatch K] [--prefix-cache-host-mb MB] \\
+        [--journal DIR [--journal-fsync always|batch|off] \\
+         [--journal-compact-mb MB]] \\
         [--disaggregation-mode prefill | --disaggregation-mode decode \\
          --prefill-url URL [--prefill-url URL ...] [--pd-local-fallback] \\
          [--pd-attempt-timeout S]]
@@ -36,6 +38,12 @@ fetches each prompt's KV from the `--prefill-url` pool
 `--pd-local-fallback` computes the prefill itself when every peer is
 out. A plain replica with a prefix cache also serves `/pd/prefill` as a
 donor of cross-replica prefix reuse (`engine/peering.py`).
+`--journal DIR` makes requests durable (`engine/journal.py`): admitted
+requests and their generated tokens are journaled, leftovers of a drain
+or a dead scheduler stay live, and a process started over the same DIR
+resumes them byte-identical (greedy) before it serves new traffic; on a
+PD decode node the admit records carry the prefill pool, and a resumed
+request re-prefills through it.
 `build_server(argv)` does everything `main` does except block, so a
 caller (chip_smoke.py, the tests) drives the same code in process.
 
@@ -130,8 +138,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decode steps dispatched ahead of token emission "
                         "(1 overlaps the host-side token fetch with the "
                         "next device step; 0 fetches every step)")
+    p.add_argument("--journal", default=None, metavar="DIR",
+                   help="durable requests: append-only JSONL request "
+                        "journal in DIR; admitted requests and their "
+                        "generated tokens are journaled, and on restart "
+                        "unfinished requests resume byte-identical "
+                        "(greedy) to an uninterrupted run")
+    p.add_argument("--journal-fsync",
+                   choices=("always", "batch", "off"), default="batch",
+                   help="journal durability: 'always' fsyncs every "
+                        "append, 'batch' (default) fsyncs at most every "
+                        "~100ms from the scheduler loop, 'off' leaves "
+                        "flushing to the OS")
+    p.add_argument("--journal-compact-mb", type=int, default=4,
+                   help="rewrite the journal (dropping tombstoned "
+                        "entries, consolidating progress) when it exceeds "
+                        "this many MiB")
     p.add_argument("--drain-grace", type=float, default=30.0,
-                   help="graceful-drain window after SIGTERM")
+                   help="graceful-drain window after SIGTERM; leftovers "
+                        "are journaled (with --journal) and evicted with "
+                        "finish_reason=shutdown")
     p.add_argument("--faults", default=None,
                    help="deterministic fault-injection spec (faults.py "
                         "grammar, e.g. 'engine_step.raise@100'); also "
@@ -230,6 +256,10 @@ def check_slice(args, env=None) -> None:
     if args.disaggregation_mode == "decode" and not prefill_urls(args):
         raise SystemExit("--disaggregation-mode decode requires at least "
                          "one --prefill-url (or --prefill-peer)")
+    if args.journal and args.disaggregation_mode == "prefill":
+        raise SystemExit("--journal journals the requests of a decode "
+                         "loop; a --disaggregation-mode prefill node has "
+                         "none")
     if args.disaggregation_mode != "decode" and (
             prefill_urls(args) or args.pd_local_fallback):
         raise SystemExit("--prefill-url/--prefill-peer/--pd-local-fallback "
@@ -263,14 +293,24 @@ def _load_cfg(model_dir: str, dtype):
 
 def load_params_cfg(args, device):
     """(params, cfg) on `device`: the safetensors checkpoint in
-    --model-dir, or random weights from --seed for its config.json."""
+    --model-dir, or random weights from --seed for its config.json. A
+    head_dim the CUDA kernels do not take exits before any weight is
+    read."""
     from ..models import checkpoint
     from ..models.params import init_params, param_count
+    from ..ops.flash import check_head_dim
+
+    def refuse_head_dim(cfg):
+        try:
+            check_head_dim(cfg.head_dim, device)
+        except NotImplementedError as e:
+            raise SystemExit(f"--model-dir {args.model_dir}: {e}")
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     t0 = time.monotonic()
     if args.random_weights:
         cfg = _load_cfg(args.model_dir, dtype)
+        refuse_head_dim(cfg)
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
         params = init_params(cfg, gen, device)
@@ -279,8 +319,10 @@ def load_params_cfg(args, device):
                  time.monotonic() - t0)
         return params, cfg
     try:
-        params, cfg = checkpoint.load_params(args.model_dir, dtype=dtype,
-                                             device=device)
+        cfg = checkpoint.load_config(args.model_dir)
+        refuse_head_dim(cfg)
+        params, cfg = checkpoint.load_params(args.model_dir, cfg=cfg,
+                                             dtype=dtype, device=device)
     except (checkpoint.SafetensorsError, NotImplementedError,
             FileNotFoundError) as e:
         raise SystemExit(f"--model-dir {args.model_dir}: {e}")
@@ -376,10 +418,11 @@ class DrainController:
     seconds to finish; a SECOND signal forces immediate shutdown."""
 
     def __init__(self, server, scheduler, grace: float = 30.0,
-                 poll_interval: float = 0.02):
+                 journal=None, poll_interval: float = 0.02):
         self.server = server
         self.scheduler = scheduler
         self.grace = grace
+        self.journal = journal
         self.poll_interval = poll_interval
         self._signalled = threading.Event()
         self._force = threading.Event()
@@ -441,8 +484,9 @@ class DrainController:
                      dur)
         else:
             log.warning("drain window closed after %.2fs with work in "
-                        "flight; evicting with finish_reason=shutdown",
-                        dur)
+                        "flight; evicting with finish_reason=shutdown%s",
+                        dur, " (journaled for resume)"
+                        if self.journal is not None else "")
         self.drained = drained
         return drained
 
@@ -455,6 +499,7 @@ def build_server(argv=None):
     from ..telemetry.flight import FlightRecorder
     from ..telemetry.reqlog import coerce as coerce_reqlog
     from ..telemetry.tracing import SpanLog
+    from .journal import RequestJournal
     from .pd import RemotePrefillEngine, make_pd_prefill_handler
     from .scheduler import Scheduler
     from .server import EngineServer
@@ -511,7 +556,21 @@ def build_server(argv=None):
             # a replica with a prefix cache is also a prefix DONOR: peers
             # fetch hot prefix KV over the same /pd/prefill path
             pd_prefill = make_pd_prefill_handler(engine)
+        journal = None
+        if args.journal:
+            # admit records on a decode node carry the PD topology, so a
+            # resumed process knows these requests re-prefill over the
+            # pool on replay
+            provenance = ({"mode": "pd-decode", "peers": prefill_urls(args)}
+                          if args.disaggregation_mode == "decode" else None)
+            journal = RequestJournal(
+                args.journal, fsync=args.journal_fsync,
+                compact_bytes=args.journal_compact_mb << 20,
+                provenance=provenance)
+            log.info("request journal at %s (fsync=%s)", journal.path,
+                     args.journal_fsync)
         scheduler = Scheduler(engine, overlap=True,
+                              journal=journal,
                               spec_tokens=args.spec_tokens,
                               steps_per_dispatch=args.steps_per_dispatch,
                               max_restarts=args.max_restarts,
@@ -540,6 +599,10 @@ def build_server(argv=None):
              args.quantization, args.spec_tokens,
              args.steps_per_dispatch, args.prefix_cache_host_mb,
              args.disaggregation_mode)
+    if getattr(scheduler, "journal", None) is not None:
+        # restart resume BEFORE serving: unfinished requests of the
+        # previous process re-enter the queue ahead of new traffic
+        scheduler.resume_from_journal()
     server.start()
     return server, scheduler, engine
 
@@ -549,12 +612,18 @@ def main(argv=None) -> int:
                         format="%(asctime)s %(name)s %(message)s")
     grace = build_parser().parse_args(argv).drain_grace
     server, scheduler, _ = build_server(argv)
-    ctl = DrainController(server, scheduler, grace=grace)
+    journal = getattr(scheduler, "journal", None)
+    ctl = DrainController(server, scheduler, grace=grace, journal=journal)
     try:
         ctl.install()
         ctl.wait()
     finally:
+        # stop() evicts leftovers with finish_reason=shutdown, which
+        # flushes their progress WITHOUT tombstones: the replacement
+        # process resumes them
         server.stop()
+        if journal is not None:
+            journal.close()
     return 0
 
 

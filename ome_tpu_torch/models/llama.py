@@ -490,8 +490,9 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     beforehand), then attends its block chain: S == 1 through
     `ops.paged.paged_attention` (the paged CUDA kernel on a card), S > 1
     through the plain `paged_attention_multi` with per-query causal
-    masking, as in the reference. Dense-MLP GQA models only (the
-    engine refuses paged KV for MoE, as the reference's does). Returns
+    masking, as in the reference; both under the model's sliding window,
+    if it has one. Dense-MLP GQA models only (the engine refuses paged
+    KV for MoE, as the reference's does). Returns
     (logits [B, S, vocab] fp32, cache with index + S); the pools are
     updated in place."""
     B, S = tokens.shape
@@ -525,13 +526,15 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             attn = paged_attention(q, cache.k[i], cache.v[i], cache.table,
                                    kv_len, scale=cfg.query_scale,
                                    logit_softcap=cfg.attn_logit_softcap,
-                                   k_scale=ksp, v_scale=vsp)
+                                   k_scale=ksp, v_scale=vsp,
+                                   sliding_window=cfg.sliding_window)
         else:
             attn = paged_attention_multi(
                 q, cache.k[i], cache.v[i], cache.table, positions,
                 scale=cfg.query_scale,
                 logit_softcap=cfg.attn_logit_softcap,
-                k_scale=ksp, v_scale=vsp)
+                k_scale=ksp, v_scale=vsp,
+                sliding_window=cfg.sliding_window)
         x = x + _out_proj(attn, lp, cfg)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
         x = x + dense_mlp(h, lp, cfg.dtype)

@@ -70,15 +70,26 @@ __device__ __forceinline__ void load_chunk(const uint16_t* p, float (&o)[8]) {
 }
 
 // -- one lane's VEC = D/32 consecutive elements of a row -> floats ------------
+// (VEC 2, 3, 4 or 8 at head_dim 64, 96, 128, 256: the widest aligned
+// loads; p is VEC * 4 bytes aligned)
 
 template <int VEC>
 __device__ __forceinline__ void load_row(const float* p, float (&o)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    o[0] = t.x; o[1] = t.y; o[2] = t.z; o[3] = t.w;
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + i);
+      o[i] = t.x; o[i + 1] = t.y; o[i + 2] = t.z; o[i + 3] = t.w;
+    }
+  } else if constexpr (VEC % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; i += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + i);
+      o[i] = t.x; o[i + 1] = t.y;
+    }
   } else {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    o[0] = t.x; o[1] = t.y;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o[i] = p[i];
   }
 }
 
@@ -179,18 +190,34 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // D(64xN, f32) (+)= A(64x16, bf16, shared, K-major) * B(16xN, bf16,
-// shared, K-major); scale_d 0 overwrites D. N = 128 is defined (the
-// prefill kernel's KV tile).
+// shared, K-major); scale_d 0 overwrites D. N = 64 and 128 are defined
+// (the prefill kernel's KV tile: 64 rows at head_dim 256, else 128).
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d);
 // D(64xN, f32) += A(64x16, bf16, registers) * B(16xN, bf16, shared,
 // MN-major: the transpose bit, allowed for 16-bit types). N = 64 and
-// 128 are defined (head_dim).
+// 128 are defined (head_dim, in products of at most 128 columns).
 template <int N>
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
@@ -408,6 +435,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// TMA: one 3D box of a tensor map (a __grid_constant__ kernel parameter)
+// into shared memory, completing `bytes` on the mbarrier
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -77,6 +77,19 @@
 //     one warp per query head with G read at run time. Nothing assumes
 //     that G divides NG or is a power of two (the merge, the partials and
 //     the column reductions all index heads by c < G).
+//   * head_dim D 64, 96, 128 or 256, as the reference's XLA path takes any
+//     D. bf16 rows land as ceil(D / 64) boxes of 64 dims from a 3D tensor
+//     map (D, K, rows) whose inner extent is D, so the last box of D 96
+//     holds dims 64..95 and TMA's zero fill past D: no byte past the
+//     head's own D is read. S^T runs exactly D / 16 k steps; O^T runs
+//     ceil(D / 64) 64-row products and the rows past D are never stored
+//     (at D 96 a quarter of the second product is that padding). int8
+//     rows land as D bytes (boxes of 96 and 256 bytes are legal without a
+//     swizzle), each thread's K bytes read in 8- or 16-byte words and its
+//     V bytes in 2, 4 or 8 (2 ceil(D / 64) dims of a row). D 256 runs one
+//     block per SM so that its 64 KB bf16 stages still make a ring of
+//     three; decode_scalar keeps its tiles in dynamic shared memory (87 KB
+//     at D 256 fp32, past the 48 KB static limit).
 
 #pragma once
 
@@ -93,11 +106,15 @@ constexpr int kMaxGroup = 16;   // query heads per KV head (MAX_GROUP)
 constexpr int kMaxStages = 4;   // ring depth of decode_tc
 constexpr int kCons = 128;      // decode_tc's consumer threads (a warpgroup)
 constexpr int kTcThreads = kCons + 32;  // and its producer warp
-constexpr int kTcBlocksPerSm = 2;       // TC_BLOCKS_PER_SM
-// dynamic shared bytes a decode_tc block may take, so that two blocks
+// decode_tc blocks on an SM (flash.decode_blocks_per_sm): two, or one at
+// D 256, whose bf16 stages are 64 KB
+template <int D>
+constexpr int tc_blocks_per_sm() { return D > 128 ? 1 : 2; }
+// dynamic shared bytes a decode_tc block may take, so that its blocks
 // (with their static shared memory and the 1 KB reserved per block)
 // fit an SM
-constexpr int kTcSmemBudget = 104 * 1024;
+template <int D>
+constexpr int tc_smem_budget() { return D > 128 ? 216 * 1024 : 104 * 1024; }
 
 // Where a launch's rows live and how its windows are cut.
 struct Geo {
@@ -292,35 +309,64 @@ __device__ __forceinline__ void load_chunk(const int8_t* p, float (&o)[16]) {
     for (int j = 0; j < 4; ++j) o[4 * i + j] = int8_at(w[i], j);
 }
 
+// one lane's VEC = D/32 bytes of a row (VEC 2, 3, 4 or 8; p is aligned
+// to the widest load that divides VEC)
 template <int VEC>
 __device__ __forceinline__ void load_row(const int8_t* p, float (&o)[VEC]) {
-  if constexpr (VEC == 4) {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+  if constexpr (VEC % 4 == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) o[i] = int8_at(w, i);
-  } else {
+    for (int i = 0; i < VEC; i += 4) {
+      const uint32_t w =
+          *reinterpret_cast<const uint32_t*>(p + i) ^ 0x80808080u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[i + j] = int8_at(w, j);
+    }
+  } else if constexpr (VEC == 2) {
     const uint32_t w = *reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
     o[0] = int8_at(w, 0); o[1] = int8_at(w, 1);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o[i] = static_cast<float>(p[i]);
+  }
+}
+
+// NB bytes of an int8 row (2, 4 or 8; p NB-aligned), XOR 0x80 per byte,
+// as words: byte e is int8_at(w[e / 4], e % 4)
+template <int NB>
+__device__ __forceinline__ void load_flipped(const uint8_t* p,
+                                             uint32_t (&w)[NB > 4 ? 2 : 1]) {
+  if constexpr (NB == 8) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    w[0] = t.x ^ 0x80808080u;
+    w[1] = t.y ^ 0x80808080u;
+  } else if constexpr (NB == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+  } else {
+    w[0] = (uint32_t)*reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
   }
 }
 
 // -- decode_tc: bf16 queries over bf16 or int8 rows -----------------------------
 
 // Shared memory of a decode_tc block (dynamic part, 1024-byte aligned):
-// `stages` ring stages, then Q^T (D / 64 boxes of up to 16 rows x 128
+// `stages` ring stages, then Q^T (kBoxes boxes of up to 16 rows x 128
 // bytes) and P^T (16 rows x 128 bytes). A bf16 stage holds the K tile
-// then the V tile, each D / 64 boxes of 64 rows x 128 bytes (128-byte
-// swizzle); an int8 stage holds K and V as 64 rows x D bytes (no
-// swizzle), then the tile's 64 k-scales and 64 v-scales.
+// then the V tile, each kBoxes boxes of 64 rows x 128 bytes (128-byte
+// swizzle; the last box zero past D); an int8 stage holds K and V as 64
+// rows x D bytes (no swizzle), then the tile's 64 k-scales and 64
+// v-scales.
 template <int D, bool INT8>
 struct TcLayout {
-  static constexpr int kKv = INT8 ? kTileRows * D : kTileRows * D * 2;
+  // 64-dim boxes of a bf16 row (the last one zero-filled past D)
+  static constexpr int kBoxes = (D + 63) / 64;
+  static constexpr int kKv =
+      INT8 ? kTileRows * D : kBoxes * kTileRows * 128;
   static constexpr int kTx = 2 * kKv + (INT8 ? 2 * kTileRows * 4 : 0);
   static constexpr int kStage = (kTx + 1023) / 1024 * 1024;
   static constexpr int kQBox = 16 * 128;
-  static constexpr int kFixed = (D / 64) * kQBox + 16 * 128;
+  static constexpr int kFixed = kBoxes * kQBox + 16 * 128;
   static int stages() {
-    const int s = (kTcSmemBudget - 1024 - kFixed) / kStage;
+    const int s = (tc_smem_budget<D>() - 1024 - kFixed) / kStage;
     return s < kMaxStages ? s : kMaxStages;
   }
   static int smem(int stages) { return 1024 + stages * kStage + kFixed; }
@@ -329,7 +375,7 @@ struct TcLayout {
 // Grid `grid` (persistent), kTcThreads threads: one consumer warpgroup,
 // then the producer warp. NG: the G query heads padded to 8 or 16.
 template <int D, int NG, bool INT8, bool PAGED>
-__global__ void __launch_bounds__(kTcThreads, kTcBlocksPerSm)
+__global__ void __launch_bounds__(kTcThreads, tc_blocks_per_sm<D>())
 decode_tc(const __grid_constant__ CUtensorMap tmk,
           const __grid_constant__ CUtensorMap tmv,
           const __grid_constant__ CUtensorMap tmks,
@@ -352,7 +398,7 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
   uint8_t* const ring =
       smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
   uint8_t* const Qs = ring + stages * L::kStage;
-  uint8_t* const Ps = Qs + (D / 64) * L::kQBox;
+  uint8_t* const Ps = Qs + L::kBoxes * L::kQBox;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -399,11 +445,11 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
             } else {
               const int rb = x * g.box_rows * 128;
 #pragma unroll
-              for (int db = 0; db < D / 64; ++db) {
-                tma_load_2d(st + db * 8192 + rb, &tmk, &full[s],
-                            un.kh * D + db * 64, prow);
-                tma_load_2d(st + L::kKv + db * 8192 + rb, &tmv, &full[s],
-                            un.kh * D + db * 64, prow);
+              for (int db = 0; db < L::kBoxes; ++db) {
+                tma_load_3d(st + db * 8192 + rb, &tmk, &full[s], db * 64,
+                            un.kh, prow);
+                tma_load_3d(st + L::kKv + db * 8192 + rb, &tmv, &full[s],
+                            db * 64, un.kh, prow);
               }
             }
           }
@@ -429,17 +475,19 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
   //   O^T: logical k 2t, 2t+1 | 2t+8, 2t+9 of step kc are tile rows
   //     16 kc + 4t, + 1 | + 2, + 3 (kpos: where P^T holds tile row R),
   //     and accumulator row 16 warp + lane / 4 + 8 j of half h is dim
-  //     odim(h, j): 4 (8 warp + lane / 4) + 2h + j (D 128) or 2 (8 warp +
-  //     lane / 4) + j (D 64), so a thread's dims are adjacent bytes.
+  //     odim(h, j) = kVB (8 warp + lane / 4) + 2h + j, kVB = 2 kBoxes
+  //     (2, 4, 4, 8 at D 64, 96, 128, 256), so a thread's dims are
+  //     adjacent bytes (at D 96 those from 96 on are padding, never
+  //     stored).
   auto kpos = [](int R) {
     if constexpr (!INT8) return R;
     const int r = R & 15;
     return (R & ~15) + 2 * (r >> 2) + (r & 1) + 8 * ((r >> 1) & 1);
   };
+  constexpr int kVB = 2 * L::kBoxes;  // int8 V bytes of a row per thread
   auto odim = [&](int h, int i) {
     const int j = (i >> 1) & 1;
-    if constexpr (INT8)
-      return (D == 128 ? 4 : 2) * (8 * warp + (lane >> 2)) + 2 * h + j;
+    if constexpr (INT8) return kVB * (8 * warp + (lane >> 2)) + 2 * h + j;
     return 64 * h + ra + 8 * j;
   };
   const int G = g.G;
@@ -486,14 +534,14 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
     fence_proxy_async();
     named_bar_sync(1, kCons);
 
-    float m[NCOL], lp[NCOL], o[D / 64][NG / 2];
+    float m[NCOL], lp[NCOL], o[L::kBoxes][NG / 2];
 #pragma unroll
     for (int k = 0; k < NCOL; ++k) {
       m[k] = kMInit;
       lp[k] = 0.f;
     }
 #pragma unroll
-    for (int h = 0; h < D / 64; ++h)
+    for (int h = 0; h < L::kBoxes; ++h)
 #pragma unroll
       for (int i = 0; i < NG / 2; ++i) o[h][i] = 0.f;
 
@@ -520,7 +568,8 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
           // a partial tile: zero its V rows outside [lo, hi) (made
           // visible to the PV product by the fence and barrier below)
           uint4* vt = reinterpret_cast<uint4*>(st + L::kKv);
-          for (int idx = tid; idx < (D / 64) * kTileRows * 8; idx += kCons) {
+          for (int idx = tid; idx < L::kBoxes * kTileRows * 8;
+               idx += kCons) {
             const int row = r0 + ((idx >> 3) & (kTileRows - 1));
             if (row < un.lo || row >= un.hi)
               vt[idx] = make_uint4(0u, 0u, 0u, 0u);
@@ -535,20 +584,32 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
       for (int i = 0; i < NG / 2; ++i) sacc[i] = 0.f;
       if constexpr (INT8) {
         // A = the K rows ra, ra + 8 from registers, converted here once:
-        // k step kc of lane t takes dims kdim(t, kc) .. + 3 (see Q above)
+        // k step kc of lane t takes dims kdim(t, kc) .. + 3 (see Q above),
+        // the thread's D / 4 bytes read KW words at a time (16-byte loads,
+        // 8-byte ones at D 96, where D / 4 = 24)
+        constexpr int KW = (D / 4) % 16 == 0 ? 4 : 2;
         uint32_t ka[D / 16][4];
         const uint8_t* kra = st + ra * D + (lane & 3) * (D / 4);
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
-          const uint4 wa = *reinterpret_cast<const uint4*>(kra + 16 * c);
-          const uint4 wb =
-              *reinterpret_cast<const uint4*>(kra + 8 * D + 16 * c);
-          const uint32_t xa[4] = {wa.x, wa.y, wa.z, wa.w};
-          const uint32_t xb[4] = {wb.x, wb.y, wb.z, wb.w};
+        for (int c = 0; c < D / 16; c += KW) {
+          uint32_t xa[KW], xb[KW];
+          if constexpr (KW == 4) {
+            const uint4 wa = *reinterpret_cast<const uint4*>(kra + 4 * c);
+            const uint4 wb =
+                *reinterpret_cast<const uint4*>(kra + 8 * D + 4 * c);
+            xa[0] = wa.x; xa[1] = wa.y; xa[2] = wa.z; xa[3] = wa.w;
+            xb[0] = wb.x; xb[1] = wb.y; xb[2] = wb.z; xb[3] = wb.w;
+          } else {
+            const uint2 wa = *reinterpret_cast<const uint2*>(kra + 4 * c);
+            const uint2 wb =
+                *reinterpret_cast<const uint2*>(kra + 8 * D + 4 * c);
+            xa[0] = wa.x; xa[1] = wa.y;
+            xb[0] = wb.x; xb[1] = wb.y;
+          }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
+          for (int e = 0; e < KW; ++e) {
             const uint32_t fa = xa[e] ^ 0x80808080u, fb = xb[e] ^ 0x80808080u;
-            uint32_t(&a)[4] = ka[4 * c + e];
+            uint32_t(&a)[4] = ka[c + e];
             a[0] = pack_bf16(int8_at(fa, 0), int8_at(fa, 1));
             a[1] = pack_bf16(int8_at(fb, 0), int8_at(fb, 1));
             a[2] = pack_bf16(int8_at(fa, 2), int8_at(fa, 3));
@@ -633,7 +694,7 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
                                      (row & 7) * 2) = to_bf16(pv);
       }
 #pragma unroll
-      for (int h = 0; h < D / 64; ++h)
+      for (int h = 0; h < L::kBoxes; ++h)
 #pragma unroll
         for (int i = 0; i < NG / 2; ++i)
           o[h][i] *= alpha[2 * (i >> 2) + (i & 1)];
@@ -645,32 +706,30 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
       if constexpr (INT8) {
         // A = V^T from registers: this thread's dims odim(h, j) of rows
         // 16 kc + 4t .. + 3, the k order of P^T (kpos)
-        uint32_t vfr[D / 64][kTileRows / 16][4];
+        // (at D 96 the dims from 96 on read the next row's bytes: finite,
+        // and only padding rows of O^T take them)
+        uint32_t vfr[L::kBoxes][kTileRows / 16][4];
         const uint8_t* vt = st + L::kKv + (lane & 3) * 4 * D +
-                            (D == 128 ? 4 : 2) * (8 * warp + (lane >> 2));
+                            kVB * (8 * warp + (lane >> 2));
 #pragma unroll
         for (int kc = 0; kc < kTileRows / 16; ++kc) {
-          uint32_t w[4];
+          uint32_t w[4][kVB > 4 ? 2 : 1];
 #pragma unroll
-          for (int x = 0; x < 4; ++x) {
-            const uint8_t* p = vt + (16 * kc + x) * D;
-            if constexpr (D == 128)
-              w[x] = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
-            else
-              w[x] = (uint32_t)*reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
-          }
+          for (int x = 0; x < 4; ++x)
+            load_flipped<kVB>(vt + (16 * kc + x) * D, w[x]);
+          auto at = [&](int x, int e) { return int8_at(w[x][e >> 2], e & 3); };
 #pragma unroll
-          for (int h = 0; h < D / 64; ++h) {
+          for (int h = 0; h < L::kBoxes; ++h) {
             const int e0 = 2 * h, e1 = 2 * h + 1;
-            vfr[h][kc][0] = pack_bf16(int8_at(w[0], e0), int8_at(w[1], e0));
-            vfr[h][kc][1] = pack_bf16(int8_at(w[0], e1), int8_at(w[1], e1));
-            vfr[h][kc][2] = pack_bf16(int8_at(w[2], e0), int8_at(w[3], e0));
-            vfr[h][kc][3] = pack_bf16(int8_at(w[2], e1), int8_at(w[3], e1));
+            vfr[h][kc][0] = pack_bf16(at(0, e0), at(1, e0));
+            vfr[h][kc][1] = pack_bf16(at(0, e1), at(1, e1));
+            vfr[h][kc][2] = pack_bf16(at(2, e0), at(3, e0));
+            vfr[h][kc][3] = pack_bf16(at(2, e1), at(3, e1));
           }
         }
         wgmma_fence();
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h)
+        for (int h = 0; h < L::kBoxes; ++h)
 #pragma unroll
           for (int kc = 0; kc < kTileRows / 16; ++kc)
             wgmma_rs_k<NG>(o[h], vfr[h][kc],
@@ -678,13 +737,13 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h)
+        for (int h = 0; h < L::kBoxes; ++h)
 #pragma unroll
           for (int kc = 0; kc < kTileRows / 16; ++kc) reg_fence(vfr[h][kc]);
       } else {
         wgmma_fence();
 #pragma unroll
-        for (int h = 0; h < D / 64; ++h)
+        for (int h = 0; h < L::kBoxes; ++h)
 #pragma unroll
           for (int kc = 0; kc < kTileRows / 16; ++kc)
             wgmma_ss_n<NG, 1>(
@@ -715,24 +774,24 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
     uint16_t* const obase = out + ((size_t)un.b * g.H + un.kh * G) * D;
     if (un.n == 1) {
 #pragma unroll
-      for (int h = 0; h < D / 64; ++h)
+      for (int h = 0; h < L::kBoxes; ++h)
 #pragma unroll
         for (int i = 0; i < NG / 2; ++i) {
           const int k = 2 * (i >> 2) + (i & 1), c = col_of(k);
-          if (c < G)
-            obase[c * D + odim(h, i)] =
-                to_bf16(o[h][i] / fmaxf(l[k], 1e-30f));
+          const int d = odim(h, i);
+          if (c < G && d < D)
+            obase[c * D + d] = to_bf16(o[h][i] / fmaxf(l[k], 1e-30f));
         }
       continue;
     }
     float* const pp = unit_part(part, u, G, D);
 #pragma unroll
-    for (int h = 0; h < D / 64; ++h)
+    for (int h = 0; h < L::kBoxes; ++h)
 #pragma unroll
       for (int i = 0; i < NG / 2; ++i) {
         const int c = col_of(2 * (i >> 2) + (i & 1));
-        if (c < G)
-          __stcg(pp + c * D + odim(h, i), o[h][i]);
+        const int d = odim(h, i);
+        if (c < G && d < D) __stcg(pp + c * D + d, o[h][i]);
       }
     if (warp == 0 && lane < 4) {
 #pragma unroll
@@ -759,7 +818,22 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
 // cp.async (rows outside are zero-filled, never read), two stages deep for
 // int8; lane r of warp g scores row r for head g, one max and one sum per
 // tile update the online softmax, and lane r accumulates dims
-// [r D/32, (r + 1) D/32) of P V.
+// [r D/32, (r + 1) D/32) of P V. The tiles, scales, queries and
+// probabilities live in dynamic shared memory (ScalarLayout).
+template <typename TKV, int D>
+struct ScalarLayout {
+  static constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
+  static constexpr int kT = 32;                    // rows per tile
+  static constexpr int EPC = 16 / sizeof(TKV);     // elements per 16 bytes
+  static constexpr int RS = D + EPC;               // padded row (elements)
+  static constexpr int STAGES = sizeof(TKV) <= 2 ? 2 : 1;
+  static constexpr int kTile = STAGES * kT * RS * (int)sizeof(TKV);
+  static constexpr int kScales = STAGES * 2 * (QUANT ? kT : 4) * 4;
+  static constexpr int kQ = kMaxGroup * D * 4;
+  // Ks, Vs, Ss, qs, ps (every part a multiple of 16 bytes)
+  static constexpr int kSmem = 2 * kTile + kScales + kQ + kMaxGroup * kT * 4;
+};
+
 template <typename TKV, int D, bool PAGED>
 __global__ void __launch_bounds__(kMaxGroup * 32)
 decode_scalar(const float* __restrict__ q, const TKV* __restrict__ kpool,
@@ -770,21 +844,26 @@ decode_scalar(const float* __restrict__ q, const TKV* __restrict__ kpool,
               const int* __restrict__ hi_arr, float* __restrict__ out,
               float* __restrict__ part, int* __restrict__ cnt, const Geo g,
               float scale, float softcap) {
-  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
-  constexpr int kT = 32;                      // rows per tile
+  using L = ScalarLayout<TKV, D>;
+  constexpr bool QUANT = L::QUANT;
+  constexpr int kT = L::kT;
   const int G = g.G;
   const int NT = G * 32;                      // threads
-  constexpr int EPC = 16 / sizeof(TKV);       // elements per 16-byte chunk
+  constexpr int EPC = L::EPC;
   constexpr int CPR = D / EPC;                // chunks per row
-  constexpr int RS = D + EPC;                 // padded smem row (elements)
-  constexpr int STAGES = sizeof(TKV) <= 2 ? 2 : 1;
+  constexpr int RS = L::RS;
+  constexpr int STAGES = L::STAGES;
   constexpr int VEC = D / 32;                 // output dims per lane
-  __shared__ __align__(16) TKV Ks[STAGES][kT][RS];
-  __shared__ __align__(16) TKV Vs[STAGES][kT][RS];
+  extern __shared__ __align__(16) uint8_t scalar_smem[];
+  auto Ks = reinterpret_cast<TKV(*)[kT][RS]>(scalar_smem);
+  auto Vs = reinterpret_cast<TKV(*)[kT][RS]>(scalar_smem + L::kTile);
   // int8 only: [stage][k or v][row] scales of the tile and KV head
-  __shared__ __align__(16) float Ss[STAGES][2][QUANT ? kT : 4];
-  __shared__ __align__(16) float qs[kMaxGroup][D];
-  __shared__ float ps[kMaxGroup][kT];
+  auto Ss = reinterpret_cast<float(*)[2][QUANT ? kT : 4]>(
+      scalar_smem + 2 * L::kTile);
+  auto qs = reinterpret_cast<float(*)[D]>(scalar_smem + 2 * L::kTile +
+                                          L::kScales);
+  auto ps = reinterpret_cast<float(*)[kT]>(
+      scalar_smem + 2 * L::kTile + L::kScales + L::kQ);
   __shared__ int prefix[kMaxBatch + 1];
   __shared__ int is_last;
 
@@ -903,18 +982,30 @@ decode_scalar(const float* __restrict__ q, const TKV* __restrict__ kpool,
 
 // -- host ------------------------------------------------------------------------
 
+// The bf16 rows [rows, K, D] as the 3D tensor map (D, K, rows) with box
+// (64, 1, box_rows) and the 128-byte swizzle (the layout the wgmma
+// descriptors read): a box at dim 64 of D 96 reads dims 64..95 and is
+// zero past them.
+inline bool kv_map_bf16(CUtensorMap* map, const void* base, int D, int K,
+                        long rows, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)K,
+                              (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)K * D * 2};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)box_rows};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 // A row-major [d1, d0] tensor of `esize`-byte elements as a 2D tensor map
-// with box (b0, b1): the 128-byte swizzle for bf16 rows (the layout the
-// wgmma descriptors read), none for int8 rows and fp32 scales.
+// with box (b0, b1), no swizzle: int8 rows and fp32 scales.
 inline bool decode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
-                       const void* base, long d0, long d1, int b0, int b1,
-                       bool swizzle) {
+                       const void* base, long d0, long d1, int b0,
+                       int b1) {
   const cuuint64_t dims[2] = {(cuuint64_t)d0, (cuuint64_t)d1};
   const cuuint64_t strides[1] = {(cuuint64_t)d0 * esize};
   const cuuint32_t box[2] = {(cuuint32_t)b0, (cuuint32_t)b1};
   return encode_map(map, type, 2, base, dims, strides, box,
-                    swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
-                            : CU_TENSOR_MAP_SWIZZLE_NONE);
+                    CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // The arguments of one launch of either kernel.
@@ -940,26 +1031,24 @@ struct DecodeArgs {
 template <int D, int NG, bool INT8, bool PAGED>
 cudaError_t launch_tc(const DecodeArgs& a) {
   using L = TcLayout<D, INT8>;
-  const int KD = a.geo.K * D;
   CUtensorMap tmk, tmv, tmks, tmvs;
   memset(&tmks, 0, sizeof(tmks));
   memset(&tmvs, 0, sizeof(tmvs));
   bool ok;
   if constexpr (INT8) {
+    const int KD = a.geo.K * D;
     const long srows = a.rows / a.geo.bs * a.geo.K;  // scale runs [N K, bs]
     ok = decode_map(&tmk, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.k, KD, a.rows,
-                    D, a.geo.box_rows, false) &&
+                    D, a.geo.box_rows) &&
          decode_map(&tmv, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, a.v, KD, a.rows,
-                    D, a.geo.box_rows, false) &&
+                    D, a.geo.box_rows) &&
          decode_map(&tmks, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.k_scale,
-                    a.geo.bs, srows, a.geo.box_rows, 1, false) &&
+                    a.geo.bs, srows, a.geo.box_rows, 1) &&
          decode_map(&tmvs, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.v_scale,
-                    a.geo.bs, srows, a.geo.box_rows, 1, false);
+                    a.geo.bs, srows, a.geo.box_rows, 1);
   } else {
-    ok = decode_map(&tmk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.k, KD,
-                    a.rows, 64, a.geo.box_rows, true) &&
-         decode_map(&tmv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.v, KD,
-                    a.rows, 64, a.geo.box_rows, true);
+    ok = kv_map_bf16(&tmk, a.k, D, a.geo.K, a.rows, a.geo.box_rows) &&
+         kv_map_bf16(&tmv, a.v, D, a.geo.K, a.rows, a.geo.box_rows);
   }
   if (!ok) return cudaErrorInvalidValue;
   auto kern = decode_tc<D, NG, INT8, PAGED>;
@@ -987,7 +1076,16 @@ cudaError_t dispatch_tc(const DecodeArgs& a) {
 
 template <typename TKV, int D, bool PAGED>
 cudaError_t dispatch_scalar(const DecodeArgs& a) {
-  decode_scalar<TKV, D, PAGED><<<a.grid, a.geo.G * 32, 0, a.stream>>>(
+  auto kern = decode_scalar<TKV, D, PAGED>;
+  constexpr int smem = ScalarLayout<TKV, D>::kSmem;
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  kern<<<a.grid, a.geo.G * 32, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.k_scale, a.v_scale, a.table, a.lo,
       a.hi, static_cast<float*>(a.out), a.part, a.cnt, a.geo, a.scale,
@@ -995,12 +1093,14 @@ cudaError_t dispatch_scalar(const DecodeArgs& a) {
   return cudaGetLastError();
 }
 
-// The checks every launch shares: batch, heads, groups, units, grid.
+// The checks every launch shares: batch, heads, groups, head_dim, units,
+// grid.
 inline bool decode_geo_ok(const Geo& g, int D, int grid) {
   const int G = g.G;
   return g.B >= 1 && g.B <= kMaxBatch && g.K >= 1 && g.H == g.K * G &&
          G >= 1 && G <= kMaxGroup &&
-         (D == 64 || D == 128) && g.unit_rows >= kTileRows &&
+         (D == 64 || D == 96 || D == 128 || D == 256) &&
+         g.unit_rows >= kTileRows &&
          g.unit_rows % kTileRows == 0 && grid >= 1 && g.limit >= 0;
 }
 

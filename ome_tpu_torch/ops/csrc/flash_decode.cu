@@ -18,10 +18,21 @@
 
 #include "decode_core.cuh"
 
-// q [B, H, D]; k, v [B, S, K, D] (contiguous, same dtype, bf16 or fp32);
-// lo, hi [B] int32; out [B, H, D]. part: fp32 workspace of G (D + 4)
-// floats per unit, for every unit the windows can have (B K ceil(S /
-// unit_rows)); cnt [B K] int32, all 0 (each launch leaves it so).
+namespace {
+
+template <int D>
+cudaError_t dispatch_d(const DecodeArgs& a, bool q_bf16) {
+  return q_bf16 ? dispatch_tc<D, false, false>(a)
+                : dispatch_scalar<float, D, false>(a);
+}
+
+}  // namespace
+
+// q [B, H, D]; k, v [B, S, K, D] (contiguous, same dtype, bf16 or fp32;
+// D 64, 96, 128 or 256); lo, hi [B] int32; out [B, H, D]. part: fp32
+// workspace of G (D + 4) floats per unit, for every unit the windows can
+// have (B K ceil(S / unit_rows)); cnt [B K] int32, all 0 (each launch
+// leaves it so).
 // unit_rows and grid are ops/flash.py::decode_plan's. softcap <= 0
 // disables the softcap. Returns the CUDA error code of the launch.
 extern "C" int ome_flash_decode(const void* q, const void* k, const void* v,
@@ -45,9 +56,10 @@ extern "C" int ome_flash_decode(const void* q, const void* k, const void* v,
   const DecodeArgs a{q,  k,   v,   nullptr, nullptr, nullptr, lo,
                      hi, out, part, cnt,    (long)B * S,      g,
                      grid, scale, softcap, static_cast<cudaStream_t>(stream)};
-  if (is_bf16)
-    return D == 128 ? dispatch_tc<128, false, false>(a)
-                    : dispatch_tc<64, false, false>(a);
-  return D == 128 ? dispatch_scalar<float, 128, false>(a)
-                  : dispatch_scalar<float, 64, false>(a);
+  switch (D) {
+    case 64: return dispatch_d<64>(a, is_bf16);
+    case 96: return dispatch_d<96>(a, is_bf16);
+    case 128: return dispatch_d<128>(a, is_bf16);
+    default: return dispatch_d<256>(a, is_bf16);
+  }
 }

@@ -43,8 +43,9 @@ cudaError_t dispatch_d(const DecodeArgs& a, bool q_bf16, bool kv_int8) {
 
 }  // namespace
 
-// q [B, H, D] (bf16 or fp32); k_pool, v_pool [N, bs, K, D] in q's dtype,
-// or int8 with k_scale, v_scale [N, K, bs] fp32 (NULL otherwise);
+// q [B, H, D] (bf16 or fp32; D 64, 96, 128 or 256); k_pool, v_pool
+// [N, bs, K, D] in q's dtype, or int8 with k_scale, v_scale [N, K, bs]
+// fp32 (NULL otherwise);
 // table [B, M] int32 pool block ids; lo, hi [B] int32 sequence rows
 // [lo, hi) to attend (lo NULL: 0); out [B, H, D] in q's dtype. part:
 // fp32 workspace of G (D + 4) floats per unit, for every unit the
@@ -77,6 +78,10 @@ extern "C" int ome_flash_paged_decode(
                      lo,   hi,     out,    part,    cnt,     (long)N * bs,
                      g,    grid,   scale,  softcap,
                      static_cast<cudaStream_t>(stream)};
-  if (D == 128) return dispatch_d<128>(a, is_bf16, kv_int8);
-  return dispatch_d<64>(a, is_bf16, kv_int8);
+  switch (D) {
+    case 64: return dispatch_d<64>(a, is_bf16, kv_int8);
+    case 96: return dispatch_d<96>(a, is_bf16, kv_int8);
+    case 128: return dispatch_d<128>(a, is_bf16, kv_int8);
+    default: return dispatch_d<256>(a, is_bf16, kv_int8);
+  }
 }

@@ -66,6 +66,16 @@
 // products; the tensor cores keep busy only as far as the other
 // consumer warpgroup is in a product meanwhile. That serial softmax is
 // what holds the kernel above its bound.
+// head_dim D 64, 96, 128 or 256, as the reference's XLA path takes any D:
+// Q, K and V land as ceil(D / 64) boxes of 64 dims from 4D tensor maps
+// whose inner extent is D, so the last box at D 96 holds dims 64..95 and
+// TMA's zero fill (no byte past D is read). QK^T runs exactly D / 16 k
+// steps; PV runs N = 64 ceil(D / 64) columns in products of at most 128
+// (two at D 256), the columns past D zero and never stored: at D 96 a
+// quarter of the PV product is that padding. At D 256 a KV tile is 64
+// rows (BN), so that two stages of K and V (128 KB) and the Q boxes of
+// two consumers (64 KB) fit the 227 KB of shared memory; O is then 128
+// fp32 registers a consumer thread.
 // fp32 inputs take a plain kernel with scalar FMA in fp32 (tensor-core
 // TF32 would not hold fp32 tolerances); fp32 is not on the bf16 serving
 // path.
@@ -83,8 +93,12 @@ constexpr int kBM = 64;  // folded query rows per warpgroup / fp32 block
 // ---------------------------------------------------------------- bf16 ---
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBN = 128;    // KV rows per tile
 constexpr int kStages = 2;  // K/V tiles in flight
+
+// KV rows per tile: 128, or 64 at D 256 (two stages of 128-row K and V
+// tiles beside two consumers' Q boxes would not fit in shared memory)
+template <int D>
+constexpr int tile_rows() { return D > 128 ? 64 : 128; }
 
 // 2^x on the MUFU, flushing denormals (probabilities below 2^-126 are 0)
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -93,14 +107,17 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// Shared memory of one block: Q as NC x D/64 boxes of 64 folded rows x 64
+// Shared memory of one block: Q as NC x kDB boxes of 64 folded rows x 64
 // dims (128-byte rows, 8 KB each, of which the first PG G rows are
-// copied), then STAGES K tiles and STAGES V
-// tiles of D/64 boxes of BN rows x 64 dims; every box 1024-byte aligned
-// for the 128-byte swizzle.
+// copied), then STAGES K tiles and STAGES V tiles of kDB boxes of BN rows
+// x 64 dims; every box 1024-byte aligned for the 128-byte swizzle. kDB =
+// ceil(D / 64): the last box is zero past D. O is kNP products of kNW
+// columns.
 template <int D, int BN, int NC, int STAGES>
 struct Prefill {
-  static constexpr int kDB = D / 64;
+  static constexpr int kDB = (D + 63) / 64;
+  static constexpr int kNW = kDB * 64 > 128 ? 128 : kDB * 64;
+  static constexpr int kNP = kDB * 64 / kNW;
   static constexpr int kBoxQ = 64 * 128;
   static constexpr int kBoxKV = BN * 128;
   static constexpr int kStage = kDB * kBoxKV;
@@ -125,15 +142,20 @@ __device__ __forceinline__ void qk_async(float (&sacc)[BN / 2],
                  kc > 0);
 }
 
-// O += P V: BN/16 k16 steps of 16 V rows (2 KB) each; V is MN-major, its
-// 64-dim boxes kBoxKV apart (started, not waited for)
-template <int D, int BN, int kBoxKV>
-__device__ __forceinline__ void pv_async(float (&o)[D / 2],
+// O += P V: for each of the NP products of NW columns, BN/16 k16 steps of
+// 16 V rows (2 KB) each; V is MN-major, its 64-dim boxes kBoxKV apart
+// (started, not waited for)
+template <int NP, int NW, int BN, int kBoxKV>
+__device__ __forceinline__ void pv_async(float (&o)[NP][NW / 2],
                                          const uint32_t (&pf)[BN / 16][4],
                                          uint32_t v_addr) {
 #pragma unroll
-  for (int kc = 0; kc < BN / 16; ++kc)
-    wgmma_rs_mn<D>(o, pf[kc], sw128_desc(v_addr + kc * 2048, kBoxKV, 1024));
+  for (int n = 0; n < NP; ++n)
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc)
+      wgmma_rs_mn<NW>(o[n], pf[kc],
+                      sw128_desc(v_addr + n * (NW / 64) * kBoxKV + kc * 2048,
+                                 kBoxKV, 1024));
 }
 
 // The fp32 probabilities in S's registers -> the bf16 A fragments of the
@@ -308,9 +330,11 @@ prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
     named_bar_sync(1, 128 * NC);  // every consumer takes this branch
   }
 
-  float o[D / 2];
+  float o[P::kNP][P::kNW / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int n = 0; n < P::kNP; ++n)
+#pragma unroll
+    for (int i = 0; i < P::kNW / 2; ++i) o[n][i] = 0.f;
   // running max in the units of S (raw, or log2 with a softcap: see
   // softmax_tile); l is this thread's partial row sum, reduced over the
   // quad at the end
@@ -341,7 +365,9 @@ prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
                      tig, pa, pb, kv_hi, window, softcap, scale,
                      scale_log2);
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) o[j] *= (j & 2) ? al_b : al_a;
+    for (int n = 0; n < P::kNP; ++n)
+#pragma unroll
+      for (int j = 0; j < P::kNW / 2; ++j) o[n][j] *= (j & 2) ? al_b : al_a;
     uint32_t pf[BN / 16][4];
     to_a_frags<BN>(sacc, pf);
 
@@ -357,7 +383,8 @@ prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
     }
 
     wgmma_fence();
-    pv_async<D, BN, P::kBoxKV>(o, pf, smem_addr(Vs + s * P::kStage));
+    pv_async<P::kNP, P::kNW, BN, P::kBoxKV>(o, pf,
+                                            smem_addr(Vs + s * P::kStage));
     wgmma_commit();
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with s
@@ -379,9 +406,13 @@ prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
         out + (((size_t)b * Sq + q0 + qi) * H + kh * G + l % G) * D +
         tig * 2;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<uint32_t*>(dst + i * 8) =
-          pack_bf16(o[4 * i + 2 * half] * inv, o[4 * i + 2 * half + 1] * inv);
+    for (int n = 0; n < P::kNP; ++n)
+#pragma unroll
+      for (int i = 0; i < P::kNW / 8; ++i)
+        if (n * P::kNW + i * 8 < D)  // the padding columns past D
+          *reinterpret_cast<uint32_t*>(dst + n * P::kNW + i * 8) =
+              pack_bf16(o[n][4 * i + 2 * half] * inv,
+                        o[n][4 * i + 2 * half + 1] * inv);
   }
 }
 
@@ -525,7 +556,7 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
 }
 
 // bf16 x [B, L, X, D] as the 4D map (D, X, L, B), box (64, bx, bl, 1),
-// 128-byte swizzle; coordinates past L read as zeros
+// 128-byte swizzle; coordinates past L, and past D, read as zeros
 bool encode_bf16_4d(CUtensorMap* map, const void* x, int B, int L, int X,
                     int D, int bx, int bl) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)X, (cuuint64_t)L,
@@ -543,13 +574,14 @@ cudaError_t launch_wgmma(const uint16_t* q, const uint16_t* k,
                          const int* kvhi, uint16_t* out, int B, int Sq,
                          int S, int H, int K, int G, float scale,
                          float softcap, int window, cudaStream_t st) {
-  using P = Prefill<D, kBN, NC, kStages>;
+  constexpr int BN = tile_rows<D>();
+  using P = Prefill<D, BN, NC, kStages>;
   CUtensorMap tmq, tmk, tmv;
   if (!encode_bf16_4d(&tmq, q, B, Sq, H, D, G, 64 / G) ||
-      !encode_bf16_4d(&tmk, k, B, S, K, D, 1, kBN) ||
-      !encode_bf16_4d(&tmv, v, B, S, K, D, 1, kBN))
+      !encode_bf16_4d(&tmk, k, B, S, K, D, 1, BN) ||
+      !encode_bf16_4d(&tmv, v, B, S, K, D, 1, BN))
     return cudaErrorInvalidValue;
-  auto kern = prefill_wgmma<D, kBN, NC, kStages>;
+  auto kern = prefill_wgmma<D, BN, NC, kStages>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (err != cudaSuccess) return err;
@@ -579,8 +611,9 @@ cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k,
 }  // namespace
 
 // q [B, Sq, H, D]; k, v [B, S, K, D] (contiguous, same dtype); base, kv_hi
-// [B] int32; out [B, Sq, H, D]. window <= 0 disables the sliding window,
-// softcap <= 0 the softcap. G = H / K must be 1 to 16. Returns the CUDA
+// [B] int32; out [B, Sq, H, D]; D 64, 96, 128 or 256. window <= 0
+// disables the sliding window, softcap <= 0 the softcap. G = H / K must be
+// 1 to 16. Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int ome_flash_prefill(const void* q, const void* k, const void* v,
                                  const int* base, const int* kv_hi, void* out,
@@ -602,6 +635,8 @@ extern "C" int ome_flash_prefill(const void* q, const void* k, const void* v,
     uint16_t* o16 = static_cast<uint16_t*>(out);
     if (D == 128) return launch_bf16<128>(q16, k16, v16, base, kv_hi, o16, B, Sq, S, H, K, G, scale, softcap, window, st);
     if (D == 64) return launch_bf16<64>(q16, k16, v16, base, kv_hi, o16, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 96) return launch_bf16<96>(q16, k16, v16, base, kv_hi, o16, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 256) return launch_bf16<256>(q16, k16, v16, base, kv_hi, o16, B, Sq, S, H, K, G, scale, softcap, window, st);
   } else {
     const float* qf = static_cast<const float*>(q);
     const float* kf = static_cast<const float*>(k);
@@ -609,6 +644,8 @@ extern "C" int ome_flash_prefill(const void* q, const void* k, const void* v,
     float* of = static_cast<float*>(out);
     if (D == 128) return launch_f32<128>(qf, kf, vf, base, kv_hi, of, B, Sq, S, H, K, G, scale, softcap, window, st);
     if (D == 64) return launch_f32<64>(qf, kf, vf, base, kv_hi, of, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 96) return launch_f32<96>(qf, kf, vf, base, kv_hi, of, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 256) return launch_f32<256>(qf, kf, vf, base, kv_hi, of, B, Sq, S, H, K, G, scale, softcap, window, st);
   }
   return cudaErrorInvalidValue;
 }

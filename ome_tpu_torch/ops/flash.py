@@ -34,6 +34,13 @@ ctypes on PyTorch's current stream.
   table[b, 0] = b. Bound: the int8 K/V bytes in [lo, hi) plus their
   scales. As in the reference it is not wired into serving.
 
+All three take head_dim 64, 96, 128 and 256 (`_DIMS`; the reference's
+Pallas kernels take multiples of 128 and its XLA path the rest): a D
+that is not a multiple of 64 is read as ceil(D / 64) boxes of 64 dims
+whose tail TMA fills with zeros. Any other head_dim is refused on CUDA
+when the engine is built (`check_head_dim`), never at the first step,
+and never sent to the plain version.
+
 All three take every GQA group size G = H/K, as the reference's
 kernels do. One launch folds at most MAX_GROUP (16) query heads of a KV
 head into its rows; for G > 16 the wrapper splits the query heads, not
@@ -69,7 +76,8 @@ LAUNCHES = {"flash_decode": 0, "flash_prefill": 0,
             "flash_paged_decode": 0, "flash_decode_quantized": 0,
             "int4_matmul": 0}
 
-_DIMS = (64, 128)
+# head_dims the CUDA kernels take (B1, B2, B3, B5)
+_DIMS = (64, 96, 128, 256)
 # query heads per KV head (G = H / K) one launch takes: 1 to 16, any of
 # them (kMaxGroup in csrc/decode_core.cuh). A larger G is split into
 # chunks of at most MAX_GROUP heads (`head_split`), one launch each.
@@ -80,6 +88,22 @@ _RECIP_127 = 1.0 / 127.0    # rounded to f32 where it multiplies a f32 tensor
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _dims_text() -> str:
+    return ", ".join(map(str, _DIMS[:-1])) + f" or {_DIMS[-1]}"
+
+
+def check_head_dim(head_dim: int, device) -> None:
+    """Raise NotImplementedError, naming head_dim and the taken set,
+    when a model of this head_dim would run the CUDA kernels on `device`
+    (a torch.device or a name such as "cuda") and they do not take it.
+    The CPU runs the plain versions at every head_dim. The engine calls
+    this at construction, so such a model is refused when it loads."""
+    if torch.device(device).type == "cuda" and head_dim not in _DIMS:
+        raise NotImplementedError(
+            f"head_dim {head_dim}: the CUDA attention kernels take "
+            f"head_dim {_dims_text()}")
 
 
 def check_group(name: str, H: int, K: int) -> None:
@@ -274,7 +298,8 @@ def _check_cuda(name: str, q, k, v) -> None:
     D = q.shape[-1]
     if D not in _DIMS or k.shape[-1] != D:
         raise NotImplementedError(
-            f"{name}: the CUDA kernel takes head_dim 64 or 128, got {D}")
+            f"{name}: the CUDA kernel takes head_dim {_dims_text()}, got "
+            f"{D}")
     for t, what in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} must be contiguous")
@@ -300,6 +325,16 @@ TC_BLOCKS_PER_SM = 2      # decode_tc blocks on an SM (bf16 queries)
 SCALAR_BLOCKS_PER_SM = 4  # decode_scalar blocks on an SM (fp32)
 
 
+def decode_blocks_per_sm(tensor_cores: bool = True,
+                         head_dim: int = 128) -> int:
+    """Resident decode blocks per SM (`tc_blocks_per_sm` in
+    `csrc/decode_core.cuh`): half as many at head_dim 256, whose
+    decode_tc stages are 64 KB and whose decode_scalar tiles take
+    87 KB."""
+    per_sm = TC_BLOCKS_PER_SM if tensor_cores else SCALAR_BLOCKS_PER_SM
+    return per_sm // 2 if head_dim > 128 else per_sm
+
+
 class DecodeWindow(NamedTuple):
     """Sequence b's rows [lo, hi) inside [0, limit), the tile-aligned
     start `alo` the units are cut from, and the number of units `n`
@@ -322,14 +357,15 @@ def decode_window(lo: int, hi: int, limit: int,
 
 
 def decode_grid(B: int, K: int, limit: int, sm_count: int,
-                tensor_cores: bool = True, unit_rows: int = UNIT_ROWS):
+                tensor_cores: bool = True, unit_rows: int = UNIT_ROWS,
+                head_dim: int = 128):
     """(grid, max_units) of a launch, from what the host knows without
     reading lo and hi: the persistent grid is the card's resident blocks
     of the kernel, but no more than the units the windows can have
     (`max_units`, B K ceil(limit / unit_rows), which also sizes the
     workspace)."""
     max_units = B * K * max(1, -(-limit // unit_rows))
-    per_sm = TC_BLOCKS_PER_SM if tensor_cores else SCALAR_BLOCKS_PER_SM
+    per_sm = decode_blocks_per_sm(tensor_cores, head_dim)
     return max(1, min(sm_count * per_sm, max_units)), max_units
 
 
@@ -377,7 +413,8 @@ class DecodePlan(NamedTuple):
 
 def decode_plan(lo, hi, K: int, limit: int, sm_count: int,
                 tensor_cores: bool = True,
-                unit_rows: int = UNIT_ROWS) -> DecodePlan:
+                unit_rows: int = UNIT_ROWS,
+                head_dim: int = 128) -> DecodePlan:
     """The plan of a decode launch over windows [lo[b], hi[b]) of
     sequences that hold `limit` rows (S dense, M * bs paged), K KV heads,
     on a card of `sm_count` SMs. The kernel builds the same unit list on
@@ -388,7 +425,7 @@ def decode_plan(lo, hi, K: int, limit: int, sm_count: int,
     for w in windows:
         prefix.append(prefix[-1] + w.n * K)
     grid, max_units = decode_grid(len(windows), K, limit, sm_count,
-                                  tensor_cores, unit_rows)
+                                  tensor_cores, unit_rows, head_dim)
     return DecodePlan(K, limit, unit_rows, windows, tuple(prefix), grid,
                       max_units)
 
@@ -426,7 +463,7 @@ def _decode_workspace(name: str, q, K: int, limit: int):
     dev = q.device
     unit_rows = UNIT_ROWS
     grid, max_units = decode_grid(B, K, limit, _sm_count(dev),
-                                  q.dtype == torch.bfloat16, unit_rows)
+                                  q.dtype == torch.bfloat16, unit_rows, D)
     stream = torch.cuda.current_stream(dev).cuda_stream
     part, cnt = _decode_scratch(dev, stream,
                                 max_units * (H // K) * (D + 4), B * K)
@@ -506,15 +543,16 @@ def flash_prefill(q, k, v, base, kv_hi, scale: float,
 def check_paged_coverage(block: int, head_dim: int, num_heads: int,
                          num_kv_heads: int) -> None:
     """Raise ValueError unless the paged decode kernel takes this
-    shape: pool blocks a multiple of its 32-row tile, head_dim 64 or
-    128, and a whole G = H / K >= 1 (any G: `head_split` cuts G > 16)."""
+    shape: pool blocks a multiple of its 32-row tile, a head_dim of
+    `_DIMS`, and a whole G = H / K >= 1 (any G: `head_split` cuts
+    G > 16)."""
     if block <= 0 or block % 32 or head_dim not in _DIMS or \
             num_kv_heads <= 0 or num_heads < num_kv_heads or \
             num_heads % num_kv_heads:
         raise ValueError(
             f"the CUDA paged decode kernel needs a KV block that is a "
-            f"multiple of 32, head_dim 64 or 128 and a whole G = H/K >= 1 "
-            f"(got kv_block={block}, head_dim={head_dim}, "
+            f"multiple of 32, head_dim {_dims_text()} and a whole "
+            f"G = H/K >= 1 (got kv_block={block}, head_dim={head_dim}, "
             f"heads={num_heads}, kv_heads={num_kv_heads})")
 
 

@@ -27,6 +27,12 @@ per-(row, head) scales `[N, K, bs]`, S-minor as
   speculative verify forward (Sq = k+1 queries per slot, each at its
   own position). It is XLA in the reference, so it stays plain PyTorch
   on both devices: a gather of each slot's chain and a masked softmax.
+
+Each entry takes a `sliding_window` W: the query at position p then
+attends rows (p - W, p] only, the dense path's window (the kernel gets
+the window's first row as `lo`). The reference refuses paged KV for
+sliding-window models; the port serves them paged (Phi-3-mini), held
+against the dense engine's streams.
 """
 
 from __future__ import annotations
@@ -53,19 +59,29 @@ def _gather_dequant(pool: torch.Tensor, scale_pool: Optional[torch.Tensor],
     return g.float().reshape(B, M * bs, pool.shape[2], -1)
 
 
+def _window_lo(kv_len: torch.Tensor, sliding_window: Optional[int]):
+    """First row a decode query at position kv_len - 1 attends: 0, or
+    kv_len - W under a sliding window W."""
+    if not sliding_window:
+        return torch.zeros_like(kv_len)
+    return (kv_len - sliding_window).clamp(min=0)
+
+
 def paged_attention_xla(q: torch.Tensor, k_pool: torch.Tensor,
                         v_pool: torch.Tensor, table: torch.Tensor,
                         kv_len: torch.Tensor,
                         scale: Optional[float] = None,
                         logit_softcap: Optional[float] = None,
                         k_scale: Optional[torch.Tensor] = None,
-                        v_scale: Optional[torch.Tensor] = None
+                        v_scale: Optional[torch.Tensor] = None,
+                        sliding_window: Optional[int] = None
                         ) -> torch.Tensor:
     """Reference paged decode attention (gather + masked softmax).
 
     q: [B, 1, H, D]; pools: [N, bs, K, D]; table: [B, M] int32;
-    kv_len: [B] valid rows per slot. int8 pools pass their scale
-    planes ([N, K, bs] f32). Returns [B, 1, H, D] in q.dtype."""
+    kv_len: [B] valid rows per slot, of which a sliding window W keeps
+    the last W. int8 pools pass their scale planes ([N, K, bs] f32).
+    Returns [B, 1, H, D] in q.dtype."""
     B, _, H, D = q.shape
     _, bs, K, _ = k_pool.shape
     M = table.shape[1]
@@ -78,8 +94,9 @@ def paged_attention_xla(q: torch.Tensor, k_pool: torch.Tensor,
     if logit_softcap:
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
     col = torch.arange(M * bs, dtype=torch.int32, device=q.device)
-    valid = (col[None, :] < kv_len.to(device=q.device,
-                                      dtype=torch.int32)[:, None])
+    hi = kv_len.to(device=q.device, dtype=torch.int32)
+    valid = (col[None, :] < hi[:, None]) & \
+        (col[None, :] >= _window_lo(hi, sliding_window)[:, None])
     valid = valid[:, None, None, :]
     logits = torch.where(valid, logits, torch.full_like(logits, M_INIT))
     p = torch.softmax(logits, dim=-1)
@@ -111,22 +128,25 @@ def paged_flash_decode(q: torch.Tensor, k_pool: torch.Tensor,
                        scale: Optional[float] = None,
                        logit_softcap: Optional[float] = None,
                        k_scale: Optional[torch.Tensor] = None,
-                       v_scale: Optional[torch.Tensor] = None
+                       v_scale: Optional[torch.Tensor] = None,
+                       sliding_window: Optional[int] = None
                        ) -> torch.Tensor:
     """Paged decode attention through the CUDA kernel (counted as
     LAUNCHES["flash_paged_decode"]): slot b attends its sequence rows
-    [0, kv_len[b]). On a CPU tensor, the kernel's plain version."""
+    [0, kv_len[b]), or [kv_len[b] - W, kv_len[b]) under a sliding window
+    W. On a CPU tensor, the kernel's plain version."""
     D = q.shape[-1]
     scale = scale if scale is not None else D ** -0.5
     hi = kv_len.to(device=q.device, dtype=torch.int32)
     if not q.is_cuda:
         return flash_paged_decode_ref(q, k_pool, v_pool, table,
-                                      torch.zeros_like(hi), hi, scale,
-                                      logit_softcap, k_scale=k_scale,
+                                      _window_lo(hi, sliding_window), hi,
+                                      scale, logit_softcap, k_scale=k_scale,
                                       v_scale=v_scale)
     # lo None: every window starts at row 0 (no zeros to fill on the card)
+    lo = _window_lo(hi, sliding_window) if sliding_window else None
     return paged_decode_launch("flash_paged_decode", q, k_pool, v_pool,
-                               table, None, hi, scale, logit_softcap,
+                               table, lo, hi, scale, logit_softcap,
                                k_scale=k_scale, v_scale=v_scale)
 
 
@@ -136,17 +156,20 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     scale: Optional[float] = None,
                     logit_softcap: Optional[float] = None,
                     k_scale: Optional[torch.Tensor] = None,
-                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    v_scale: Optional[torch.Tensor] = None,
+                    sliding_window: Optional[int] = None) -> torch.Tensor:
     """Dispatching entry (the reference's `paged_attention` contract):
     the CUDA kernel for a CUDA tensor, `paged_attention_xla` for a CPU
     tensor. int8 pools pass k_scale/v_scale."""
     if q.is_cuda:
         return paged_flash_decode(q, k_pool, v_pool, table, kv_len, scale,
                                   logit_softcap, k_scale=k_scale,
-                                  v_scale=v_scale)
+                                  v_scale=v_scale,
+                                  sliding_window=sliding_window)
     return paged_attention_xla(q, k_pool, v_pool, table, kv_len, scale,
                                logit_softcap, k_scale=k_scale,
-                               v_scale=v_scale)
+                               v_scale=v_scale,
+                               sliding_window=sliding_window)
 
 
 def paged_attention_multi(q: torch.Tensor, k_pool: torch.Tensor,
@@ -155,13 +178,15 @@ def paged_attention_multi(q: torch.Tensor, k_pool: torch.Tensor,
                           scale: Optional[float] = None,
                           logit_softcap: Optional[float] = None,
                           k_scale: Optional[torch.Tensor] = None,
-                          v_scale: Optional[torch.Tensor] = None
+                          v_scale: Optional[torch.Tensor] = None,
+                          sliding_window: Optional[int] = None
                           ) -> torch.Tensor:
     """Multi-query causal paged attention (the speculative verify).
 
     Like `paged_attention_xla` with Sq >= 1 queries per slot: query s of
     slot b attends the pool rows at sequence positions <=
-    q_positions[b, s], its own freshly written row included. Rows past
+    q_positions[b, s] (and > q_positions[b, s] - W under a sliding
+    window W), its own freshly written row included. Rows past
     a slot's chain sit in trash-block gathers at positions beyond every
     query, so the one comparison masks both.
 
@@ -180,7 +205,11 @@ def paged_attention_multi(q: torch.Tensor, k_pool: torch.Tensor,
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
     col = torch.arange(M * bs, dtype=torch.int32, device=q.device)
     qp = q_positions.to(device=q.device, dtype=torch.int32)
-    valid = (col[None, None, :] <= qp[:, :, None])[:, None, None]
+    valid = col[None, None, :] <= qp[:, :, None]
+    if sliding_window:
+        valid = valid & (col[None, None, :] > qp[:, :, None]
+                         - sliding_window)
+    valid = valid[:, None, None]
     logits = torch.where(valid, logits, torch.full_like(logits, M_INIT))
     p = torch.softmax(logits, dim=-1)
     p = torch.where(valid, p, torch.zeros_like(p))

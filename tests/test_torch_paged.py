@@ -197,7 +197,9 @@ def test_cuda_coverage_check():
     flash.check_paged_coverage(128, 128, 28, 4)   # G 7: Qwen2.5-7B
     flash.check_paged_coverage(128, 128, 34, 2)   # G 17: two head chunks
     flash.check_paged_coverage(128, 128, 32, 1)   # G 32 (MQA)
-    for bad in ((48, 128, 32, 8), (0, 128, 32, 8), (128, 96, 32, 8),
+    flash.check_paged_coverage(64, 96, 32, 32)    # Phi-3-mini, bs 64
+    flash.check_paged_coverage(128, 256, 16, 8)   # Gemma-2-9B heads
+    for bad in ((48, 128, 32, 8), (0, 128, 32, 8), (128, 80, 32, 8),
                 (128, 16, 8, 4), (128, 128, 33, 2), (128, 128, 1, 2)):
         with pytest.raises(ValueError, match="kv_block"):
             flash.check_paged_coverage(*bad)
@@ -403,8 +405,11 @@ def test_impossible_request_rejected_upfront(params):
 
 def test_paged_rejects_unsupported_models(params):
     _, tparams = params
+    # alternating sliding/global windows (gemma2-style) stay dense; one
+    # model-wide window is served paged (test_torch_headdim.py)
     with pytest.raises(PagedKVUnsupported, match="paged KV"):
-        InferenceEngine(tparams, TCFG.replace(sliding_window=8),
+        InferenceEngine(tparams, TCFG.replace(sliding_window=8,
+                                              alt_sliding_window=True),
                         max_slots=2, kv_block=16, device="cpu")
 
 

@@ -20,8 +20,11 @@
   node rejects completions; the pool fails over in order, survives a
   peer's death mid-handoff, caps each attempt at the request's
   deadline, and a failed remote prefill fails the request, not the
-  server. (The reference's journal kill-and-resume test waits for the
-  journal's port.)
+  server.
+* Durable PD requests: a journaled request killed mid-decode on a
+  decode node resumes on a fresh one byte-identical to the monolithic
+  stream, its admit record carrying the PD provenance and its folded
+  prompt re-prefilled through the pool.
 """
 
 import json
@@ -405,3 +408,72 @@ def test_remote_prefill_failure_fails_request_not_server(world):
     finally:
         faults.reset()
         sched.stop()
+
+
+def test_pd_journal_kill_resume_byte_identical(world, tmp_path):
+    """A journaled PD request killed mid-decode resumes on a fresh decode
+    node byte-identical to an uninterrupted monolithic run: the journal's
+    admit record carries the PD provenance, and the resume re-prefills
+    (prompt + generated prefix) through the pool — the prefill node
+    serves one more fetch, for the folded prompt."""
+    from ome_tpu_torch.engine.journal import RequestJournal
+    d = str(tmp_path)
+    pre = _prefill_server(world)
+    url = _url(pre)
+    fetched = []
+    handler = pre.pd_prefill
+
+    def recording(body, *a, **kw):
+        fetched.append(list(body["ids"]))
+        return handler(body, *a, **kw)
+    pre.pd_prefill = recording
+    try:
+        ref_sched = Scheduler(_engine(world))
+        ref_sched.start()
+        ref = ref_sched.submit(Request(prompt_ids=[9, 8, 7],
+                                       max_new_tokens=8))
+        assert ref.done.wait(60) and ref.finish_reason == "length"
+        ref_sched.stop()
+
+        # the decode node dies mid-decode (an engine_step fault with no
+        # restart budget: dead, so the journal entry stays resumable)
+        faults.install("engine_step.raise@4")
+        provenance = {"mode": "pd-decode", "peers": [url]}
+        j = RequestJournal(d, fsync="always", provenance=provenance)
+        sched = Scheduler(pd.RemotePrefillEngine(_engine(world),
+                                                 peer_urls=[url]),
+                          overlap=True, max_restarts=0, journal=j)
+        sched.start()
+        req = sched.submit(Request(prompt_ids=[9, 8, 7], max_new_tokens=8))
+        assert req.done.wait(60)
+        assert req.finish_reason == "engine_fault"
+        deadline = time.monotonic() + 15
+        while sched.status != "dead" and time.monotonic() < deadline:
+            time.sleep(0.01)
+        got_before = list(req.output_ids)
+        assert 0 < len(got_before) < 8
+        sched.stop()
+        j.close()
+        faults.reset()
+
+        # a new process: fresh engines over the same journal directory
+        j2 = RequestJournal(d)
+        entries = j2.replay()
+        assert len(entries) == 1
+        assert entries[0].pd == provenance
+        sched2 = Scheduler(pd.RemotePrefillEngine(_engine(world),
+                                                  peer_urls=[url]),
+                           overlap=True, journal=j2)
+        assert sched2.resume_from_journal() == 1
+        resumed = sched2.pending.queue[0]
+        assert resumed.prompt_ids == [9, 8, 7] + got_before
+        sched2.start()
+        assert resumed.done.wait(60)
+        assert resumed.finish_reason == "length"
+        sched2.stop()
+        j2.close()
+        assert resumed.output_ids == ref.output_ids
+        assert fetched == [[9, 8, 7], [9, 8, 7] + got_before]
+    finally:
+        faults.reset()
+        pre.stop()

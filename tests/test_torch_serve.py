@@ -124,7 +124,8 @@ def test_health_metrics_and_refusals(served):
     ["--tp", "2"], ["--quantization", "nf4"], ["--kv-block", "-16"],
     ["--kv-dtype", "int8"], ["--profile-dir", "/nonexistent"],
     ["--disaggregation-mode", "decode"], ["--spec-tokens", "-1"],
-    ["--steps-per-dispatch", "0"], ["--journal", "/nonexistent"],
+    ["--steps-per-dispatch", "0"],
+    ["--journal", "/nonexistent", "--disaggregation-mode", "prefill"],
     ["--task", "embed"], ["--ledger-mode", "auto"],
     ["--control-port", "9000"], ["--adapter", "a=/nonexistent"],
     ["--lora-slots", "2"],
