@@ -138,7 +138,32 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    server resuming from the same directory: at 4 fp32 layers of
    Phi-3-mini widths the resumed stream is byte-identical to an
    uninterrupted server's; at full size in bf16 the first differing
-   token is reported; journal bytes, appends and the replay time.
+   token is reported; journal bytes, appends and the replay time;
+29. multi-LoRA identity (`phase_lora_identity`): fp32 at the Llama-3-8B
+   widths, 4 layers, three seeded PEFT adapters (rank 16, alpha 32, all
+   seven targets) in 4 slots: base and the three adapters in one decode
+   batch, each stream identical to its request alone and each adapter's
+   differing from the base's; each adapter against an engine over its
+   `merge_lora` weights (first-step logits within LORA_MERGED_ATOL,
+   identical streams); dense (B1) = paged (B3) streams under adapters;
+   `decode_multi` K=4 and the spec-4 / K-4 scheduler (B2 at Sq 5) equal
+   to single steps; unregister refused in flight, then re-registered by
+   name;
+30. multi-LoRA server (`phase_lora_server`): the bf16 Llama-3-8B server
+   at full depth with `--adapter a1=... a2=... a3=... --lora-slots 4
+   --lora-rank 16`: 12 concurrent requests (4 base, 8 adapters), `POST
+   /v1/adapters` a4 while decoding and a request to it, `DELETE
+   /v1/adapters/a1` 409 while a1 decodes and 200 after; TTFT/TPOT
+   medians mixed against the same prompts to the base model; decode
+   step wall and device ms, idle share, launches and the delta's device
+   ms with and without adapters in the batch; the stacks' bytes;
+31. embeddings (`phase_embed`): e5-mistral-7b-instruct's widths at full
+   size in bf16 through `serve --task embed` (`/v1/embeddings` for 8
+   inputs, completions refused), then 48 inputs of 16-6000 tokens over
+   the five buckets, one forward each (B2 at batch N per layer): batch,
+   tokens/s, embeddings/s, device ms, idle share and B2 launches per
+   bucket; unit norms; each input alone within cosine EMBED_COS_MIN of
+   itself batched (bf16), and within EMBED_FP32_ATOL at 4 fp32 layers.
 
 The kernels phase also runs B2 at the dense verify's shape: B 8 slots,
 Sq 5 rows each from its own base (60 to 4090) over a 4096-row cache,
@@ -253,7 +278,10 @@ GROUP_SHAPES = (_heads(LLAMA32_3B), (40, 8, 128), (12, 2, 128),
 # (H, K, D) of the kernel cases at the head_dims past 64 and 128:
 # Phi-3-mini (D 96, G 1) and Gemma-2-9B (D 256, G 2)
 HEAD_DIM_SHAPES = (_heads(PHI3_MINI_4K), GEMMA2_9B_HEADS)
-OUT_DIR = "chiprun_out"
+# beside the script, whatever the working directory (a child process
+# of this script writes where its parent reads)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out")
 
 
 def log(msg: str) -> None:
@@ -308,7 +336,7 @@ class Timer:
         return statistics.median(times)
 
 
-# -- phase 1: device ------------------------------------------------------------
+# -- phase 1: device ----------------------------------------------------------
 
 
 def phase_device(torch):
@@ -337,7 +365,7 @@ def phase_device(torch):
     return card
 
 
-# -- phase 2: build -------------------------------------------------------------
+# -- phase 2: build -----------------------------------------------------------
 
 
 def phase_build():
@@ -356,7 +384,7 @@ def phase_build():
     return secs
 
 
-# -- phase 3: kernels against their plain versions -----------------------------
+# -- phase 3: kernels against their plain versions ----------------------------
 
 
 def _inputs(torch, gen, B, Sq, S, H, K, D, dtype, device):
@@ -481,10 +509,31 @@ def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
             "share_of_bound": bound["bound_ms"] / ms, **bound}
 
 
+# the plain prefill's fp32 logits [B, H, Sq, S] of one call at most;
+# past it, `_prefill_plain` runs it in blocks of query rows
+PLAIN_LOGITS_BYTES = 4 << 30
+
+
+def _prefill_plain(torch, q, k, v, base, kv_hi, scale, softcap, window):
+    """flash_prefill_ref on fp32 copies of the inputs, in blocks of query
+    rows where one call's fp32 logits would pass PLAIN_LOGITS_BYTES:
+    query row i's output depends only on its own position base + i, so
+    the blocks give the values of the one call."""
+    from ome_tpu_torch.ops import flash
+    B, Sq, H, _ = q.shape
+    S = k.shape[1]
+    step = max(1, PLAIN_LOGITS_BYTES // (B * H * S * 4))
+    kf, vf = k.float(), v.float()
+    return torch.cat([flash.flash_prefill_ref(
+        q[:, i:i + step].float(), kf, vf, base + i, kv_hi, scale, softcap,
+        window) for i in range(0, Sq, step)], dim=1)
+
+
 def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
                  softcap=None, B=1, H=32, K=8, D=128, bases=None,
                  kv_hi=None, nan_tail=False, rel_tol=None):
-    """B2 at one shape against flash_prefill_ref (fp32, same inputs).
+    """B2 at one shape against flash_prefill_ref (fp32, same inputs; in
+    blocks of query rows past PLAIN_LOGITS_BYTES, `_prefill_plain`).
     `bases` gives each sequence its own base (default `base` for all);
     kv_hi defaults to base + Sq. With `rel_tol`, each sequence's max
     |kernel - plain| over the rms of its plain output must stay within
@@ -503,8 +552,8 @@ def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
     base_t = torch.tensor(bases, dtype=torch.int32, device=dev)
     kv_hi_t = torch.tensor(his, dtype=torch.int32, device=dev)
     scale = D ** -0.5
-    ref = flash.flash_prefill_ref(q.float(), k.float(), v.float(), base_t,
-                                  kv_hi_t, scale, softcap, window)
+    ref = _prefill_plain(torch, q, k, v, base_t, kv_hi_t, scale, softcap,
+                         window)
     clean = (k, v)
     if nan_tail:
         k, v = k.clone(), v.clone()
@@ -526,11 +575,13 @@ def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
         rms = ref.flatten(1).pow(2).mean(1).sqrt()
         rel = {"rel_errs": (per_seq / rms).tolist(), "rel_tol": rel_tol}
     ms = timer.ms(kernel)
-    plain_ms = timer.ms(lambda: flash.flash_prefill_ref(
-        q.float(), clean[0].float(), clean[1].float(), base_t, kv_hi_t,
-        scale, softcap, window), iters=3)
+    plain_ms = timer.ms(lambda: _prefill_plain(
+        torch, q, clean[0], clean[1], base_t, kv_hi_t, scale, softcap,
+        window), iters=3)
     lib_ms = lib_causal_ms = None
-    if not softcap:
+    # (no yardstick past the plain version's cap: SDPA with a mask and
+    # GQA takes its math backend, which holds all the logits at once)
+    if not softcap and B * H * Sq * S * 4 <= PLAIN_LOGITS_BYTES:
         col = torch.arange(S, device=dev)[None, None, :]
         pos = (base_t[:, None] + torch.arange(Sq, device=dev)[None, :]
                )[:, :, None]
@@ -574,7 +625,9 @@ def phase_prefill_kernel(torch, timer, gen):
     their own bases, a ragged chunk whose cache tail past kv_hi is NaN,
     the fp32 kernel's two cases, the verify shape, and the group sizes
     that do not divide 64 (`GROUP_SHAPES`; at G 7 also fp32, a NaN
-    tail, a suffix chunk and the verify shape)."""
+    tail, a suffix chunk and the verify shape), and the embeddings
+    path's smallest and largest buckets (B 10 at 32, B 8 at 8192, window
+    4096; bf16 and fp32)."""
     cases = [prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0)]
     for n in (64, 256, 4096):
         cases.append(prefill_case(torch, timer, gen, "bf16", n, n, 0))
@@ -615,6 +668,16 @@ def phase_prefill_kernel(torch, timer, gen):
         cases.append(prefill_case(torch, timer, gen, dt, 5, 4096, 0, B=8,
                                   bases=VERIFY_BASES, H=28, K=4,
                                   rel_tol=VERIFY_REL_TOL[dt]))
+    # the embeddings path (phase 31): one launch per layer at batch N,
+    # base 0, Sq = S = kv_hi = the bucket, with Mistral's window 4096 at
+    # every bucket (in effect only past 4096). The right padding of a
+    # row is ordinary rows to the kernel, after the row's last real
+    # token. The 32 bucket at batch 10 and the 8192 bucket at batch 8
+    for dt in ("bf16", "fp32"):
+        cases += [prefill_case(torch, timer, gen, dt, 32, 32, 0, B=10,
+                               window=EMBED_WINDOW),
+                  prefill_case(torch, timer, gen, dt, 8192, 8192, 0, B=8,
+                               window=EMBED_WINDOW)]
     for c in cases:
         lc = c["library_causal_ms"]
         log(f"[kernels] flash_prefill {c['case']}: share of bound "
@@ -1538,7 +1601,7 @@ def check_cases(cases):
     return cases
 
 
-# -- phase 4: serve ---------------------------------------------------------------
+# -- phase 4: serve -----------------------------------------------------------
 
 
 def _hf_config(cfg) -> dict:
@@ -2217,19 +2280,29 @@ def phase_step_turns(torch, seed: int = 0, rounds: int = 2):
     return out
 
 
-def _greedy_streams(torch, eng, prompts, steps: int):
-    """Greedy streams of `prompts` through the engine API: each prompt
-    prefilled into slot 0, 1, ..., then `steps - 1` decode steps of
-    every slot. Returns (streams, the top-2 logit gap of each slot at
-    each decode step, the first decode step's fp32 logits of the
-    prompts' slots)."""
-    import numpy as np
+def _admit(eng, prompts, adapters=None):
+    """A fresh decode state with each prompt prefilled into slot 0, 1,
+    ... (with its LoRA adapter, from `adapters`, where not None);
+    returns (state, each slot's first token as a list)."""
     state = eng.new_state()
     out = []
     for slot, ids in enumerate(prompts):
-        tok, kv, n, bucket = eng.prefill(ids)
-        state = eng.insert(state, kv, slot, n, tok, bucket)
+        ad = adapters[slot] if adapters else None
+        kw = {} if ad is None else {"adapter": ad}
+        tok, kv, n, bucket = eng.prefill(ids, **kw)
+        state = eng.insert(state, kv, slot, n, tok, bucket, **kw)
         out.append([int(tok)])
+    return state, out
+
+
+def _greedy_streams(torch, eng, prompts, steps: int, adapters=None):
+    """Greedy streams of `prompts` through the engine API (`_admit`),
+    then `steps - 1` decode steps of every slot; the slots are freed
+    after. Returns (streams, the top-2 logit gap of each slot at each
+    decode step, the first decode step's fp32 logits of the prompts'
+    slots)."""
+    import numpy as np
+    state, out = _admit(eng, prompts, adapters)
     top2, first = [], []
     sample = eng._sample
 
@@ -2250,6 +2323,8 @@ def _greedy_streams(torch, eng, prompts, steps: int):
                 out[slot].append(int(t))
     finally:
         del eng._sample
+    for slot in range(len(prompts)):
+        eng.free_slot(slot)
     gaps = [(t[:, 0] - t[:, 1]).cpu() for t in top2]
     return out, gaps, first[0]
 
@@ -2449,7 +2524,7 @@ def phase_stream_identity(torch, seed: int = 0, n_layers: int = 4,
             "int8_drift": int8_drift, "launches": launches}
 
 
-# -- phase 11: checkpoint ---------------------------------------------------------
+# -- phase 11: checkpoint -----------------------------------------------------
 
 
 def _bits(torch, t):
@@ -2564,7 +2639,7 @@ def phase_checkpoint(torch, seed: int = 0, n_layers: int = 4):
     return out
 
 
-# -- phase 12: step-plan identity -------------------------------------------------
+# -- phase 12: step-plan identity ---------------------------------------------
 
 
 # embedding scale of phase 12's tied random weights: at 4x the greedy
@@ -2583,18 +2658,15 @@ def _echo_prompts(bases, continuations):
             for b, c in zip(bases, continuations)]
 
 
-def _multi_streams(torch, eng, prompts, steps: int, k: int):
-    """Greedy streams of `prompts` through `decode_multi` chunks of `k`
-    (the first token from prefill, then `steps - 1` more), paged chunks
-    committed after each drain."""
+def _multi_streams(torch, eng, prompts, steps: int, k: int,
+                   adapters=None):
+    """Greedy streams of `prompts` (`_admit`) through `decode_multi`
+    chunks of `k` (the first token from prefill, then `steps - 1`
+    more), paged chunks committed after each drain; the slots are freed
+    after."""
     import numpy as np
     n = eng.max_slots
-    state = eng.new_state()
-    out = []
-    for slot, ids in enumerate(prompts):
-        tok, kv, t_len, bucket = eng.prefill(ids)
-        state = eng.insert(state, kv, slot, t_len, tok, bucket)
-        out.append([int(tok)])
+    state, out = _admit(eng, prompts, adapters)
     greedy = (np.zeros(n, np.float32), np.zeros(n, np.int32),
               np.ones(n, np.float32))
     stops = np.full((n, 4), -1, np.int32)
@@ -2608,16 +2680,21 @@ def _multi_streams(torch, eng, prompts, steps: int, k: int):
         for slot in range(len(prompts)):
             out[slot] += [int(t) for t in toks[slot, :int(adv[slot])]]
             eng.commit_spec(slot, int(adv[slot]))
+    for slot in range(len(prompts)):
+        eng.free_slot(slot)
     return out
 
 
-def _sched_streams(eng, prompts, steps: int, **kw):
-    """Greedy streams through the port's Scheduler, stepped in this
+def _sched_streams(eng, prompts, steps: int, adapters=None, **kw):
+    """Greedy streams through the port's Scheduler (each request with
+    its LoRA adapter from `adapters`, where given), stepped in this
     thread; returns (streams, scheduler)."""
     from ome_tpu_torch.engine.scheduler import Request, Scheduler
     sched = Scheduler(eng, **kw)
-    reqs = [sched.submit(Request(prompt_ids=ids, max_new_tokens=steps))
-            for ids in prompts]
+    reqs = [sched.submit(Request(
+        prompt_ids=ids, max_new_tokens=steps,
+        adapter=adapters[i] if adapters else None))
+        for i, ids in enumerate(prompts)]
     for _ in range(20 * steps):
         if all(r.done.is_set() for r in reqs):
             break
@@ -2736,7 +2813,7 @@ def phase_step_plans(torch, seed: int = 0, n_layers: int = 4,
     return out
 
 
-# -- phases 17 and 19: the other families in fp32 ----------------------------------
+# -- phases 17 and 19: the other families in fp32 -----------------------------
 
 
 def phase_qk_norm_identity(torch, seed: int = 0, n_layers: int = 4,
@@ -2881,7 +2958,7 @@ def phase_moe_identity(torch, seed: int = 0, n_layers: int = 4,
     return res
 
 
-# -- phase 13/14: step-plan servers -------------------------------------------------
+# -- phase 13/14: step-plan servers -------------------------------------------
 
 
 SERVE_SCHEMA = {"type": "object",
@@ -4201,6 +4278,804 @@ def phase_peering(torch, seed: int = 0):
     return {"peer_fetches": fetches, "streams_identical": True}
 
 
+# -- phases 29-31: multi-LoRA and embeddings ----------------------------------
+
+
+LORA_RANK = 16
+LORA_ALPHA = 32.0
+# A and B of the seeded adapters: N(0, 0.035) each, so that the merged
+# delta (alpha / r) B A has a std of about 0.01 beside the init's 0.02
+LORA_STD = 0.035
+LORA_TARGETS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                "up_proj", "down_proj")
+# fp32: the factored delta (x A^T) B against the merged W + (alpha/r) B A
+LORA_MERGED_ATOL = 2e-3
+# intfloat/e5-mistral-7b-instruct config.json (MistralModel)
+E5_MISTRAL_7B = {"_source": "intfloat/e5-mistral-7b-instruct config.json",
+                 "architectures": ["MistralModel"], "model_type": "mistral",
+                 "vocab_size": 32000, "hidden_size": 4096,
+                 "num_hidden_layers": 32, "num_attention_heads": 32,
+                 "num_key_value_heads": 8, "intermediate_size": 14336,
+                 "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
+                 "sliding_window": 4096, "max_position_embeddings": 32768,
+                 "tie_word_embeddings": False}
+# the window every embedding batch's B2 launches take (kernels phase)
+EMBED_WINDOW = E5_MISTRAL_7B["sliding_window"]
+# bf16: an input embedded alone against itself in its bucket's batch
+EMBED_COS_MIN = 0.999
+# fp32, 4 layers: the same, as max abs diff of unit vectors
+EMBED_FP32_ATOL = 1e-4
+
+
+def _write_adapter(torch, path: str, cfg, seed: int, dtype=None) -> str:
+    """A PEFT adapter dir over every target of every layer of `cfg`:
+    lora_A [r, in] / lora_B [out, r] drawn N(0, LORA_STD) from `seed`
+    (a CPU generator), written with the port's `save_safetensors` in
+    `dtype` (default float32)."""
+    from ome_tpu_torch.models.checkpoint import save_safetensors
+    os.makedirs(path, exist_ok=True)
+    gen = torch.Generator().manual_seed(seed)
+    D, H, K, Dh, F = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.head_dim, cfg.intermediate_size)
+    shapes = {"q_proj": (H * Dh, D), "k_proj": (K * Dh, D),
+              "v_proj": (K * Dh, D), "o_proj": (D, H * Dh),
+              "gate_proj": (F, D), "up_proj": (F, D), "down_proj": (D, F)}
+    tensors = {}
+    for layer in range(cfg.num_layers):
+        for m in LORA_TARGETS:
+            out, inp = shapes[m]
+            part = "self_attn" if m in LORA_TARGETS[:4] else "mlp"
+            pre = f"base_model.model.model.layers.{layer}.{part}.{m}."
+            for ab, shape in (("A", (LORA_RANK, inp)),
+                              ("B", (out, LORA_RANK))):
+                t = torch.randn(shape, generator=gen).mul_(LORA_STD)
+                tensors[pre + f"lora_{ab}.weight"] = t.to(
+                    dtype or torch.float32)
+    save_safetensors(os.path.join(path, "adapter_model.safetensors"),
+                     tensors)
+    with open(os.path.join(path, "adapter_config.json"), "w") as f:
+        json.dump({"r": LORA_RANK, "lora_alpha": LORA_ALPHA,
+                   "target_modules": list(LORA_TARGETS)}, f)
+    return path
+
+
+def phase_lora_identity(torch, seed: int = 0, n_layers: int = 4,
+                        steps: int = 24):
+    """fp32 at the Llama-3-8B widths, `n_layers` deep, three seeded PEFT
+    adapters (rank 16, alpha 32, all seven targets) in 4 LoRA slots:
+    (a) base, a1, a2 and a3 in one decode batch, each stream identical
+    to the same request alone, and each adapter's stream differing from
+    the base's; (b) each adapter against an engine over its
+    `merge_lora` weights: the first decode step's logits within
+    LORA_MERGED_ATOL and identical greedy streams; (c) the dense (B1)
+    and the fp32 paged (B3) engines give identical streams under
+    adapters; (d) `decode_multi` K=4 and the scheduler at spec 4, K 4
+    (B2 at Sq 5 for the verify) give the single-step streams under
+    adapters, on phase 12's tied and scaled weights and base prompts
+    (whose greedy streams the drafter predicts) beside four adapter
+    requests in 8 slots; (e) unregister is refused while a1
+    decodes, then a1 is unregistered and registered again by name from
+    a2's directory, and decodes as a2."""
+    import random
+    import tempfile
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.models.lora import merge_lora
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.ops import flash
+
+    cfg = llama3_8b().replace(num_layers=n_layers, dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"))
+    rng = random.Random(seed + 29)
+    bases = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+             for n in (37, 200, 515, 1000)]
+    names = ("a1", "a2", "a3")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {name: _write_adapter(torch, os.path.join(tmp, name), cfg,
+                                     seed + 100 + i)
+                for i, name in enumerate(names)}
+        kw = dict(max_slots=4, max_seq=2048, device="cuda", seed=seed,
+                  lora_slots=4, lora_rank=LORA_RANK)
+        eng = InferenceEngine(params, cfg, **kw)
+        for name in names:
+            eng.register_adapter(name, dirs[name])
+        ads = (None,) + names
+        flash.reset_launches()
+
+        def min_gap(gaps, n):
+            return min(float(g[:n].min()) for g in gaps)
+        # (a) the mixed batch against each request alone
+        batch, gaps, first = _greedy_streams(torch, eng, bases, steps, ads)
+        gap = min_gap(gaps, len(bases))
+        for i, (ids, ad) in enumerate(zip(bases, ads)):
+            alone, gaps, _ = _greedy_streams(torch, eng, [ids], steps, [ad])
+            gap = min(gap, min_gap(gaps, 1))
+            if alone[0] != batch[i]:
+                fail(f"multi-LoRA (a): {ad or 'base'} in the batch differs "
+                     f"from its request alone")
+            if ad and _greedy_streams(torch, eng, [ids], steps)[0][0] \
+                    == batch[i]:
+                fail(f"multi-LoRA: {ad}'s stream equals the base model's "
+                     f"for the same prompt")
+        log(f"[lora] (a) fp32, Llama-3-8B widths, {n_layers} layers, "
+            f"rank {LORA_RANK}, alpha {LORA_ALPHA}: base, a1, a2, a3 in one "
+            f"batch give each request's stream alone ({steps} tokens, "
+            f"prompts {[len(b) for b in bases]}; smallest top-2 gap "
+            f"{gap:.3e}); every adapter's stream differs from the base's")
+        # (b) against merge_lora engines
+        merged_err = {}
+        for i, name in enumerate(names, 1):
+            layers = {k: v.clone() for k, v in params["layers"].items()}
+            tree = dict(params, layers=layers)
+            merge_lora(tree, cfg, dirs[name])
+            m_eng = InferenceEngine(tree, cfg, **dict(kw, lora_slots=0))
+            m_streams, m_gaps, m_first = _greedy_streams(
+                torch, m_eng, [bases[i]], steps)
+            err = float((m_first[0] - first[i]).abs().max())
+            merged_err[name] = err
+            if err > LORA_MERGED_ATOL or m_streams[0] != batch[i]:
+                fail(f"multi-LoRA (b): {name} against its merged engine: "
+                     f"first-step logits max abs diff {err:.3e} (tolerance "
+                     f"{LORA_MERGED_ATOL}), streams identical "
+                     f"{m_streams[0] == batch[i]} (smallest top-2 gap "
+                     f"{min_gap(m_gaps, 1):.3e})")
+            del m_eng, tree, layers
+        log(f"[lora] (b) each adapter against its merge_lora engine: "
+            f"first-step logits max abs diff "
+            f"{ {k: float(f'{v:.3e}') for k, v in merged_err.items()} } "
+            f"(fp32 tolerance {LORA_MERGED_ATOL}), greedy streams identical")
+        # (c) dense against paged
+        p_eng = InferenceEngine(params, cfg, **kw, kv_block=128)
+        for name in names:
+            p_eng.register_adapter(name, dirs[name])
+        if _greedy_streams(torch, p_eng, bases, steps, ads)[0] != batch:
+            fail("multi-LoRA (c): dense and paged fp32 streams differ "
+                 "under adapters")
+        if not p_eng.kv_conservation()[0]:
+            fail("multi-LoRA (c): the pool is not conserved")
+        log("[lora] (c) dense (flash_decode) = paged fp32 pool "
+            "(flash_paged_decode) streams under adapters")
+        # (e) unregister in flight, then re-register by name
+        state, _ = _admit(eng, [bases[1]], ["a1"])
+        try:
+            eng.unregister_adapter("a1")
+            fail("multi-LoRA (e): unregister of an in-flight adapter was "
+                 "not refused")
+        except ValueError as e:
+            refused = str(e)
+        eng.free_slot(0)
+        eng.unregister_adapter("a1")
+        eng.register_adapter("a1", dirs["a2"])
+        again = _greedy_streams(torch, eng, [bases[2]], steps, ["a1"])[0]
+        if again[0] != batch[2]:
+            fail("multi-LoRA (e): a1 re-registered from a2's directory "
+                 "does not decode as a2")
+        log(f"[lora] (e) unregister while in flight refused ({refused!r}); "
+            f"unregistered, re-registered a1 from a2's directory: decodes "
+            f"as a2")
+        del eng, p_eng, params, state
+        # (d) the step plans, on phase 12's weights and base prompts
+        # (tied embeddings scaled by EMBED_SCALE: their greedy streams
+        # repeat n-grams, so the drafter proposes), beside four adapter
+        # requests that ride every verify forward
+        tcfg = cfg.replace(tie_word_embeddings=True)
+        gen.manual_seed(seed)
+        tied = init_params(tcfg, gen, torch.device("cuda"))
+        tied["embed"].mul_(EMBED_SCALE)
+        rng3 = random.Random(seed + 3)
+        prompts = [[rng3.randrange(3, cfg.vocab_size) for _ in range(n)]
+                   for n in (20, 75, 150, 300)]
+        prompts += [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+                    for n in (30, 90, 180, 260)]
+        plan_ads = [None] * 4 + list(names) + ["a1"]
+        plan_steps = 40
+        plan_streams = {}
+        for pool, pkw in (("dense", {}), ("paged", {"kv_block": 128})):
+            p_eng = InferenceEngine(tied, tcfg, **dict(kw, max_slots=8),
+                                    **pkw)
+            for name in names:
+                p_eng.register_adapter(name, dirs[name])
+            single = _greedy_streams(torch, p_eng, prompts, plan_steps,
+                                     plan_ads)[0]
+            multi = _multi_streams(torch, p_eng, prompts, plan_steps, 4,
+                                   plan_ads)
+            planned, sched = _sched_streams(
+                p_eng, prompts, plan_steps, plan_ads, pipeline_depth=1,
+                spec_tokens=4, steps_per_dispatch=4)
+            if multi != single or planned != single:
+                fail(f"multi-LoRA (d) {pool}: decode_multi identical "
+                     f"{multi == single}, scheduler spec 4 K 4 identical "
+                     f"{planned == single}")
+            plan_streams[pool] = single
+            st = sched.stats
+            out[f"plans_{pool}"] = {
+                "spec_steps": st["spec_steps_total"],
+                "spec_proposed": st["spec_proposed_tokens_total"],
+                "spec_accepted": st["spec_accepted_tokens_total"]}
+            if st["spec_steps_total"] <= 0:
+                fail(f"multi-LoRA (d) {pool}: no verify step ran "
+                     f"({out[f'plans_{pool}']})")
+            if pool == "paged" and not p_eng.kv_conservation()[0]:
+                fail("multi-LoRA (d) paged: the pool is not conserved")
+            del p_eng, sched
+        if plan_streams["dense"] != plan_streams["paged"]:
+            fail("multi-LoRA (d): dense and paged streams differ")
+        launches = dict(flash.LAUNCHES)
+        for name in ("flash_decode", "flash_prefill", "flash_paged_decode"):
+            if launches[name] <= 0:
+                fail(f"multi-LoRA: {name} was never launched ({launches})")
+        log(f"[lora] (d) tied embeddings x {EMBED_SCALE}: decode_multi K=4 "
+            f"and the scheduler (spec 4, K 4, depth 1) = single steps under "
+            f"adapters, dense and paged: {out['plans_dense']} / "
+            f"{out['plans_paged']}; launches {launches}")
+        del tied
+    out.update({"streams_identical": True, "steps": steps,
+                "merged_max_abs_err": merged_err, "launches": launches,
+                "min_top2_gap": gap})
+    return out
+
+
+LORA_RANGE = "lora_delta"
+
+
+def _lora_step_profile(torch, engine, prompt, jobs_adapters):
+    """Decode-step wall and device ms, idle share, launches per step and
+    the delta's device ms of 8 armed slots at lengths 64-2164, for each
+    list of slot adapters in `jobs_adapters` (name -> [adapter or None]
+    * 8). The delta is what runs inside `llama.select_adapters` (the
+    factor gathers) and `llama._lora_delta` (the batched products): in
+    the profiled steps each call is wrapped in a `record_function`
+    range, LORA_RANGE, whose device time is the delta's."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ome_tpu_torch.models import llama
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with record_function(LORA_RANGE):
+                return fn(*a, **kw)
+        return call
+    dev = torch.device("cuda")
+    greedy = (torch.zeros(engine.max_slots, device=dev),
+              torch.zeros(engine.max_slots, dtype=torch.int32, device=dev),
+              torch.ones(engine.max_slots, device=dev))
+    res = {}
+    for what, adapters in jobs_adapters.items():
+        state = engine.new_state()
+        for slot, ad in enumerate(adapters):
+            kw = {} if ad is None else {"adapter": ad}
+            tok, kv, n, bucket = engine.prefill(prompt(64 + 300 * slot),
+                                                **kw)
+            state = engine.insert(state, kv, slot, n, tok, bucket, **kw)
+        box = [state]
+
+        def decode():
+            box[0], toks = engine.decode(box[0], *greedy)
+            np.asarray(toks)
+        decode()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        wall = statistics.median(times)
+        iters = 3
+        plain = llama.select_adapters, llama._lora_delta
+        llama.select_adapters, llama._lora_delta = map(ranged, plain)
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    decode()
+                torch.cuda.synchronize()
+        finally:
+            llama.select_adapters, llama._lora_delta = plain
+        busy = launches = delta = 0.0
+        for ev in prof.key_averages():
+            if ev.key == LORA_RANGE:
+                # the host-side range: the device time of the kernels
+                # launched inside it (its device-side twin, the range's
+                # span on the card, is left out of the busy time)
+                if ev.device_type != DeviceType.CUDA:
+                    us = getattr(ev, "device_time_total", None)
+                    if us is None:
+                        us = getattr(ev, "cuda_time_total", 0)
+                    delta += us / iters / 1e3
+            elif ev.device_type == DeviceType.CUDA:
+                us = getattr(ev, "self_device_time_total", None)
+                if us is None:
+                    us = getattr(ev, "self_cuda_time_total", 0)
+                busy += us / iters / 1e3
+                launches += ev.count / iters
+        for slot in range(len(adapters)):
+            engine.free_slot(slot)
+        res[what] = {"wall_ms": wall, "device_ms": busy or None,
+                     "idle_share": 1 - busy / wall if busy else None,
+                     "launches_per_step": launches,
+                     "delta_device_ms": delta}
+        if not busy:
+            fail(f"[lora server] {what}: the profiler saw no device time")
+        if any(adapters) and not delta:
+            fail(f"[lora server] {what}: no device time inside the "
+                 f"{LORA_RANGE} ranges with adapters in the batch")
+        log(f"[lora server] decode step, 8 slots, {what}: wall {wall:.2f} "
+            f"ms, device busy {busy:.2f} ms, idle share "
+            f"{1 - busy / wall:.2f}, {launches:.0f} device launches per "
+            f"step, LoRA delta (select_adapters + _lora_delta ranges) "
+            f"{delta:.3f} ms device")
+    return res
+
+
+def phase_lora_server(torch, seed: int = 0):
+    """The bf16 Llama-3-8B server at full depth with three named adapters
+    (rank 16, alpha 32, all seven targets, seeded bf16 factors) in 4
+    slots, through `serve.build_server`: 12 concurrent requests (4 base,
+    8 across the adapters); a4 registered with `POST /v1/adapters` while
+    requests decode, then a request to it; `DELETE /v1/adapters/a1`
+    while an a1 request decodes gives 409 and, once it finished, 200;
+    the same 12 prompts to the base model for the TTFT/TPOT medians
+    beside the mixed ones; then decode steps of 8 slots with and without
+    adapters in the batch."""
+    import concurrent.futures
+    import random
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.ops import flash
+
+    hf, name, cfg = _model_hf(None)
+    rng = random.Random(seed + 30)
+    tag = "[lora server]"
+
+    def prompt(n):
+        return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+
+    def call(url, path, body=None, method=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(url + path, data=data, method=method,
+                                     headers={"Content-Type":
+                                              "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(hf, f)
+        t0 = time.monotonic()
+        dirs = {a: _write_adapter(torch, os.path.join(tmp, a), cfg,
+                                  seed + 300 + i, dtype=torch.bfloat16)
+                for i, a in enumerate(("a1", "a2", "a3", "a4"))}
+        out["adapter_write_s"] = time.monotonic() - t0
+        reqlog = os.path.join(tmp, "requests.jsonl")
+        t0 = time.monotonic()
+        server, sched, engine = serve.build_server(
+            ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
+             "--max-slots", "16", "--max-seq", "4096", "--port", "0",
+             "--host", "127.0.0.1", "--request-log", reqlog,
+             "--adapter", f"a1={dirs['a1']}", "--adapter",
+             f"a2={dirs['a2']}", "--adapter", f"a3={dirs['a3']}",
+             "--lora-slots", "4", "--lora-rank", str(LORA_RANK)])
+        torch.cuda.synchronize()
+        out["startup_s"] = time.monotonic() - t0
+        stack_bytes = sum(t.numel() * t.element_size()
+                          for t in engine._lora.values())
+        out["adapter_stack_bytes"] = stack_bytes
+        log(f"{tag} Llama-3-8B, random bf16 weights (seed {seed}), "
+            f"{cfg.num_layers} layers, slots 16, adapters "
+            f"{engine.adapter_names} in {engine.lora_slots} slots of rank "
+            f"{engine.lora_rank}: server up in {out['startup_s']:.1f} s; "
+            f"adapter stacks {stack_bytes / 1e6:.1f} MB on the device")
+        url = f"http://127.0.0.1:{server.port}"
+        try:
+            lengths = [16, 100, 250, 400, 600, 800, 1000, 1300, 1600, 2000,
+                       2400, 3000]
+            prompts = [prompt(n) for n in lengths]
+            models = ["base"] * 4 + ["a1", "a2", "a3"] * 2 + ["a1", "a2"]
+            rng.shuffle(models)
+            flash.reset_launches()
+
+            base_id = server.model_name
+
+            def send(model, p, n=32):
+                return call(url, "/v1/completions", {
+                    "model": base_id if model == "base" else model,
+                    "prompt": p, "max_tokens": n, "temperature": 0.0})
+            t_mixed = time.monotonic()
+            with concurrent.futures.ThreadPoolExecutor(12) as ex:
+                futs = [ex.submit(send, m, p) for m, p in
+                        zip(models, prompts)]
+                docs = [f.result() for f in futs]
+            out["mixed_s"] = time.monotonic() - t_mixed
+            for i, (status, doc) in enumerate(docs):
+                if status != 200:
+                    fail(f"{tag} mixed request {i} ({models[i]}): HTTP "
+                         f"{status} {doc}")
+            texts = {}
+            for m, (_, doc) in zip(models, docs):
+                texts.setdefault(m, set()).add(doc["choices"][0]["text"])
+            log(f"{tag} 12 concurrent requests (4 base, 8 across a1-a3, "
+                f"prompts {lengths}): all 200 in {out['mixed_s']:.2f} s")
+            # a4 registered while requests decode, then a request to it
+            with concurrent.futures.ThreadPoolExecutor(4) as ex:
+                futs = [ex.submit(send, m, p, 48) for m, p in
+                        zip(("base", "a2", "a3", "base"), prompts[4:8])]
+                time.sleep(0.5)
+                status, doc = call(url, "/v1/adapters",
+                                   {"name": "a4", "path": dirs["a4"]})
+                if status != 200 or doc.get("name") != "a4":
+                    fail(f"{tag} POST /v1/adapters a4: HTTP {status} {doc}")
+                for f in futs:
+                    if f.result()[0] != 200:
+                        fail(f"{tag} a request beside the a4 register "
+                             f"failed: {f.result()}")
+            status, doc = send("a4", prompts[0])
+            if status != 200:
+                fail(f"{tag} the a4 request: HTTP {status} {doc}")
+            status, listed = call(url, "/v1/models")
+            ids = [m["id"] for m in listed["data"]]
+            if ids[1:] != ["a1", "a2", "a3", "a4"]:
+                fail(f"{tag} /v1/models lists {ids}")
+            log(f"{tag} POST /v1/adapters a4 while 4 requests decoded: "
+                f"slot {engine.adapter_id('a4')}; a4 answered; /v1/models "
+                f"{ids}")
+            # DELETE a1 while an a1 request decodes, then after it
+            aid = engine.adapter_id("a1")
+            with concurrent.futures.ThreadPoolExecutor(1) as ex:
+                fut = ex.submit(send, "a1", prompts[3], 64)
+                t_wait = time.monotonic()
+                while not (engine._slot_adapters == aid).any():
+                    if fut.done() or time.monotonic() - t_wait > 120:
+                        fail(f"{tag} the a1 request never decoded")
+                    time.sleep(0.002)
+                busy = call(url, "/v1/adapters/a1", method="DELETE")
+                done = fut.result()
+            if busy[0] != 409 or busy[1].get("retryable") is not True:
+                fail(f"{tag} DELETE a1 while in flight: {busy}")
+            if done[0] != 200:
+                fail(f"{tag} the in-flight a1 request: {done}")
+            t_wait = time.monotonic()
+            while (engine._slot_adapters == aid).any():
+                if time.monotonic() - t_wait > 60:
+                    fail(f"{tag} the finished a1 request kept its slot")
+                time.sleep(0.002)
+            gone = call(url, "/v1/adapters/a1", method="DELETE")
+            if gone != (200, {"removed": "a1"}):
+                fail(f"{tag} DELETE a1 after it finished: {gone}")
+            log(f"{tag} DELETE /v1/adapters/a1 while an a1 request decoded: "
+                f"{busy[0]} retryable; after it finished: {gone[0]}; "
+                f"adapters now {engine.adapter_names}")
+            # the same 12 prompts to the base model
+            t_base = time.monotonic()
+            with concurrent.futures.ThreadPoolExecutor(12) as ex:
+                base_docs = list(ex.map(lambda p: send("base", p), prompts))
+            out["base_s"] = time.monotonic() - t_base
+            if any(s != 200 for s, _ in base_docs):
+                fail(f"{tag} a base-only request failed")
+            torch.cuda.synchronize()
+            launches = dict(flash.LAUNCHES)
+        finally:
+            server.stop()
+        with open(reqlog) as f:
+            recs = [json.loads(line) for line in f]
+        mixed = recs[:12]
+        base = recs[-12:]
+        out["mixed_ttft_s"], out["mixed_tpot_s"] = _medians(mixed)
+        out["base_ttft_s"], out["base_tpot_s"] = _medians(base)
+        log(f"{tag} TTFT / TPOT medians: mixed (4 base + 8 adapter) "
+            f"{out['mixed_ttft_s'] * 1e3:.1f} ms / "
+            f"{out['mixed_tpot_s'] * 1e3:.2f} ms; the same 12 prompts to "
+            f"the base model {out['base_ttft_s'] * 1e3:.1f} ms / "
+            f"{out['base_tpot_s'] * 1e3:.2f} ms")
+        engine.register_adapter("a1", dirs["a1"])
+        out["step"] = _lora_step_profile(torch, engine, prompt, {
+            "base only": [None] * 8,
+            "adapters in the batch (2 base, a1-a4 x 1-2)":
+                [None, "a1", "a2", "a3", "a4", None, "a1", "a2"]})
+    out["launches"] = launches
+    for k in ("flash_decode", "flash_prefill"):
+        if launches[k] <= 0:
+            fail(f"{tag} kernel {k} was never launched while serving")
+    log(f"{tag} kernel launches while serving: {launches}")
+    return out
+
+
+def phase_embed(torch, timeout: float = 900):
+    """Phase 31 in a child process (`embed_measure`) started with
+    cuBLAS's workspace off, as `serve`'s main starts `--task embed`:
+    cuBLAS reads CUBLAS_WORKSPACE_CONFIG at a process's first product,
+    and this process has run many. The child prints its own lines and
+    writes its results to chiprun_out/embed_phase.json."""
+    from ome_tpu_torch.engine import serve
+    path = os.path.join(OUT_DIR, "embed_phase.json")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    env = dict(os.environ,
+               CUBLAS_WORKSPACE_CONFIG=serve.EMBED_CUBLAS_WORKSPACE)
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import sys, torch, chip_smoke as c; "
+             "c.phase_device(torch); sys.exit(c.embed_measure(torch))"],
+            cwd=root, env=env, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"[embed] the embedding phase's process ran past {timeout} s")
+    if proc.returncode != 0 or not os.path.exists(path):
+        fail(f"[embed] the embedding phase's process exited "
+             f"{proc.returncode}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def embed_measure(torch, seed: int = 0, n_inputs: int = 48) -> int:
+    """Decoder embeddings at e5-mistral-7b-instruct's full size in bf16
+    (random weights from the seed), through `serve --task embed`:
+    `/v1/embeddings` answers 8 inputs and `/v1/completions` is refused
+    with the reference's error; then the EmbeddingEngine over 48 inputs
+    of 16-6000 tokens across its five buckets, one forward per bucket
+    (B2 at batch N per layer): batch size, tokens/s, embeddings/s,
+    device ms and idle share, B2 launches per bucket; every embedding of
+    norm 1, and each input embedded alone within cosine EMBED_COS_MIN of
+    itself in its batch. At 4 fp32 layers of the same widths, alone and
+    batched agree within EMBED_FP32_ATOL. Run first in its process (see
+    `phase_embed`); writes chiprun_out/embed_phase.json, returns 0."""
+    import random
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.engine.embed import EmbeddingEngine
+    from ome_tpu_torch.models.config import ModelConfig
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.ops import flash
+
+    hf = {k: v for k, v in E5_MISTRAL_7B.items() if k != "_source"}
+    rng = random.Random(seed + 31)
+    tag = "[embed]"
+
+    def post(url, path, body):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    # 48 inputs across the buckets 32, 128, 512, 2048 and 8192
+    spans = ((16, 32, 10), (33, 128, 10), (129, 512, 10), (513, 2048, 10),
+             (2049, 6000, n_inputs - 40))
+    inputs = [[rng.randrange(3, hf["vocab_size"])
+               for _ in range(rng.randint(lo, hi))]
+              for lo, hi, k in spans for _ in range(k)]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(hf, f)
+        argv = ["--model-dir", tmp, "--random-weights", "--seed",
+                str(seed), "--task", "embed", "--max-seq", "8192",
+                "--port", "0", "--host", "127.0.0.1"]
+        # without cuBLAS's workspace off, the server refuses to start
+        ws = os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        refused = None
+        try:
+            serve.build_server(argv)
+        except SystemExit as e:
+            refused = str(e.code)
+        finally:
+            if ws is not None:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = ws
+        if refused is None or "CUBLAS_WORKSPACE_CONFIG" not in refused:
+            fail(f"{tag} serve --task embed without cuBLAS's workspace "
+                 f"off: {refused or 'started'}")
+        t0 = time.monotonic()
+        server, _, emb = serve.build_server(argv)
+        torch.cuda.synchronize()
+        out["startup_s"] = time.monotonic() - t0
+        if not isinstance(emb, EmbeddingEngine):
+            fail(f"{tag} serve --task embed built {type(emb).__name__}")
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in emb.model.buffers())
+        log(f"{tag} e5-mistral-7b-instruct widths ({emb.cfg.num_layers} "
+            f"layers, window {emb.cfg.sliding_window}), random bf16 weights "
+            f"(seed {seed}) {weight_bytes / 1e9:.2f} GB: serve --task embed "
+            f"up in {out['startup_s']:.1f} s; buckets {emb.buckets}")
+        url = f"http://127.0.0.1:{server.port}"
+        try:
+            status, doc = post(url, "/v1/embeddings",
+                               {"model": "e5", "input": inputs[::6]})
+            if status != 200 or len(doc["data"]) != 8 or any(
+                    len(d["embedding"]) != hf["hidden_size"]
+                    for d in doc["data"]):
+                fail(f"{tag} /v1/embeddings: HTTP {status}")
+            refused = post(url, "/v1/completions", {"prompt": [1, 2, 3]})
+            if refused != (503, {"error": "this deployment serves "
+                                          "embeddings only"}):
+                fail(f"{tag} /v1/completions on the embeddings "
+                     f"deployment: {refused}")
+            log(f"{tag} /v1/embeddings: 8 inputs, 200, {hf['hidden_size']} "
+                f"dims each, {doc['usage']['prompt_tokens']} tokens; "
+                f"/v1/completions refused: {refused[0]} {refused[1]}")
+        finally:
+            server.stop()
+        groups = {}
+        for i, ids in enumerate(inputs):
+            groups.setdefault(emb.bucket_of(len(ids)), []).append(i)
+        batched = np.zeros((len(inputs), hf["hidden_size"]), np.float32)
+        per_bucket = {}
+        for bucket in sorted(groups):
+            idx = groups[bucket]
+            rows = [inputs[i] for i in idx]
+
+            def run():
+                return emb.embed(rows)
+            run()
+            torch.cuda.synchronize()
+            flash.reset_launches()
+            t = time.perf_counter()
+            got = run()
+            wall = (time.perf_counter() - t) * 1e3
+            b2 = flash.LAUNCHES["flash_prefill"]
+            busy, top, _ = _device_profile(torch, run, 1)
+            batched[idx] = got
+            ntok = sum(len(r) for r in rows)
+            per_bucket[bucket] = {
+                "batch": len(rows), "tokens": ntok, "wall_ms": wall,
+                "device_ms": busy or None,
+                "idle_share": 1 - busy / wall if busy else None,
+                "tokens_per_s": ntok / wall * 1e3,
+                "embeddings_per_s": len(rows) / wall * 1e3,
+                "flash_prefill_launches": b2, "top": top}
+            if b2 != emb.cfg.num_layers:
+                fail(f"{tag} bucket {bucket}: {b2} flash_prefill launches "
+                     f"for one batch of {emb.cfg.num_layers} layers")
+            log(f"{tag} bucket {bucket}: batch {len(rows)}, {ntok} tokens, "
+                f"wall {wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+                f"{1 - busy / wall:.2f}, {ntok / wall * 1e3:.0f} tokens/s, "
+                f"{len(rows) / wall * 1e3:.2f} embeddings/s, flash_prefill "
+                f"launches {b2}")
+        norms = np.linalg.norm(batched, axis=-1)
+        if np.abs(norms - 1).max() > 1e-3:
+            fail(f"{tag} embedding norms {norms.min()}..{norms.max()}")
+        alone = np.stack([emb.embed([ids])[0] for ids in inputs])
+        cos = (alone * batched).sum(-1) / (
+            np.linalg.norm(alone, axis=-1) * norms)
+        cos_by_bucket = {b: float(cos[idx].min())
+                         for b, idx in sorted(groups.items())}
+        alone_err = float(np.abs(alone - batched).max())
+        log(f"{tag} {len(inputs)} embeddings of norm 1 (max |norm - 1| "
+            f"{np.abs(norms - 1).max():.2e}); each alone against itself "
+            f"in its batch, cosine min by bucket {cos_by_bucket} (bf16, "
+            f">= {EMBED_COS_MIN}), max abs diff {alone_err:.3e}")
+        out.update({"buckets": per_bucket, "cos_min": float(cos.min()),
+                    "cos_min_by_bucket": cos_by_bucket,
+                    "alone_max_abs_err": alone_err,
+                    "norm_err_max": float(np.abs(norms - 1).max())})
+        del emb, server
+    _free_device(torch, "the e5-mistral embedder")
+    # 4 fp32 layers of the same widths: alone against batched
+    cfg = ModelConfig.from_hf_config(hf).replace(num_layers=4,
+                                                 dtype=torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    small = EmbeddingEngine(init_params(cfg, gen, torch.device("cuda")), cfg,
+                            max_seq=8192, device="cuda")
+    pick = [inputs[i] for i in (0, 1, 10, 11, 20, 21, 30, 31, 40, 41)]
+    got = small.embed(pick)
+    one = np.stack([small.embed([ids])[0] for ids in pick])
+    err = float(np.abs(got - one).max())
+    if err > EMBED_FP32_ATOL:
+        fail(f"{tag} fp32, 4 layers: alone against batched max abs diff "
+             f"{err:.3e} > {EMBED_FP32_ATOL}")
+    log(f"{tag} fp32, 4 layers, two inputs per bucket: alone against "
+        f"batched max abs diff {err:.3e} (tolerance {EMBED_FP32_ATOL})")
+    out["fp32_alone_max_abs_err"] = err
+    if out["cos_min"] < EMBED_COS_MIN:
+        fail(f"{tag} an input alone against itself in its batch: cosine "
+             f"{out['cos_min']:.5f} < {EMBED_COS_MIN}")
+    with open(os.path.join(OUT_DIR, "embed_phase.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+def embed_invariance(torch, seed: int = 0):
+    """Batch invariance of bf16 embeddings under this process's cuBLAS
+    workspace (CUBLAS_WORKSPACE_CONFIG, which cuBLAS reads at the
+    process's first product; `serve --task embed` sets :0:0): at
+    e5-mistral-7b-instruct's widths, 8 and 32 layers of seeded random
+    weights, 10 inputs of 16-32 and of 2049-6000 tokens each embedded
+    alone against itself in its bucket's batch (cosine min, max abs
+    diff), and at 32 layers each batch's wall and device ms (the 32 and
+    8192 buckets of phase 31); then the Llama-3-8B dense engine's decode
+    step and cold 2048-token prefill (device ms). Not part of `main`:
+    run it in two processes, the variable unset and set to :0:0, to
+    compare."""
+    import random
+
+    import numpy as np
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.engine.embed import EmbeddingEngine
+    from ome_tpu_torch.models.config import ModelConfig, llama3_8b
+    from ome_tpu_torch.models.params import init_params
+
+    ws = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    tag = f"[invariance CUBLAS_WORKSPACE_CONFIG={ws}]"
+    hf = {k: v for k, v in E5_MISTRAL_7B.items() if k != "_source"}
+    rng = random.Random(seed + 5)
+    spans = [[[rng.randrange(3, hf["vocab_size"])
+               for _ in range(rng.randint(lo, hi))] for _ in range(10)]
+             for lo, hi in ((16, 32), (2049, 6000))]
+    out = {"workspace": ws}
+    for layers in (8, 32):
+        cfg = ModelConfig.from_hf_config(hf).replace(
+            num_layers=layers, dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        eng = EmbeddingEngine(init_params(cfg, gen, torch.device("cuda")),
+                              cfg, max_seq=8192, device="cuda")
+        for ins in spans:
+            batched = eng.embed(ins)
+            alone = np.stack([eng.embed([x])[0] for x in ins])
+            cos = (alone * batched).sum(-1) / (
+                np.linalg.norm(alone, axis=-1)
+                * np.linalg.norm(batched, axis=-1))
+            key = f"{layers} layers, {min(map(len, ins))}-" \
+                  f"{max(map(len, ins))} tokens"
+            out[key] = {"cos_min": float(cos.min()),
+                        "max_abs": float(np.abs(alone - batched).max())}
+            log(f"{tag} {key}: cosine min {cos.min():.6f}, max abs diff "
+                f"{np.abs(alone - batched).max():.3e}")
+            if layers == 32:
+                walls = []
+                for _ in range(3):
+                    t = time.perf_counter()
+                    eng.embed(ins)
+                    walls.append((time.perf_counter() - t) * 1e3)
+                busy, _, _ = _device_profile(torch, lambda: eng.embed(ins),
+                                             1)
+                out[key].update(wall_ms=statistics.median(walls),
+                                device_ms=busy)
+                log(f"{tag} {key}, bucket {eng.bucket_of(max(map(len, ins)))}"
+                    f" batch {len(ins)}: wall {statistics.median(walls):.2f}"
+                    f" ms, device {busy:.2f} ms")
+        del eng
+        _free_device(torch, f"the {layers}-layer embedder")
+    cfg = llama3_8b()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    e8 = InferenceEngine(init_params(cfg, gen, torch.device("cuda")), cfg,
+                         max_slots=8, max_seq=4096, device="cuda")
+    r = random.Random(seed + 1)
+    step = _step_times(torch, e8, lambda n: [r.randrange(3, cfg.vocab_size)
+                                             for _ in range(n)])
+    out["decode_device_ms"] = step["decode"]["device_ms"]
+    out["prefill_2048_device_ms"] = step["prefill_2048"]["device_ms"]
+    log(f"{tag} Llama-3-8B dense engine: decode step device "
+        f"{out['decode_device_ms']:.3f} ms, cold 2048-token prefill device "
+        f"{out['prefill_2048_device_ms']:.3f} ms")
+    return out
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -4290,6 +5165,11 @@ def main() -> int:
     run("phi3_identity", phase_phi3_identity, torch,
         free="the Phi-3-width engines")
     run("journal", phase_journal, torch)
+    run("lora_identity", phase_lora_identity, torch,
+        free="the multi-LoRA identity engines")
+    run("lora_server", phase_lora_server, torch,
+        free="the multi-LoRA server")
+    run("embed", phase_embed, torch, free="the embedding engines")
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

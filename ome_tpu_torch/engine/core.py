@@ -52,13 +52,26 @@ serve's `--prefix-cache-host-mb`): evicted blocks are copied to host
 memory and swapped back in by a background thread on a later hit.
 `insert` also takes host planes — a fetched PD or peer KV blob
 (engine/pd.py, engine/peering.py) — and carries them to the slot's rows
-or pool blocks. Multi-LoRA adapters are not ported yet: the serve flags
-that would ask for them refuse (engine/serve.py).
+or pool blocks.
+
+Multi-LoRA serving (`lora_slots` > 0, serve's `--adapter name=DIR`):
+per-adapter factor stacks beside the layer leaves, `<leaf>_lora_a`
+[L, slots+1, r, K] and `<leaf>_lora_b` [L, slots+1, r, N] in the compute
+dtype (slot 0 all zeros = the base model; MoE models take the attention
+targets only). Every op that runs the model passes the slots' adapter
+ids (`DecodeState.adapters`, a prefill's own id) with the stacks, dense
+and paged alike; an op whose batch holds no adapter runs the base
+products alone, which a zero delta would leave unchanged.
+`register_adapter` writes a slot out of place and swaps the stacks'
+reference under `_lora_lock`, so a step already dispatched keeps the
+stacks it read; `unregister_adapter` refuses while a decode slot still
+holds the adapter. Adapter prefills bypass the prefix cache's tiers.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import logging
 import queue
@@ -72,6 +85,7 @@ import torch
 from ..device import resolve_device, to_device, to_host
 from ..models import llama
 from ..models.config import ModelConfig
+from ..models.lora import _target_dims, load_adapter_matrices
 from ..models.params import Params
 from ..ops.flash import (check_head_dim, check_paged_coverage,
                          quantize_rows)
@@ -493,7 +507,8 @@ class InferenceEngine:
                  kv_block: int = 0, kv_blocks: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0, mask_table_rows: int = 64):
+                 seed: int = 0, mask_table_rows: int = 64,
+                 lora_slots: int = 0, lora_rank: int = 16):
         self.device = resolve_device(device)
         # every attention step on a card runs the CUDA kernels: refuse a
         # head_dim they do not take here, not at the first prefill
@@ -573,9 +588,33 @@ class InferenceEngine:
         self.prefix_cache = PrefixCache(
             prefix_cache_bytes, host_capacity_bytes=prefix_host_bytes,
             device=self.device)
-        # adapter id each decode slot decodes with (always 0, the base
-        # model: multi-LoRA is not in this slice)
+        # multi-LoRA serving: `lora_slots` zeroed factor stacks beside
+        # the layer leaves ([L, slots+1, r, K] / [L, slots+1, r, N], in
+        # the compute dtype, never quantized); slot 0 stays all zeros
+        # (the base model). register_adapter replaces the dict whole,
+        # so an op reads one consistent set of stacks
+        self.lora_slots = int(lora_slots)
+        self.lora_rank = int(lora_rank)
+        self._lora_names: Dict[str, int] = {}
+        self._lora: Dict[str, torch.Tensor] = {}
+        # which adapter id each DECODE slot decodes with:
+        # unregister_adapter refuses while any slot references it (a
+        # freed id reused mid-stream would silently flip in-flight
+        # sequences to another adapter)
         self._slot_adapters = np.zeros(max_slots, np.int32)
+        self._lora_lock = threading.Lock()
+        if self.lora_slots > 0:
+            if cfg.is_moe and cfg.first_k_dense:
+                raise ValueError("multi-LoRA does not support "
+                                 "first_k_dense models yet")
+            n, r, L = self.lora_slots + 1, self.lora_rank, cfg.num_layers
+            for leaf, (K, N) in _target_dims(cfg).items():
+                if leaf not in self.model.layer_names:
+                    continue  # MoE models: attention targets only
+                for suffix, width in (("_lora_a", K), ("_lora_b", N)):
+                    self._lora[leaf + suffix] = torch.zeros(
+                        (L, n, r, width), dtype=cfg.dtype,
+                        device=self.device)
         # one generator for the admission thread's prefills and the
         # scheduler thread's decodes; the lock keeps each draw's
         # offset bump atomic (the reference's _next_key counter lock)
@@ -829,19 +868,91 @@ class InferenceEngine:
         return min(-(-(n_tokens + 1) // self.kv_block),
                    self.max_blocks)
 
-    # -- adapters (base model only) --------------------------------------
+    # -- multi-LoRA registry -------------------------------------------
 
     @property
     def adapter_names(self) -> List[str]:
-        return []
+        return sorted(self._lora_names)
 
     def adapter_id(self, name: Optional[str]) -> int:
         """Resolve an adapter name to its slot id (0/None = base)."""
         if not name:
             return 0
-        raise UnknownAdapterError(
-            f"unknown adapter {name!r} (loaded: none; multi-LoRA is not "
-            "ported yet)")
+        try:
+            return self._lora_names[name]
+        except KeyError:
+            raise UnknownAdapterError(
+                f"unknown adapter {name!r} (loaded: "
+                f"{self.adapter_names or 'none'})") from None
+
+    def _with_slot(self, stacks: Dict[str, torch.Tensor], idx: int,
+                   mats: Dict[str, tuple]) -> Dict[str, torch.Tensor]:
+        """New stacks equal to `stacks` but with slot `idx` holding
+        `mats` ({leaf: (A [L, r, K], B [L, r, N]) float32 numpy}, cast
+        to the compute dtype) and zeros for every target `mats` lacks.
+        Written out of place on the stream the steps run on, so a step
+        already queued reads the old tensors."""
+        for leaf in mats:
+            if leaf + "_lora_a" not in stacks:
+                raise ValueError(f"model has no target {leaf}")
+        ctx = (torch.cuda.stream(torch.cuda.default_stream(self.device))
+               if self.device.type == "cuda" else contextlib.nullcontext())
+        out = {}
+        with ctx, torch.no_grad():
+            for key, t in stacks.items():
+                leaf, ab = key[:-len("_lora_a")], key[-1]
+                t = t.clone()
+                if leaf in mats:
+                    src = mats[leaf][0 if ab == "a" else 1]
+                    t[:, idx] = torch.from_numpy(src).to(self.device,
+                                                          t.dtype)
+                else:
+                    t[:, idx] = 0
+                out[key] = t
+        return out
+
+    def register_adapter(self, name: str, adapter_dir: str) -> int:
+        """Load a PEFT adapter dir into a free LoRA slot (hot: the
+        stacks keep their shapes). Re-registering a name overwrites its
+        slot (adapter update): every target, those the new adapter
+        lacks set to zero."""
+        if self.lora_slots <= 0:
+            raise ValueError("engine started without LoRA slots "
+                             "(--lora-slots)")
+        mats = load_adapter_matrices(adapter_dir, self.cfg,
+                                     rank_pad=self.lora_rank)
+        with self._lora_lock:
+            idx = self._lora_names.get(name)
+            if idx is None:
+                used = set(self._lora_names.values())
+                free = [i for i in range(1, self.lora_slots + 1)
+                        if i not in used]
+                if not free:
+                    raise ValueError(
+                        f"all {self.lora_slots} LoRA slots in use")
+                idx = free[0]
+            # reference swap: in-flight steps keep the old stacks
+            self._lora = self._with_slot(self._lora, idx, mats)
+            self._lora_names[name] = idx
+        return idx
+
+    def unregister_adapter(self, name: str) -> None:
+        with self._lora_lock:
+            idx = self._lora_names.get(name)
+            if idx is None:
+                return
+            if (self._slot_adapters == idx).any():
+                raise ValueError(
+                    f"adapter {name!r} is decoding in-flight "
+                    f"sequences; retry after they finish")
+            self._lora_names.pop(name)
+            self._lora = self._with_slot(self._lora, idx, {})
+
+    def _batch_lora(self):
+        """The adapter stacks a decode-batch op runs with, read once per
+        op; None while no armed slot holds an adapter."""
+        lora = self._lora
+        return lora if lora and self._slot_adapters.any() else None
 
     # -- ops -----------------------------------------------------------
 
@@ -884,6 +995,9 @@ class InferenceEngine:
                     <= self.prefill_buckets[-1])
 
         aid = self.adapter_id(adapter)
+        # adapter prefills bypass the prefix cache entirely: cached KV
+        # was computed with (some) adapter's projections, so sharing
+        # across adapters, or with the base, would be silently wrong
         hit = None if (first_mask is not None or aid != 0) \
             else self.prefix_cache.match(ids, usable=_usable)
         if hit is not None:
@@ -906,7 +1020,12 @@ class InferenceEngine:
             padded = torch.tensor([ids + [0] * (bucket - len(ids))],
                                   dtype=torch.int32, device=dev)
             last = torch.tensor([len(ids) - 1], device=dev)
-        logits, new_cache = self.model(padded, cache=cache, rows=last)
+        lora = {}
+        if aid:
+            lora = dict(lora=self._lora, adapter_ids=torch.tensor(
+                [aid], dtype=torch.int32, device=dev))
+        logits, new_cache = self.model(padded, cache=cache, rows=last,
+                                       **lora)
         last_logits = logits[:, 0]
         if first_mask is not None:
             allowed = _sampling_array(np.asarray(first_mask, bool)[None],
@@ -930,7 +1049,10 @@ class InferenceEngine:
         device tensors or host planes (a fetched PD or peer blob: CPU
         tensors or float numpy arrays), which are copied to the device
         in the cache's dtype first."""
-        aid = self.adapter_id(adapter)
+        if self.kv_block:
+            with self._lora_lock:
+                # fail fast BEFORE the allocator touches any blocks
+                self.adapter_id(adapter)
         kv = self.device_kv(kv)
         if self.kv_block:
             self.free_slot(slot)  # BEFORE recording the adapter ref
@@ -947,12 +1069,24 @@ class InferenceEngine:
             self._table[slot, :need] = ids
             self._table_dirty = True
             self._host_len[slot] = true_len
+        # re-resolve and record under the adapter lock: an unregister
+        # between resolution and recording would zero the stacks this
+        # sequence is about to decode with; if it slipped in, return
+        # the freshly allocated blocks instead of orphaning them
+        try:
+            with self._lora_lock:
+                aid = self.adapter_id(adapter)
+                self._slot_adapters[slot] = aid
+        except UnknownAdapterError:
+            if self.kv_block:
+                self.free_slot(slot)
+            raise
+        if self.kv_block:
             self._insert_paged(state, kv, ids, bucket)
         else:
             keep = min(bucket, self.max_seq)
             state.k[:, slot, :keep] = kv[0][:, 0, :keep]
             state.v[:, slot, :keep] = kv[1][:, 0, :keep]
-        self._slot_adapters[slot] = aid
         state.lengths[slot] = true_len
         state.tokens[slot] = token
         state.adapters[slot] = aid
@@ -1045,20 +1179,25 @@ class InferenceEngine:
 
     # -- decode ops ----------------------------------------------------
 
-    def _forward_step(self, state: DecodeState, tokens: torch.Tensor):
+    def _forward_step(self, state: DecodeState, tokens: torch.Tensor,
+                      lora=None):
         """One forward of `tokens` [B, S] over the decode cache at the
-        slots' lengths, writing their K/V rows in place. Returns
-        (logits [B, S, V], new lengths [B])."""
+        slots' lengths, writing their K/V rows in place; with `lora`
+        (the op's `_batch_lora`) each slot adds its adapter's deltas
+        (`state.adapters`). Returns (logits [B, S, V], new lengths
+        [B])."""
+        kw = {} if lora is None else dict(lora=lora,
+                                          adapter_ids=state.adapters)
         if self.kv_block:
             cache = llama.PagedKVCache(
                 k=state.k, v=state.v, index=state.lengths,
                 table=self._device_table(), k_scale=state.k_scale,
                 v_scale=state.v_scale)
-            logits, nc = self.model.forward_paged(tokens, cache)
+            logits, nc = self.model.forward_paged(tokens, cache, **kw)
         else:
             cache = llama.KVCache(k=state.k, v=state.v,
                                   index=state.lengths)
-            logits, nc = self.model(tokens, cache=cache)
+            logits, nc = self.model(tokens, cache=cache, **kw)
         return logits, nc.index
 
     @torch.no_grad()
@@ -1082,7 +1221,8 @@ class InferenceEngine:
         allowed = self._masks(mask, mask_idx)
         if self.kv_block:
             self._grow_blocks()
-        logits, lengths = self._forward_step(state, state.tokens[:, None])
+        logits, lengths = self._forward_step(state, state.tokens[:, None],
+                                             self._batch_lora())
         last = logits[:, -1]
         if allowed is not None:
             last = torch.where(allowed, last, -torch.inf)
@@ -1134,11 +1274,13 @@ class InferenceEngine:
                                 == stop_ids).any(dim=1)
         acc = torch.zeros((B, n), dtype=torch.int32, device=dev)
         adv = torch.zeros((B,), dtype=torch.int32, device=dev)
+        lora = self._batch_lora()  # one set of stacks for the chunk
         for i in range(n):
             active = (~done) & (budget > i) & (state.lengths
                                                < self.max_seq)
             logits, lengths = self._forward_step(state,
-                                                 state.tokens[:, None])
+                                                 state.tokens[:, None],
+                                                 lora)
             last = logits[:, -1]
             if allowed is not None:
                 last = torch.where(allowed[:, i], last, -torch.inf)
@@ -1186,7 +1328,7 @@ class InferenceEngine:
             self._grow_blocks_spec(k + 1 if lookahead_rows is None
                                    else int(lookahead_rows))
         toks = torch.cat([state.tokens[:, None], drafts], dim=1)
-        logits, _ = self._forward_step(state, toks)
+        logits, _ = self._forward_step(state, toks, self._batch_lora())
         if mask_idx is not None:
             logits = torch.where(self._masks(None, mask_idx), logits,
                                  -torch.inf)

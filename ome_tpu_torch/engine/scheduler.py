@@ -356,7 +356,8 @@ class Request:
     # structured outputs: a TokenMasker (engine/structured.py)
     # constrains sampling to valid continuations of its grammar
     masker: Optional[object] = None
-    # multi-LoRA adapter name; None = base (the only model served here)
+    # multi-LoRA adapter name (the request's model id when it names a
+    # registered adapter); None = the base model
     adapter: Optional[str] = None
     # cross-replica prefix reuse: a peer replica that holds this
     # prompt's prefix (X-OME-Prefix-Peer); admission tries fetching the

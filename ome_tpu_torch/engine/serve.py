@@ -13,7 +13,10 @@ signal drains, a second forces). Runs on CUDA unless `--device cpu`.
          [--journal-compact-mb MB]] \\
         [--disaggregation-mode prefill | --disaggregation-mode decode \\
          --prefill-url URL [--prefill-url URL ...] [--pd-local-fallback] \\
-         [--pd-attempt-timeout S]]
+         [--pd-attempt-timeout S]] \\
+        [--adapter DIR | --adapter NAME=DIR ... [--lora-slots N] \\
+         [--lora-rank R]]
+    python -m ome_tpu_torch.engine.serve --task embed --model-dir DIR ...
 
 DIR is a HuggingFace model directory: config.json plus safetensors
 weights (one file, or shards with model.safetensors.index.json), loaded
@@ -44,6 +47,22 @@ or a dead scheduler stay live, and a process started over the same DIR
 resumes them byte-identical (greedy) before it serves new traffic; on a
 PD decode node the admit records carry the prefill pool, and a resumed
 request re-prefills through it.
+`--adapter DIR` (one bare PEFT directory) merges the adapter into the
+checkpoint's weights at load (`models/lora.merge_lora`, before
+quantization; not with `--random-weights`); `--adapter NAME=DIR`
+(repeatable) serves each adapter as its own model id from
+`--lora-slots` hot-swappable slots of rank `--lora-rank` (default: 4
+slots, or one per named adapter when more), registered after the engine
+is built; `POST /v1/adapters` and `DELETE /v1/adapters/NAME` add and
+remove adapters while serving.
+`--task embed` serves `/v1/embeddings` from `engine/embed.py`'s
+EmbeddingEngine instead of a decode loop (completions answer 503); the
+flags that configure generation (`--journal`, paged KV, quantization,
+step plans, PD, named adapters) are refused with it by name. On a card
+it needs cuBLAS without a workspace (`CUBLAS_WORKSPACE_CONFIG=:0:0`), so
+that an input's embedding does not depend on its batch: `main` sets it
+before anything touches CUDA, and `build_server` refuses to start
+without it.
 `build_server(argv)` does everything `main` does except block, so a
 caller (chip_smoke.py, the tests) drives the same code in process.
 
@@ -222,16 +241,40 @@ def build_parser() -> argparse.ArgumentParser:
                         "drafter and verified in one batched multi-token "
                         "forward; 0 = off (default). Greedy output is "
                         "byte-identical either way")
+    p.add_argument("--task", choices=("generate", "embed"),
+                   default="generate",
+                   help="'embed' serves /v1/embeddings (last-token "
+                        "pooled, L2-normalized decoder embeddings) "
+                        "instead of generation")
+    p.add_argument("--adapter", action="append", default=None,
+                   help="LoRA serving: a bare PEFT dir merges into the "
+                        "base weights at load; repeatable name=dir pairs "
+                        "serve MULTIPLE adapters concurrently (per-request "
+                        "routing by model id, hot add via POST "
+                        "/v1/adapters)")
+    p.add_argument("--lora-slots", type=int, default=None,
+                   help="preallocated hot-swappable LoRA adapter slots "
+                        "(default: number of name=dir adapters, min 4 "
+                        "when any are given)")
+    p.add_argument("--lora-rank", type=int, default=16,
+                   help="max adapter rank a LoRA slot holds")
     # flags of the reference kept for their default only: any other
     # value asks for a feature this port does not have yet
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--task", default="generate")
     p.add_argument("--ledger-mode", default="off")
     return p
 
 
 # flag -> the only value this slice serves
-_SLICE_DEFAULTS = {"tp": 1, "task": "generate", "ledger_mode": "off"}
+_SLICE_DEFAULTS = {"tp": 1, "ledger_mode": "off"}
+
+# flags that configure generation, at their defaults: an embeddings
+# deployment refuses any other value by name (the reference ignores
+# them there)
+_GENERATION_ONLY = {"journal": None, "disaggregation_mode": "none",
+                    "kv_block": 0, "quantization": "none",
+                    "spec_tokens": 0, "steps_per_dispatch": 1,
+                    "prefix_cache_host_mb": 0, "lora_slots": None}
 
 
 def check_slice(args, env=None) -> None:
@@ -260,6 +303,21 @@ def check_slice(args, env=None) -> None:
         raise SystemExit("--journal journals the requests of a decode "
                          "loop; a --disaggregation-mode prefill node has "
                          "none")
+    if args.task == "embed":
+        for dest, default in _GENERATION_ONLY.items():
+            if getattr(args, dest) != default:
+                flag = "--" + dest.replace("_", "-")
+                raise SystemExit(
+                    f"{flag} configures generation; --task embed serves "
+                    "embeddings only and has no decode loop")
+        if _adapter_args(args)[1]:
+            raise SystemExit("--adapter name=dir serves adapters for "
+                             "generation; --task embed takes only a bare "
+                             "--adapter dir, merged at load")
+    if args.lora_slots is not None and args.lora_slots < 0:
+        raise SystemExit(f"--lora-slots {args.lora_slots}: must be >= 0")
+    if args.lora_rank < 1:
+        raise SystemExit(f"--lora-rank {args.lora_rank}: must be >= 1")
     if args.disaggregation_mode != "decode" and (
             prefill_urls(args) or args.pd_local_fallback):
         raise SystemExit("--prefill-url/--prefill-peer/--pd-local-fallback "
@@ -271,6 +329,27 @@ def check_slice(args, env=None) -> None:
         raise SystemExit(
             f"multi-host environment ({', '.join(_MULTIHOST_ENV)}) is "
             "not supported by the PyTorch engine yet; serve one host")
+
+
+def _adapter_args(args):
+    """--adapter forms -> (merge_dir | None, {name: dir}).
+
+    A single bare directory keeps the merge-at-load behavior (one
+    adapter at full base speed); any name=dir entry switches to
+    multi-LoRA serving slots."""
+    entries = args.adapter or []
+    named = {}
+    bare = []
+    for e in entries:
+        if "=" in e:
+            name, _, path = e.partition("=")
+            named[name] = path
+        else:
+            bare.append(e)
+    if bare and (named or len(bare) > 1):
+        raise SystemExit("--adapter: use name=dir form when serving "
+                         "multiple adapters")
+    return (bare[0] if bare else None), named
 
 
 def prefill_urls(args):
@@ -329,6 +408,14 @@ def load_params_cfg(args, device):
     log.info("loaded checkpoint from %s: %.2fM params on %s in %.1fs",
              args.model_dir, param_count(params) / 1e6, device,
              time.monotonic() - t0)
+    merge_dir = _adapter_args(args)[0]
+    if merge_dir:
+        from ..models.lora import merge_lora
+        try:
+            merged = merge_lora(params, cfg, merge_dir)
+        except (ValueError, OSError, checkpoint.SafetensorsError) as e:
+            raise SystemExit(f"--adapter {merge_dir}: {e}")
+        log.info("merged %d LoRA deltas from %s", merged, merge_dir)
     return params, cfg
 
 
@@ -355,26 +442,50 @@ def load_engine(args):
                  "of weights", args.quantization, time.monotonic() - t0,
                  quantized_bytes(params) / 1e9)
     max_seq = args.max_seq or min(cfg.max_seq_len, 8192)
+    _, named_adapters = _adapter_args(args)
+    lora_slots = args.lora_slots if args.lora_slots is not None else \
+        (max(4, len(named_adapters)) if named_adapters else 0)
     try:
-        return InferenceEngine(
+        engine = InferenceEngine(
             params, cfg, max_slots=args.max_slots, max_seq=max_seq,
             prefix_cache_bytes=args.prefix_cache_mb << 20,
             prefix_host_bytes=args.prefix_cache_host_mb << 20,
             kv_block=args.kv_block, kv_blocks=args.kv_blocks,
             kv_dtype=args.kv_dtype if args.kv_block else None,
-            device=device, seed=args.seed)
+            device=device, seed=args.seed, lora_slots=lora_slots,
+            lora_rank=args.lora_rank)
     except PagedKVUnsupported as e:
         # the paged guards (model family, the CUDA kernel's coverage):
         # exit with the engine's reason instead of serving another cache
         raise SystemExit(f"--kv-block {args.kv_block}: {e}")
+    from ..models.checkpoint import SafetensorsError
+    for name, path in named_adapters.items():
+        try:
+            engine.register_adapter(name, path)
+        except (ValueError, OSError, SafetensorsError) as e:
+            raise SystemExit(f"--adapter {name}={path}: {e}")
+        log.info("registered LoRA adapter %r from %s", name, path)
+    return engine
+
+
+def load_embedder(args):
+    """The EmbeddingEngine for `args` on --device: the checkpoint in
+    --model-dir (a bare --adapter dir merged), or random weights."""
+    from ..device import resolve_device
+    from .embed import EmbeddingEngine
+    device = resolve_device(args.device)
+    params, cfg = load_params_cfg(args, device)
+    return EmbeddingEngine(params, cfg, max_seq=args.max_seq,
+                           device=device)
 
 
 class _NullScheduler:
-    """A scheduler that drives nothing: a node without a decode loop."""
+    """A scheduler that drives nothing: a node without a decode loop
+    (an embeddings deployment is stateless)."""
 
     healthy = True
     status = "ok"
-    reject = "this node runs no decode loop"
+    reject = "this deployment serves embeddings only"
 
     def __init__(self):
         from ..telemetry import Registry
@@ -491,6 +602,32 @@ class DrainController:
         return drained
 
 
+# cuBLAS without a workspace: with one, cuBLAS splits a product's
+# reduction (split-K) by its row count, so an input's embedding would
+# depend on what shares its bucket's batch; without one it does not
+# (chip_smoke phase 31). cuBLAS reads the variable once, at the
+# process's first product, so it is set before CUDA is touched
+EMBED_CUBLAS_WORKSPACE = ":0:0"
+
+
+def check_embed_workspace(device) -> None:
+    """Refuse `--task embed` on a card unless CUBLAS_WORKSPACE_CONFIG
+    is EMBED_CUBLAS_WORKSPACE (`main` sets it; an in-process caller sets
+    it before the process's first CUDA product)."""
+    from ..device import DEFAULT_DEVICE
+    got = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if torch.device(device or DEFAULT_DEVICE).type != "cuda" or \
+            got == EMBED_CUBLAS_WORKSPACE:
+        return
+    when = ("and CUDA is already initialised in this process, so set it "
+            "before the process starts" if torch.cuda.is_initialized()
+            else "before the process's first CUDA product")
+    raise SystemExit(
+        f"--task embed needs CUBLAS_WORKSPACE_CONFIG="
+        f"{EMBED_CUBLAS_WORKSPACE} (batch-invariant products; it is "
+        f"{got!r}): set it {when}, as serve's main does")
+
+
 def build_server(argv=None):
     """Everything `main` does short of blocking: parse `argv`, check
     the slice, build engine, scheduler and server, and start serving.
@@ -507,6 +644,11 @@ def build_server(argv=None):
 
     args = build_parser().parse_args(argv)
     check_slice(args)
+    if _adapter_args(args)[0] and args.random_weights:
+        log.error("--adapter merge requires a real checkpoint "
+                  "(incompatible with --random-weights); name=dir "
+                  "multi-LoRA slots work with either")
+        raise SystemExit(2)
     if args.spec_tokens < 0 or args.steps_per_dispatch < 1:
         raise SystemExit("--spec-tokens must be >= 0 and "
                          "--steps-per-dispatch >= 1")
@@ -532,15 +674,22 @@ def build_server(argv=None):
                 class_wait_caps[coerce_priority(cls)] = float(secs)
     except ValueError as e:
         raise SystemExit(str(e))
-    engine = load_engine(args)
     reqlog = coerce_reqlog(args.request_log)
     span_log = SpanLog(args.span_log, component="engine") \
         if args.span_log else None
     pd_prefill = None
-    if args.disaggregation_mode == "prefill":
+    embedder = None
+    if args.task == "embed":
+        check_embed_workspace(args.device)
+        # stateless: no decode loop, completions are refused
+        embedder = load_embedder(args)
+        scheduler = _NullScheduler()
+    elif args.disaggregation_mode == "prefill":
+        engine = load_engine(args)
         pd_prefill = make_pd_prefill_handler(engine)
         scheduler = _PrefillNodeScheduler(engine)
     else:
+        engine = load_engine(args)
         if args.disaggregation_mode == "decode":
             # one reqlog for the server's request records and the PD
             # client's peer-failure records, joinable by trace id
@@ -589,7 +738,14 @@ def build_server(argv=None):
                               args.model_dir),
                           model_name=name, host=args.host, port=args.port,
                           request_log=reqlog, pd_prefill=pd_prefill,
+                          embedder=embedder, structured=embedder is None,
                           debug_endpoints=args.debug_endpoints)
+    if embedder is not None:
+        log.info("serving embeddings of %s on %s:%d (device=%s buckets=%s)",
+                 name, args.host, server.port, embedder.device,
+                 embedder.buckets)
+        server.start()
+        return server, scheduler, embedder
     log.info("serving %s on %s:%d (device=%s slots=%d max_seq=%d "
              "kv_block=%d kv_dtype=%s quantization=%s spec_tokens=%d "
              "steps_per_dispatch=%d prefix_cache_host_mb=%d "
@@ -610,10 +766,15 @@ def build_server(argv=None):
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
-    grace = build_parser().parse_args(argv).drain_grace
+    args = build_parser().parse_args(argv)
+    if args.task == "embed":
+        # before anything touches CUDA (`check_embed_workspace`)
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG",
+                              EMBED_CUBLAS_WORKSPACE)
     server, scheduler, _ = build_server(argv)
     journal = getattr(scheduler, "journal", None)
-    ctl = DrainController(server, scheduler, grace=grace, journal=journal)
+    ctl = DrainController(server, scheduler, grace=args.drain_grace,
+                          journal=journal)
     try:
         ctl.install()
         ctl.wait()

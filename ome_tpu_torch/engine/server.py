@@ -16,8 +16,16 @@ PD and prefix reuse: `POST /pd/prefill` runs the `pd_prefill` handler
 prefix cache, and answers the KV wire blob; a completion's
 `X-OME-Prefix-Peer` header names the replica to fetch its prefix from.
 
-Not ported yet: embeddings, LoRA adapter hot-load and the on-demand
-profiler (`POST /debug/profile` answers 501).
+Multi-LoRA: a completion whose `model` names a registered adapter
+decodes with it (an unknown id is a 404 once adapters are loaded);
+`/v1/models` and `/ready` list the adapters; `POST /v1/adapters
+{name, path}` hot-loads a PEFT directory into a free slot and `DELETE
+/v1/adapters/<name>` removes one (409, retryable, while it decodes).
+Embeddings: a `--task embed` deployment answers `POST /v1/embeddings`
+(`engine/embed.py`) and refuses generation.
+
+Not ported yet: the on-demand profiler (`POST /debug/profile` answers
+501).
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Optional
 from .. import faults
 from ..priority import coerce_priority
 from ..telemetry import Registry, tracing
+from ..models.checkpoint import SafetensorsError
 from ..telemetry.reqlog import coerce as _coerce_reqlog
 from .scheduler import (Request, Scheduler, SchedulerDraining,
                         SchedulerOverloaded)
@@ -98,8 +107,12 @@ class EngineServer:
                  request_log=None,
                  debug_endpoints: bool = False,
                  fetch_bps: Optional[float] = None,
-                 pd_prefill=None):
+                 pd_prefill=None, embedder=None, structured: bool = True):
         self.scheduler = scheduler
+        self.embedder = embedder  # engine/embed.py EmbeddingEngine
+        # structured outputs need the decode loop's grammar masks; an
+        # embeddings deployment has none
+        self.structured = structured
         # engine/pd.py make_pd_prefill_handler: a PD prefill node's, or
         # a prefix donor's, POST /pd/prefill (None: 404)
         self.pd_prefill = pd_prefill
@@ -350,13 +363,56 @@ class EngineServer:
                     return self._complete(payload, chat=False)
                 if self.path == "/v1/chat/completions":
                     return self._complete(payload, chat=True)
+                if self.path == "/v1/embeddings":
+                    return self._embeddings(payload)
                 if self.path == "/pd/prefill":
                     return self._pd_prefill(payload)
-                if self.path in ("/v1/embeddings", "/v1/adapters"):
-                    return self._json(404, {
-                        "error": f"{self.path} is not ported to the "
-                                 "PyTorch engine yet"})
+                if self.path == "/v1/adapters":
+                    return self._register_adapter(payload)
                 self._json(404, {"error": "not found"})
+
+            def _register_adapter(self, payload):
+                """Hot-load a staged PEFT adapter dir into a LoRA slot
+                (the serving-agent sidecar calls this after staging)."""
+                eng = getattr(outer.scheduler, "engine", None)
+                if eng is None or not hasattr(eng, "register_adapter"):
+                    return self._json(400, {
+                        "error": "engine has no adapter support"})
+                name = payload.get("name")
+                path = payload.get("path")
+                if not name or not path:
+                    return self._json(400, {
+                        "error": "need {name, path}"})
+                try:
+                    idx = eng.register_adapter(name, path)
+                except (ValueError, OSError, SafetensorsError) as e:
+                    return self._json(400, {"error": str(e)})
+                return self._json(200, {"name": name, "slot": idx})
+
+            def _embeddings(self, payload):
+                if outer.embedder is None:
+                    return self._json(400, {
+                        "error": "this deployment does not serve "
+                                 "embeddings (--task embed)"})
+                texts = payload.get("input", [])
+                if isinstance(texts, str):
+                    texts = [texts]
+                tok = outer.tokenizer
+                try:
+                    # OpenAI-compat: elements may be strings or
+                    # pre-tokenized id arrays
+                    ids = [list(t) if isinstance(t, (list, tuple))
+                           else tok.encode(t) for t in texts]
+                    embs = outer.embedder.embed(ids)
+                except (TypeError, ValueError) as e:
+                    return self._json(400, {"error": str(e)})
+                self._json(200, {
+                    "object": "list", "model": outer.model_name,
+                    "data": [{"object": "embedding", "index": i,
+                              "embedding": emb.tolist()}
+                             for i, emb in enumerate(embs)],
+                    "usage": {"prompt_tokens": sum(map(len, ids)),
+                              "total_tokens": sum(map(len, ids))}})
 
             def _pd_prefill(self, payload):
                 if outer.pd_prefill is None:
@@ -387,9 +443,21 @@ class EngineServer:
                 outer._http_requests.labels(
                     path=_path_label(self.path)).inc()
                 if self.path.startswith("/v1/adapters/"):
-                    return self._json(404, {
-                        "error": "LoRA adapters are not ported to the "
-                                 "PyTorch engine yet"})
+                    name = self.path.rsplit("/", 1)[-1]
+                    eng = getattr(outer.scheduler, "engine", None)
+                    if eng is None or not hasattr(eng,
+                                                  "unregister_adapter"):
+                        return self._json(400, {
+                            "error": "engine has no adapter support"})
+                    try:
+                        eng.unregister_adapter(name)
+                    except ValueError as e:
+                        # busy adapter (in-flight sequences): a
+                        # structured retryable conflict, not a dropped
+                        # connection
+                        return self._json(409, {"error": str(e),
+                                                "retryable": True})
+                    return self._json(200, {"removed": name})
                 self._json(404, {"error": "not found"})
 
             def _complete(self, payload, chat: bool):
@@ -416,6 +484,11 @@ class EngineServer:
                                      "is not supported (json_object, "
                                      "json_schema and text are)"})
                     if kind in ("json_object", "json_schema"):
+                        if not outer.structured:
+                            return self._json(400, {
+                                "error": "structured outputs are not "
+                                         "available on this node "
+                                         "(embeddings deployment)"})
                         from .structured import TokenMasker
                         if kind == "json_schema":
                             from .schema import (SchemaAutomaton,

@@ -6,7 +6,9 @@ GQA attention through `ops.attention`, and fp32 logits; with the Qwen2
 q/k/v (and o) projection biases, the Qwen3 per-head q/k RMSNorm and the
 Mixtral top-k MoE MLP (`moe_mlp`: the reference's dense impl and its
 ragged dispatch, grouped products through `torch._grouped_mm` on the
-card).
+card), and the multi-LoRA deltas of the engine's adapter stacks
+(`_proj_lora`: plain batched products beside each projection, as the
+reference's einsums sit outside its kernels).
 
 Layout follows the reference so the tests compare like with like:
 parameters are a nested dict with the reference's leaf names and the
@@ -192,10 +194,73 @@ def _proj(x: torch.Tensor, w, dtype, out_dims=None,
     return y
 
 
-def dense_mlp(x: torch.Tensor, p, dtype) -> torch.Tensor:
-    gate = _proj(x, p["w_gate"], dtype)
-    up = _proj(x, p["w_up"], dtype)
-    return _proj(F.silu(gate) * up, p["w_down"], dtype)
+# -- multi-LoRA deltas (reference `_lora_delta`, `_proj_lora`) -------------
+
+# a layer's adapter factors: {leaf: (A [B, r, K], B [B, r, N])}, each
+# row's adapter already selected (`select_adapters`); None = no delta
+Lora = Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]]
+
+
+def _lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                flatten: int = 1) -> torch.Tensor:
+    """Per-row low-rank delta [B, S, N] in x's dtype (reference
+    `_lora_delta`, whose per-layer gather by adapter id
+    `select_adapters` has done for every layer already): x's trailing
+    `flatten` dims contracted with the row's A [r, K], then with its B
+    [r, N] (scaling folded into B), the reference's two einsums
+    `bsk,brk->bsr` and `bsr,brn->bsn` as batched products."""
+    B = x.shape[0]
+    K = math.prod(x.shape[x.dim() - flatten:])
+    x2 = x.reshape(B, -1, K)
+    h = torch.bmm(x2, a.to(x2.dtype).transpose(1, 2))
+    return torch.bmm(h, b.to(x2.dtype))
+
+
+def select_adapters(stacks, adapter_ids: Optional[torch.Tensor]
+                    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """Each row's factors gathered once for every layer: the stacks
+    `<leaf>_lora_a` [L, n_slots, r, K] / `<leaf>_lora_b` [L, n_slots, r,
+    N] -> {leaf: (A [L, B, r, K], B [L, B, r, N])}, two gathers per
+    target per forward instead of the reference's two per target per
+    layer, the same values. Slot 0 of a stack is all zeros (the base
+    model). Empty when `stacks` or `adapter_ids` is None."""
+    if not stacks or adapter_ids is None:
+        return {}
+    ids = adapter_ids.long()
+    return {name[:-len("_lora_a")]: (
+                a.index_select(1, ids),
+                stacks[name[:-len("_a")] + "_b"].index_select(1, ids))
+            for name, a in stacks.items() if name.endswith("_lora_a")}
+
+
+def _proj_lora(x: torch.Tensor, lp, name: str, lora: Lora, dtype,
+               out_dims=None, flatten: int = 1) -> torch.Tensor:
+    """`_proj` plus the rows' adapter delta (reference `_proj_lora`):
+    the delta is added to the base product's output (under int4, B4's),
+    then the output dims are split."""
+    y = _proj(x, lp[name], dtype, flatten=flatten)
+    if lora and name in lora:
+        y = y + _lora_delta(x, *lora[name], flatten=flatten).reshape(
+            y.shape)
+    if out_dims:
+        y = y.reshape(*y.shape[:-1], *out_dims)
+    return y
+
+
+def _layer_lora(lora, i: int) -> Lora:
+    """Layer i's slice of `select_adapters`' factors (None when empty)."""
+    return {n: (a[i], b[i]) for n, (a, b) in lora.items()} if lora else None
+
+
+def _layer_params(layers, i: int):
+    """Layer i's leaves."""
+    return {name: t[i] for name, t in layers.items()}
+
+
+def dense_mlp(x: torch.Tensor, p, dtype, lora: Lora = None) -> torch.Tensor:
+    gate = _proj_lora(x, p, "w_gate", lora, dtype)
+    up = _proj_lora(x, p, "w_up", lora, dtype)
+    return _proj_lora(F.silu(gate) * up, p, "w_down", lora, dtype)
 
 
 # -- mixture of experts (Mixtral) ------------------------------------------
@@ -331,16 +396,16 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor,
 
 
 def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
-         positions: torch.Tensor):
-    """Projected, biased (Qwen2), per-head RMS-normed (Qwen3) and roped
-    q/k/v, in the reference's order; shared by the dense and paged
-    paths."""
-    q = _proj(h, lp["wq"], cfg.dtype,
-              out_dims=(cfg.num_heads, cfg.head_dim))
-    k = _proj(h, lp["wk"], cfg.dtype,
-              out_dims=(cfg.num_kv_heads, cfg.head_dim))
-    v = _proj(h, lp["wv"], cfg.dtype,
-              out_dims=(cfg.num_kv_heads, cfg.head_dim))
+         positions: torch.Tensor, lora: Lora = None):
+    """Projected (with the rows' adapter deltas), biased (Qwen2),
+    per-head RMS-normed (Qwen3) and roped q/k/v, in the reference's
+    order; shared by the dense and paged paths."""
+    q = _proj_lora(h, lp, "wq", lora, cfg.dtype,
+                   out_dims=(cfg.num_heads, cfg.head_dim))
+    k = _proj_lora(h, lp, "wk", lora, cfg.dtype,
+                   out_dims=(cfg.num_kv_heads, cfg.head_dim))
+    v = _proj_lora(h, lp, "wv", lora, cfg.dtype,
+                   out_dims=(cfg.num_kv_heads, cfg.head_dim))
     if cfg.attn_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -352,9 +417,11 @@ def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
             apply_rope(k, positions, freqs), v)
 
 
-def _out_proj(attn: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
-    """o_proj, plus its bias where the checkpoint carries one."""
-    a = _proj(attn, lp["wo"], cfg.dtype, flatten=2)
+def _out_proj(attn: torch.Tensor, lp, cfg: ModelConfig,
+              lora: Lora = None) -> torch.Tensor:
+    """o_proj with the rows' adapter deltas, plus its bias where the
+    checkpoint carries one."""
+    a = _proj_lora(attn, lp, "wo", lora, cfg.dtype, flatten=2)
     if "bo" in lp:
         a = a + lp["bo"]
     return a
@@ -363,10 +430,11 @@ def _out_proj(attn: torch.Tensor, lp, cfg: ModelConfig) -> torch.Tensor:
 def _mha(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
          positions: torch.Tensor, kv_len: Optional[torch.Tensor],
          cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
-         cache_index: Optional[IndexLike]) -> torch.Tensor:
+         cache_index: Optional[IndexLike],
+         lora: Lora = None) -> torch.Tensor:
     """GQA attention on the pre-normed input; with a cache the new K/V
     rows are written into it in place and attention spans the cache."""
-    q, k, v = _qkv(h, lp, cfg, freqs, positions)
+    q, k, v = _qkv(h, lp, cfg, freqs, positions, lora)
     if cache_kv is not None:
         ck, cv = cache_kv
         _write_rows(ck, k, cache_index)
@@ -376,17 +444,20 @@ def _mha(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
                      sliding_window=cfg.sliding_window,
                      scale=cfg.query_scale,
                      logit_softcap=cfg.attn_logit_softcap)
-    return _out_proj(attn, lp, cfg)
+    return _out_proj(attn, lp, cfg, lora)
 
 
 def _layer(x: torch.Tensor, lp, cfg: ModelConfig, freqs, positions,
-           kv_len, cache_kv, cache_index) -> torch.Tensor:
+           kv_len, cache_kv, cache_index, lora: Lora = None
+           ) -> torch.Tensor:
+    """One block. `lora`: the layer's adapter factors of each row
+    (`select_adapters`; MoE models carry attention targets only)."""
     h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
     x = x + _mha(h, lp, cfg, freqs, positions, kv_len, cache_kv,
-                 cache_index)
+                 cache_index, lora)
     h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
     mlp_out = moe_mlp(h, lp, cfg) if cfg.is_moe \
-        else dense_mlp(h, lp, cfg.dtype)
+        else dense_mlp(h, lp, cfg.dtype, lora)
     return x + mlp_out
 
 
@@ -415,7 +486,9 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[KVCache] = None,
             rows: Optional[torch.Tensor] = None,
-            freqs: Optional[torch.Tensor] = None
+            freqs: Optional[torch.Tensor] = None,
+            adapter_ids: Optional[torch.Tensor] = None,
+            lora_stacks=None
             ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder.
 
@@ -424,6 +497,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cache.index and attention spans the cache; without, plain causal
     prefill. `rows` ([B] int) computes the logits of one position per
     sequence only (a prefill needs just its last real token's).
+    `adapter_ids` ([B] int) selects each row's LoRA adapter slot in
+    `lora_stacks`, the engine's adapter stacks (`select_adapters`).
     Returns (logits [B, S or 1, vocab] fp32, cache with index + S, or
     None)."""
     B, S = tokens.shape
@@ -446,10 +521,12 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             kv_len = torch.full((B,), index + S, dtype=torch.int32,
                                 device=dev)
     layers = params["layers"]
+    lora = select_adapters(lora_stacks, adapter_ids)
     for i in range(cfg.num_layers):
-        lp = {name: t[i] for name, t in layers.items()}
+        lp = _layer_params(layers, i)
         cache_kv = (cache.k[i], cache.v[i]) if cache is not None else None
-        x = _layer(x, lp, cfg, freqs, positions, kv_len, cache_kv, index)
+        x = _layer(x, lp, cfg, freqs, positions, kv_len, cache_kv, index,
+                   _layer_lora(lora, i))
     if rows is not None:
         x = x[torch.arange(B, device=dev), rows.to(dev).long()][:, None]
     new_cache = None
@@ -479,7 +556,9 @@ def _append(pool: torch.Tensor, scale_pool: Optional[torch.Tensor],
 
 def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: PagedKVCache,
-                  freqs: Optional[torch.Tensor] = None
+                  freqs: Optional[torch.Tensor] = None,
+                  adapter_ids: Optional[torch.Tensor] = None,
+                  lora_stacks=None
                   ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Short-sequence decode over a paged (block-pool) KV cache.
 
@@ -492,7 +571,8 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     through the plain `paged_attention_multi` with per-query causal
     masking, as in the reference; both under the model's sliding window,
     if it has one. Dense-MLP GQA models only (the engine refuses paged
-    KV for MoE, as the reference's does). Returns
+    KV for MoE, as the reference's does). `adapter_ids` and
+    `lora_stacks` as in `forward`. Returns
     (logits [B, S, vocab] fp32, cache with index + S); the pools are
     updated in place."""
     B, S = tokens.shape
@@ -514,10 +594,12 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     quantized = cache.k_scale is not None
     x = _embed(params["embed"], tokens, cfg.dtype)
     layers = params["layers"]
+    lora = select_adapters(lora_stacks, adapter_ids)
     for i in range(cfg.num_layers):
-        lp = {name: t[i] for name, t in layers.items()}
+        lp = _layer_params(layers, i)
+        li = _layer_lora(lora, i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, lp, cfg, freqs, positions)
+        q, k, v = _qkv(h, lp, cfg, freqs, positions, li)
         ksp = cache.k_scale[i] if quantized else None
         vsp = cache.v_scale[i] if quantized else None
         _append(cache.k[i], ksp, k, blk, off)
@@ -535,9 +617,9 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 logit_softcap=cfg.attn_logit_softcap,
                 k_scale=ksp, v_scale=vsp,
                 sliding_window=cfg.sliding_window)
-        x = x + _out_proj(attn, lp, cfg)
+        x = x + _out_proj(attn, lp, cfg, li)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + dense_mlp(h, lp, cfg.dtype)
+        x = x + dense_mlp(h, lp, cfg.dtype, li)
     new_cache = dataclasses.replace(cache, index=cache.index + S)
     return _final_logits(params, cfg, x), new_cache
 
@@ -595,10 +677,14 @@ class Llama(nn.Module):
                           for name in self.layer_names}
         return tree
 
-    def forward(self, tokens, positions=None, cache=None, rows=None):
+    def forward(self, tokens, positions=None, cache=None, rows=None,
+                adapter_ids=None, lora=None):
         return forward(self.params, self.cfg, tokens, positions, cache,
-                       rows, freqs=self.freqs)
+                       rows, freqs=self.freqs, adapter_ids=adapter_ids,
+                       lora_stacks=lora)
 
-    def forward_paged(self, tokens, cache: PagedKVCache):
+    def forward_paged(self, tokens, cache: PagedKVCache, adapter_ids=None,
+                      lora=None):
         return forward_paged(self.params, self.cfg, tokens, cache,
-                             freqs=self.freqs)
+                             freqs=self.freqs, adapter_ids=adapter_ids,
+                             lora_stacks=lora)

@@ -36,7 +36,9 @@ def test_port_files_found():
     for must in ("ome_tpu_torch/ops/flash.py", "ome_tpu_torch/ops/paged.py",
                  "ome_tpu_torch/ops/int4_matmul.py",
                  "ome_tpu_torch/models/quant.py",
+                 "ome_tpu_torch/models/lora.py",
                  "ome_tpu_torch/engine/core.py",
+                 "ome_tpu_torch/engine/embed.py",
                  "ome_tpu_torch/engine/serve.py", "chip_smoke.py"):
         assert must in names
 

@@ -8,8 +8,9 @@ servers answer too. Flags outside the port so far (and values the port
 refuses, such as `--quantization nf4`, a negative `--kv-block`,
 `--kv-dtype int8` without one, a negative `--spec-tokens` or
 `--steps-per-dispatch 0`, `--disaggregation-mode decode` without a
-prefill URL, a prefill URL without it) must exit with a message that
-names them, a
+prefill URL, a prefill URL without it, a `--task` other than generate
+or embed, a negative `--lora-slots`, an `--adapter` that does not
+load) must exit with a message that names them, a
 model directory without weights must exit naming `--model-dir` unless
 `--random-weights` is given, and asking for CUDA where there is no card
 must raise. The flags of the host tier and of PD disaggregation are
@@ -126,9 +127,9 @@ def test_health_metrics_and_refusals(served):
     ["--disaggregation-mode", "decode"], ["--spec-tokens", "-1"],
     ["--steps-per-dispatch", "0"],
     ["--journal", "/nonexistent", "--disaggregation-mode", "prefill"],
-    ["--task", "embed"], ["--ledger-mode", "auto"],
+    ["--task", "classify"], ["--ledger-mode", "auto"],
     ["--control-port", "9000"], ["--adapter", "a=/nonexistent"],
-    ["--lora-slots", "2"],
+    ["--lora-slots", "-1"],
 ], ids=lambda a: a[0])
 def test_out_of_slice_flags_exit_naming_the_flag(model_dir, argv, capsys):
     with pytest.raises(SystemExit) as e:
