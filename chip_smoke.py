@@ -163,7 +163,33 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    the five buckets, one forward each (B2 at batch N per layer): batch,
    tokens/s, embeddings/s, device ms, idle share and B2 launches per
    bucket; unit norms; each input alone within cosine EMBED_COS_MIN of
-   itself batched (bf16), and within EMBED_FP32_ATOL at 4 fp32 layers.
+   itself batched (bf16), and within EMBED_FP32_ATOL at 4 fp32 layers;
+32. kernels at the later families' served shapes
+   (`phase_family_kernels`): B1 and B2 at Gemma-2-9B's heads (H 16,
+   K 8, D 256) with its scale and softcap 50, its 4096-row window and
+   without, B1 over cache lengths
+   64-8192 in bf16 and fp32, B2 causal 2048 and 8192 (bf16; fp32 at
+   2048), B1 at command-r's G 1 (H = K = 64, D 128), and B1 and B2 at
+   gpt-oss-20b's heads (H 64, K 8, D 64) with its sink logits and
+   128-row window and without, each against its plain version, with its
+   launches per call; and the sink attention through the kernels against
+   `xla_attention` on the same card tensors;
+33. fp32 identity on the card (`phase_family_identity`), 4 layers at
+   the published widths of Gemma-2-9B, command-r v01, command-r7b (one
+   period of P 4), Phi-3.5-MoE and gpt-oss-20b, biases, sinks and norm
+   scales seeded: first-step logits (a 4200-token prefill, then one
+   decode step) within 2e-4 of the same forward through the kernels'
+   plain versions; single-step, `decode_multi` K=4 and spec-4 / K-4
+   scheduler streams identical; B1 and B2 launched (gpt-oss's sinks in
+   them) and no CUDA call of the plain attention;
+34.-37. bf16 servers (`FAMILY_SERVERS`, through `phase_serve`), 13
+   requests each: Gemma-2-9B, command-r7b and gpt-oss-20b at full size
+   and Phi-3.5-MoE at 16 of its 32 layers (prompts up to 6000 tokens,
+   past the 4096-row window; Phi-3.5-MoE's longrope lists seeded, the
+   long ones in use; peak device memory): TTFT / TPOT medians,
+   decode-step device and wall ms, idle share, top kernels, B1 / B2
+   launches per step; the MoE models' experts hit and the step's byte
+   bound.
 
 The kernels phase also runs B2 at the dense verify's shape: B 8 slots,
 Sq 5 rows each from its own base (60 to 4090) over a 4096-row cache,
@@ -261,6 +287,91 @@ PHI3_MINI_4K = {"_source": "microsoft/Phi-3-mini-4k-instruct config.json",
 # Gemma-2-9B's attention shape (16 query heads over 8 KV heads of 256;
 # google/gemma-2-9b config.json): the kernel cases at head_dim 256
 GEMMA2_9B_HEADS = (16, 8, 256)
+# Gemma 2, command-r, Cohere2, Phi-3.5-MoE and gpt-oss. Gemma 2 and
+# Cohere2 leave tie_word_embeddings out of their files (the class
+# default, True, ties them: the checkpoints carry no lm_head), so it is
+# written here.
+GEMMA2_9B = {"_source": "google/gemma-2-9b config.json",
+             "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2",
+             "vocab_size": 256000, "hidden_size": 3584,
+             "intermediate_size": 14336, "num_hidden_layers": 42,
+             "num_attention_heads": 16, "num_key_value_heads": 8,
+             "head_dim": 256, "query_pre_attn_scalar": 256,
+             "attn_logit_softcapping": 50.0,
+             "final_logit_softcapping": 30.0, "sliding_window": 4096,
+             "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+             "max_position_embeddings": 8192,
+             "hidden_activation": "gelu_pytorch_tanh",
+             "attention_bias": False, "tie_word_embeddings": True}
+COMMAND_R_V01 = {"_source": "CohereForAI/c4ai-command-r-v01 config.json",
+                 "architectures": ["CohereForCausalLM"],
+                 "model_type": "cohere", "vocab_size": 256000,
+                 "hidden_size": 8192, "intermediate_size": 22528,
+                 "num_hidden_layers": 40, "num_attention_heads": 64,
+                 "num_key_value_heads": 64, "layer_norm_eps": 1e-5,
+                 "logit_scale": 0.0625, "max_position_embeddings": 8192,
+                 "rope_theta": 8000000.0, "use_qk_norm": False,
+                 "attention_bias": False, "tie_word_embeddings": True}
+COMMAND_R7B = {"_source": "CohereForAI/c4ai-command-r7b-12-2024 "
+                          "config.json",
+               "architectures": ["Cohere2ForCausalLM"],
+               "model_type": "cohere2", "vocab_size": 256000,
+               "hidden_size": 4096, "intermediate_size": 14336,
+               "num_hidden_layers": 32, "num_attention_heads": 32,
+               "num_key_value_heads": 8, "head_dim": 128,
+               "layer_norm_eps": 1e-5, "logit_scale": 0.25,
+               "max_position_embeddings": 8192, "rope_theta": 50000,
+               "rope_scaling": None, "sliding_window": 4096,
+               "sliding_window_pattern": 4, "attention_bias": False,
+               "tie_word_embeddings": True}
+
+
+def _seeded_factors(seed: int, n: int, top: float):
+    """A monotone list of n RoPE extension factors from 1 up to about
+    `top`, drawn from `seed`: Phi-3.5-MoE's published short/long lists
+    are not in the repository, so its configuration carries seeded
+    lists of the published length (head_dim / 2 = 64) instead."""
+    import random
+    rng = random.Random(seed)
+    return sorted(1.0 + (top - 1.0) * rng.random() for _ in range(n))
+
+
+PHI35_MOE = {"_source": "microsoft/Phi-3.5-MoE-instruct config.json "
+                        "(longrope factor lists seeded)",
+             "architectures": ["PhiMoEForCausalLM"], "model_type": "phimoe",
+             "vocab_size": 32064, "hidden_size": 4096,
+             "intermediate_size": 6400, "num_hidden_layers": 32,
+             "num_attention_heads": 32, "num_key_value_heads": 8,
+             "num_local_experts": 16, "num_experts_per_tok": 2,
+             "attention_bias": True, "lm_head_bias": True,
+             "rms_norm_eps": 1e-5, "router_jitter_noise": 0.01,
+             "input_jitter_noise": 0.01, "max_position_embeddings": 131072,
+             "original_max_position_embeddings": 4096,
+             "rope_theta": 10000.0, "sliding_window": 131072,
+             "tie_word_embeddings": False,
+             "rope_scaling": {"type": "longrope",
+                              "original_max_position_embeddings": 4096,
+                              "short_factor": _seeded_factors(35, 64, 1.3),
+                              "long_factor": _seeded_factors(36, 64, 40.0),
+                              "short_mscale": 1.243163121016122,
+                              "long_mscale": 1.243163121016122}}
+# 16 of its 32 layers in bf16 are ~42 GB; all 32 are ~84 GB
+PHI35_MOE_SERVED_LAYERS = 16
+GPT_OSS_20B = {"_source": "openai/gpt-oss-20b config.json",
+               "architectures": ["GptOssForCausalLM"], "model_type": "gpt_oss",
+               "vocab_size": 201088, "hidden_size": 2880,
+               "intermediate_size": 2880, "num_hidden_layers": 24,
+               "num_attention_heads": 64, "num_key_value_heads": 8,
+               "head_dim": 64, "num_local_experts": 32,
+               "num_experts_per_tok": 4, "experts_per_token": 4,
+               "attention_bias": True, "rms_norm_eps": 1e-5,
+               "sliding_window": 128, "max_position_embeddings": 131072,
+               "initial_context_length": 4096, "rope_theta": 150000,
+               "rope_scaling": {"rope_type": "yarn", "factor": 32.0,
+                                "beta_fast": 32.0, "beta_slow": 1.0,
+                                "original_max_position_embeddings": 4096,
+                                "truncate": False},
+               "swiglu_limit": 7.0, "tie_word_embeddings": False}
 
 
 def _heads(hf):
@@ -442,8 +553,11 @@ def _nan_outside(torch, x, lo, hi, rows_of):
 
 def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
                 softcap=None, B=8, S=4096, H=32, K=8, D=128,
-                nan_outside=False, check_bits=False):
+                nan_outside=False, check_bits=False, sinks=False):
     """B1 at one shape against flash_decode_ref (fp32, same inputs).
+    `sinks`: per-head sink logits (gpt-oss; seeded, std 2) in the
+    kernel and the plain version alike; SDPA takes none, so no library
+    time.
     `nan_outside`: every cache row outside the windows is NaN (the
     rows before lo under a window, past hi, and so the next sequence's
     first rows that a tile running past S takes in); those rows are not
@@ -461,19 +575,23 @@ def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
     lo = (pos - window + 1).clamp(min=0) if window else \
         torch.zeros_like(pos)
     scale = D ** -0.5
+    # (passed only with sinks, so that the cases also run an earlier
+    # package's wrappers, as `kernels_ab` does)
+    sk = (_sink_logits(torch, gen, H),) if sinks else ()
     kr, vr = k, v
     if nan_outside:
         k = _nan_outside(torch, k.reshape(B * S, 1, K, D), lo, hi,
                          lambda b, r: b * S + r).reshape(B, S, K, D)
         v = _nan_outside(torch, v.reshape(B * S, 1, K, D), lo, hi,
                          lambda b, r: b * S + r).reshape(B, S, K, D)
-    out = flash.flash_decode(q, k, v, lo, hi, scale, softcap)
+    out = flash.flash_decode(q, k, v, lo, hi, scale, softcap, *sk)
     ref = flash.flash_decode_ref(q.float(), kr.float(), vr.float(), lo, hi,
-                                 scale, softcap)
+                                 scale, softcap, *sk)
     torch.cuda.synchronize()
     label = (f"decode {dtype_name} B={B} S={S} H={H} K={K} D={D} "
              f"lengths={lengths} window={window} softcap={softcap}"
-             + (" nan_outside" if nan_outside else ""))
+             + (" nan_outside" if nan_outside else "")
+             + (" sinks" if sinks else ""))
     if not torch.isfinite(out.float()).all():
         fail(f"flash_decode {label}: non-finite output")
     err = (out.float() - ref).abs().max().item()
@@ -483,15 +601,16 @@ def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
         sl = slice(b, b + 1)
         same, inv = _check_bits(
             torch, f"flash_decode {label}", out,
-            flash.flash_decode(q, k, v, lo, hi, scale, softcap),
+            flash.flash_decode(q, k, v, lo, hi, scale, softcap, *sk),
             flash.flash_decode(q[sl], k[sl], v[sl], lo[sl], hi[sl], scale,
-                               softcap), sl)
+                               softcap, *sk), sl)
     ms = timer.ms(lambda: flash.flash_decode(q, k, v, lo, hi, scale,
-                                             softcap))
+                                             softcap, *sk))
     plain_ms = timer.ms(lambda: flash.flash_decode_ref(
-        q.float(), k.float(), v.float(), lo, hi, scale, softcap), iters=5)
+        q.float(), k.float(), v.float(), lo, hi, scale, softcap, *sk),
+        iters=5)
     lib_ms = None
-    if not softcap and not nan_outside:
+    if not softcap and not nan_outside and not sinks:
         col = torch.arange(S, device=dev)
         mask = ((col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None])
                 )[:, None, None, :]
@@ -500,7 +619,8 @@ def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
             lib_ms = timer.ms(fn)
     rows = int((hi - lo).clamp(min=0).sum())
     esize = q.element_size()
-    nbytes = 2 * rows * K * D * esize + 2 * q.numel() * esize + 2 * B * 4
+    nbytes = (2 * rows * K * D * esize + 2 * q.numel() * esize + 2 * B * 4
+              + (4 * H if sinks else 0))
     bound = _bound(nbytes, 4 * D * H * rows, dtype_name)
     return {"case": label, "max_abs_err": err, "atol": ATOL[dtype_name],
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -514,7 +634,15 @@ def decode_case(torch, timer, gen, dtype_name, lengths, window=None,
 PLAIN_LOGITS_BYTES = 4 << 30
 
 
-def _prefill_plain(torch, q, k, v, base, kv_hi, scale, softcap, window):
+def _sink_logits(torch, gen, H):
+    """[H] fp32 sink logits on the card (seeded, std 2: some above the
+    rows' logits, some below)."""
+    return torch.randn(H, generator=gen, device="cuda",
+                       dtype=torch.float32) * 2.0
+
+
+def _prefill_plain(torch, q, k, v, base, kv_hi, scale, softcap, window,
+                   *sinks):
     """flash_prefill_ref on fp32 copies of the inputs, in blocks of query
     rows where one call's fp32 logits would pass PLAIN_LOGITS_BYTES:
     query row i's output depends only on its own position base + i, so
@@ -526,14 +654,15 @@ def _prefill_plain(torch, q, k, v, base, kv_hi, scale, softcap, window):
     kf, vf = k.float(), v.float()
     return torch.cat([flash.flash_prefill_ref(
         q[:, i:i + step].float(), kf, vf, base + i, kv_hi, scale, softcap,
-        window) for i in range(0, Sq, step)], dim=1)
+        window, *sinks) for i in range(0, Sq, step)], dim=1)
 
 
 def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
                  softcap=None, B=1, H=32, K=8, D=128, bases=None,
-                 kv_hi=None, nan_tail=False, rel_tol=None):
+                 kv_hi=None, nan_tail=False, rel_tol=None, sinks=False):
     """B2 at one shape against flash_prefill_ref (fp32, same inputs; in
     blocks of query rows past PLAIN_LOGITS_BYTES, `_prefill_plain`).
+    `sinks`: per-head sink logits as in `decode_case` (no library time).
     `bases` gives each sequence its own base (default `base` for all);
     kv_hi defaults to base + Sq. With `rel_tol`, each sequence's max
     |kernel - plain| over the rms of its plain output must stay within
@@ -552,8 +681,9 @@ def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
     base_t = torch.tensor(bases, dtype=torch.int32, device=dev)
     kv_hi_t = torch.tensor(his, dtype=torch.int32, device=dev)
     scale = D ** -0.5
+    sk = (_sink_logits(torch, gen, H),) if sinks else ()  # as decode_case
     ref = _prefill_plain(torch, q, k, v, base_t, kv_hi_t, scale, softcap,
-                         window)
+                         window, *sk)
     clean = (k, v)
     if nan_tail:
         k, v = k.clone(), v.clone()
@@ -563,7 +693,7 @@ def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
 
     def kernel():
         return flash.flash_prefill(q, k, v, base_t, kv_hi_t, scale, softcap,
-                                   window)
+                                   window, *sk)
     out = kernel()
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
@@ -577,11 +707,11 @@ def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
     ms = timer.ms(kernel)
     plain_ms = timer.ms(lambda: _prefill_plain(
         torch, q, clean[0], clean[1], base_t, kv_hi_t, scale, softcap,
-        window), iters=3)
+        window, *sk), iters=3)
     lib_ms = lib_causal_ms = None
     # (no yardstick past the plain version's cap: SDPA with a mask and
     # GQA takes its math backend, which holds all the logits at once)
-    if not softcap and B * H * Sq * S * 4 <= PLAIN_LOGITS_BYTES:
+    if not (softcap or sinks) and B * H * Sq * S * 4 <= PLAIN_LOGITS_BYTES:
         col = torch.arange(S, device=dev)[None, None, :]
         pos = (base_t[:, None] + torch.arange(Sq, device=dev)[None, :]
                )[:, :, None]
@@ -606,11 +736,13 @@ def prefill_case(torch, timer, gen, dtype_name, Sq, S, base, window=None,
         rows += max(hi - (max(b0 - window + 1, 0) if window else 0), 0)
     esize = q.element_size()
     nbytes = (2 * q.numel() + 2 * rows * K * D) * esize
+    nbytes += 4 * H if sinks else 0
     return {"case": f"prefill {dtype_name} B={B} Sq={Sq} S={S} "
                     f"base={bases if B > 1 else bases[0]} kv_hi="
                     f"{his if B > 1 else his[0]} H={H} K={K} D={D} "
                     f"window={window} softcap={softcap}"
-                    + (" nan_tail" if nan_tail else ""),
+                    + (" nan_tail" if nan_tail else "")
+                    + (" sinks" if sinks else ""),
             "max_abs_err": err, "atol": ATOL[dtype_name],
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "library_causal_ms": lib_causal_ms, **rel,
@@ -1699,6 +1831,8 @@ def _step_times(torch, engine, prompt, iters: int = 10,
     from torch.profiler: 1 - device / wall is the share of the step the
     device sits idle waiting for the host."""
     import numpy as np
+
+    from ome_tpu_torch.ops import flash
     dev = torch.device("cuda")
     state = engine.new_state()
     for slot in range(engine.max_slots):
@@ -1735,16 +1869,22 @@ def _step_times(torch, engine, prompt, iters: int = 10,
             times.append((time.perf_counter() - t) * 1e3)
         wall = statistics.median(times)
         busy, top, host = _device_profile(torch, fn, 3)
+        n0 = dict(flash.LAUNCHES)
+        fn()
+        torch.cuda.synchronize()
         res[name] = {"wall_ms": wall, "device_ms": busy or None,
                      "idle_share": 1 - busy / wall if busy else None,
-                     "top": top, "host_top": host}
+                     "top": top, "host_top": host,
+                     "launches": {k: flash.LAUNCHES[k] - n0[k] for k in n0}}
         if busy:
             before = (f" (mma.sync prefill kernel: "
                       f"{PREFILL_2048_DEVICE_MS_BEFORE} ms)"
                       if name == "prefill_2048" and what == "dense" else "")
             log(f"[serve] {what} engine {name} step: wall {wall:.2f} ms, "
                 f"device busy {busy:.2f} ms (torch.profiler){before}, idle "
-                f"share {1 - busy / wall:.2f}")
+                f"share {1 - busy / wall:.2f}; B1 / B2 launches "
+                f"{res[name]['launches']['flash_decode']} / "
+                f"{res[name]['launches']['flash_prefill']}")
             for ms, count, key in top:
                 log(f"[serve]   {ms:8.3f} ms  x{count:<4d} {key[:90]}")
             for ms, count, key in host:
@@ -1810,6 +1950,9 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
         return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
 
     out = {"quantization": quantization, "model": name}
+    model = model or {}
+    max_seq = model.get("max_seq", 4096)
+    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "config.json"), "w") as f:
             json.dump(hf, f)
@@ -1817,11 +1960,13 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
         t0 = time.monotonic()
         server, sched, engine = serve.build_server(
             ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
-             "--max-slots", "8", "--max-seq", "4096", "--port", "0",
+             "--max-slots", "8", "--max-seq", str(max_seq), "--port", "0",
              "--host", "127.0.0.1", "--request-log", reqlog,
              "--quantization", quantization])
-        if cfg.attn_bias:
+        if model.get("bias_std"):
             _randomize_biases(torch, engine, seed, model["bias_std"])
+        if model.get("seed_leaves"):
+            _seed_family_leaves(torch, engine.model.params, cfg, seed)
         if cfg.is_moe and engine.cfg.moe_impl != "ragged":
             fail(f"{tag}: the MoE server runs moe_impl "
                  f"{engine.cfg.moe_impl!r}, not the ragged dispatch")
@@ -1831,7 +1976,7 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
         out["weight_bytes"] = quantized_bytes(engine.model.params)
         log(f"{tag} {name} shape, random "
             f"{weight_label(engine.model.params)} weights (seed {seed}), "
-            f"{cfg.num_layers} layers, slots 8, max_seq 4096: server up "
+            f"{cfg.num_layers} layers, slots 8, max_seq {max_seq}: server up "
             f"in {out['startup_s']:.1f} s; weights "
             f"{out['weight_bytes'] / 1e9:.3f} GB; device memory "
             f"{out['device_gib_after_startup']:.2f} GiB")
@@ -1847,7 +1992,8 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
         try:
             flash.reset_launches()
             t_batch = time.monotonic()
-            lengths = [16, 100, 400, 800, 1500, 2200, 2600, 3000]
+            lengths = model.get("lengths") or [16, 100, 400, 800, 1500,
+                                               2200, 2600, 3000]
             twin = prompt(24)
             bodies = [{"prompt": prompt(n), "max_tokens": 32,
                        "temperature": 0.0} for n in lengths]
@@ -1914,6 +2060,7 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
         with open(reqlog) as f:
             recs = [json.loads(line) for line in f]
     out["launches"] = launches
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     needed = ["flash_decode", "flash_prefill"]
     if quantization == "int4":
         needed.append("int4_matmul")
@@ -1933,7 +2080,8 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
         f"decode per request median {1 / out['tpot_median_s']:.1f} tok/s "
         f"(TPOT {out['tpot_median_s'] * 1e3:.2f} ms); concurrent phase "
         f"{out['batch_completion_tokens'] / out['batch_s']:.1f} tok/s")
-    log(f"{tag} kernel launches while serving: {launches}")
+    log(f"{tag} kernel launches while serving: {launches}; peak device "
+        f"memory {out['peak_gib']:.2f} GiB")
     return out
 
 
@@ -2131,7 +2279,7 @@ def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
              str(kv_block), "--kv-blocks", str(n_blocks), "--kv-dtype",
              kv_dtype, "--port", "0",
              "--host", "127.0.0.1"])
-        if cfg.attn_bias:
+        if model and model.get("bias_std"):
             _randomize_biases(torch, engine, seed, model["bias_std"])
         torch.cuda.synchronize()
         out["startup_s"] = time.monotonic() - t0
@@ -5076,6 +5224,369 @@ def embed_invariance(torch, seed: int = 0):
     return out
 
 
+# -- phases 32-37: Gemma 2, command-r, Cohere2, Phi-3.5-MoE, gpt-oss --------
+
+
+# cache lengths of the phase-32 decode cases: around and past the
+# 4096-row window of Gemma-2-9B and command-r7b, up to their 8192
+FAMILY_LENGTHS = [64, 300, 1023, 2049, 4095, 4097, 6000, 8192]
+NO_SOFTCAP_SDPA = "none: SDPA takes no logit softcap"
+NO_SINKS_SDPA = "none: SDPA takes no attention sinks"
+
+
+def phase_family_kernels(torch):
+    """B1 and B2 at the new served argument combinations, each against
+    its plain version with the existing tolerances (bf16 2e-2, fp32
+    2e-4): Gemma-2-9B's heads (H 16, K 8, D 256) with its scale
+    256^-0.5 and softcap 50, B1 in bf16 and fp32 over cache lengths
+    64-8192 with its 4096-row window and without, B2 causal 2048 and
+    8192 in bf16 with and without the window and in fp32 with it; and B1
+    at command-r's G 1 (H = K = 64, D 128), bf16 and fp32; B1 and B2 at
+    gpt-oss-20b's heads (H 64, K 8, D 64) with its sink logits, B1 over
+    64-8192 rows with its 128-row window and without (bf16, and fp32
+    with the window), B2 causal 2048 with and without the window and
+    8192 without (bf16; fp32 at 2048 with it); and the card's sink
+    attention through `attention` (the kernels) against the reference's
+    plain sink attention, `xla_attention`, on the same tensors
+    (`_sink_vs_xla`). Each case's ms, bound, share and launches per call
+    are printed; a softcapped or sink case has no library time
+    (`NO_SOFTCAP_SDPA`, `NO_SINKS_SDPA`)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    timer = Timer(torch, torch.device("cuda"))
+    H, K, D = _heads(GEMMA2_9B)
+    cap = GEMMA2_9B["attn_logit_softcapping"]
+    win = GEMMA2_9B["sliding_window"]
+    kw = {"H": H, "K": K, "D": D}
+    cases = {"flash_decode": [], "flash_prefill": []}
+    for dt in ("bf16", "fp32"):
+        for w in (win, None):
+            cases["flash_decode"].append(decode_case(
+                torch, timer, gen, dt, FAMILY_LENGTHS, window=w,
+                softcap=cap, S=8192, **kw))
+    for n in (2048, 8192):
+        for w in (win, None):
+            cases["flash_prefill"].append(prefill_case(
+                torch, timer, gen, "bf16", n, n, 0, window=w, softcap=cap,
+                **kw))
+    cases["flash_prefill"].append(prefill_case(
+        torch, timer, gen, "fp32", 2048, 2048, 0, window=win, softcap=cap,
+        **kw))
+    cr = _heads(COMMAND_R_V01)
+    for dt in ("bf16", "fp32"):
+        cases["flash_decode"].append(decode_case(
+            torch, timer, gen, dt, FAMILY_LENGTHS, S=8192, H=cr[0], K=cr[1],
+            D=cr[2]))
+    go = _heads(GPT_OSS_20B)
+    gw = GPT_OSS_20B["sliding_window"]
+    gkw = {"H": go[0], "K": go[1], "D": go[2], "sinks": True}
+    for dt, w in (("bf16", gw), ("bf16", None), ("fp32", gw)):
+        cases["flash_decode"].append(decode_case(
+            torch, timer, gen, dt, FAMILY_LENGTHS, window=w, S=8192,
+            check_bits=dt == "bf16", **gkw))
+    for dt, n, w in (("bf16", 2048, gw), ("bf16", 2048, None),
+                     ("bf16", 8192, None), ("fp32", 2048, gw)):
+        cases["flash_prefill"].append(prefill_case(
+            torch, timer, gen, dt, n, n, 0, window=w, **gkw))
+    # the same shapes without sinks: what the sink costs
+    gkw["sinks"] = False
+    cases["flash_decode"].append(decode_case(
+        torch, timer, gen, "bf16", FAMILY_LENGTHS, S=8192, **gkw))
+    cases["flash_prefill"].append(prefill_case(
+        torch, timer, gen, "bf16", 2048, 2048, 0, **gkw))
+    per_call = {(H, K, D): _launches_per_call(torch, H, K, D),
+                cr: _launches_per_call(torch, *cr),
+                go: _launches_per_call(torch, *go)}
+    for name, rows in cases.items():
+        for c in rows:
+            shape = next(s for s in per_call
+                         if f" H={s[0]} K={s[1]} D={s[2]} " in c["case"])
+            c["launches_per_call"] = per_call[shape][name]
+            if "softcap=None" not in c["case"]:
+                c["library_note"] = NO_SOFTCAP_SDPA
+            elif c["case"].endswith(" sinks"):
+                c["library_note"] = NO_SINKS_SDPA
+            lib = c.get("library_note") or (
+                "null" if c["library_ms"] is None
+                else f"{c['library_ms']:.4f} ms")
+            log(f"[families] {name}: {c['case']}: ms {c['ms']:.4f}, bound "
+                f"{c['bound_ms']:.4f} ms ({c['bound_by']}), share "
+                f"{c['bound_ms'] / c['ms']:.3f}, plain {c['plain_ms']:.4f} "
+                f"ms, library {lib}; {c['launches_per_call']} launch(es) "
+                f"per call")
+    out = check_cases(cases)
+    out["sink_vs_xla"] = _sink_vs_xla(torch, gen, *go, gw)
+    return out
+
+
+def _sink_vs_xla(torch, gen, H, K, D, window):
+    """gpt-oss's attention on the card as the model calls it
+    (`attention.attention` with sinks, which launches B1 or B2) against
+    the reference's plain sink attention (`xla_attention`, a softmax
+    over the logits and a sink column, the sink's probability dropped)
+    on fp32 copies of the same bf16 tensors with the same mask (so the
+    error is the kernels', not the bf16 rounding of two outputs): a
+    decode step of 8 sequences over a 4096-row cache and a 1024-token
+    causal prefill, each with the 128-row window and without.
+    Tolerance: bf16's."""
+    from ome_tpu_torch.ops import attention as attn
+    from ome_tpu_torch.ops import flash
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    sinks = _sink_logits(torch, gen, H)
+    errs = {}
+    for what, B, Sq, S in (("decode", 8, 1, 4096), ("prefill", 1, 1024,
+                                                     1024)):
+        q, k, v = _inputs(torch, gen, B, Sq, S, H, K, D, bf, dev)
+        if Sq == 1:
+            pos = torch.tensor([[n - 1] for n in (1, 50, 127, 129, 1000,
+                                                  2049, 4000, 4096)],
+                               device=dev)
+        else:
+            pos = torch.arange(Sq, device=dev)[None]
+        kv_len = pos[:, -1] + 1
+        for w in (window, None):
+            launched = flash.LAUNCHES["flash_decode"] + \
+                flash.LAUNCHES["flash_prefill"]
+            got = attn.attention(q, k, v, positions=pos, kv_len=kv_len,
+                                 sliding_window=w, sinks=sinks)
+            if flash.LAUNCHES["flash_decode"] + \
+                    flash.LAUNCHES["flash_prefill"] <= launched:
+                fail(f"sink attention {what}: no kernel launched")
+            kv_pos = torch.arange(S, dtype=torch.int32, device=dev)
+            mask = attn.make_causal_mask(pos, kv_pos, kv_len)
+            if w:
+                mask = mask & (kv_pos[None, None, :] > pos[:, :, None] - w)
+            want = attn.xla_attention(q.float(), k.float(), v.float(),
+                                      mask=mask, sinks=sinks)
+            err = (got.float() - want.float()).abs().max().item()
+            errs[f"{what} window={w}"] = err
+            if not torch.isfinite(got.float()).all() or \
+                    not err <= ATOL["bf16"]:
+                fail(f"sink attention {what} window={w}: kernels "
+                     f"{err:.3e} from xla_attention (tol {ATOL['bf16']})")
+    log(f"[families] gpt-oss sink attention (H {H}, K {K}, D {D}) through "
+        f"the kernels against xla_attention, bf16: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (tol {ATOL['bf16']})")
+    return errs
+
+
+FAMILY_MODELS = (("Gemma-2-9B", GEMMA2_9B), ("command-r-v01", COMMAND_R_V01),
+                 ("command-r7b", COMMAND_R7B), ("Phi-3.5-MoE", PHI35_MOE),
+                 ("gpt-oss-20b", GPT_OSS_20B))
+
+
+def _seed_family_leaves(torch, params, cfg, seed: int) -> None:
+    """Replace the init's zero biases and sinks and its identity norm
+    scales with seeded values in place (bf16 or fp32 alike), so that a
+    missing or misplaced term shows in the output: q/k/v/o, norm,
+    expert and head biases, sinks, gpt-oss's router bias, and norm
+    scales around their identity (1, or 0 for Gemma's unit offset)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 91)
+    one = 0.0 if cfg.unit_offset_norm else 1.0
+    std = {"bq": 0.5, "bk": 0.5, "bv": 0.5, "bo": 0.02, "sinks": 1.0,
+           "router_b": 1.0, "we_gate_b": 1.0, "we_up_b": 1.0,
+           "we_down_b": 0.02, "lm_head_bias": 0.5}
+    leaves = dict(params["layers"])
+    leaves.update((n, params[n]) for n in ("final_norm", "final_norm_bias",
+                                           "lm_head_bias") if n in params)
+    for name, t in leaves.items():
+        if name.endswith("_norm_bias"):
+            mean, sd = 0.0, 0.1
+        elif name.endswith("norm"):
+            mean, sd = one, 0.1
+        elif name in std:
+            mean, sd = 0.0, std[name]
+        else:
+            continue
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device)
+                .mul_(sd).add_(mean))
+
+
+def _plain_flash_attention(q, k, v, *, positions, kv_len=None,
+                           sliding_window=None, scale=None,
+                           logit_softcap=None, sinks=None):
+    """`flash.flash_attention` through the kernels' plain versions
+    (`flash_decode_ref`, `flash_prefill_ref`) on the same tensors: the
+    reference side of phase 33's logits check."""
+    import torch
+
+    from ome_tpu_torch.ops import flash
+    B, Sq, H, D = q.shape
+    S = k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    if Sq == 1:
+        lo, hi = flash._decode_limits(positions, kv_len, S, sliding_window)
+        return flash.flash_decode_ref(q, k, v, lo, hi, scale, logit_softcap,
+                                      sinks)
+    return flash.flash_prefill_ref(
+        q, k, v, positions[:, 0].to(torch.int32),
+        flash._kv_hi(kv_len, B, S, q.device), scale, logit_softcap,
+        sliding_window, sinks)
+
+
+class _AttentionCount:
+    """Counts the CUDA calls of the plain attention (`xla_attention`)
+    while it is entered: no CUDA tensor of any family may reach it."""
+
+    def __init__(self):
+        from ome_tpu_torch.ops import attention
+        self.mod, self.orig, self.cuda_calls = attention, None, 0
+
+    def __enter__(self):
+        self.orig = self.mod.xla_attention
+
+        def counting(q, *a, **kw):
+            self.cuda_calls += int(q.is_cuda)
+            return self.orig(q, *a, **kw)
+        self.mod.xla_attention = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.xla_attention = self.orig
+
+
+def _family_identity(torch, label, hf, seed, n_layers, steps, prompt_lens):
+    import random
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models import llama
+    from ome_tpu_torch.models.config import ModelConfig
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.ops import flash
+
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    cfg = ModelConfig.from_hf_config(hf).replace(num_layers=n_layers,
+                                                 dtype=torch.float32)
+    if cfg.is_moe:
+        cfg = cfg.replace(moe_impl="ragged")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, dev)
+    _seed_family_leaves(torch, params, cfg, seed)
+    freqs = llama.rope_frequencies(cfg, dev)
+    rng = random.Random(seed + 13)
+    prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+               for n in prompt_lens]
+    max_seq = max(prompt_lens) + 8 * steps
+
+    # first-step logits: the kernels' forward against the same forward
+    # through their plain versions, prefill (B2) and one decode step (B1)
+    toks = torch.tensor([prompts[-1]], device=dev)
+    last = torch.tensor([len(prompts[-1]) - 1], device=dev)
+    logits = {}
+    for side in ("kernels", "plain"):
+        orig = flash.flash_attention
+        if side == "plain":
+            flash.flash_attention = _plain_flash_attention
+        try:
+            cache = llama.KVCache.create(cfg, 1, max_seq, device=dev)
+            pre, cache = llama.forward(params, cfg, toks, cache=cache,
+                                       rows=last, freqs=freqs)
+            nxt = pre[:, -1].argmax(-1)[:, None]
+            dec, _ = llama.forward(params, cfg, nxt, cache=cache,
+                                   freqs=freqs)
+            torch.cuda.synchronize()
+        finally:
+            flash.flash_attention = orig
+        logits[side] = (pre, dec)
+        del cache
+    err = max((a - b).abs().max().item()
+              for a, b in zip(logits["kernels"], logits["plain"]))
+    finite = all(bool(torch.isfinite(x).all()) for x in logits["kernels"])
+    del logits
+    if not finite or not err <= ATOL["fp32"]:
+        fail(f"family identity {label}: first-step logits of the kernels' "
+             f"forward {err:.3e} from the plain versions' (tol "
+             f"{ATOL['fp32']}; finite {finite})")
+
+    flash.reset_launches()
+    with _AttentionCount() as plain:
+        eng = InferenceEngine(params, cfg, max_slots=len(prompts),
+                              max_seq=max_seq, device="cuda", seed=seed)
+        single, gaps, _ = _greedy_streams(torch, eng, prompts, steps)
+        multi = _multi_streams(torch, eng, prompts, steps, k=4)
+        planned, sched = _sched_streams(eng, prompts, steps,
+                                        pipeline_depth=1, spec_tokens=4,
+                                        steps_per_dispatch=4)
+        st = dict(sched.stats)
+        del eng, sched
+        torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    for what, got in (("decode_multi K=4", multi),
+                      ("scheduler spec 4 K 4", planned)):
+        if got != single:
+            slot = next(i for i, (a, b) in enumerate(zip(single, got))
+                        if a != b)
+            fail(f"family identity {label}: the {what} stream of prompt "
+                 f"{slot} differs from single steps: {got[slot]} vs "
+                 f"{single[slot]}")
+    if plain.cuda_calls or not (launches["flash_decode"]
+                                and launches["flash_prefill"]):
+        fail(f"family identity {label}: launches {launches}, plain "
+             f"attention on CUDA tensors {plain.cuda_calls} times")
+    min_gap = min(float(g[:len(prompts)].min()) for g in gaps)
+    res = {"label": label, "layers": n_layers, "logits_max_abs_err": err,
+           "streams_identical": True, "steps": steps,
+           "prompt_lens": list(prompt_lens), "min_top2_gap": min_gap,
+           "spec_proposed": st["spec_proposed_tokens_total"],
+           "spec_accepted": st["spec_accepted_tokens_total"],
+           "launches": launches, "plain_cuda_calls": plain.cuda_calls,
+           "secs": time.monotonic() - t0}
+    log(f"[families] fp32 {label} widths, {n_layers} layers: first-step "
+        f"logits (prefill of {len(prompts[-1])} tokens, then one decode "
+        f"step) {err:.3e} from the plain versions' (tol {ATOL['fp32']}); "
+        f"single steps = decode_multi K=4 = scheduler spec 4 / K 4 over "
+        f"{steps}-token streams of prompts {list(prompt_lens)} (smallest "
+        f"top-2 gap {min_gap:.3e}; spec proposed {res['spec_proposed']}, "
+        f"accepted {res['spec_accepted']}); launches {launches}; plain "
+        f"attention on CUDA {plain.cuda_calls} calls"
+        + (" (sink attention in B1 and B2)" if cfg.attn_sinks else "")
+        + f"; {res['secs']:.1f} s")
+    del params
+    _free_device(torch, f"the {label} identity engines")
+    return res
+
+
+# phases 34-37: the bf16 servers, 13 requests each (`phase_serve`):
+# prompts up to 6000 tokens, past the 4096-row window where the model has
+# one (gpt-oss's window is 128 rows)
+FAMILY_LENGTHS_LONG = [16, 300, 1100, 2200, 3500, 4500, 5200, 6000]
+FAMILY_SERVERS = (
+    ("serve_gemma2_9b", {"hf": GEMMA2_9B, "label": "Gemma-2-9B",
+                         "seed_leaves": True, "max_seq": 8192,
+                         "lengths": FAMILY_LENGTHS_LONG}),
+    ("serve_gpt_oss_20b", {"hf": GPT_OSS_20B, "label": "gpt-oss-20b",
+                           "seed_leaves": True, "max_seq": 8192,
+                           "lengths": FAMILY_LENGTHS_LONG}),
+    ("serve_phi35_moe", {"hf": PHI35_MOE, "label": "Phi-3.5-MoE",
+                         "layers": PHI35_MOE_SERVED_LAYERS,
+                         "seed_leaves": True, "max_seq": 8192,
+                         "lengths": FAMILY_LENGTHS_LONG}),
+    ("serve_command_r7b", {"hf": COMMAND_R7B, "label": "command-r7b",
+                           "seed_leaves": True, "max_seq": 8192,
+                           "lengths": FAMILY_LENGTHS_LONG}),
+)
+
+
+def phase_family_identity(torch, seed: int = 0, n_layers: int = 4,
+                          steps: int = 24):
+    """fp32, `n_layers` deep (Cohere2: one period of its pattern P 4),
+    at each family's published widths (`FAMILY_MODELS`), biases, sinks
+    and norm scales seeded: the first-step logits of the card's forward
+    (a prefill past the 4096-row window, then one decode step) within
+    2e-4 of the same forward through the kernels' plain versions; greedy
+    streams identical across single steps, `decode_multi` K=4 and the
+    spec-4 / K-4 scheduler; B1 and B2 launched (gpt-oss's sinks in
+    them) and no CUDA call of the plain attention."""
+    return {label: _family_identity(torch, label, hf, seed, n_layers, steps,
+                                    (37, 900, 4200))
+            for label, hf in FAMILY_MODELS}
+
+
 # -- main -----------------------------------------------------------------------
 
 
@@ -5170,6 +5681,11 @@ def main() -> int:
     run("lora_server", phase_lora_server, torch,
         free="the multi-LoRA server")
     run("embed", phase_embed, torch, free="the embedding engines")
+    run("family_kernels", phase_family_kernels, torch)
+    run("family_identity", phase_family_identity, torch)
+    for key, model in FAMILY_SERVERS:
+        run(key, phase_serve, torch, model=model,
+            free=f"the {model['label']} server")
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -5183,11 +5699,13 @@ def main() -> int:
         launches[name] = report["paged_bf16"]["launches"][name]
     launches["int4_matmul"] = report["serve_int4"]["launches"]["int4_matmul"]
     # at head_dim 96 the Phi-3-mini servers' (dense: B1, B2; paged: B3);
-    # no server runs head_dim 256
+    # at 256 the Gemma-2-9B server's (B1, B2; paged KV is refused for
+    # Gemma 2, as in the reference)
     d96 = dict(report["serve_phi3"]["launches"])
     d96["flash_paged_decode"] = report["paged_phi3"]["launches"][
         "flash_paged_decode"]
     d96["flash_decode_quantized"] = 0
+    d256 = dict(report["serve_gemma2_9b"]["launches"])
 
     def entry(name, label, case, n):
         source, replaces = SOURCES[name]
@@ -5201,9 +5719,39 @@ def main() -> int:
                      launches[name]) for name in SOURCES]
     # (the first case of each D: at D 96 B3's is the served shape)
     for name, rows in report["headdim_kernels"].items():
-        for D, n in ((96, d96[name]), (256, 0)):
+        for D, n in ((96, d96[name]), (256, d256[name])):
             case = next(c for c in rows if f" D={D} " in c["case"])
             kernels.append(entry(name, f"{name} head_dim {D}", case, n))
+    # the later families' served shapes: B1 and B2 at Gemma-2-9B's heads with
+    # its window and softcap (launches: the Gemma-2-9B server), B1 at
+    # command-r's G 1 (launches: its fp32 identity engines, the one run
+    # of that model), B1 and B2 with gpt-oss-20b's sinks and window
+    # (launches: the gpt-oss-20b server)
+    fam = report["family_kernels"]
+    cr = report["family_identity"]["command-r-v01"]["launches"]
+    go = report["serve_gpt_oss_20b"]["launches"]
+
+    def sink_case(name, head):
+        return next(c for c in fam[name] if c["case"].startswith(head)
+                    and " H=64 K=8 D=64 " in c["case"]
+                    and " window=128 " in c["case"]
+                    and c["case"].endswith(" sinks"))
+    for name, label, case, n in (
+            ("flash_decode", "flash_decode Gemma-2-9B D 256 window 4096 "
+             "softcap 50", fam["flash_decode"][0], d256["flash_decode"]),
+            ("flash_prefill", "flash_prefill Gemma-2-9B D 256 causal 2048 "
+             "window 4096 softcap 50", fam["flash_prefill"][0],
+             d256["flash_prefill"]),
+            ("flash_decode", "flash_decode command-r G 1",
+             fam["flash_decode"][4], cr["flash_decode"]),
+            ("flash_decode", "flash_decode gpt-oss-20b D 64 sinks window "
+             "128", sink_case("flash_decode", "decode bf16 "),
+             go["flash_decode"]),
+            ("flash_prefill", "flash_prefill gpt-oss-20b D 64 sinks causal "
+             "2048 window 128", sink_case("flash_prefill",
+                                          "prefill bf16 B=1 Sq=2048 "),
+             go["flash_prefill"])):
+        kernels.append(entry(name, label, case, n))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -541,15 +541,18 @@ class InferenceEngine:
             # a model-wide sliding window is served paged (the decode
             # kernel's window start is lo), where the reference refuses
             # it; alternating windows are not
-            if (cfg.mla or cfg.is_moe or cfg.first_k_dense
-                    or cfg.alt_sliding_window
-                    or cfg.norm_type != "rmsnorm" or cfg.parallel_block
-                    or cfg.attn_sinks):
+            refused = [name for name, on in (
+                ("MLA", cfg.mla), ("MoE", cfg.is_moe or cfg.first_k_dense),
+                ("alternating sliding windows", cfg.alt_sliding_window),
+                (f"norm_type {cfg.norm_type!r}",
+                 cfg.norm_type != "rmsnorm"),
+                ("parallel blocks", cfg.parallel_block),
+                ("attention sinks", cfg.attn_sinks)) if on]
+            if refused:
                 raise PagedKVUnsupported(
                     "paged KV supports standard rmsnorm GQA models, with "
-                    "or without one sliding window; MLA/MoE/alternating-"
-                    "window/parallel-block/layernorm/sink models use the "
-                    "dense cache")
+                    "or without one sliding window; this model has "
+                    f"{', '.join(refused)}: serve it from the dense cache")
             if self.device.type == "cuda":
                 # every paged decode step runs the CUDA kernel; refuse a
                 # shape it does not take here rather than at the first

@@ -46,12 +46,12 @@ def forward_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                              device=dev)[None, :].expand(B, S)
     if freqs is None:
         freqs = llama.rope_frequencies(cfg, dev)
-    x = llama._embed(params["embed"], tokens, cfg.dtype)
+    x = llama._embed_scaled(params, cfg, tokens)
     layers = params["layers"]
-    for i in range(cfg.num_layers):
+    for i, (window, use_rope) in enumerate(llama.layer_windows(cfg)):
         x = llama._layer(x, llama._layer_params(layers, i), cfg, freqs,
-                         positions, None, None, None)
-    x = llama.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+                         positions, None, None, None, None, window, use_rope)
+    x = llama.block_norm(x, params, "final_norm", cfg)
     # last REAL token pools the sequence (decoder embedding convention)
     rows = torch.arange(B, device=dev)
     pooled = x[rows, true_len.to(dev).long() - 1].float()

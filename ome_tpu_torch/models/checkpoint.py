@@ -18,9 +18,8 @@ equals the reference's `load_params(..., device_put=False)` leaf for
 leaf. `load_params` puts the leaves on an explicit device (default
 CUDA, through `device.resolve_device`) one layer at a time, and refuses
 what the reference's architecture gate refuses and what the port does
-not serve yet (`params.check_supported`); `convert_llama` keeps the
-reference's GQA branches with q/k/v(/o) biases, qk_norm and the
-Mixtral-style experts and router.
+not serve yet (`params.check_supported`: MLA); `convert_llama` keeps
+the reference's branches of every other family.
 """
 
 from __future__ import annotations
@@ -203,13 +202,16 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
     Each tensor is read, moved to `device`, widened to float32 and
     rounded once to `dtype` (default bfloat16), as the reference does.
 
-    Converts the GQA family: separate or fused (phi3) q/k/v and gate/up
-    projections, q/k/v(/o) biases (Qwen2), the per-head q/k norms
-    (Qwen3) and Mixtral's `block_sparse_moe`: the router and each
-    layer's experts stacked into [E, ...] leaves. The reference's other
-    families (MLA, shared experts, layernorm, post-block norms, sinks,
-    gpt-oss's fused experts) are not converted; `load_params` refuses
-    them before any weight is read.
+    Converts every family of the reference but MLA: separate or fused
+    (phi3) q/k/v and gate/up projections, q/k/v(/o) biases, the
+    per-head q/k norms (Qwen3, command-r-plus), LayerNorm biases
+    (Phi-3.5-MoE), Gemma 2's post-block norms, command-r's one shared
+    input norm, gpt-oss's sinks, biased router and fused experts (gate
+    and up interleaved on the last dim), the head's bias, and the
+    Mixtral-style `block_sparse_moe` router and experts stacked into
+    [E, ...] leaves. MLA, shared experts and the DeepSeek `mlp.gate` /
+    `mlp.experts` layout are not converted; `load_params` refuses them
+    before any weight is read.
     """
     dev = torch.device(device)
     t_dt = dtype or torch.bfloat16
@@ -217,6 +219,7 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
     L, D, H, K, Dh = (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                       cfg.num_kv_heads, cfg.head_dim)
     st = _Stacker(L, t_dt, dev)
+    layernorm = cfg.norm_type == "layernorm"
 
     def take(name: str) -> torch.Tensor:
         if name not in ckpt and name.startswith("model."):
@@ -231,7 +234,23 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
     for i in range(L):
         p = f"model.layers.{i}."
         st.put("attn_norm", i, take(p + "input_layernorm.weight"))
-        st.put("mlp_norm", i, take(p + "post_attention_layernorm.weight"))
+        if layernorm:  # Phi-3.5-MoE: torch LayerNorm biases ride along
+            st.put("attn_norm_bias", i, take(p + "input_layernorm.bias"))
+        if cfg.post_block_norms:
+            # Gemma 2: post_attention_layernorm normalizes the attention
+            # OUTPUT; the MLP's pre-norm is pre_feedforward_layernorm
+            st.put("attn_post_norm", i,
+                   take(p + "post_attention_layernorm.weight"))
+            st.put("mlp_norm", i,
+                   take(p + "pre_feedforward_layernorm.weight"))
+            st.put("mlp_post_norm", i,
+                   take(p + "post_feedforward_layernorm.weight"))
+        elif not cfg.parallel_block:  # command-r: one shared input norm
+            st.put("mlp_norm", i,
+                   take(p + "post_attention_layernorm.weight"))
+            if layernorm:
+                st.put("mlp_norm_bias", i,
+                       take(p + "post_attention_layernorm.bias"))
         if p + "self_attn.qkv_proj.weight" in ckpt:
             # phi3: fused qkv — rows are [H*Dh | K*Dh | K*Dh]
             qkv = take(p + "self_attn.qkv_proj.weight")
@@ -260,12 +279,29 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
                    take(p + "self_attn.v_proj.bias").reshape(K, Dh))
             if p + "self_attn.o_proj.bias" in ckpt:
                 st.put("bo", i, take(p + "self_attn.o_proj.bias"))
+        if cfg.attn_sinks:
+            st.put("sinks", i, take(p + "self_attn.sinks"), dtype=f32)
         if cfg.qk_norm:
             st.put("q_norm", i, take(p + "self_attn.q_norm.weight"))
             st.put("k_norm", i, take(p + "self_attn.k_norm.weight"))
-        if cfg.is_moe:
-            # Mixtral's block_sparse_moe: the router, then each expert's
-            # w1 (gate), w3 (up) and w2 (down), stacked into [E, ...]
+        if cfg.is_moe and p + "mlp.experts.gate_up_proj" in ckpt:
+            # gpt-oss: fused per-expert parameters stored [in, out]
+            # already; gate/up INTERLEAVED on the last dim; the router
+            # is a biased linear (its bias fp32, as the reference's)
+            st.put("router", i, linear_in_out(p + "mlp.router.weight"))
+            st.put("router_b", i, take(p + "mlp.router.bias"), dtype=f32)
+            gu = take(p + "mlp.experts.gate_up_proj")       # [E, D, 2I]
+            st.put("we_gate", i, gu[..., ::2])
+            st.put("we_up", i, gu[..., 1::2])
+            gub = take(p + "mlp.experts.gate_up_proj_bias")  # [E, 2I]
+            st.put("we_gate_b", i, gub[..., ::2])
+            st.put("we_up_b", i, gub[..., 1::2])
+            st.put("we_down", i, take(p + "mlp.experts.down_proj"))
+            st.put("we_down_b", i, take(p + "mlp.experts.down_proj_bias"))
+        elif cfg.is_moe:
+            # Mixtral's and Phi-3.5-MoE's block_sparse_moe: the router,
+            # then each expert's w1 (gate), w3 (up) and w2 (down),
+            # stacked into [E, ...]
             moe = p + "block_sparse_moe."
             st.put("router", i, linear_in_out(moe + "gate.weight"))
             for leaf, hf in (("we_gate", "w1"), ("we_up", "w3"),
@@ -290,20 +326,24 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
         "final_norm": take("model.norm.weight").to(t_dt),
         "layers": st.out,
     }
+    if layernorm:
+        params["final_norm_bias"] = take("model.norm.bias").to(t_dt)
     if not cfg.tie_word_embeddings and "lm_head.weight" in ckpt:
         # some checkpoints omit lm_head despite tie=False in config:
         # the model then falls back to the tied embeddings
         params["lm_head"] = linear_in_out(
             "lm_head.weight").to(t_dt).contiguous()
+    if cfg.lm_head_bias and "lm_head.bias" in ckpt:
+        params["lm_head_bias"] = take("lm_head.bias")
     return params
 
 
 def hf_tensors(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
-    """The inverse of `convert_llama` for the families the port serves
-    (attention biases, qk_norm and Mixtral's `block_sparse_moe` experts
-    included): the param tree as HF-named [out, in] tensors, in the
-    tree's dtypes. Used to write checkpoints from seeded weights (tests,
-    chip_smoke.py)."""
+    """The inverse of `convert_llama` for the Llama, Qwen2/Qwen3 and
+    Mixtral layouts (attention biases, qk_norm and Mixtral's
+    `block_sparse_moe` experts included): the param tree as HF-named
+    [out, in] tensors, in the tree's dtypes. Used to write checkpoints
+    from seeded weights (tests, chip_smoke.py)."""
     L, D, H, K, Dh = (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                       cfg.num_kv_heads, cfg.head_dim)
     lay = params["layers"]

@@ -1,14 +1,23 @@
 """Llama-family decoder in PyTorch (port of ome_tpu/models/llama.py).
 
-The GQA RMSNorm subset of the reference: RMSNorm in fp32, rotate-half
-RoPE with default/linear/llama3 frequency scaling, the SiLU gated MLP,
-GQA attention through `ops.attention`, and fp32 logits; with the Qwen2
-q/k/v (and o) projection biases, the Qwen3 per-head q/k RMSNorm and the
-Mixtral top-k MoE MLP (`moe_mlp`: the reference's dense impl and its
-ragged dispatch, grouped products through `torch._grouped_mm` on the
-card), and the multi-LoRA deltas of the engine's adapter stacks
-(`_proj_lora`: plain batched products beside each projection, as the
-reference's einsums sit outside its kernels).
+Every non-MLA family of the reference: RMSNorm (with Gemma's unit
+offset) or mean-centered LayerNorm (with bias: Phi-3.5-MoE; weight
+only: command-r) through `block_norm`; rotate-half or interleaved
+(command-r) RoPE with default, linear, llama3, yarn and longrope
+frequencies; the SiLU or tanh-GELU (Gemma 2) gated MLP; GQA attention
+through `ops.attention` with a per-layer sliding window (alternating
+sliding and global layers: Gemma 2, Cohere2, gpt-oss; Cohere2's global
+layers skip RoPE), a logit softcap and gpt-oss's sink logits; the
+command-r parallel block and Gemma's post-block norms; the Qwen2
+q/k/v (and o) projection biases and per-head q/k norms; the top-k MoE
+MLP (`moe_mlp`: Mixtral's router, gpt-oss's biased router with its
+clamped GLU and expert biases, Phi-3.5-MoE's sparsemixer; the
+reference's dense impl and its ragged dispatch, grouped products
+through `torch._grouped_mm` on the card); fp32 logits with a bias, a
+scale and a final softcap; and the multi-LoRA deltas of the engine's
+adapter stacks (`_proj_lora`: plain batched products beside each
+projection, as the reference's einsums sit outside its kernels). MLA
+(models/mla.py) is not ported yet.
 
 Layout follows the reference so the tests compare like with like:
 parameters are a nested dict with the reference's leaf names and the
@@ -122,27 +131,71 @@ class PagedKVCache:
 # -- building blocks -------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             unit_offset: bool = False) -> torch.Tensor:
+    """RMSNorm in fp32; `unit_offset` is Gemma's convention of storing
+    the scale as (scale - 1)."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    w = scale.float()
+    if unit_offset:
+        w = 1.0 + w
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor,
+               bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """Mean-centered LayerNorm in fp32. bias=None is command-r's
+    weight-only form; with a bias it is torch's LayerNorm
+    (Phi-3.5-MoE)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * scale.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)
+
+
+def block_norm(x: torch.Tensor, lp, name: str,
+               cfg: ModelConfig) -> torch.Tensor:
+    """The norm `name` of `lp` (a layer's leaves, or the top of the
+    tree for `final_norm`), dispatched on cfg.norm_type; layernorm
+    biases ride as `<name>_bias` leaves."""
+    if cfg.norm_type == "rmsnorm":
+        return rms_norm(x, lp[name], cfg.rms_norm_eps, cfg.unit_offset_norm)
+    bias = lp.get(name + "_bias") if cfg.norm_type == "layernorm" \
+        else None
+    return layer_norm(x, lp[name], bias, cfg.rms_norm_eps)
 
 
 def rope_frequencies(cfg: ModelConfig,
                      device: Union[str, torch.device]) -> torch.Tensor:
     """[head_dim / 2] fp32 inverse frequencies (reference
-    `_rope_frequencies`), with linear and llama3 (Llama-3.1 NTK-by-parts)
-    scaling."""
+    `_rope_frequencies`) with linear, llama3 (Llama-3.1 NTK-by-parts),
+    yarn and longrope scaling. Yarn's cos/sin attention factor is not
+    applied here: `ModelConfig.from_hf_config` folds it into
+    `query_scale` once. longrope takes `long_factor` when the config's
+    window (`max_seq_len`, its max_position_embeddings) exceeds
+    `original_max_position_embeddings`, whatever window the engine
+    serves. Any other type is refused by name."""
     half = cfg.head_dim // 2
     freqs = 1.0 / cfg.rope_theta ** (
         torch.arange(half, dtype=torch.float32, device=device) / half)
     sc = cfg.rope_scaling
     rtype = sc.get("rope_type", sc.get("type")) if sc else None
-    if rtype not in (None, "default", "llama3", "linear"):
-        raise NotImplementedError(
-            f"rope_scaling type {rtype!r} is not ported yet")
-    if rtype == "linear":
+    if rtype not in (None, "default", "llama3", "yarn", "longrope",
+                     "linear"):
+        raise ValueError(f"unsupported rope_scaling type {rtype!r}")
+    if rtype == "yarn":
+        from .mla import yarn_frequencies
+        freqs, _ = yarn_frequencies(cfg, cfg.head_dim, device)
+    elif rtype == "longrope":
+        orig = sc.get("original_max_position_embeddings", cfg.max_seq_len)
+        which = "long_factor" if cfg.max_seq_len > orig else "short_factor"
+        freqs = freqs / torch.tensor(sc[which], dtype=torch.float32,
+                                     device=device)
+    elif rtype == "linear":
         freqs = freqs / sc.get("factor", 1.0)
     if rtype == "llama3":
         factor = sc.get("factor", 8.0)
@@ -159,13 +212,20 @@ def rope_frequencies(cfg: ModelConfig,
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               freqs: torch.Tensor) -> torch.Tensor:
-    """Rotate-half RoPE (HF Llama convention). x: [B, S, N, Dh];
-    positions: [B, S]."""
+               freqs: torch.Tensor, interleaved: bool = False
+               ) -> torch.Tensor:
+    """RoPE. x: [B, S, N, Dh]; positions: [B, S]. Rotate-half (HF Llama
+    convention) by default; `interleaved` rotates even/odd pairs
+    (command-r's repeat_interleave convention)."""
     angles = positions[..., None].float() * freqs  # [B, S, half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    xf = x.float()
+    if interleaved:
+        x1, x2 = xf[..., ::2], xf[..., 1::2]
+        return torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                           dim=-1).reshape(x.shape).to(x.dtype)
+    x1, x2 = xf.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
 
@@ -257,13 +317,22 @@ def _layer_params(layers, i: int):
     return {name: t[i] for name, t in layers.items()}
 
 
-def dense_mlp(x: torch.Tensor, p, dtype, lora: Lora = None) -> torch.Tensor:
-    gate = _proj_lora(x, p, "w_gate", lora, dtype)
-    up = _proj_lora(x, p, "w_up", lora, dtype)
-    return _proj_lora(F.silu(gate) * up, p, "w_down", lora, dtype)
+def _activate(gate: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The gated MLP's activation: SiLU, or Gemma 2's tanh GELU."""
+    if cfg.mlp_activation == "gelu_tanh":
+        return F.gelu(gate, approximate="tanh")
+    return F.silu(gate)
 
 
-# -- mixture of experts (Mixtral) ------------------------------------------
+def dense_mlp(x: torch.Tensor, p, cfg: ModelConfig,
+              lora: Lora = None) -> torch.Tensor:
+    gate = _proj_lora(x, p, "w_gate", lora, cfg.dtype)
+    up = _proj_lora(x, p, "w_up", lora, cfg.dtype)
+    return _proj_lora(_activate(gate, cfg) * up, p, "w_down", lora,
+                      cfg.dtype)
+
+
+# -- mixture of experts -----------------------------------------------------
 
 
 def _w(w, dtype) -> torch.Tensor:
@@ -273,30 +342,77 @@ def _w(w, dtype) -> torch.Tensor:
 
 
 def _route(x: torch.Tensor, p, cfg: ModelConfig):
-    """Mixtral router (reference `_route`, router_scoring "mixtral"):
-    the router product in x's dtype, widened to fp32 logits; the top k
+    """Router (reference `_route`): the router product in x's dtype,
+    widened to fp32 logits. router_scoring "mixtral" (Mixtral, gpt-oss):
+    gpt-oss's router bias `router_b` added before selection, the top k
     by a stable descending sort, so that tied logits are taken lower
-    expert id first, as `lax.top_k` takes them; then a softmax over the
-    k picked logits. Returns (weights [B, S, k] fp32, ids [B, S, k])."""
+    expert id first, as `lax.top_k` takes them, then a softmax over the
+    k picked logits; "sparsemixer" (Phi-3.5-MoE): `_route_sparsemixer`.
+    Returns (weights [B, S, k] fp32, ids [B, S, k])."""
     logits = torch.einsum("bsd,de->bse", x, p["router"]).float()
+    if cfg.router_scoring == "sparsemixer":
+        return _route_sparsemixer(logits, cfg)
+    if cfg.moe_bias and "router_b" in p:
+        logits = logits + p["router_b"]
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
     k = cfg.experts_per_token
     return torch.softmax(vals[..., :k], dim=-1), idx[..., :k]
 
 
-def _moe_act(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
-    return F.silu(gate) * up
+def _route_sparsemixer(scores: torch.Tensor, cfg: ModelConfig):
+    """Phi-3.5-MoE's inference-time sparsemixer (reference
+    `_route_sparsemixer`): top-1 twice, the second pick among the
+    logits with the first removed. Each pick masks out the logits more
+    than 2 x router_jitter below its candidates' max, relative to
+    max(|logit|, that max), and its weight is its softmax over its own
+    masked logits (the two are not normalized together). `argmax`
+    takes the lower expert id among ties, as the reference's does."""
+    eps = cfg.router_jitter
+
+    def pick(masked_from: torch.Tensor):
+        m = masked_from.max(dim=-1, keepdim=True).values
+        idx = masked_from.argmax(dim=-1)
+        factor = torch.maximum(scores.abs(), m)
+        drop = (m - scores) / factor > 2 * eps
+        gates = torch.softmax(masked_from.masked_fill(drop, -math.inf),
+                              dim=-1)
+        return gates.gather(-1, idx[..., None])[..., 0], idx
+
+    w1, i1 = pick(scores)
+    masked = scores.masked_fill(
+        F.one_hot(i1, scores.shape[-1]).bool(), -math.inf)
+    w2, i2 = pick(masked)
+    return torch.stack([w1, w2], dim=-1), torch.stack([i1, i2], dim=-1)
+
+
+def _moe_act(gate: torch.Tensor, up: torch.Tensor,
+             cfg: ModelConfig) -> torch.Tensor:
+    """The experts' activation: the MLP's, or gpt-oss's clamped GLU
+    (gate capped at 7, up clamped to +-7, (up + 1) * gate *
+    sigmoid(1.702 gate))."""
+    if cfg.moe_activation == "gptoss_glu":
+        gate = gate.clamp(max=7.0)
+        up = up.clamp(-7.0, 7.0)
+        return (up + 1.0) * (gate * torch.sigmoid(gate * 1.702))
+    return _activate(gate, cfg) * up
 
 
 def moe_mlp_dense(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     """Top-k MoE computing every expert for every token and mixing by
     router weight (reference `moe_mlp_dense`): O(E) products, static
-    shapes; the fp32 cross-check of the ragged dispatch."""
+    shapes; the fp32 cross-check of the ragged dispatch. gpt-oss's
+    expert biases are added to each expert's gate, up and output (the
+    output's before the routing weight scales it)."""
     weights, idx = _route(x, p, cfg)
     gate = torch.einsum("bsd,edf->bsef", x, _w(p["we_gate"], cfg.dtype))
     up = torch.einsum("bsd,edf->bsef", x, _w(p["we_up"], cfg.dtype))
-    expert_out = torch.einsum("bsef,efd->bsed", _moe_act(gate, up),
+    if cfg.moe_bias:
+        gate = gate + p["we_gate_b"]
+        up = up + p["we_up_b"]
+    expert_out = torch.einsum("bsef,efd->bsed", _moe_act(gate, up, cfg),
                               _w(p["we_down"], cfg.dtype))
+    if cfg.moe_bias:
+        expert_out = expert_out + p["we_down_b"]
     onehot = F.one_hot(idx, cfg.num_experts).to(weights.dtype)
     mix = torch.einsum("bske,bsk->bse", onehot, weights)
     return torch.einsum("bsed,bse->bsd", expert_out,
@@ -330,7 +446,8 @@ def _grouped(xs: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
 def moe_mlp_ragged(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     """Dropless ragged dispatch (reference `moe_mlp_ragged`): sort the
     T k (token, expert) pairs by expert with a stable sort (as
-    `jnp.argsort`), run the grouped products, weight each row, put the
+    `jnp.argsort`), run the grouped products (with the rows' expert
+    biases where the model has them), weight each row, put the
     rows back in (token, pick) order and add each token's k rows in pick
     order in the rows' dtype, then cast to x's dtype. Static shapes and
     no host read, so a `decode_multi` chunk stays free of syncs."""
@@ -346,8 +463,14 @@ def moe_mlp_ragged(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
             ).sum(0).cumsum(0).to(torch.int32)
     gate = _grouped(xs, _w(p["we_gate"], cfg.dtype), sorted_ids, offs)
     up = _grouped(xs, _w(p["we_up"], cfg.dtype), sorted_ids, offs)
-    out_sorted = _grouped(_moe_act(gate, up), _w(p["we_down"], cfg.dtype),
-                          sorted_ids, offs)
+    if cfg.moe_bias:
+        # each row's expert biases, gathered by its sorted expert id
+        gate = gate + p["we_gate_b"][sorted_ids]
+        up = up + p["we_up_b"][sorted_ids]
+    out_sorted = _grouped(_moe_act(gate, up, cfg),
+                          _w(p["we_down"], cfg.dtype), sorted_ids, offs)
+    if cfg.moe_bias:
+        out_sorted = out_sorted + p["we_down_b"][sorted_ids]
     w_sorted = weights.reshape(T * k)[order]
     contrib = out_sorted * w_sorted[:, None].to(out_sorted.dtype)
     rows = torch.empty_like(contrib).index_copy_(0, order, contrib)
@@ -359,8 +482,8 @@ def moe_mlp_ragged(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
 
 
 def moe_mlp(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
-    """Top-k MoE block (reference `moe_mlp`; shared experts are not
-    ported and `params.check_supported` refuses them)."""
+    """Top-k MoE block (reference `moe_mlp`; DeepSeek's shared experts
+    are not ported and `params.check_supported` refuses them)."""
     if cfg.moe_impl == "ragged":
         return moe_mlp_ragged(x, p, cfg)
     return moe_mlp_dense(x, p, cfg)
@@ -396,10 +519,12 @@ def _write_rows(cache: torch.Tensor, new: torch.Tensor,
 
 
 def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
-         positions: torch.Tensor, lora: Lora = None):
-    """Projected (with the rows' adapter deltas), biased (Qwen2),
-    per-head RMS-normed (Qwen3) and roped q/k/v, in the reference's
-    order; shared by the dense and paged paths."""
+         positions: torch.Tensor, lora: Lora = None, rope: bool = True):
+    """Projected (with the rows' adapter deltas), biased (Qwen2, gpt-oss,
+    Phi-3.5-MoE), per-head normed (Qwen3 RMSNorm, command-r-plus
+    LayerNorm) and roped q/k/v, in the reference's order; shared by the
+    dense and paged paths. `rope=False` is Cohere2's NoPE global
+    layers."""
     q = _proj_lora(h, lp, "wq", lora, cfg.dtype,
                    out_dims=(cfg.num_heads, cfg.head_dim))
     k = _proj_lora(h, lp, "wk", lora, cfg.dtype,
@@ -411,10 +536,21 @@ def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
         k = k + lp["bk"]
         v = v + lp["bv"]
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps)
-        k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps)
-    return (apply_rope(q, positions, freqs),
-            apply_rope(k, positions, freqs), v)
+        # the reference's own dispatch: LayerNorm only under
+        # layernorm_nobias, RMSNorm otherwise (layernorm included)
+        if cfg.norm_type == "layernorm_nobias":
+            # command-r-plus: per-(head, dim) weighted LayerNorm
+            q = layer_norm(q, lp["q_norm"], None, cfg.rms_norm_eps)
+            k = layer_norm(k, lp["k_norm"], None, cfg.rms_norm_eps)
+        else:
+            q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps,
+                         cfg.unit_offset_norm)
+            k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps,
+                         cfg.unit_offset_norm)
+    if rope:
+        q = apply_rope(q, positions, freqs, cfg.rope_interleaved)
+        k = apply_rope(k, positions, freqs, cfg.rope_interleaved)
+    return q, k, v
 
 
 def _out_proj(attn: torch.Tensor, lp, cfg: ModelConfig,
@@ -427,46 +563,99 @@ def _out_proj(attn: torch.Tensor, lp, cfg: ModelConfig,
     return a
 
 
+def layer_windows(cfg: ModelConfig):
+    """[(sliding window or None, use_rope)] for each layer (reference
+    `_alt_window_scan`): the model's one window on every layer, or, with
+    alternating windows, layer i global (no window) iff
+    (i + 1) % sliding_pattern == 0, its RoPE skipped under
+    rope_skip_global (Cohere2's NoPE global layers). A depth that is not
+    a whole number of periods is refused by name."""
+    L, P = cfg.num_layers, cfg.sliding_pattern
+    if not cfg.alt_sliding_window:
+        return [(cfg.sliding_window, True)] * L
+    if L % P:
+        raise ValueError(
+            f"alternating sliding windows need a depth divisible by "
+            f"sliding_pattern {P}; got {L} layers")
+    out = []
+    for i in range(L):
+        glob = (i + 1) % P == 0
+        out.append((None if glob else cfg.sliding_window,
+                    not (glob and cfg.rope_skip_global)))
+    return out
+
+
 def _mha(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
          positions: torch.Tensor, kv_len: Optional[torch.Tensor],
          cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
-         cache_index: Optional[IndexLike],
-         lora: Lora = None) -> torch.Tensor:
-    """GQA attention on the pre-normed input; with a cache the new K/V
-    rows are written into it in place and attention spans the cache."""
-    q, k, v = _qkv(h, lp, cfg, freqs, positions, lora)
+         cache_index: Optional[IndexLike], window: Optional[int],
+         lora: Lora = None, use_rope: bool = True) -> torch.Tensor:
+    """GQA attention on the pre-normed input under the layer's `window`
+    (None = global); with a cache the new K/V rows are written into it
+    in place and attention spans the cache. gpt-oss's `sinks` ride
+    along to `attention`."""
+    q, k, v = _qkv(h, lp, cfg, freqs, positions, lora, rope=use_rope)
     if cache_kv is not None:
         ck, cv = cache_kv
         _write_rows(ck, k, cache_index)
         _write_rows(cv, v, cache_index)
         k, v = ck, cv
     attn = attention(q, k, v, positions=positions, kv_len=kv_len,
-                     sliding_window=cfg.sliding_window,
-                     scale=cfg.query_scale,
-                     logit_softcap=cfg.attn_logit_softcap)
+                     sliding_window=window, scale=cfg.query_scale,
+                     logit_softcap=cfg.attn_logit_softcap,
+                     sinks=lp.get("sinks") if cfg.attn_sinks else None)
     return _out_proj(attn, lp, cfg, lora)
 
 
+def _mlp(h: torch.Tensor, lp, cfg: ModelConfig, lora: Lora) -> torch.Tensor:
+    return moe_mlp(h, lp, cfg) if cfg.is_moe \
+        else dense_mlp(h, lp, cfg, lora)
+
+
 def _layer(x: torch.Tensor, lp, cfg: ModelConfig, freqs, positions,
-           kv_len, cache_kv, cache_index, lora: Lora = None
-           ) -> torch.Tensor:
-    """One block. `lora`: the layer's adapter factors of each row
-    (`select_adapters`; MoE models carry attention targets only)."""
-    h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-    x = x + _mha(h, lp, cfg, freqs, positions, kv_len, cache_kv,
-                 cache_index, lora)
-    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-    mlp_out = moe_mlp(h, lp, cfg) if cfg.is_moe \
-        else dense_mlp(h, lp, cfg.dtype, lora)
+           kv_len, cache_kv, cache_index, lora: Lora,
+           window: Optional[int], use_rope: bool) -> torch.Tensor:
+    """One block (reference `_layer`) under the layer's `window` (None =
+    global) and RoPE flag, as `layer_windows` gives them. command-r's
+    parallel block adds attention and MLP, both on one normed input,
+    into one residual; Gemma 2 norms each branch's output before its
+    residual add.
+    `lora`: the layer's adapter factors of each row (`select_adapters`;
+    MoE models carry attention targets only)."""
+    h = block_norm(x, lp, "attn_norm", cfg)
+    a = _mha(h, lp, cfg, freqs, positions, kv_len, cache_kv, cache_index,
+             window, lora, use_rope)
+    if cfg.parallel_block:
+        return x + a + _mlp(h, lp, cfg, lora)
+    if cfg.post_block_norms:
+        a = block_norm(a, lp, "attn_post_norm", cfg)
+    x = x + a
+    mlp_out = _mlp(block_norm(x, lp, "mlp_norm", cfg), lp, cfg, lora)
+    if cfg.post_block_norms:
+        mlp_out = block_norm(mlp_out, lp, "mlp_post_norm", cfg)
     return x + mlp_out
+
+
+def _embed_scaled(params: Params, cfg: ModelConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows, times sqrt(hidden_size) for Gemma, that
+    normalizer rounded to the compute dtype first as the reference
+    rounds it (on the host: a device scalar would cost a copy that
+    waits for the stream, every step)."""
+    x = _embed(params["embed"], tokens, cfg.dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=cfg.dtype).item()
+    return x
 
 
 def _final_logits(params: Params, cfg: ModelConfig,
                   x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head with fp32 logits (the reference's einsum
     with preferred_element_type=float32): on a card the bf16 product
-    writes fp32 directly; elsewhere the product runs in fp32."""
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    writes fp32 directly; elsewhere the product runs in fp32. Then, on
+    the fp32 logits, the head's bias (Phi-3.5-MoE), command-r's
+    logit_scale and Gemma 2's final softcap."""
+    x = block_norm(x, params, "final_norm", cfg)
     tied = "lm_head" not in params
     head = params["embed" if tied else "lm_head"]
     if isinstance(head, QTensor):  # int8 (or fp8) head: dequantized
@@ -479,7 +668,15 @@ def _final_logits(params: Params, cfg: ModelConfig,
         logits = torch.mm(x2, head, out_dtype=torch.float32)
     else:
         logits = x2.float() @ head.float()
-    return logits.reshape(*lead, -1)
+    logits = logits.reshape(*lead, -1)
+    if "lm_head_bias" in params:
+        logits = logits + params["lm_head_bias"]
+    if cfg.logit_scale is not None:
+        logits = logits * cfg.logit_scale
+    if cfg.final_logit_softcap:
+        cap = cfg.final_logit_softcap
+        logits = torch.tanh(logits / cap) * cap
+    return logits
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -499,6 +696,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     sequence only (a prefill needs just its last real token's).
     `adapter_ids` ([B] int) selects each row's LoRA adapter slot in
     `lora_stacks`, the engine's adapter stacks (`select_adapters`).
+    Each layer runs under its own window and RoPE flag
+    (`layer_windows`: the reference's pair scan, unrolled).
     Returns (logits [B, S or 1, vocab] fp32, cache with index + S, or
     None)."""
     B, S = tokens.shape
@@ -512,7 +711,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         positions = base.expand(B, S)
     if freqs is None:
         freqs = rope_frequencies(cfg, dev)
-    x = _embed(params["embed"], tokens, cfg.dtype)
+    x = _embed_scaled(params, cfg, tokens)
     kv_len = None
     if cache is not None:
         if isinstance(index, torch.Tensor):
@@ -522,11 +721,11 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                 device=dev)
     layers = params["layers"]
     lora = select_adapters(lora_stacks, adapter_ids)
-    for i in range(cfg.num_layers):
+    for i, (window, use_rope) in enumerate(layer_windows(cfg)):
         lp = _layer_params(layers, i)
         cache_kv = (cache.k[i], cache.v[i]) if cache is not None else None
         x = _layer(x, lp, cfg, freqs, positions, kv_len, cache_kv, index,
-                   _layer_lora(lora, i))
+                   _layer_lora(lora, i), window, use_rope)
     if rows is not None:
         x = x[torch.arange(B, device=dev), rows.to(dev).long()][:, None]
     new_cache = None
@@ -570,8 +769,9 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     `ops.paged.paged_attention` (the paged CUDA kernel on a card), S > 1
     through the plain `paged_attention_multi` with per-query causal
     masking, as in the reference; both under the model's sliding window,
-    if it has one. Dense-MLP GQA models only (the engine refuses paged
-    KV for MoE, as the reference's does). `adapter_ids` and
+    if it has one. Dense-MLP GQA models with one window only (the engine
+    refuses paged KV for MoE, alternating windows, parallel blocks,
+    LayerNorm and sinks, as the reference's does). `adapter_ids` and
     `lora_stacks` as in `forward`. Returns
     (logits [B, S, vocab] fp32, cache with index + S); the pools are
     updated in place."""
@@ -592,13 +792,13 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     blk = cache.table[rows, (pos // bs).clamp(max=M - 1)].long()
     off = pos % bs
     quantized = cache.k_scale is not None
-    x = _embed(params["embed"], tokens, cfg.dtype)
+    x = _embed_scaled(params, cfg, tokens)
     layers = params["layers"]
     lora = select_adapters(lora_stacks, adapter_ids)
     for i in range(cfg.num_layers):
         lp = _layer_params(layers, i)
         li = _layer_lora(lora, i)
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        h = block_norm(x, lp, "attn_norm", cfg)
         q, k, v = _qkv(h, lp, cfg, freqs, positions, li)
         ksp = cache.k_scale[i] if quantized else None
         vsp = cache.v_scale[i] if quantized else None
@@ -617,9 +817,14 @@ def forward_paged(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 logit_softcap=cfg.attn_logit_softcap,
                 k_scale=ksp, v_scale=vsp,
                 sliding_window=cfg.sliding_window)
-        x = x + _out_proj(attn, lp, cfg, li)
-        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + dense_mlp(h, lp, cfg.dtype, li)
+        a = _out_proj(attn, lp, cfg, li)
+        if cfg.post_block_norms:
+            a = block_norm(a, lp, "attn_post_norm", cfg)
+        x = x + a
+        mlp_out = dense_mlp(block_norm(x, lp, "mlp_norm", cfg), lp, cfg, li)
+        if cfg.post_block_norms:
+            mlp_out = block_norm(mlp_out, lp, "mlp_post_norm", cfg)
+        x = x + mlp_out
     new_cache = dataclasses.replace(cache, index=cache.index + S)
     return _final_logits(params, cfg, x), new_cache
 
@@ -647,9 +852,10 @@ def _get(module: nn.Module, name: str):
 class Llama(nn.Module):
     """One model's stacked [L, ...] weights and RoPE table on a device.
 
-    Buffers mirror the parameter tree: `embed`, `final_norm`,
-    `lm_head` and `layers.<leaf>`; a quantized leaf is two buffers,
-    `<leaf>_q` and `<leaf>_s`, so `.to(device)` moves both planes.
+    Buffers mirror the parameter tree: `embed`, `final_norm` (and its
+    bias), `lm_head` (and its bias) and `layers.<leaf>`; a quantized
+    leaf is two buffers, `<leaf>_q` and `<leaf>_s`, so `.to(device)`
+    moves both planes.
     `params` gives the tree back, QTensor leaves included, for the
     plain functions above."""
 
@@ -661,8 +867,9 @@ class Llama(nn.Module):
         self.layers = nn.Module()
         self.layers.qmeta = {}
         self.layer_names = list(params["layers"])
-        self.top_names = [n for n in ("embed", "final_norm", "lm_head")
-                          if n in params]
+        self.top_names = [n for n in ("embed", "final_norm",
+                                      "final_norm_bias", "lm_head",
+                                      "lm_head_bias") if n in params]
         for name in self.layer_names:
             _put(self.layers, name, params["layers"][name])
         for name in self.top_names:

@@ -15,9 +15,12 @@ tensors stacked on a leading [L, ...] axis (`layers["wq"]` is
 * `init_params(cfg, generator, device)` is the port's own random init
   for `--random-weights`: the same leaf names, shapes and dtypes, normal
   with std 0.02 (the residual output projections scaled by
-  1/sqrt(2 * depth)), zero q/k/v biases and unit norm scales (qk_norm
+  1/sqrt(2 * depth)), zero biases and identity norm scales (qk_norm
   included) as `llama.init_params` — but drawn from a
-  `torch.Generator`, so its numbers are not the JAX init's.
+  `torch.Generator`, so its numbers are not the JAX init's. It also
+  makes the leaves the reference's init leaves out and its checkpoint
+  loader reads (sinks, o_proj, router, expert, norm and head biases),
+  so that a random gpt-oss or Phi-3.5-MoE runs every term.
 """
 
 from __future__ import annotations
@@ -79,43 +82,40 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves GQA RMSNorm Llama models with the Qwen2 q/k/v
-    biases, the Qwen3 per-head q/k RMSNorm and the Mixtral top-k MoE
-    MLP; refuse the rest by name instead of computing a different
-    model."""
+    """The port serves every family of the reference's models/llama.py
+    but MLA: Llama/Mistral, Qwen2/Qwen3, Phi-3, Mixtral, Gemma 2,
+    command-r, Cohere2, Phi-3.5-MoE and gpt-oss. Refuse the rest by name
+    (DeepSeek's MLA attention, shared experts, first_k_dense layers, its
+    routers and selection bias) instead of computing a
+    different model; and an alternating-window depth that is not a
+    whole number of periods."""
     moe = cfg.is_moe
     unsupported = {
         "MLA attention": cfg.mla,
         "shared experts": moe and cfg.num_shared_experts > 0,
         "first_k_dense layers": moe and cfg.first_k_dense > 0,
         f"router_scoring {cfg.router_scoring!r}":
-            moe and cfg.router_scoring != "mixtral",
-        "router bias": moe and cfg.router_bias,
-        "expert biases (moe_bias)": moe and cfg.moe_bias,
+            moe and cfg.router_scoring not in ("mixtral", "sparsemixer"),
+        # DeepSeek-V3's e_score_correction_bias; gpt-oss's router bias
+        # (moe_bias) is the served `router_b`
+        "the selection bias router_bias":
+            moe and cfg.router_bias and not cfg.moe_bias,
         f"moe_activation {cfg.moe_activation!r}":
-            moe and cfg.moe_activation != "silu",
-        f"qk_norm with norm_type {cfg.norm_type!r}":
-            cfg.qk_norm and cfg.norm_type != "rmsnorm",
-        "post-block norms": cfg.post_block_norms,
-        "embed_scale": cfg.embed_scale,
-        "unit-offset norms": cfg.unit_offset_norm,
-        "alternating sliding windows": cfg.alt_sliding_window,
-        "parallel blocks": cfg.parallel_block,
-        f"norm_type {cfg.norm_type!r}": cfg.norm_type != "rmsnorm",
-        "attention sinks": cfg.attn_sinks,
-        "lm_head bias": cfg.lm_head_bias,
-        "logit_scale": cfg.logit_scale is not None,
-        "final_logit_softcap": bool(cfg.final_logit_softcap),
-        "interleaved rope": cfg.rope_interleaved,
+            moe and cfg.moe_activation not in ("silu", "gptoss_glu"),
+        f"norm_type {cfg.norm_type!r}":
+            cfg.norm_type not in ("rmsnorm", "layernorm",
+                                  "layernorm_nobias"),
         f"mlp_activation {cfg.mlp_activation!r}":
-            cfg.mlp_activation != "silu",
+            cfg.mlp_activation not in ("silu", "gelu_tanh"),
     }
     names = [k for k, on in unsupported.items() if on]
     if names:
         raise NotImplementedError(
-            "the PyTorch port serves GQA RMSNorm Llama models (with "
-            "Qwen2 biases, Qwen3 qk_norm or a Mixtral MoE MLP); "
-            f"not ported yet: {', '.join(names)}")
+            "the PyTorch port serves the non-MLA families of "
+            "models/llama.py; not ported yet: "
+            f"{', '.join(names)}")
+    from .llama import layer_windows
+    layer_windows(cfg)  # refuses a depth not divisible by the period
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -123,7 +123,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random weights for `cfg` on `device` (the generator must live on
     the same device). Each stacked leaf is filled one layer at a time,
     and an expert leaf [L, E, ...] one expert at a time, so the fp32
-    draw stays one layer (or one expert) large."""
+    draw stays one layer (or one expert) large. The leaves of the other
+    families are the checkpoint loader's, with its shapes and dtypes:
+    LayerNorm biases, Gemma's post-block norms, gpt-oss's sinks and
+    router bias (fp32), o_proj and expert biases, the head's bias (fp32)
+    and the final norm's; biases and sinks start at zero, unit-offset
+    norm scales at zero (the identity), as the reference inits its
+    biases and scales."""
     check_supported(cfg)
     device = torch.device(device)
     D, H, K, Dh, F = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
@@ -141,34 +147,53 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                    dtype=torch.float32).mul_(std))
         return out
 
-    def ones(*shape):
+    def zeros(*shape, dtype=None):
+        return torch.zeros(shape, dtype=dtype or cfg.dtype, device=device)
+
+    def scale(*shape):
+        # unit-offset (Gemma) norms store scale - 1: zeros = identity
+        if cfg.unit_offset_norm:
+            return zeros(*shape)
         return torch.ones(shape, dtype=cfg.dtype, device=device)
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=cfg.dtype, device=device)
-
+    layernorm = cfg.norm_type == "layernorm"
     embed = normal((cfg.vocab_size, D))  # drawn first, as it always was
-    layers: Params = {
-        "attn_norm": ones(L, D),
-        "mlp_norm": ones(L, D),
-        "wq": normal((L, D, H, Dh)),
-        "wk": normal((L, D, K, Dh)),
-        "wv": normal((L, D, K, Dh)),
-        "wo": normal((L, H, Dh, D), out_std),
-    }
+    layers: Params = {"attn_norm": scale(L, D)}
+    if not cfg.parallel_block:  # command-r: one norm feeds both
+        layers["mlp_norm"] = scale(L, D)
+    layers.update(wq=normal((L, D, H, Dh)), wk=normal((L, D, K, Dh)),
+                  wv=normal((L, D, K, Dh)),
+                  wo=normal((L, H, Dh, D), out_std))
+    if layernorm:
+        layers["attn_norm_bias"] = zeros(L, D)
+        layers["mlp_norm_bias"] = zeros(L, D)
+    if cfg.post_block_norms:
+        layers["attn_post_norm"] = scale(L, D)
+        layers["mlp_post_norm"] = scale(L, D)
     if cfg.qk_norm:
-        layers["q_norm"] = ones(L, Dh)
-        layers["k_norm"] = ones(L, Dh)
+        # command-r-plus norms per (head, dim), Qwen3 per dim
+        per_head = cfg.norm_type == "layernorm_nobias"
+        layers["q_norm"] = scale(L, H, Dh) if per_head else scale(L, Dh)
+        layers["k_norm"] = scale(L, K, Dh) if per_head else scale(L, Dh)
     if cfg.attn_bias:
         layers["bq"] = zeros(L, H, Dh)
         layers["bk"] = zeros(L, K, Dh)
         layers["bv"] = zeros(L, K, Dh)
+        if cfg.attn_sinks or layernorm:  # gpt-oss, Phi-3.5-MoE
+            layers["bo"] = zeros(L, D)
+    if cfg.attn_sinks:
+        layers["sinks"] = zeros(L, H, dtype=torch.float32)
     if cfg.is_moe:
         E, Fm = cfg.num_experts, cfg.moe_intermediate_size or F
         layers["router"] = normal((L, D, E))
         layers["we_gate"] = normal((L, E, D, Fm), per_expert=True)
         layers["we_up"] = normal((L, E, D, Fm), per_expert=True)
         layers["we_down"] = normal((L, E, Fm, D), out_std, per_expert=True)
+        if cfg.moe_bias:
+            layers["router_b"] = zeros(L, E, dtype=torch.float32)
+            layers["we_gate_b"] = zeros(L, E, Fm)
+            layers["we_up_b"] = zeros(L, E, Fm)
+            layers["we_down_b"] = zeros(L, E, D)
     else:
         layers["w_gate"] = normal((L, D, F))
         layers["w_up"] = normal((L, D, F))
@@ -176,10 +201,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     params: Params = {
         "embed": embed,
         "layers": layers,
-        "final_norm": ones(D),
+        "final_norm": scale(D),
     }
+    if layernorm:
+        params["final_norm_bias"] = zeros(D)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal((D, cfg.vocab_size))
+    if cfg.lm_head_bias:
+        params["lm_head_bias"] = zeros(cfg.vocab_size, dtype=torch.float32)
     return params
 
 

@@ -41,10 +41,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point and its argument types, per kernel
 _SIGNATURES = {
     "flash_decode": ("ome_flash_decode",
-                     [_P, _P, _P, _P, _P, _P, _P, _P,
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
     "flash_prefill": ("ome_flash_prefill",
-                      [_P, _P, _P, _P, _P, _P,
+                      [_P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
     "flash_paged_decode": ("ome_flash_paged_decode",
                            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -9,7 +9,11 @@ never a materialized mask:
   kernel, whatever the prompt length (the reference's TPU-tuned switch
   to XLA for short prefills is not carried over; where such a switch
   belongs on the H100 is for a measurement to decide). Non-causal
-  attention and attention sinks are not on the served path and raise.
+  attention is not on the served path and raises.
+* attention with sinks (gpt-oss) goes to the same kernels on the card,
+  which add each head's sink logit to its softmax; the reference sends
+  sinks to its XLA path on every backend (ome_tpu/ops/attention.py:
+  104-105), since its Pallas kernels take none.
 * on a CPU tensor, `xla_attention` — the plain version, copied from the
   reference — runs with a boolean mask built from the same limits.
 
@@ -86,18 +90,15 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     positions: [B, Sq] absolute query positions (contiguous per row);
     None disables causal masking (bidirectional attention).
     kv_len: [B] valid KV rows for fixed-capacity caches.
-    sinks: [H] attention-sink logits (plain path only)."""
+    sinks: [H] attention-sink logits (gpt-oss) or None."""
     if q.is_cuda:
         if positions is None:
             raise NotImplementedError(
                 "non-causal attention has no CUDA kernel in the port yet")
-        if sinks is not None:
-            raise NotImplementedError(
-                "attention sinks have no CUDA kernel in the port yet")
         return flash.flash_attention(
             q, k, v, positions=positions, kv_len=kv_len,
             sliding_window=sliding_window, scale=scale,
-            logit_softcap=logit_softcap)
+            logit_softcap=logit_softcap, sinks=sinks)
     mask = None
     dev = q.device
     if positions is not None:

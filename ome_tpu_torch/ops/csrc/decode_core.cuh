@@ -13,6 +13,10 @@
 // int8 rows the raw values convert unscaled, the k-scale multiplies the
 // row's logit and the v-scale the row's probability; the probabilities
 // are rounded to the KV compute dtype (bf16) before the PV product.
+// With attention sinks (gpt-oss; the reference's XLA path,
+// ome_tpu/ops/attention.py:69-75) each query head's sink logit is one
+// more column of its softmax whose probability is dropped: it enters
+// where a window's output is normalized (`sink_norm`), once per head.
 //
 // What bounds it on an H100: the bytes of the K/V rows in [lo, hi) (and
 // int8 scales), read once per KV head; decode does ~2G flops per K/V
@@ -230,8 +234,27 @@ __device__ __forceinline__ void store4(uint16_t* p, float4 v) {
       make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
 }
 
+// The normalization of a head's output from its softmax state (m, l):
+// out = acc f / den. Without a sink f = 1 and den = max(l, 1e-30). With
+// the head's sink logit s, the sink is one more column: the max becomes
+// m' = max(m, s), f = exp(m - m') rescales acc and l, and den = max(l f
+// + exp(s - m'), 1e-30). An empty window (m = M_INIT, l = 0) gives 0.
+__device__ __forceinline__ void sink_norm(float m, float l,
+                                          const float* sinks, int head,
+                                          float& f, float& den) {
+  f = 1.f;
+  den = fmaxf(l, 1e-30f);
+  if (sinks != nullptr) {
+    const float s = sinks[head];
+    const float mn = fmaxf(m, s);
+    f = expf(m - mn);
+    den = fmaxf(l * f + expf(s - mn), 1e-30f);
+  }
+}
+
 // The last unit of a window merges the window's n partials, units u0,
-// u0 + stride, ..., in that order, into out (the window's G x D outputs):
+// u0 + stride, ..., in that order, into out (the window's G x D outputs;
+// sinks, if any, the window's G sink logits):
 // one thread per 4 dims of a query head, reading kMergeBatch units'
 // partials at a time so that their loads are in flight together (the
 // partials were written by other SMs: read through L2).
@@ -240,7 +263,8 @@ constexpr int kMergeBatch = 8;
 template <typename TO>
 __device__ __forceinline__ void merge_window(const float* part, int u0,
                                              int stride, int n, int G, int D,
-                                             TO* out, int tid, int nthr) {
+                                             TO* out, const float* sinks,
+                                             int tid, int nthr) {
   const size_t per = (size_t)G * (D + 4);
   for (int idx = tid; idx < G * D / 4; idx += nthr) {
     const int g = idx / (D / 4), d = (idx - g * (D / 4)) * 4;
@@ -282,7 +306,9 @@ __device__ __forceinline__ void merge_window(const float* part, int u0,
         }
       }
     }
-    const float inv = 1.f / fmaxf(lsum, 1e-30f);
+    float f, den;
+    sink_norm(mx, lsum, sinks, g, f, den);
+    const float inv = f / den;
     store4(out + (size_t)g * D + d,
            make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv));
   }
@@ -383,8 +409,8 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
           const uint16_t* __restrict__ q, const int* __restrict__ table,
           const int* __restrict__ lo_arr, const int* __restrict__ hi_arr,
           uint16_t* __restrict__ out, float* __restrict__ part,
-          int* __restrict__ cnt, const Geo g, int stages, float scale,
-          float softcap) {
+          int* __restrict__ cnt, const float* __restrict__ sinks,
+          const Geo g, int stages, float scale, float softcap) {
   using L = TcLayout<D, INT8>;
   constexpr int NCOL = NG / 4;  // query-head columns a thread holds
   extern __shared__ uint8_t smem_raw[];
@@ -772,7 +798,12 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
       l[k] = ((redl[0][c] + redl[1][c]) + redl[2][c]) + redl[3][c];
     }
     uint16_t* const obase = out + ((size_t)un.b * g.H + un.kh * G) * D;
+    const float* const wsinks = sinks != nullptr ? sinks + un.kh * G : nullptr;
     if (un.n == 1) {
+      float f[NCOL], den[NCOL];
+#pragma unroll
+      for (int k = 0; k < NCOL; ++k)
+        sink_norm(m[k], l[k], wsinks, min(col_of(k), G - 1), f[k], den[k]);
 #pragma unroll
       for (int h = 0; h < L::kBoxes; ++h)
 #pragma unroll
@@ -780,7 +811,7 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
           const int k = 2 * (i >> 2) + (i & 1), c = col_of(k);
           const int d = odim(h, i);
           if (c < G && d < D)
-            obase[c * D + d] = to_bf16(o[h][i] / fmaxf(l[k], 1e-30f));
+            obase[c * D + d] = to_bf16(o[h][i] * f[k] / den[k]);
         }
       continue;
     }
@@ -804,8 +835,8 @@ decode_tc(const __grid_constant__ CUtensorMap tmk,
       }
     }
     if (last_split(cnt, un.b * g.K + un.kh, un.n, kCons, tid, 2, is_last))
-      merge_window(part, prefix[un.b] + un.kh, g.K, un.n, G, D, obase, tid,
-                   kCons);
+      merge_window(part, prefix[un.b] + un.kh, g.K, un.n, G, D, obase,
+                   wsinks, tid, kCons);
   }
 }
 
@@ -842,8 +873,9 @@ decode_scalar(const float* __restrict__ q, const TKV* __restrict__ kpool,
               const float* __restrict__ vscale,
               const int* __restrict__ table, const int* __restrict__ lo_arr,
               const int* __restrict__ hi_arr, float* __restrict__ out,
-              float* __restrict__ part, int* __restrict__ cnt, const Geo g,
-              float scale, float softcap) {
+              float* __restrict__ part, int* __restrict__ cnt,
+              const float* __restrict__ sinks, const Geo g, float scale,
+              float softcap) {
   using L = ScalarLayout<TKV, D>;
   constexpr bool QUANT = L::QUANT;
   constexpr int kT = L::kT;
@@ -959,8 +991,11 @@ decode_scalar(const float* __restrict__ q, const TKV* __restrict__ kpool,
     }
 
     float* const obase = out + ((size_t)b * g.H + kh * G) * D;
+    const float* const wsinks = sinks != nullptr ? sinks + kh * G : nullptr;
     if (un.n == 1) {
-      const float inv = 1.f / fmaxf(l, 1e-30f);
+      float f, den;
+      sink_norm(m, l, wsinks, w, f, den);
+      const float inv = f / den;
 #pragma unroll
       for (int i = 0; i < VEC; ++i)
         obase[w * D + lane * VEC + i] = acc[i] * inv;
@@ -975,8 +1010,8 @@ decode_scalar(const float* __restrict__ q, const TKV* __restrict__ kpool,
       __stcg(pp + G * D + G + w, l);
     }
     if (last_split(cnt, b * K + kh, un.n, NT, threadIdx.x, 1, is_last))
-      merge_window(part, prefix[b] + kh, K, un.n, G, D, obase, threadIdx.x,
-                   NT);
+      merge_window(part, prefix[b] + kh, K, un.n, G, D, obase, wsinks,
+                   threadIdx.x, NT);
   }
 }
 
@@ -1021,6 +1056,7 @@ struct DecodeArgs {
   void* out;
   float* part;
   int* cnt;
+  const float* sinks;  // [H] fp32 sink logits, or null (no sinks)
   long rows;  // rows of the cache or pool: B * S, or N * bs
   Geo geo;
   int grid;
@@ -1063,8 +1099,8 @@ cudaError_t launch_tc(const DecodeArgs& a) {
   }
   kern<<<a.grid, kTcThreads, smem, a.stream>>>(
       tmk, tmv, tmks, tmvs, static_cast<const uint16_t*>(a.q), a.table, a.lo,
-      a.hi, static_cast<uint16_t*>(a.out), a.part, a.cnt, a.geo, stages,
-      a.scale, a.softcap);
+      a.hi, static_cast<uint16_t*>(a.out), a.part, a.cnt, a.sinks, a.geo,
+      stages, a.scale, a.softcap);
   return cudaGetLastError();
 }
 
@@ -1088,8 +1124,8 @@ cudaError_t dispatch_scalar(const DecodeArgs& a) {
   kern<<<a.grid, a.geo.G * 32, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const TKV*>(a.k),
       static_cast<const TKV*>(a.v), a.k_scale, a.v_scale, a.table, a.lo,
-      a.hi, static_cast<float*>(a.out), a.part, a.cnt, a.geo, a.scale,
-      a.softcap);
+      a.hi, static_cast<float*>(a.out), a.part, a.cnt, a.sinks, a.geo,
+      a.scale, a.softcap);
   return cudaGetLastError();
 }
 

@@ -34,13 +34,14 @@ cudaError_t dispatch_d(const DecodeArgs& a, bool q_bf16) {
 // have (B K ceil(S / unit_rows)); cnt [B K] int32, all 0 (each launch
 // leaves it so).
 // unit_rows and grid are ops/flash.py::decode_plan's. softcap <= 0
-// disables the softcap. Returns the CUDA error code of the launch.
+// disables the softcap. sinks: [H] fp32 per-head sink logits (gpt-oss),
+// or NULL. Returns the CUDA error code of the launch.
 extern "C" int ome_flash_decode(const void* q, const void* k, const void* v,
                                 const int* lo, const int* hi, void* out,
-                                float* part, int* cnt, int B, int S, int H,
-                                int K, int D, int unit_rows, int grid,
-                                float scale, float softcap, int is_bf16,
-                                void* stream) {
+                                float* part, int* cnt, const float* sinks,
+                                int B, int S, int H, int K, int D,
+                                int unit_rows, int grid, float scale,
+                                float softcap, int is_bf16, void* stream) {
   if (K <= 0 || H % K != 0 || S < 1 || part == nullptr || cnt == nullptr)
     return cudaErrorInvalidValue;
   Geo g{};
@@ -53,9 +54,10 @@ extern "C" int ome_flash_decode(const void* q, const void* k, const void* v,
   g.S = S;
   g.box_rows = kTileRows;
   if (!decode_geo_ok(g, D, grid)) return cudaErrorInvalidValue;
-  const DecodeArgs a{q,  k,   v,   nullptr, nullptr, nullptr, lo,
-                     hi, out, part, cnt,    (long)B * S,      g,
-                     grid, scale, softcap, static_cast<cudaStream_t>(stream)};
+  const DecodeArgs a{q,    k,     v,       nullptr, nullptr,
+                     nullptr, lo, hi,   out,     part,
+                     cnt,  sinks, (long)B * S, g,   grid,
+                     scale, softcap, static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 64: return dispatch_d<64>(a, is_bf16);
     case 96: return dispatch_d<96>(a, is_bf16);

@@ -74,9 +74,10 @@ extern "C" int ome_flash_paged_decode(
   g.M = M;
   g.box_rows = bs % kTileRows == 0 ? kTileRows : 32;
   if (!decode_geo_ok(g, D, grid)) return cudaErrorInvalidValue;
+  // no sinks: paged KV is refused for gpt-oss, as in the reference
   const DecodeArgs a{q,    k_pool, v_pool, k_scale, v_scale, table,
-                     lo,   hi,     out,    part,    cnt,     (long)N * bs,
-                     g,    grid,   scale,  softcap,
+                     lo,   hi,     out,    part,    cnt,     nullptr,
+                     (long)N * bs, g,      grid,    scale,   softcap,
                      static_cast<cudaStream_t>(stream)};
   switch (D) {
     case 64: return dispatch_d<64>(a, is_bf16, kv_int8);

@@ -8,7 +8,15 @@
 // window W, c > base[b] + i - W; the optional tanh softcap applies to the
 // scaled logits; the softmax state is fp32 with the finite M_INIT = -1e30
 // start and the l >= 1e-30 clamp; P is rounded to bf16 before the PV
-// product, which accumulates in fp32; the output is bf16.
+// product, which accumulates in fp32; the output is bf16. With attention
+// sinks (gpt-oss; the reference's XLA path, ome_tpu/ops/attention.py:
+// 69-75) each query head's sink logit is one more column of its softmax
+// whose probability is dropped: it enters once per row, where the output
+// is normalized (sink_norm below), and no tile sees it. prefill_wgmma
+// takes it as a template flag, so that its sinkless instances run the
+// epilogue they ran before (a run-time test there cost the causal
+// 2048-token case ~4% on an H100); the fp32 kernel, off the served path,
+// tests at run time.
 //
 // What bounds it on an H100: tensor-core operations. A causal 2048-token
 // prompt at 32 heads of 128 does 34.4 GFLOP of QK^T and PV against 25 MB
@@ -171,6 +179,28 @@ __device__ __forceinline__ void to_a_frags(const float (&p)[BN / 2],
       pf[kc][r] = pack_bf16(p[8 * kc + 2 * r], p[8 * kc + 2 * r + 1]);
 }
 
+// The normalization of a row from its softmax state: out = acc f / den.
+// m and l are in the units of the exponent (log2 for prefill_wgmma, whose
+// m is multiplied by its `mult` first; natural for prefill_f32), s_unit
+// turns a sink logit into them. Without a sink f = 1 and den = max(l,
+// 1e-30); with one, the sink is one more column: m' = max(m, s), f =
+// 2^(m - m') (or e^), den = max(l f + 2^(s - m'), 1e-30). An empty row
+// (m at M_INIT, l = 0) gives 0.
+template <bool LOG2>
+__device__ __forceinline__ void sink_norm(float m, float l,
+                                          const float* sinks, int head,
+                                          float s_unit, float& f,
+                                          float& den) {
+  f = 1.f;
+  den = fmaxf(l, 1e-30f);
+  if (sinks != nullptr) {
+    const float s = sinks[head] * s_unit;
+    const float mn = fmaxf(m, s);
+    f = LOG2 ? exp2f(m - mn) : expf(m - mn);
+    den = fmaxf(l * f + (LOG2 ? exp2f(s - mn) : expf(s - mn)), 1e-30f);
+  }
+}
+
 // One tile's online softmax, in place: S (raw) -> fp32 probabilities.
 // S stays in raw units and the scale folds into the exponent's FFMA
 // (mult = scale log2 e); with a softcap the logits are capped and turned
@@ -232,16 +262,16 @@ __device__ __forceinline__ void softmax_tile(
 
 // Grid (K, B, ceil(Sq / (NC floor(64 / G)))), 128 (NC + 1) threads: NC
 // consumer warpgroups of 64 folded rows each (the first floor(64 / G) G
-// of them real), then one producer warpgroup.
-template <int D, int BN, int NC, int STAGES>
+// of them real), then one producer warpgroup. SINKS: sinks is non-null.
+template <int D, int BN, int NC, int STAGES, bool SINKS>
 __global__ void __launch_bounds__(128 * (NC + 1), 1)
 prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
               const __grid_constant__ CUtensorMap tmk,
               const __grid_constant__ CUtensorMap tmv,
               const int* __restrict__ base_arr,
               const int* __restrict__ kvhi_arr, uint16_t* __restrict__ out,
-              int Sq, int S, int H, int G, float scale, float softcap,
-              int window) {
+              const float* __restrict__ sinks, int Sq, int S, int H, int G,
+              float scale, float softcap, int window) {
   using P = Prefill<D, BN, NC, STAGES>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES + 1];
@@ -394,8 +424,21 @@ prefill_wgmma(const __grid_constant__ CUtensorMap tmq,
   l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
   l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
-  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
-  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  float inv_a, inv_b;
+  if constexpr (SINKS) {
+    // m in log2 units: softmax_tile's exponent is (s - m) mult
+    const float mult = softcap > 0.f ? 1.f : scale_log2;
+    float f_a, den_a, f_b, den_b;
+    sink_norm<true>(m_a * mult, l_a, sinks, kh * G + la % G, kLog2e, f_a,
+                    den_a);
+    sink_norm<true>(m_b * mult, l_b, sinks, kh * G + lb % G, kLog2e, f_b,
+                    den_b);
+    inv_a = f_a / den_a;
+    inv_b = f_b / den_b;
+  } else {
+    inv_a = 1.f / fmaxf(l_a, 1e-30f);
+    inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int l = half ? lb : la;
@@ -428,9 +471,9 @@ template <int D>
 __global__ void __launch_bounds__(kThreadsF)
 prefill_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const int* __restrict__ base_arr,
-            const int* __restrict__ kvhi_arr, float* __restrict__ out, int Sq,
-            int S, int H, int K, int G, float scale, float softcap,
-            int window) {
+            const int* __restrict__ kvhi_arr, float* __restrict__ out,
+            const float* __restrict__ sinks, int Sq, int S, int H, int K,
+            int G, float scale, float softcap, int window) {
   extern __shared__ float smem[];
   float* Qs = smem;                       // [kBM][D + 1]
   float* Ks = Qs + kBM * (D + 1);         // [kBNf][D + 1]
@@ -533,7 +576,9 @@ prefill_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (vr) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
+    float f, den;
+    sink_norm<false>(m, l, sinks, kh * G + r % G, 1.f, f, den);
+    const float inv = f / den;
 #pragma unroll
     for (int jd = 0; jd < DJ; ++jd) out[qrow + sub + 4 * jd] = acc[jd] * inv;
   }
@@ -541,9 +586,10 @@ prefill_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       const int* base, const int* kvhi, float* out, int B,
-                       int Sq, int S, int H, int K, int G, float scale,
-                       float softcap, int window, cudaStream_t st) {
+                       const int* base, const int* kvhi, float* out,
+                       const float* sinks, int B, int Sq, int S, int H,
+                       int K, int G, float scale, float softcap, int window,
+                       cudaStream_t st) {
   const size_t smem = sizeof(float) *
       ((size_t)kBM * (D + 1) + (size_t)kBNf * (D + 1) + (size_t)kBNf * D);
   cudaError_t err = cudaFuncSetAttribute(
@@ -551,7 +597,8 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   const int BQ = kBM / G;
   prefill_f32<D><<<dim3((Sq + BQ - 1) / BQ, K, B), kThreadsF, smem, st>>>(
-      q, k, v, base, kvhi, out, Sq, S, H, K, G, scale, softcap, window);
+      q, k, v, base, kvhi, out, sinks, Sq, S, H, K, G, scale, softcap,
+      window);
   return cudaGetLastError();
 }
 
@@ -568,12 +615,13 @@ bool encode_bf16_4d(CUtensorMap* map, const void* x, int B, int L, int X,
                     strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-template <int D, int NC>
+template <int D, int NC, bool SINKS>
 cudaError_t launch_wgmma(const uint16_t* q, const uint16_t* k,
                          const uint16_t* v, const int* base,
-                         const int* kvhi, uint16_t* out, int B, int Sq,
-                         int S, int H, int K, int G, float scale,
-                         float softcap, int window, cudaStream_t st) {
+                         const int* kvhi, uint16_t* out, const float* sinks,
+                         int B, int Sq, int S, int H, int K, int G,
+                         float scale, float softcap, int window,
+                         cudaStream_t st) {
   constexpr int BN = tile_rows<D>();
   using P = Prefill<D, BN, NC, kStages>;
   CUtensorMap tmq, tmk, tmv;
@@ -581,43 +629,54 @@ cudaError_t launch_wgmma(const uint16_t* q, const uint16_t* k,
       !encode_bf16_4d(&tmk, k, B, S, K, D, 1, BN) ||
       !encode_bf16_4d(&tmv, v, B, S, K, D, 1, BN))
     return cudaErrorInvalidValue;
-  auto kern = prefill_wgmma<D, BN, NC, kStages>;
+  auto kern = prefill_wgmma<D, BN, NC, kStages, SINKS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (err != cudaSuccess) return err;
   const int bq = NC * (64 / G);
   kern<<<dim3(K, B, (Sq + bq - 1) / bq), P::kThreads, P::kSmem, st>>>(
-      tmq, tmk, tmv, base, kvhi, out, Sq, S, H, G, scale, softcap, window);
+      tmq, tmk, tmv, base, kvhi, out, sinks, Sq, S, H, G, scale, softcap,
+      window);
   return cudaGetLastError();
 }
 
 // Two consumer warpgroups per block unless that grid would leave SMs
-// idle (the short prompts), then one.
+// idle (the short prompts), then one; the sink instance with sinks.
 template <int D>
 cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k,
                         const uint16_t* v, const int* base, const int* kvhi,
-                        uint16_t* out, int B, int Sq, int S, int H, int K,
-                        int G, float scale, float softcap, int window,
-                        cudaStream_t st) {
+                        uint16_t* out, const float* sinks, int B, int Sq,
+                        int S, int H, int K, int G, float scale,
+                        float softcap, int window, cudaStream_t st) {
   const int bq2 = 2 * (64 / G);  // positions of a two-consumer block
   const long blocks2 = (long)K * B * ((Sq + bq2 - 1) / bq2);
-  if (blocks2 >= sm_count())
-    return launch_wgmma<D, 2>(q, k, v, base, kvhi, out, B, Sq, S, H, K, G,
-                              scale, softcap, window, st);
-  return launch_wgmma<D, 1>(q, k, v, base, kvhi, out, B, Sq, S, H, K, G,
-                            scale, softcap, window, st);
+  const bool two = blocks2 >= sm_count();
+  if (sinks != nullptr)
+    return two ? launch_wgmma<D, 2, true>(q, k, v, base, kvhi, out, sinks, B,
+                                          Sq, S, H, K, G, scale, softcap,
+                                          window, st)
+               : launch_wgmma<D, 1, true>(q, k, v, base, kvhi, out, sinks, B,
+                                          Sq, S, H, K, G, scale, softcap,
+                                          window, st);
+  return two ? launch_wgmma<D, 2, false>(q, k, v, base, kvhi, out, nullptr, B,
+                                         Sq, S, H, K, G, scale, softcap,
+                                         window, st)
+             : launch_wgmma<D, 1, false>(q, k, v, base, kvhi, out, nullptr, B,
+                                         Sq, S, H, K, G, scale, softcap,
+                                         window, st);
 }
 
 }  // namespace
 
 // q [B, Sq, H, D]; k, v [B, S, K, D] (contiguous, same dtype); base, kv_hi
 // [B] int32; out [B, Sq, H, D]; D 64, 96, 128 or 256. window <= 0
-// disables the sliding window, softcap <= 0 the softcap. G = H / K must be
-// 1 to 16. Returns the CUDA
-// error code of the launch (0 on success).
+// disables the sliding window, softcap <= 0 the softcap. sinks: [H] fp32
+// per-head sink logits (gpt-oss), or NULL. G = H / K must be 1 to 16.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int ome_flash_prefill(const void* q, const void* k, const void* v,
                                  const int* base, const int* kv_hi, void* out,
-                                 int B, int Sq, int S, int H, int K, int D,
+                                 const float* sinks, int B, int Sq, int S,
+                                 int H, int K, int D,
                                  float scale, float softcap, int window,
                                  int is_bf16, void* stream) {
   if (K <= 0 || H % K != 0) return cudaErrorInvalidValue;
@@ -625,7 +684,7 @@ extern "C" int ome_flash_prefill(const void* q, const void* k, const void* v,
   if (G < 1 || G > 16) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return cudaSuccess;
-  if (S == 0)  // nothing to attend: every row is 0, as l clamps to 1e-30
+  if (S == 0)  // nothing to attend: every row is 0 (a sink takes it all)
     return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * (is_bf16 ? 2 : 4),
                            st);
   if (is_bf16) {
@@ -633,19 +692,19 @@ extern "C" int ome_flash_prefill(const void* q, const void* k, const void* v,
     const uint16_t* k16 = static_cast<const uint16_t*>(k);
     const uint16_t* v16 = static_cast<const uint16_t*>(v);
     uint16_t* o16 = static_cast<uint16_t*>(out);
-    if (D == 128) return launch_bf16<128>(q16, k16, v16, base, kv_hi, o16, B, Sq, S, H, K, G, scale, softcap, window, st);
-    if (D == 64) return launch_bf16<64>(q16, k16, v16, base, kv_hi, o16, B, Sq, S, H, K, G, scale, softcap, window, st);
-    if (D == 96) return launch_bf16<96>(q16, k16, v16, base, kv_hi, o16, B, Sq, S, H, K, G, scale, softcap, window, st);
-    if (D == 256) return launch_bf16<256>(q16, k16, v16, base, kv_hi, o16, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 128) return launch_bf16<128>(q16, k16, v16, base, kv_hi, o16, sinks, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 64) return launch_bf16<64>(q16, k16, v16, base, kv_hi, o16, sinks, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 96) return launch_bf16<96>(q16, k16, v16, base, kv_hi, o16, sinks, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 256) return launch_bf16<256>(q16, k16, v16, base, kv_hi, o16, sinks, B, Sq, S, H, K, G, scale, softcap, window, st);
   } else {
     const float* qf = static_cast<const float*>(q);
     const float* kf = static_cast<const float*>(k);
     const float* vf = static_cast<const float*>(v);
     float* of = static_cast<float*>(out);
-    if (D == 128) return launch_f32<128>(qf, kf, vf, base, kv_hi, of, B, Sq, S, H, K, G, scale, softcap, window, st);
-    if (D == 64) return launch_f32<64>(qf, kf, vf, base, kv_hi, of, B, Sq, S, H, K, G, scale, softcap, window, st);
-    if (D == 96) return launch_f32<96>(qf, kf, vf, base, kv_hi, of, B, Sq, S, H, K, G, scale, softcap, window, st);
-    if (D == 256) return launch_f32<256>(qf, kf, vf, base, kv_hi, of, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 128) return launch_f32<128>(qf, kf, vf, base, kv_hi, of, sinks, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 64) return launch_f32<64>(qf, kf, vf, base, kv_hi, of, sinks, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 96) return launch_f32<96>(qf, kf, vf, base, kv_hi, of, sinks, B, Sq, S, H, K, G, scale, softcap, window, st);
+    if (D == 256) return launch_f32<256>(qf, kf, vf, base, kv_hi, of, sinks, B, Sq, S, H, K, G, scale, softcap, window, st);
   }
   return cudaErrorInvalidValue;
 }

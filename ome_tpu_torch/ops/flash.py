@@ -51,6 +51,12 @@ into its heads. Head kh G_c + j of a chunk still maps to KV head kh, so
 every head's arithmetic is the kernel's at G <= 16; the price is that
 K/V is read once per chunk.
 
+B1 and B2 also take attention sinks (gpt-oss): `sinks` [H], one logit
+per query head, is one more column of the head's softmax whose
+probability is dropped (the reference computes it on its XLA path,
+ome_tpu/ops/attention.py:69-75; its Pallas kernels take no sinks). The
+kernels add it where a row's output is normalized, once per head.
+
 Beside each kernel sits its plain PyTorch version (`flash_decode_ref`,
 `flash_prefill_ref`, `flash_decode_quantized_ref`). A wrapper uses the
 plain version only for a tensor on the CPU; for a CUDA tensor it
@@ -130,35 +136,42 @@ def group_chunks(G: int) -> List[Tuple[int, int]]:
     return out
 
 
-def head_split(launch, q: torch.Tensor, K: int) -> torch.Tensor:
-    """Run `launch(q')` on each chunk of q's query heads and put the
-    outputs back in their heads. q [B, Sq, H, D] with G = H / K heads
-    per KV head, viewed as [B, Sq, K, G, D]; chunk (g0, gc) is the
+def head_split(launch, q: torch.Tensor, K: int,
+               sinks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run `launch(q', sinks')` on each chunk of q's query heads and put
+    the outputs back in their heads. q [B, Sq, H, D] with G = H / K
+    heads per KV head, viewed as [B, Sq, K, G, D]; chunk (g0, gc) is the
     contiguous [B, Sq, K gc, D] tensor of heads g0 .. g0 + gc - 1 of
-    every KV head, so its head kh gc + j still attends KV head kh.
+    every KV head, so its head kh gc + j still attends KV head kh, and
+    sinks' (None without sinks) is the [K gc] sinks of those heads.
     `launch` maps such a q' to an output of its shape. G <= MAX_GROUP
-    calls `launch(q)` once, unchanged."""
+    calls `launch(q, sinks)` once, unchanged."""
     B, Sq, H, D = q.shape
     G = H // K
     chunks = group_chunks(G)
     if len(chunks) == 1:
-        return launch(q)
+        return launch(q, sinks)
     qg = q.reshape(B, Sq, K, G, D)
+    sg = None if sinks is None else sinks.reshape(K, G)
     out = torch.empty_like(qg)
     for g0, gc in chunks:
         qc = qg[:, :, :, g0:g0 + gc].reshape(B, Sq, K * gc, D).contiguous()
-        out[:, :, :, g0:g0 + gc] = launch(qc).reshape(B, Sq, K, gc, D)
+        sc = None if sg is None else \
+            sg[:, g0:g0 + gc].reshape(K * gc).contiguous()
+        out[:, :, :, g0:g0 + gc] = launch(qc, sc).reshape(B, Sq, K, gc, D)
     return out.reshape(B, Sq, H, D)
 
 
 # -- plain versions ---------------------------------------------------------
 
 
-def _masked_softmax_attention(q, k, v, valid, scale, softcap):
+def _masked_softmax_attention(q, k, v, valid, scale, softcap, sinks=None):
     """Shared plain math of both kernels, in fp32: q [B, Sq, H, D],
-    k/v [B, S, K, D], valid [B, Sq, S] bool. Online-softmax semantics
-    of the kernels: finite M_INIT, probabilities of masked columns set
-    to exactly 0, l clamped at 1e-30 (an empty window gives 0)."""
+    k/v [B, S, K, D], valid [B, Sq, S] bool, sinks [H] or None.
+    Online-softmax semantics of the kernels: finite M_INIT,
+    probabilities of masked columns set to exactly 0, a head's sink one
+    more column of its softmax whose probability is dropped, l clamped
+    at 1e-30 (an empty window gives 0)."""
     B, Sq, H, D = q.shape
     K = k.shape[2]
     G = H // K
@@ -169,29 +182,40 @@ def _masked_softmax_attention(q, k, v, valid, scale, softcap):
     mask = valid[:, None, None, :, :]
     logits = torch.where(mask, logits, torch.full_like(logits, M_INIT))
     m = logits.amax(dim=-1, keepdim=True)
+    if sinks is not None:
+        sk = sinks.to(device=q.device, dtype=torch.float32).reshape(
+            1, K, G, 1, 1)
+        m = torch.maximum(m, sk)
     p = torch.where(mask, torch.exp(logits - m), torch.zeros_like(logits))
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    l = p.sum(dim=-1, keepdim=True)
+    if sinks is not None:
+        l = l + torch.exp(sk - m)
+    l = l.clamp_min(1e-30)
     out = torch.einsum("bkgst,btkd->bskgd", p / l, v.float())
     return out.reshape(B, Sq, H, D).to(q.dtype)
 
 
 def flash_decode_ref(q, k, v, lo, hi, scale: float,
-                     softcap: Optional[float] = None):
+                     softcap: Optional[float] = None,
+                     sinks: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the decode kernel: q [B, 1, H, D];
-    k, v [B, S, K, D]; each sequence b attends rows [lo[b], hi[b])."""
+    k, v [B, S, K, D]; each sequence b attends rows [lo[b], hi[b]);
+    sinks [H] sink logits or None."""
     S = k.shape[1]
     col = torch.arange(S, device=k.device)
     valid = ((col[None, :] >= lo.to(k.device)[:, None])
              & (col[None, :] < hi.to(k.device)[:, None]))[:, None, :]
-    return _masked_softmax_attention(q, k, v, valid, scale, softcap)
+    return _masked_softmax_attention(q, k, v, valid, scale, softcap, sinks)
 
 
 def flash_prefill_ref(q, k, v, base, kv_hi, scale: float,
                       softcap: Optional[float] = None,
-                      window: Optional[int] = None):
+                      window: Optional[int] = None,
+                      sinks: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the prefill kernel: q [B, Sq, H, D] with
     query row i of sequence b at position base[b] + i; k, v [B, S, K, D];
-    columns c <= base + i, c < kv_hi and (window) c > base + i - window."""
+    columns c <= base + i, c < kv_hi and (window) c > base + i - window;
+    sinks [H] sink logits or None."""
     Sq, S = q.shape[1], k.shape[1]
     dev = k.device
     col = torch.arange(S, device=dev)[None, None, :]
@@ -200,7 +224,7 @@ def flash_prefill_ref(q, k, v, base, kv_hi, scale: float,
     valid = (col <= pos) & (col < kv_hi.to(dev)[:, None, None])
     if window:
         valid = valid & (col > pos - window)
-    return _masked_softmax_attention(q, k, v, valid, scale, softcap)
+    return _masked_softmax_attention(q, k, v, valid, scale, softcap, sinks)
 
 
 PREFILL_ROWS = 64  # folded query rows of a consumer warpgroup (kBM)
@@ -309,6 +333,21 @@ def _check_cuda(name: str, q, k, v) -> None:
 
 def _int32(x, device) -> torch.Tensor:
     return x.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _sinks(name: str, sinks, H: int, device) -> Optional[torch.Tensor]:
+    """sinks [H] (any float dtype) as the kernels' contiguous fp32, or
+    None."""
+    if sinks is None:
+        return None
+    if sinks.numel() != H:
+        raise ValueError(f"{name}: {sinks.numel()} sinks for {H} heads")
+    return sinks.to(device=device, dtype=torch.float32).reshape(
+        H).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 # -- decode plan -------------------------------------------------------------
@@ -471,12 +510,13 @@ def _decode_workspace(name: str, q, K: int, limit: int):
 
 
 def flash_decode(q, k, v, lo, hi, scale: float,
-                 softcap: Optional[float] = None):
+                 softcap: Optional[float] = None,
+                 sinks: Optional[torch.Tensor] = None):
     """Decode attention (Sq == 1): q [B, 1, H, D]; k, v [B, S, K, D];
-    lo, hi [B] — sequence b attends cache rows [lo[b], hi[b]).
-    Returns [B, 1, H, D] in q.dtype."""
+    lo, hi [B] — sequence b attends cache rows [lo[b], hi[b]); sinks
+    [H] sink logits or None. Returns [B, 1, H, D] in q.dtype."""
     if not q.is_cuda:
-        return flash_decode_ref(q, k, v, lo, hi, scale, softcap)
+        return flash_decode_ref(q, k, v, lo, hi, scale, softcap, sinks)
     _check_cuda("flash_decode", q, k, v)
     B, Sq, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -489,14 +529,16 @@ def flash_decode(q, k, v, lo, hi, scale: float,
     fn = _build.kernel("flash_decode")
     dev = q.device
     lo, hi = _int32(lo, dev), _int32(hi, dev)
+    sinks = _sinks("flash_decode", sinks, H, dev)
 
-    def launch(qc):
+    def launch(qc, sc):
         grid, unit_rows, part, cnt, stream = _decode_workspace(
             "flash_decode", qc, K, S)
         out = torch.empty_like(qc)
         rc = fn(qc.data_ptr(), k.data_ptr(), v.data_ptr(), lo.data_ptr(),
                 hi.data_ptr(), out.data_ptr(), part.data_ptr(),
-                cnt.data_ptr(), B, S, qc.shape[2], K, D, unit_rows, grid,
+                cnt.data_ptr(), _ptr(sc), B, S, qc.shape[2], K, D,
+                unit_rows, grid,
                 float(scale), float(softcap or 0.0),
                 int(q.dtype == torch.bfloat16), stream)
         if rc != 0:
@@ -504,18 +546,19 @@ def flash_decode(q, k, v, lo, hi, scale: float,
                                f"CUDA error {rc}")
         LAUNCHES["flash_decode"] += 1
         return out
-    return head_split(launch, q, K)
+    return head_split(launch, q, K, sinks)
 
 
 def flash_prefill(q, k, v, base, kv_hi, scale: float,
                   softcap: Optional[float] = None,
-                  window: Optional[int] = None):
+                  window: Optional[int] = None,
+                  sinks: Optional[torch.Tensor] = None):
     """Causal prefill: q [B, Sq, H, D] with row i of sequence b at
-    position base[b] + i; k, v [B, S, K, D] with kv_hi[b] valid rows.
-    Returns [B, Sq, H, D] in q.dtype."""
+    position base[b] + i; k, v [B, S, K, D] with kv_hi[b] valid rows;
+    sinks [H] sink logits or None. Returns [B, Sq, H, D] in q.dtype."""
     if not q.is_cuda:
         return flash_prefill_ref(q, k, v, base, kv_hi, scale, softcap,
-                                 window)
+                                 window, sinks)
     _check_cuda("flash_prefill", q, k, v)
     B, Sq, H, D = q.shape
     S, K = k.shape[1], k.shape[2]
@@ -524,12 +567,13 @@ def flash_prefill(q, k, v, base, kv_hi, scale: float,
     fn = _build.kernel("flash_prefill")
     dev = q.device
     base, kv_hi = _int32(base, dev), _int32(kv_hi, dev)
+    sinks = _sinks("flash_prefill", sinks, H, dev)
 
-    def launch(qc):
+    def launch(qc, sc):
         out = torch.empty_like(qc)
         rc = fn(qc.data_ptr(), k.data_ptr(), v.data_ptr(), base.data_ptr(),
-                kv_hi.data_ptr(), out.data_ptr(), B, Sq, S, qc.shape[2], K,
-                D, float(scale), float(softcap or 0.0), int(window or 0),
+                kv_hi.data_ptr(), out.data_ptr(), _ptr(sc), B, Sq, S,
+                qc.shape[2], K, D, float(scale), float(softcap or 0.0), int(window or 0),
                 int(q.dtype == torch.bfloat16),
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
@@ -537,7 +581,7 @@ def flash_prefill(q, k, v, base, kv_hi, scale: float,
                                f"CUDA error {rc}")
         LAUNCHES["flash_prefill"] += 1
         return out
-    return head_split(launch, q, K)
+    return head_split(launch, q, K, sinks)
 
 
 def check_paged_coverage(block: int, head_dim: int, num_heads: int,
@@ -616,7 +660,7 @@ def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,
     lo = None if lo is None else _int32(lo, dev)
     M = table.shape[1]
 
-    def launch(qc):
+    def launch(qc, _):
         grid, unit_rows, part, cnt, stream = _decode_workspace(
             name, qc, K, M * bs)
         out = torch.empty_like(qc)
@@ -685,18 +729,20 @@ def flash_decode_quantized(q, kq, vq, k_scale, v_scale, positions,
 def flash_attention(q, k, v, *, positions, kv_len=None,
                     sliding_window: Optional[int] = None,
                     scale: Optional[float] = None,
-                    logit_softcap: Optional[float] = None):
+                    logit_softcap: Optional[float] = None,
+                    sinks: Optional[torch.Tensor] = None):
     """Causal attention through the kernels (counterpart of
     ome_tpu/ops/flash.py::flash_attention). q: [B, Sq, H, D];
     k, v: [B, Skv, K, D]; positions: [B, Sq] absolute query positions,
-    contiguous per row; kv_len: [B] valid KV rows (None = all)."""
+    contiguous per row; kv_len: [B] valid KV rows (None = all); sinks:
+    [H] sink logits (gpt-oss) or None."""
     B, Sq, H, D = q.shape
     S = k.shape[1]
     scale = scale if scale is not None else D ** -0.5
     if Sq == 1:
         lo, hi = _decode_limits(positions, kv_len, S, sliding_window)
-        return flash_decode(q, k, v, lo, hi, scale, logit_softcap)
+        return flash_decode(q, k, v, lo, hi, scale, logit_softcap, sinks)
     return flash_prefill(q, k, v, positions[:, 0].to(torch.int32),
                          _kv_hi(kv_len, B, S, q.device), scale,
-                         logit_softcap, sliding_window)
+                         logit_softcap, sliding_window, sinks)
 

@@ -15,6 +15,9 @@ Cases: decode with per-slot cache lengths (0 included, as a free
 engine slot decodes), causal prefill, chunked prefill into a longer
 cache, sliding window with softcap, GQA groups 1, 2 and 4, bf16 and
 f32. Tolerance 2e-4 in f32 and 2e-2 in bf16 (tests/test_ops.py's).
+With attention sinks (gpt-oss), which the JAX package computes on its
+XLA path only, both the port's `xla_attention` and the kernels' plain
+versions are held against that path.
 """
 
 import jax.numpy as jnp
@@ -130,6 +133,46 @@ def test_kernel_plain_versions_match_jax_pallas(name):
     _compare(CASES[name], "pallas_interpret")
 
 
+SINK_CASES = {
+    "decode_g4_window_f32": _decode(20, 2, "float32",
+                                    lengths=(0, 3, 130, 255), window=64),
+    "decode_g8_bf16": _decode(21, 1, "bfloat16"),
+    "prefill_g4_window_f32": _prefill(22, 2, "float32", window=16),
+    "prefill_g8_window_bf16": _prefill(23, 1, "bfloat16", window=16),
+    "chunked_f32": _chunked(24, "float32"),
+    "prefill_g2_softcap_f32": _prefill(25, 4, "float32", softcap=30.0),
+}
+
+
+@pytest.mark.parametrize("path", ["xla", "kernel_plain"])
+@pytest.mark.parametrize("name", sorted(SINK_CASES))
+def test_sink_attention_matches_jax_xla(name, path):
+    case = SINK_CASES[name]
+    dtype = case["dtype"]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(
+        case["seed"], case["B"], case["Sq"], case["Skv"], case["K"], dtype)
+    sinks = np.random.default_rng(case["seed"] + 1).standard_normal(
+        H).astype(np.float32) * 2.0
+    pos = np.array(case["positions"], np.int32)
+    kv_len = case.get("kv_len")
+    kw = dict(sliding_window=case.get("window"),
+              logit_softcap=case.get("softcap"))
+    ref = jax_attention(
+        jq, jk, jv, positions=jnp.asarray(pos),
+        kv_len=None if kv_len is None else jnp.asarray(kv_len, jnp.int32),
+        backend="xla", sinks=jnp.asarray(sinks), **kw)
+    tpos = torch.from_numpy(pos)
+    tlen = None if kv_len is None else torch.tensor(kv_len,
+                                                    dtype=torch.int32)
+    fn = attention if path == "xla" else flash.flash_attention
+    out = fn(tq, tk, tv, positions=tpos, kv_len=tlen,
+             sinks=torch.from_numpy(sinks), **kw)
+    assert out.dtype == TORCH[dtype] and out.shape == tq.shape
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=ATOL[dtype])
+
+
 def test_flash_refs_empty_window_is_zero_not_nan():
     # the kernels' contract: an empty window yields 0 (finite M_INIT,
     # l clamped at 1e-30), never NaN
@@ -139,9 +182,15 @@ def test_flash_refs_empty_window_is_zero_not_nan():
                                  torch.tensor([0, 10]), D ** -0.5)
     assert torch.isfinite(out).all()
     assert out.abs().max() == 0
+    # with sinks too: the sink takes all the mass and is dropped
+    out = flash.flash_decode_ref(q, k, k, torch.tensor([0, 10]),
+                                 torch.tensor([0, 10]), D ** -0.5,
+                                 sinks=torch.randn(H))
+    assert torch.isfinite(out).all()
+    assert out.abs().max() == 0
 
 
-def test_cuda_tensors_never_take_the_plain_path():
+def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
     # the dispatch sends CUDA tensors to the kernels only; shapes the
     # kernels do not take raise instead of falling back. Checked with
     # a tensor subclass that reports is_cuda, so no card is needed.
@@ -157,5 +206,17 @@ def test_cuda_tensors_never_take_the_plain_path():
         attention(q, k, k, positions=pos)
     with pytest.raises(NotImplementedError, match="non-causal"):
         attention(q, k, k, positions=None)
-    with pytest.raises(NotImplementedError, match="sinks"):
-        attention(q, k, k, positions=pos, sinks=torch.zeros(H))
+    # sinks (gpt-oss) go to the kernels too, which take them: a
+    # head_dim they do not take raises as it does without sinks, and
+    # the sinks reach the kernels' entry point unchanged
+    sinks = torch.randn(H)
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        attention(q, k, k, positions=pos, sinks=sinks)
+    seen = {}
+
+    def kernels(*a, **kw):
+        seen.update(kw)
+        return a[0]
+    monkeypatch.setattr(flash, "flash_attention", kernels)
+    attention(q, k, k, positions=pos, sinks=sinks)
+    assert seen["sinks"] is sinks

@@ -2,8 +2,10 @@
 
 Every module of `ome_tpu_torch/` and `chip_smoke.py` is parsed and its
 imports checked: nothing of `jax`, `jaxlib` or `ome_tpu` (the package
-`ome_tpu_torch` itself is of course allowed). Importing the port — the
-kernel module included — must neither build a kernel nor pull in JAX.
+`ome_tpu_torch` itself is of course allowed), and `chip_smoke.py`
+imports no `transformers`, which the card's machine lacks. Importing the
+port — the kernel module included — must neither build a kernel nor
+pull in JAX.
 """
 
 import ast
@@ -37,6 +39,7 @@ def test_port_files_found():
                  "ome_tpu_torch/ops/int4_matmul.py",
                  "ome_tpu_torch/models/quant.py",
                  "ome_tpu_torch/models/lora.py",
+                 "ome_tpu_torch/models/mla.py",
                  "ome_tpu_torch/engine/core.py",
                  "ome_tpu_torch/engine/embed.py",
                  "ome_tpu_torch/engine/serve.py", "chip_smoke.py"):
@@ -57,6 +60,13 @@ def test_no_jax_or_reference_import(path):
     bad = [(root, line) for root, line in _imported_roots(path)
            if root in FORBIDDEN]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_chip_smoke_imports_no_transformers():
+    # the card's machine has no transformers: the script types configs in
+    bad = [(root, line) for root, line in _imported_roots(
+        REPO / "chip_smoke.py") if root == "transformers"]
+    assert not bad, f"chip_smoke.py imports {bad}"
 
 
 def _run(code: str) -> subprocess.CompletedProcess:

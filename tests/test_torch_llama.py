@@ -186,17 +186,26 @@ def test_llama3_8b_preset_and_hf_config_match_reference():
 
 
 def test_unsupported_architectures_refuse_by_name():
-    # MoE with shared experts (DeepSeek) or the sparsemixer router
-    # (Phi-3.5-MoE), and the command-r LayerNorm form of qk_norm, stay
-    # refused; Mixtral's MoE and Qwen3's RMSNorm qk_norm are served
+    # the sparsemixer router (Phi-3.5-MoE) and the command-r LayerNorm
+    # form of qk_norm are served now, beside Mixtral's MoE and Qwen3's
+    # RMSNorm qk_norm; DeepSeek's MLA, shared experts, first_k_dense,
+    # routers and selection bias stay refused by name
     with pytest.raises(NotImplementedError, match="shared experts"):
         check_supported(tiny_test(moe=True).replace(num_shared_experts=1))
-    with pytest.raises(NotImplementedError, match="sparsemixer"):
-        check_supported(tiny_test(moe=True).replace(
-            router_scoring="sparsemixer"))
-    with pytest.raises(NotImplementedError, match="qk_norm with norm_type"):
-        check_supported(tiny_test().replace(
-            qk_norm=True, norm_type="layernorm_nobias"))
+    check_supported(tiny_test(moe=True).replace(
+        router_scoring="sparsemixer", router_jitter=0.01))
+    # q/k norms under either LayerNorm form, as the reference's `_qkv`
+    # dispatches them
+    for nt in ("layernorm_nobias", "layernorm"):
+        check_supported(tiny_test().replace(qk_norm=True, norm_type=nt))
+    for scoring in ("softmax_v2", "sigmoid_v3"):
+        with pytest.raises(NotImplementedError, match=scoring):
+            check_supported(tiny_test(moe=True).replace(
+                router_scoring=scoring))
+    with pytest.raises(NotImplementedError, match="router_bias"):
+        check_supported(tiny_test(moe=True).replace(router_bias=True))
+    with pytest.raises(NotImplementedError, match="first_k_dense"):
+        check_supported(tiny_test(moe=True).replace(first_k_dense=1))
     with pytest.raises(NotImplementedError, match="MLA attention"):
         check_supported(tiny_test().replace(mla=True))
     check_supported(llama3_8b())

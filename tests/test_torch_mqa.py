@@ -49,15 +49,18 @@ def _t(rng, *shape):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
 
-def _split(launch, q, K):
-    """head_split with `launch`, recording each chunk's head count."""
+def _split(launch, q, K, sinks=None):
+    """head_split with `launch(qc, sc)`, recording each chunk's head
+    count."""
     heads = []
 
-    def counted(qc):
+    def counted(qc, sc):
         assert qc.is_contiguous()
+        assert (sc is None) == (sinks is None)
+        assert sc is None or sc.shape == (qc.shape[2],)
         heads.append(qc.shape[2])
-        return launch(qc)
-    out = flash.head_split(counted, q, K)
+        return launch(qc, sc)
+    out = flash.head_split(counted, q, K, sinks)
     return out, heads
 
 
@@ -80,8 +83,33 @@ def test_split_decode_equals_unsplit(G):
     lo, hi = torch.tensor([0, 5, 0]), torch.tensor([40, 23, 0])
     want = flash.flash_decode_ref(q, k, v, lo, hi, 0.25, 30.0)
     out, heads = _split(
-        lambda qc: flash.flash_decode_ref(qc, k, v, lo, hi, 0.25, 30.0),
+        lambda qc, _: flash.flash_decode_ref(qc, k, v, lo, hi, 0.25, 30.0),
         q, K)
+    _check(out, want, heads, G, K)
+
+
+@pytest.mark.parametrize("G", GROUPS)
+def test_split_with_sinks_equals_unsplit(G):
+    # each chunk gets the sinks of its own heads (gpt-oss's sink logits
+    # ride through the G > 16 split of B1 and B2)
+    rng = np.random.default_rng(300 + G)
+    B, S, Sq, K = 2, 30, 5, 2
+    k, v = _t(rng, B, S, K, D), _t(rng, B, S, K, D)
+    sinks = _t(rng, K * G) * 2.0
+    lo, hi = torch.tensor([0, 7]), torch.tensor([30, 19])
+    q = _t(rng, B, 1, K * G, D)
+    want = flash.flash_decode_ref(q, k, v, lo, hi, 0.25, None, sinks)
+    out, heads = _split(
+        lambda qc, sc: flash.flash_decode_ref(qc, k, v, lo, hi, 0.25, None,
+                                              sc), q, K, sinks)
+    _check(out, want, heads, G, K)
+    base, kv_hi = torch.tensor([0, 11]), torch.tensor([5, 16])
+    q = _t(rng, B, Sq, K * G, D)
+    want = flash.flash_prefill_ref(q, k, v, base, kv_hi, 0.25, None, 4,
+                                   sinks)
+    out, heads = _split(
+        lambda qc, sc: flash.flash_prefill_ref(qc, k, v, base, kv_hi, 0.25,
+                                               None, 4, sc), q, K, sinks)
     _check(out, want, heads, G, K)
 
 
@@ -94,8 +122,8 @@ def test_split_prefill_equals_unsplit(G):
     base, kv_hi = torch.tensor([0, 9]), torch.tensor([6, 15])
     want = flash.flash_prefill_ref(q, k, v, base, kv_hi, 0.25, None, 4)
     out, heads = _split(
-        lambda qc: flash.flash_prefill_ref(qc, k, v, base, kv_hi, 0.25,
-                                           None, 4), q, K)
+        lambda qc, _: flash.flash_prefill_ref(qc, k, v, base, kv_hi, 0.25,
+                                              None, 4), q, K)
     _check(out, want, heads, G, K)
 
 
@@ -116,7 +144,7 @@ def test_split_paged_decode_equals_unsplit(G, pool):
                              .reshape(B, M).astype(np.int32))
     lo, hi = torch.zeros(B, dtype=torch.int32), torch.tensor([1, 17, 32])
 
-    def plain(qc):
+    def plain(qc, _=None):
         return paged.flash_paged_decode_ref(qc, kp, vp, table, lo, hi, 0.25,
                                             k_scale=ks, v_scale=vs)
     out, heads = _split(plain, q, K)
