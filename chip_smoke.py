@@ -52,9 +52,10 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    plain version; at D 96 B1 and B3 (bf16 and int8 pools) repeat their
    bits;
 4. serve: the OpenAI HTTP server from `ome_tpu_torch.engine.serve.
-   build_server` at the Llama-3-8B shape (random bf16 weights from a
-   seed), answering concurrent completions, a stream, a prefix-cache hit
-   and a repeated prompt, with the kernel launch counters read around it;
+   build_server` at the Llama-3-8B shape, all 32 layers (random bf16
+   weights from a seed; phases 5-7 run at this depth too, the other
+   8B-width servers at `CUT_LAYERS` = 8), answering concurrent
+   completions, a stream, a prefix-cache hit and a repeated prompt, with the kernel launch counters read around it;
    then the engine's decode and prefill step times;
 5. paged bf16: the same server with `--kv-block 128 --max-slots 16
    --kv-blocks 129` (a quarter of the dense-equivalent pool): concurrent
@@ -68,9 +69,11 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    decode steps and short prefills, a prompt over 256 tokens through the
    dequantizing route; weight bytes, memory and step times;
 8. step times: the dense, paged bf16 and paged int8 engines' decode
-   steps over one set of weights, timed in turns;
+   steps over one set of weights (8B widths, `CUT_LAYERS` = 8 of its 32
+   layers), timed in turns;
 9. weight quantization: the bf16, int8, fp8 and int4 engines over one
-   weight set, decode steps timed in turns (the int4 step's device time
+   weight set (8B widths, `CUT_LAYERS` deep), decode steps timed in
+   turns (the int4 step's device time
    printed beside its time with the int4 kernel this one replaced), each
    quantized engine's
    greedy drift from bf16, and the int4 engine's logits held against a
@@ -89,7 +92,7 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    spec_tokens 4 / steps_per_dispatch 4 give identical greedy streams
    for prompts that repeat n-grams, with drafts accepted; B1, B2 (at
    Sq 5, the dense verify) and B3 launched; the pool conserved;
-13./14. step-plan servers: the bf16 8B server at full depth with
+13./14. step-plan servers: the bf16 8B server (`CUT_LAYERS` deep) with
    `--spec-tokens 4 --steps-per-dispatch 4`, dense then paged
    (`--kv-block 128`, a burst larger than the pool, conserved at idle):
    concurrent completions and a `json_schema` request whose output
@@ -117,11 +120,13 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    `flash.head_split`) counted;
 21. G 32 stream identity: fp32, 8B widths at H 32, K 1, 4 layers: dense
    and paged streams identical;
-22. host tier: the 8B server with `--prefix-cache-mb 256
-   --prefix-cache-host-mb 2048` (`phase_host_tier`): spills, swap-ins,
-   their GB/s and bits, TTFT by kind of hit, streams from swapped-in
-   blocks equal to device-hit streams, both conservation checks at idle;
-23. PD: 8B prefill and decode nodes against a monolithic server
+22. host tier: the 8B-width server `CUT_LAYERS` deep with
+   `--prefix-cache-mb 64 --prefix-cache-host-mb 512` (`phase_host_tier`):
+   spills, swap-ins, their GB/s and bits, TTFT by kind of hit, every
+   prefix's device hit and swapped-in hit whole, their streams equal,
+   both conservation checks at idle;
+23. PD: 8B-width prefill and decode nodes (`CUT_LAYERS` deep) against a
+   monolithic server
    (`phase_pd`), bf16 dense and int8 paged, with each fetch's split,
    failover across two prefill URLs and `--pd-local-fallback`;
 24. cross-replica prefix reuse (`phase_peering`): an `X-OME-Prefix-Peer`
@@ -150,7 +155,7 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    to single steps; unregister refused in flight, then re-registered by
    name;
 30. multi-LoRA server (`phase_lora_server`): the bf16 Llama-3-8B server
-   at full depth with `--adapter a1=... a2=... a3=... --lora-slots 4
+   (`CUT_LAYERS` deep) with `--adapter a1=... a2=... a3=... --lora-slots 4
    --lora-rank 16`: 12 concurrent requests (4 base, 8 adapters), `POST
    /v1/adapters` a4 while decoding and a request to it, `DELETE
    /v1/adapters/a1` 409 while a1 decodes and 200 after; TTFT/TPOT
@@ -191,6 +196,33 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    launches per step; the MoE models' experts hit and the step's byte
    bound.
 
+38. the MLA family (DeepSeek-V2-Lite, V3): fp32 identity
+   (`phase_mla_identity`) at 4 layers of DeepSeek-V2-Lite's widths (1
+   dense, 3 MoE) and of DeepSeek-V3's (3 dense, 1 MoE, its 256 routed
+   experts cut to 32 in its 8 groups): the absorbed decode's logits
+   within 1e-4 of the materialized forward's, single-step = chunk = spec
+   streams (the verify runs the materialized path over the latent
+   cache); a V2-Lite-width checkpoint under V3's architecture written
+   with HF names (fused `kv_b_proj`, shared experts,
+   `e_score_correction_bias`), loaded bit-equal and served
+   (`phase_mla_checkpoint`); a bf16 PD pair at 4 layers whose streams
+   equal the monolithic server's (`phase_mla_pd`); no attention kernel
+   launched anywhere;
+39. DeepSeek-V2-Lite at full size (27 layers, 15.7 B parameters) in
+   bf16 (`phase_serve_mla`, `MLA_SERVERS`): 13 requests with prompts to
+   6000 tokens at max_seq 8192 and a prefix-cache hit; TTFT / TPOT
+   medians, the 8-slot decode step's device and wall ms, idle share and
+   top kernels, peak memory, KV bytes per token against an MHA cache of
+   the same heads; no B1, B2 or B3 launch;
+40. DeepSeek-V3 at full width, 4 layers (3 dense, 1 MoE of 256 experts,
+   q LoRA 1536, sigmoid_v3 with a seeded selection bias), served in
+   bf16 and under `--quantization int4` with prompts to 2048 at max_seq
+   4096: peak memory; the int4 server launches B4 at K 7168, N 2048 (the
+   shared experts) and K 7168, N 18432 (the dense layers), counted per
+   decode step; B4 at both shapes at m 8 against its plain version
+   (`phase_mla_int4_kernel`), timed with L2 flushed beside its byte
+   bound and `_weight_int4pack_mm`.
+
 The kernels phase also runs B2 at the dense verify's shape: B 8 slots,
 Sq 5 rows each from its own base (60 to 4090) over a 4096-row cache,
 bf16 and fp32. Each phase's seconds are printed (`[phase]`).
@@ -212,6 +244,12 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+# the depth of the Llama-3-8B-width phases cut to keep the whole script
+# inside its time budget: the weight turns (8, 9), the host tier (22) and
+# PD (23) first, then the step-plan servers (13, 14), peering (24), the
+# LoRA server (30) and phase 31's 8B step. The main servers (4-7), whose
+# launches feed the kernels line, keep the 8B's 32 layers.
+CUT_LAYERS = 8
 # device time of one cold 2048-token bf16 prefill of the 8B engine with
 # the mma.sync prefill kernel that the wgmma kernel replaced (NVIDIA
 # H100 80GB HBM3, 700 W), printed beside this run's
@@ -1807,7 +1845,8 @@ def weight_label(params) -> str:
     fp8 or int4."""
     import torch
     from ome_tpu_torch.models.quant import QTensor
-    wq = params["layers"]["wq"]
+    lay = params["layers"]
+    wq = lay["wq"] if "wq" in lay else lay["wq_a"]  # MLA with q LoRA
     if not isinstance(wq, QTensor):
         return "bf16" if wq.dtype == torch.bfloat16 else str(wq.dtype)[6:]
     if wq.bits == 4:
@@ -1903,7 +1942,8 @@ def _model_hf(model):
     "label" and optionally "bias_std", "layers")."""
     from ome_tpu_torch.models.config import ModelConfig, llama3_8b
     if model is None:
-        return _hf_config(llama3_8b()), "Llama-3-8B", llama3_8b()
+        cfg = llama3_8b()
+        return _hf_config(cfg), "Llama-3-8B", cfg
     hf = dict(model["hf"])
     if model.get("layers"):
         hf["num_hidden_layers"] = model["layers"]
@@ -1949,7 +1989,8 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
     def prompt(n):
         return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
 
-    out = {"quantization": quantization, "model": name}
+    out = {"quantization": quantization, "model": name,
+           "layers": cfg.num_layers}
     model = model or {}
     max_seq = model.get("max_seq", 4096)
     torch.cuda.reset_peak_memory_stats()
@@ -2265,7 +2306,8 @@ def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
     def prompt(n):
         return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
 
-    out = {"kv_dtype": kv_dtype, "model": name, "kv_block": kv_block}
+    out = {"kv_dtype": kv_dtype, "model": name, "kv_block": kv_block,
+           "layers": cfg.num_layers}
     tag = f"[paged {kv_dtype}]" if model is None else \
         f"[paged {kv_dtype} {name}]"
     n_blocks = 16384 // kv_block + 1
@@ -2382,19 +2424,20 @@ def phase_serve_paged(torch, kv_dtype: str, seed: int = 0,
     return out
 
 
-def phase_step_turns(torch, seed: int = 0, rounds: int = 2):
+def phase_step_turns(torch, seed: int = 0, rounds: int = 2,
+                     n_layers: int = CUT_LAYERS):
     """The decode step of the dense, paged bf16 and paged int8 engines
-    over one set of Llama-3-8B weights (8 slots armed at lengths
-    64-2164, max_seq 4096, kv_block 128), timed in turns (A B C C B A):
-    the step is host-bound, so only times taken side by side in one run
-    compare."""
+    over one set of Llama-3-8B-width weights, `n_layers` deep (8 slots
+    armed at lengths 64-2164, max_seq 4096, kv_block 128), timed in turns
+    (A B C C B A): the step is host-bound, so only times taken side by
+    side in one run compare."""
     import random
 
     from ome_tpu_torch.engine.core import InferenceEngine
     from ome_tpu_torch.models.config import llama3_8b
     from ome_tpu_torch.models.params import init_params
 
-    cfg = llama3_8b().replace(dtype=torch.bfloat16)
+    cfg = llama3_8b().replace(dtype=torch.bfloat16, num_layers=n_layers)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     params = init_params(cfg, gen, torch.device("cuda"))
@@ -2491,9 +2534,10 @@ def _drift(ref_streams, ref_gaps, streams):
 
 
 def phase_quant_turns(torch, seed: int = 0, rounds: int = 2,
-                      steps: int = 32):
-    """Weight-only quantization at the Llama-3-8B shape, over one bf16
-    weight set and the port's `quantize_params` of it:
+                      steps: int = 32, n_layers: int = CUT_LAYERS):
+    """Weight-only quantization at the Llama-3-8B widths, `n_layers`
+    deep, over one bf16 weight set and the port's `quantize_params` of
+    it:
 
     * the decode step of the bf16, int8, fp8 and int4 engines (dense
       cache, 8 slots armed at lengths 64-2164, max_seq 4096), timed in
@@ -2505,7 +2549,8 @@ def phase_quant_turns(torch, seed: int = 0, rounds: int = 2,
       engine's first decode-step logits are held against a twin engine
       whose int4 leaves are `dequant(bf16)` tensors. Each of the P = 7 x
       32 + 1 projections in sequence rounds its output to bf16 once,
-      where B4 and the mm may land one ulp (2^-7 of the value) apart;
+      where B4 and the mm may land one ulp (2^-7 of the value) apart
+      (P = 7 x n_layers + 1 at this depth);
       the tolerance lets those steps add up as a random walk: 2^-7 x
       sqrt(P) of max |logits|."""
     import math
@@ -2518,7 +2563,7 @@ def phase_quant_turns(torch, seed: int = 0, rounds: int = 2,
                                             quantized_bytes)
     from ome_tpu_torch.ops import flash
 
-    cfg = llama3_8b().replace(dtype=torch.bfloat16)
+    cfg = llama3_8b().replace(dtype=torch.bfloat16, num_layers=n_layers)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     params = {"bf16": init_params(cfg, gen, torch.device("cuda"))}
@@ -3120,8 +3165,8 @@ SERVE_SCHEMA = {"type": "object",
 
 
 def phase_serve_stepplan(torch, paged: bool, seed: int = 0, before=None):
-    """The bf16 Llama-3-8B server at full depth with `--spec-tokens 4
-    --steps-per-dispatch 4`, dense (`--max-slots 8`) or paged
+    """The bf16 Llama-3-8B-width server (`CUT_LAYERS` deep) with
+    `--spec-tokens 4 --steps-per-dispatch 4`, dense (`--max-slots 8`) or paged
     (`--kv-block 128 --max-slots 16 --kv-blocks 129`): concurrent
     completions of prompts that repeat n-grams, a `json_schema` request
     whose output must parse against its schema and, paged, a burst
@@ -3136,7 +3181,7 @@ def phase_serve_stepplan(torch, paged: bool, seed: int = 0, before=None):
     from ome_tpu_torch.models.config import llama3_8b
     from ome_tpu_torch.ops import flash
 
-    cfg = llama3_8b()
+    cfg = llama3_8b().replace(num_layers=CUT_LAYERS)
     rng = random.Random(seed + 7)
     tag = "[serve spec paged]" if paged else "[serve spec]"
     out = {"paged": paged}
@@ -3260,9 +3305,11 @@ def phase_serve_stepplan(torch, paged: bool, seed: int = 0, before=None):
                  f"{out['kv_blocks_free']} of {engine.kv_blocks})")
     prop = out["spec_proposed_tokens_total"]
     acc = out["spec_accepted_tokens_total"]
-    prev = (f"{before['tpot_median_s'] * 1e3:.2f} ms"
+    prev = (f"{before['tpot_median_s'] * 1e3:.2f} ms at "
+            f"{before['layers']} layers"
             if before and before.get("tpot_median_s") else "not measured")
-    log(f"{tag} Llama-3-8B, bf16, full depth, --spec-tokens 4 "
+    log(f"{tag} Llama-3-8B widths, {cfg.num_layers} layers, bf16, "
+        f"--spec-tokens 4 "
         f"--steps-per-dispatch 4: up in {out['startup_s']:.1f} s; "
         f"{len(bodies)} concurrent completions, "
         f"{out['batch_completion_tokens']} tokens in {out['batch_s']:.2f} "
@@ -3906,13 +3953,17 @@ def _spill_stall_probes(torch, node, spill, block, steps, block_shape):
     return out
 
 
-def phase_host_tier(torch, seed: int = 0):
-    """The prefix cache's host tier at the Llama-3-8B shape, full depth,
-    bf16, through `serve.build_server` with `--prefix-cache-mb 256
-    --prefix-cache-host-mb 2048` (4 MiB blocks of 32 tokens: the device
-    tier holds one 2048-token prefix). Six seeded 2048-token prefixes are
+def phase_host_tier(torch, seed: int = 0, n_layers: int = CUT_LAYERS):
+    """The prefix cache's host tier at the Llama-3-8B widths, `n_layers`
+    deep, bf16, through `serve.build_server` with `--prefix-cache-mb
+    8 x n_layers --prefix-cache-host-mb 64 x n_layers` (blocks of 32
+    tokens, 128 KiB per layer: the device tier holds one 2048-token
+    prefix at any depth; at 8 layers, 64 and 512 MB). Six seeded
+    2048-token prefixes are
     sent twice in a row, each time with its own 16-token tail (the second
-    send hits on the device), while a long request decodes beside them;
+    send hits on the device: the put of a prefix evicts the one before it
+    whole, LRU over the trie's leaves), while a long request decodes
+    beside them;
     two fresh 2048-token prompts then push the rest out to the host;
     then each prefix's second prompt again: a host hit queues the
     swap-in and recomputes, and after `drain_swapins` the same prompt
@@ -3920,16 +3971,18 @@ def phase_host_tier(torch, seed: int = 0):
     spill and swap-in GB/s, host bytes, host hits, recomputes, TTFT of
     cold, device-hit and swapped-in requests, and the decode step period
     while a spill is in flight against the rest. Holds: a swapped-in
-    block's bits equal its spill and the block first computed; the
-    streams served from swapped-in blocks equal those served from
-    device-resident hits of the same length; tier and pool conservation
-    at idle."""
+    block's bits equal its spill and the block first computed; every
+    prefix's device hit and swapped-in hit are the whole 2048 tokens,
+    even where the recomputing prefill's put lands among the swap-ins;
+    the streams served from swapped-in blocks equal those served from
+    device-resident hits; tier and pool conservation at idle."""
     import random
     import tempfile
 
     from ome_tpu_torch.models.config import llama3_8b
 
-    cfg = llama3_8b()
+    cfg = llama3_8b().replace(num_layers=n_layers)
+    dev_mb, host_mb = 8 * n_layers, 64 * n_layers
     rng = random.Random(seed + 10)
 
     def prompt(n):
@@ -3939,8 +3992,8 @@ def phase_host_tier(torch, seed: int = 0):
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "config.json"), "w") as f:
             json.dump(_hf_config(cfg), f)
-        node = _Node(tmp, "host_tier", seed, "--prefix-cache-mb", "256",
-                     "--prefix-cache-host-mb", "2048")
+        node = _Node(tmp, "host_tier", seed, "--prefix-cache-mb",
+                     str(dev_mb), "--prefix-cache-host-mb", str(host_mb))
         eng, pc = node.engine, node.engine.prefix_cache
         spills, uploads, matched, steps = [], [], {}, []
         orig_spill, orig_upload = pc._spill, pc._upload
@@ -4054,16 +4107,16 @@ def phase_host_tier(torch, seed: int = 0):
              f"{out['block0_swapped_in']}, bits equal to its spill "
              f"{out['block0_bits_equal_spill']}, spill equal to the block "
              f"first computed {out['spill_bits_equal_first']}")
-    same = [i for i in range(6) if first_hit[i][1] == swapped[i][1]]
-    if 0 not in same:
-        fail(f"host tier: prefix 0's swapped-in hit ({swapped[0][1]} "
-             f"tokens) is not the length of its device hit "
-             f"({first_hit[0][1]})")
-    for i in same:
-        if first_hit[i][0] != swapped[i][0]:
-            fail(f"host tier: prefix {i}: the stream from swapped-in blocks "
-                 f"differs from the device-hit stream of the same length "
-                 f"({first_hit[i][1]} tokens)")
+    short = {i: (first_hit[i][1], swapped[i][1]) for i in range(6)
+             if (first_hit[i][1], swapped[i][1]) != (2048, 2048)}
+    if short:
+        fail(f"host tier: (device hit, swapped-in hit) tokens short of the "
+             f"whole 2048-token prefix: {short}")
+    same = [i for i in range(6) if first_hit[i][0] == swapped[i][0]]
+    if len(same) != 6:
+        fail(f"host tier: the streams from swapped-in blocks differ from "
+             f"the device-hit streams for prefixes "
+             f"{sorted(set(range(6)) - set(same))}")
     if not out["tier_conservation"][0] or not out["kv_conservation"][0]:
         fail(f"host tier: at idle tier_conservation "
              f"{out['tier_conservation']}, kv_conservation "
@@ -4104,8 +4157,9 @@ def phase_host_tier(torch, seed: int = 0):
     ab = _pinned_pool_ab(torch, (cfg.num_layers, 1, block,
                                  cfg.num_kv_heads, cfg.head_dim))
     out["pinned_ms_per_block"] = {k: v * 1e3 for k, v in ab.items()}
-    log(f"[host tier] Llama-3-8B, bf16, --prefix-cache-mb 256 "
-        f"--prefix-cache-host-mb 2048, {block_bytes / 2**20:.0f} MiB per "
+    log(f"[host tier] Llama-3-8B widths, {n_layers} layers, bf16, "
+        f"--prefix-cache-mb {dev_mb} --prefix-cache-host-mb {host_mb}, "
+        f"{block_bytes / 2**20:.0f} MiB per "
         f"block (k + v): {out['spilled_blocks']} blocks "
         f"({out['spilled_gb']:.3f} GB) spilled in {len(spills)} spills at "
         f"{out['spill_gbps']:.2f} GB/s of copies (besides "
@@ -4122,7 +4176,7 @@ def phase_host_tier(torch, seed: int = 0):
         f"(device hit, swapped in) per prefix {out['hit_tokens']}")
     log(f"[host tier] a swapped-in block's bits equal its spill and the "
         f"block first computed; streams from swapped-in blocks equal the "
-        f"device-hit streams of the same hit length for prefixes {same}; "
+        f"device-hit streams for prefixes {same}; "
         f"at idle tier_conservation {out['tier_conservation']}, "
         f"kv_conservation {out['kv_conservation']}")
     sp = out["step_period_median_ms"]
@@ -4209,8 +4263,8 @@ def _pd_pair(torch, tmp, seed, prompts, mono_streams, flags, tag):
     return pre, out
 
 
-def phase_pd(torch, seed: int = 0):
-    """PD disaggregation at the Llama-3-8B shape, full depth, bf16: a
+def phase_pd(torch, seed: int = 0, n_layers: int = CUT_LAYERS):
+    """PD disaggregation at the Llama-3-8B widths, `n_layers` deep, bf16: a
     monolithic server answers 13 requests of 64 to 2048 tokens; then a
     prefill node (`--disaggregation-mode prefill`) and a decode node
     (`--disaggregation-mode decode --prefill-url`) answer the same
@@ -4235,7 +4289,7 @@ def phase_pd(torch, seed: int = 0):
     from ome_tpu_torch.models.config import llama3_8b
     from ome_tpu_torch.ops import flash
 
-    cfg = llama3_8b()
+    cfg = llama3_8b().replace(num_layers=n_layers)
     rng = random.Random(seed + 20)
     prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
                for n in PD_LENGTHS]
@@ -4385,7 +4439,7 @@ def phase_peering(torch, seed: int = 0):
 
     from ome_tpu_torch.models.config import llama3_8b
 
-    cfg = llama3_8b()
+    cfg = llama3_8b().replace(num_layers=CUT_LAYERS)
     rng = random.Random(seed + 30)
     ids = [rng.randrange(3, cfg.vocab_size) for _ in range(1500)]
     with tempfile.TemporaryDirectory() as tmp:
@@ -4763,8 +4817,8 @@ def _lora_step_profile(torch, engine, prompt, jobs_adapters):
 
 
 def phase_lora_server(torch, seed: int = 0):
-    """The bf16 Llama-3-8B server at full depth with three named adapters
-    (rank 16, alpha 32, all seven targets, seeded bf16 factors) in 4
+    """The bf16 Llama-3-8B-width server (`CUT_LAYERS` deep) with three
+    named adapters (rank 16, alpha 32, all seven targets, seeded bf16 factors) in 4
     slots, through `serve.build_server`: 12 concurrent requests (4 base,
     8 across the adapters); a4 registered with `POST /v1/adapters` while
     requests decode, then a request to it; `DELETE /v1/adapters/a1`
@@ -4779,9 +4833,11 @@ def phase_lora_server(torch, seed: int = 0):
     import urllib.request
 
     from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.models.config import llama3_8b
     from ome_tpu_torch.ops import flash
 
-    hf, name, cfg = _model_hf(None)
+    cfg = llama3_8b().replace(num_layers=CUT_LAYERS)
+    hf = _hf_config(cfg)
     rng = random.Random(seed + 30)
     tag = "[lora server]"
 
@@ -5208,7 +5264,7 @@ def embed_invariance(torch, seed: int = 0):
                     f" ms, device {busy:.2f} ms")
         del eng
         _free_device(torch, f"the {layers}-layer embedder")
-    cfg = llama3_8b()
+    cfg = llama3_8b().replace(num_layers=CUT_LAYERS)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     e8 = InferenceEngine(init_params(cfg, gen, torch.device("cuda")), cfg,
@@ -5590,6 +5646,604 @@ def phase_family_identity(torch, seed: int = 0, n_layers: int = 4,
 # -- main -----------------------------------------------------------------------
 
 
+# -- phases 38-40: the MLA family (DeepSeek-V2-Lite, DeepSeek-V3) -------------
+
+
+DEEPSEEK_V2_LITE = {"_source": "deepseek-ai/DeepSeek-V2-Lite config.json",
+                    "architectures": ["DeepseekV2ForCausalLM"],
+                    "vocab_size": 102400, "hidden_size": 2048,
+                    "intermediate_size": 10944,
+                    "moe_intermediate_size": 1408,
+                    "num_hidden_layers": 27, "num_attention_heads": 16,
+                    "num_key_value_heads": 16, "n_shared_experts": 2,
+                    "n_routed_experts": 64, "num_experts_per_tok": 6,
+                    "first_k_dense_replace": 1, "moe_layer_freq": 1,
+                    "q_lora_rank": None, "kv_lora_rank": 512,
+                    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+                    "v_head_dim": 128, "topk_method": "greedy",
+                    "n_group": 1, "topk_group": 1, "norm_topk_prob": False,
+                    "routed_scaling_factor": 1.0, "scoring_func": "softmax",
+                    "rms_norm_eps": 1e-6, "rope_theta": 10000,
+                    "rope_scaling": {"type": "yarn", "factor": 40,
+                                     "beta_fast": 32, "beta_slow": 1,
+                                     "mscale": 0.707,
+                                     "mscale_all_dim": 0.707,
+                                     "original_max_position_embeddings":
+                                         4096},
+                    "max_position_embeddings": 163840,
+                    "tie_word_embeddings": False}
+DEEPSEEK_V3 = {"_source": "deepseek-ai/DeepSeek-V3 config.json (its fp8 "
+                          "quantization_config left out: bf16 weights)",
+               "architectures": ["DeepseekV3ForCausalLM"],
+               "vocab_size": 129280, "hidden_size": 7168,
+               "intermediate_size": 18432, "moe_intermediate_size": 2048,
+               "num_hidden_layers": 61, "num_attention_heads": 128,
+               "num_key_value_heads": 128, "n_shared_experts": 1,
+               "n_routed_experts": 256, "num_experts_per_tok": 8,
+               "first_k_dense_replace": 3, "moe_layer_freq": 1,
+               "q_lora_rank": 1536, "kv_lora_rank": 512,
+               "qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+               "v_head_dim": 128, "topk_method": "noaux_tc", "n_group": 8,
+               "topk_group": 4, "norm_topk_prob": True,
+               "routed_scaling_factor": 2.5, "scoring_func": "sigmoid",
+               "rms_norm_eps": 1e-6, "rope_theta": 10000,
+               "rope_scaling": {"type": "yarn", "factor": 40,
+                                "beta_fast": 32, "beta_slow": 1,
+                                "mscale": 1.0, "mscale_all_dim": 1.0,
+                                "original_max_position_embeddings": 4096},
+               "max_position_embeddings": 163840,
+               "tie_word_embeddings": False}
+# phase 38 cuts DeepSeek-V3's 256 routed experts to 32 in its 8 groups
+# (top-4 groups, top-8 experts kept): 256 fp32 experts of 7168 x 2048 x 3
+# take 45 GB per layer
+V3_IDENTITY_EXPERTS = 32
+# phase 40 serves DeepSeek-V3 at 4 of its 61 layers: its 3 dense layers
+# and one MoE layer of 256 experts (~30 GB in bf16)
+V3_SERVED_LAYERS = 4
+MLA_ABSORBED_ATOL = 1e-4
+# prompt lengths of the served DeepSeek models (13 requests with the
+# two twins): V2-Lite to 6000 tokens at max_seq 8192, V3 to 2048 at 4096
+V2_LITE_LENGTHS = [16, 100, 400, 800, 1500, 2200, 3000, 4000, 5000, 5500,
+                   6000]
+V3_LENGTHS = [16, 64, 100, 200, 400, 600, 800, 1000, 1500, 1800, 2048]
+MLA_SERVERS = (
+    ("serve_deepseek_v2_lite", {"hf": DEEPSEEK_V2_LITE,
+                                "label": "DeepSeek-V2-Lite",
+                                "max_seq": 8192,
+                                "lengths": V2_LITE_LENGTHS}, "none"),
+    ("serve_deepseek_v3", {"hf": DEEPSEEK_V3, "label": "DeepSeek-V3",
+                           "layers": V3_SERVED_LAYERS, "max_seq": 4096,
+                           "lengths": V3_LENGTHS}, "none"),
+    # int4 dequantizes the MoE layer's 256-expert stacks every step
+    # (~0.25 s): 8-token requests and no 2048-token prefill timing keep
+    # the phase short
+    ("serve_deepseek_v3_int4", {"hf": DEEPSEEK_V3, "label": "DeepSeek-V3",
+                                "layers": V3_SERVED_LAYERS, "max_seq": 4096,
+                                "lengths": V3_LENGTHS, "max_tokens": 8},
+     "int4"),
+)
+# B4's shapes on the DeepSeek-V3 int4 server's decode steps: the shared
+# experts' ws_gate / ws_up and the dense layers' w_gate / w_up
+V3_INT4_SHAPES = (("ws_gate", 7168, 2048), ("w_gate", 7168, 18432))
+ATTENTION_KERNELS = ("flash_decode", "flash_prefill", "flash_paged_decode",
+                     "flash_decode_quantized")
+
+
+def _mla_cfg(torch, hf, n_layers=None, **over):
+    """(config.json dict, ModelConfig) of a published DeepSeek config,
+    `n_layers` deep where given, with `over` replacing its keys."""
+    from ome_tpu_torch.models.config import ModelConfig
+    hf = dict(hf, **over)
+    if n_layers:
+        hf["num_hidden_layers"] = n_layers
+    return hf, ModelConfig.from_hf_config(hf)
+
+
+def _seed_router_bias(torch, params, seed: int) -> None:
+    """DeepSeek-V3's selection bias drawn N(0, 0.05) instead of the
+    init's zeros, so that choosing by it differs from choosing by the
+    scores."""
+    lay = params["layers"]
+    if "router_bias" not in lay:
+        return
+    t = lay["router_bias"]
+    gen = torch.Generator(device=t.device)
+    gen.manual_seed(seed + 31)
+    t.copy_(torch.randn(t.shape, generator=gen, device=t.device).mul_(0.05))
+
+
+def _no_attention_kernels(what, launches) -> None:
+    hit = {k: launches[k] for k in ATTENTION_KERNELS if launches.get(k)}
+    if hit:
+        fail(f"{what}: MLA attention launched the attention kernels {hit}")
+
+
+def phase_mla_identity(torch, seed: int = 0, n_layers: int = 4,
+                       steps: int = 24):
+    """fp32, `n_layers` deep, at DeepSeek-V2-Lite's widths (1 dense, 3
+    MoE layers) and DeepSeek-V3's (3 dense, 1 MoE layer; its 256 routed
+    experts cut to `V3_IDENTITY_EXPERTS` in its 8 groups, top-4 groups
+    and top-8 experts kept; the selection bias seeded), through the
+    engine API: the absorbed decode's first-step logits (one row over the
+    latent cache) within `MLA_ABSORBED_ATOL` of the materialized
+    forward's over the whole sequence; single decode steps, `decode_multi`
+    K=4 and the Scheduler at spec_tokens 4 / steps_per_dispatch 4 (its
+    verify runs the materialized path over the cache) give identical
+    greedy streams, with drafts proposed; no attention kernel launched.
+    As in phase 12, the embeddings are tied and scaled by `EMBED_SCALE`
+    for the streams, so that the random model's streams repeat n-grams
+    for the drafter; the logits are compared at the init's scale."""
+    import random
+
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.models import llama
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.ops import flash
+
+    out = {}
+    for label, hf, over in (
+            ("DeepSeek-V2-Lite", DEEPSEEK_V2_LITE, {}),
+            ("DeepSeek-V3", DEEPSEEK_V3,
+             {"n_routed_experts": V3_IDENTITY_EXPERTS})):
+        t0 = time.monotonic()
+        _, cfg = _mla_cfg(torch, hf, n_layers, **over)
+        cfg = cfg.replace(dtype=torch.float32, moe_impl="ragged",
+                          tie_word_embeddings=True)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        params = init_params(cfg, gen, torch.device("cuda"))
+        params["embed"].mul_(EMBED_SCALE)
+        _seed_router_bias(torch, params, seed)
+        rng = random.Random(seed + 5)
+        prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+                   for n in (20, 75, 150, 300)]
+        multi_rows = []
+        attn = llama.mla_attention
+
+        def recording_attention(h, lp, c, positions, kv_len, cache_kv, idx,
+                                freqs=None):
+            if cache_kv is not None and h.shape[1] > 1:
+                multi_rows.append(int(h.shape[1]))
+            return attn(h, lp, c, positions, kv_len, cache_kv, idx, freqs)
+        llama.mla_attention = recording_attention
+        flash.reset_launches()
+        try:
+            eng = InferenceEngine(params, cfg, max_slots=4, max_seq=1024,
+                                  device="cuda", seed=seed)
+            single, gaps, first = _greedy_streams(torch, eng, prompts, steps)
+            multi = _multi_streams(torch, eng, prompts, steps, k=4)
+            verify_before = len(multi_rows)
+            planned, sched = _sched_streams(eng, prompts, steps,
+                                            pipeline_depth=1, spec_tokens=4,
+                                            steps_per_dispatch=4)
+            st = dict(sched.stats)
+            del sched, eng
+            # the logits at the init's own embedding scale (fp32 rounding
+            # grows with the logits): the absorbed step's first decode
+            # logits against the materialized forward over prompt + first
+            # token (no cache), at that position
+            params["embed"].div_(EMBED_SCALE)
+            eng = InferenceEngine(params, cfg, max_slots=4, max_seq=1024,
+                                  device="cuda", seed=seed)
+            firsts, _, first = _greedy_streams(torch, eng, prompts, 2)
+            del eng
+            errs, scale = [], 0.0
+            for i, ids in enumerate(prompts):
+                toks = torch.tensor([ids + [firsts[i][0]]], device="cuda")
+                ref, _ = llama.forward(params, cfg, toks)
+                ref = ref[0, -1]
+                errs.append((first[i] - ref).abs().max().item())
+                scale = max(scale, ref.abs().max().item())
+            torch.cuda.synchronize()
+        finally:
+            llama.mla_attention = attn
+        launches = dict(flash.LAUNCHES)
+        _no_attention_kernels(f"mla identity {label}", launches)
+        for what, got in (("decode_multi K=4", multi),
+                          ("scheduler spec 4 K 4", planned)):
+            if got != single:
+                slot = next(i for i, (a, b) in enumerate(zip(single, got))
+                            if a != b)
+                fail(f"mla identity {label}: the {what} stream of prompt "
+                     f"{slot} differs from the single steps: {got[slot]} "
+                     f"vs {single[slot]}")
+        verify_rows = multi_rows[verify_before:]
+        if st["spec_proposed_tokens_total"] <= 0 or 5 not in verify_rows:
+            fail(f"mla identity {label}: the verify forward did not run "
+                 f"(proposed {st['spec_proposed_tokens_total']}, cached "
+                 f"multi-row MLA calls {sorted(set(verify_rows))})")
+        if not max(errs) <= MLA_ABSORBED_ATOL:
+            fail(f"mla identity {label}: absorbed decode logits differ from "
+                 f"the materialized forward's by {max(errs):.3e} (tol "
+                 f"{MLA_ABSORBED_ATOL})")
+        min_gap = min(float(g[:len(prompts)].min()) for g in gaps)
+        res = {"streams_identical": True, "steps": steps,
+               "prompts": len(prompts), "cut": over,
+               "absorbed_vs_materialized_max_abs": max(errs),
+               "max_abs_logit": scale, "atol": MLA_ABSORBED_ATOL,
+               "min_top2_gap": min_gap,
+               "spec_steps": st["spec_steps_total"],
+               "spec_proposed": st["spec_proposed_tokens_total"],
+               "spec_accepted": st["spec_accepted_tokens_total"],
+               "launches": launches, "secs": time.monotonic() - t0}
+        out[label] = res
+        cut = (f"; routed experts cut {hf['n_routed_experts']} -> "
+               f"{over['n_routed_experts']} in {cfg.n_group} groups "
+               f"(top-{cfg.topk_group} groups, top-{cfg.experts_per_token} "
+               f"experts)" if over else "")
+        log(f"[mla] fp32, {label} widths, {n_layers} layers "
+            f"({cfg.first_k_dense} dense){cut}: absorbed decode logits vs "
+            f"the materialized forward max abs {max(errs):.3e} (tol "
+            f"{MLA_ABSORBED_ATOL}, max |logit| {scale:.3g}); single steps, "
+            f"decode_multi K=4 and the scheduler (spec 4, K 4) give "
+            f"identical {steps}-token streams for {len(prompts)} prompts "
+            f"(smallest top-2 gap {min_gap:.3e}); spec steps "
+            f"{res['spec_steps']}, proposed {res['spec_proposed']}, "
+            f"accepted {res['spec_accepted']}; attention kernels launched "
+            f"none; {res['secs']:.1f} s")
+        del params
+        _free_device(torch, f"the {label} identity engines")
+    return out
+
+
+def phase_mla_checkpoint(torch, seed: int = 0, n_layers: int = 4):
+    """A DeepSeek checkpoint at DeepSeek-V2-Lite's widths under V3's
+    architecture (so that it carries `e_score_correction_bias`, seeded),
+    `n_layers` deep, bf16, HF names (`kv_a_proj_with_mqa`, the fused
+    `kv_b_proj`, `mlp.gate` and `mlp.experts.*`, the shared experts, the
+    leading dense layer), two shards + index, written from the port's
+    seeded init under chiprun_out/ and removed after: loaded back onto
+    the card bit-equal leaf for leaf, then served with `--model-dir` and
+    no `--random-weights`: its first greedy tokens equal an engine's over
+    the in-memory params."""
+    import random
+    import shutil
+
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.engine.scheduler import Request
+    from ome_tpu_torch.models import checkpoint
+    from ome_tpu_torch.models.params import init_params
+
+    hf, cfg = _mla_cfg(torch, DEEPSEEK_V2_LITE, n_layers,
+                       architectures=["DeepseekV3ForCausalLM"])
+    cfg = cfg.replace(dtype=torch.bfloat16, moe_impl="ragged")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"))
+    _seed_router_bias(torch, params, seed)
+    d = os.path.join(OUT_DIR, f"ckpt_deepseek_{n_layers}l")
+    out = {}
+    try:
+        shutil.rmtree(d, ignore_errors=True)
+        t0 = time.monotonic()
+        tensors = checkpoint.hf_tensors(params, cfg)
+        for name in ("model.layers.0.self_attn.kv_b_proj.weight",
+                     "model.layers.1.mlp.gate.e_score_correction_bias",
+                     "model.layers.1.mlp.shared_experts.gate_proj.weight",
+                     "model.layers.1.mlp.experts.63.down_proj.weight",
+                     "model.layers.0.mlp.gate_proj.weight"):
+            if name not in tensors:
+                fail(f"mla checkpoint: hf_tensors wrote no {name}")
+        files = checkpoint.save_checkpoint(d, tensors, shards=2)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(hf, f)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+        n_tensors = len(tensors)
+        del tensors
+        out.update(write_s=time.monotonic() - t0, bytes=nbytes,
+                   tensors=n_tensors)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loaded, _ = checkpoint.load_params(d, dtype=torch.bfloat16,
+                                           device="cuda")
+        torch.cuda.synchronize()
+        out["load_s"] = time.monotonic() - t0
+        out["load_gbps"] = nbytes / out["load_s"] / 1e9
+
+        def leaves(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from leaves(v, prefix + k + ".")
+                else:
+                    yield prefix + k, v
+        want, got = dict(leaves(params)), dict(leaves(loaded))
+        if got.keys() != want.keys():
+            fail(f"mla checkpoint: loaded leaves {sorted(got)} != written "
+                 f"{sorted(want)}")
+        for name, t in want.items():
+            if got[name].dtype != t.dtype or not _bits_equal(
+                    torch, got[name], t):
+                fail(f"mla checkpoint: leaf {name} is not bit-equal to what "
+                     f"was written")
+        del loaded
+        log(f"[mla checkpoint] DeepSeek-V2-Lite widths under "
+            f"DeepseekV3ForCausalLM, {n_layers} layers, bf16: {n_tensors} "
+            f"HF tensors, {nbytes / 1e9:.3f} GB in {files} + index, written "
+            f"in {out['write_s']:.1f} s; load_params to the card "
+            f"{out['load_s']:.2f} s ({out['load_gbps']:.2f} GB/s); all "
+            f"{len(want)} leaves bit-equal (router_bias fp32 included)")
+        rng = random.Random(seed + 5)
+        prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+                   for n in (20, 300)]
+        steps = 8
+        server, sched, engine = serve.build_server(
+            ["--model-dir", d, "--max-slots", "2", "--max-seq", "1024",
+             "--port", "0", "--host", "127.0.0.1", "--seed", str(seed)])
+        try:
+            _completion(*_post(f"http://127.0.0.1:{server.port}",
+                               {"prompt": prompts[0], "max_tokens": 4,
+                                "temperature": 0.0}), 4,
+                        "mla checkpoint completion")
+            served = [list(sched.submit(Request(
+                prompt_ids=ids, max_new_tokens=steps)).wait_output(300))
+                for ids in prompts]
+        finally:
+            server.stop()
+        del server, sched, engine
+        twin = InferenceEngine(params, cfg, max_slots=2, max_seq=1024,
+                               device="cuda", seed=seed)
+        ref, _, _ = _greedy_streams(torch, twin, prompts, steps)
+        del twin
+        out["first_tokens"] = served
+        if served != ref:
+            fail(f"mla checkpoint: the served checkpoint's greedy tokens "
+                 f"{served} differ from the in-memory engine's {ref}")
+        log(f"[mla checkpoint] served with --model-dir (no "
+            f"--random-weights): first {steps} greedy tokens of "
+            f"{len(prompts)} prompts equal the engine's over the in-memory "
+            f"params")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del params
+    return out
+
+
+def phase_mla_pd(torch, seed: int = 0, n_layers: int = 4):
+    """PD at DeepSeek-V2-Lite's widths, `n_layers` deep, bf16: a
+    monolithic server, then a prefill node and a decode node, answer the
+    same prompts (64-2000 tokens), one at a time, with identical greedy
+    streams; the blobs carry the latent planes (576 values per token and
+    layer) and a zero-width v plane; no attention kernel launched."""
+    import random
+    import tempfile
+
+    from ome_tpu_torch.ops import flash
+
+    hf, cfg = _mla_cfg(torch, DEEPSEEK_V2_LITE, n_layers)
+    rng = random.Random(seed + 21)
+    prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+               for n in (64, 300, 1000, 2000)]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(hf, f)
+        flash.reset_launches()
+        mono = _Node(tmp, "mla_mono", seed)
+        try:
+            mono_streams = [_send_all(mono, [p], what="mla monolithic")[0]
+                            for p in prompts]
+        finally:
+            mono.stop()
+        del mono
+        pre = _Node(tmp, "mla_prefill", seed, "--disaggregation-mode",
+                    "prefill")
+        dec = _Node(tmp, "mla_decode", seed, "--disaggregation-mode",
+                    "decode", "--prefill-url", pre.url)
+        try:
+            streams = [_send_all(dec, [p], what="mla PD")[0]
+                       for p in prompts]
+            rows = _pd_breakdown(pre.server.pd_prefill, dec.engine,
+                                 len(prompts))
+            failovers = (dec.engine.failovers, dec.engine.local_fallbacks)
+        finally:
+            dec.stop()
+            pre.stop()
+        del pre, dec
+    torch.cuda.synchronize()
+    launches = dict(flash.LAUNCHES)
+    _no_attention_kernels("mla PD", launches)
+    drift = [_first_diff(a, b) for a, b in zip(mono_streams, streams)]
+    if any(d is not None for d in drift) or any(failovers):
+        fail(f"mla PD: streams differ from the monolithic server's at "
+             f"{drift} (failovers, local fallbacks {failovers})")
+    per_row = 2 * n_layers * cfg.kv_cache_k_dim
+    out.update(fetches=rows, streams_identical=True,
+               blob_bytes_per_row=per_row)
+    log(f"[mla pd] DeepSeek-V2-Lite widths, {n_layers} layers, bf16: PD "
+        f"streams of {len(prompts)} prompts identical to the monolithic "
+        f"server's; blob bytes {[r['bytes'] for r in rows]} ({per_row} B "
+        f"per bucket row: {n_layers} layers x {cfg.kv_cache_k_dim} latent "
+        f"values, the v plane empty); attention kernels launched none")
+    return out
+
+
+def phase_serve_mla(torch, model, quantization: str = "none",
+                    seed: int = 0):
+    """An MLA server through `serve.build_server` (`--random-weights`
+    for the published config.json in `model`, cut to its "layers" where
+    given; V3's selection bias seeded), bf16 or `--quantization int4`:
+    13 concurrent requests of 32 tokens (8 where `model` says so; the
+    prompt lengths of `model` and two twins that must agree), then
+    8-token requests: two with a
+    shared 1024-token prefix, the second of which must hit the prefix
+    cache, and an SSE stream; TTFT / TPOT medians; the 8-slot decode
+    step's device and wall ms, idle share and top kernels, and (bf16) a
+    cold 2048-token prefill's; peak device memory; KV bytes per token against
+    an MHA cache of the same heads. No attention kernel may launch;
+    under int4 B4 must, at each of `V3_INT4_SHAPES` (its launches while
+    serving read from the wrapper's count by shape, which must sum to its
+    launch count, and those of one decode step)."""
+    import concurrent.futures
+    import random
+    import tempfile
+
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.models.quant import quantized_bytes
+    from ome_tpu_torch.ops import flash
+
+    hf, cfg = _mla_cfg(torch, model["hf"], model.get("layers"))
+    name = model["label"]
+    tag = f"[serve {name}" + ("]" if quantization == "none"
+                              else f" {quantization}]")
+    rng = random.Random(seed)
+
+    def prompt(n):
+        return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+    out = {"quantization": quantization, "model": name,
+           "layers": cfg.num_layers}
+    max_seq = model["max_seq"]
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(hf, f)
+        reqlog = os.path.join(tmp, "requests.jsonl")
+        t0 = time.monotonic()
+        server, sched, engine = serve.build_server(
+            ["--model-dir", tmp, "--random-weights", "--seed",
+             str(seed), "--max-slots", "8", "--max-seq", str(max_seq),
+             "--port", "0", "--host", "127.0.0.1", "--request-log",
+             reqlog, "--quantization", quantization])
+        _seed_router_bias(torch, engine.model.params, seed)
+        if engine.cfg.moe_impl != "ragged":
+            fail(f"{tag}: the MoE server runs moe_impl "
+                 f"{engine.cfg.moe_impl!r}, not the ragged dispatch")
+        torch.cuda.synchronize()
+        out["startup_s"] = time.monotonic() - t0
+        out["device_gib_after_startup"] = \
+            torch.cuda.memory_allocated() / 2**30
+        out["weight_bytes"] = quantized_bytes(engine.model.params)
+        out["kv_bytes_per_token"] = engine.kv_row_bytes()
+        # an MHA cache of the same heads: K and V rows of 128 values
+        # per head, and with K's rope dims (192 + 128)
+        H, L = cfg.num_heads, cfg.num_layers
+        out["mha_kv_bytes_per_token"] = L * H * 2 * 128 * 2
+        out["mha_kv_bytes_per_token_with_rope"] = L * H * (
+            cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            + cfg.v_head_dim) * 2
+        log(f"{tag} {hf['_source']}, random "
+            f"{weight_label(engine.model.params)} weights (seed "
+            f"{seed}), {L} layers ({cfg.first_k_dense} dense), slots 8, "
+            f"max_seq {max_seq}: server up in {out['startup_s']:.1f} s; "
+            f"weights {out['weight_bytes'] / 1e9:.3f} GB; device memory "
+            f"{out['device_gib_after_startup']:.2f} GiB; KV bytes per "
+            f"token {out['kv_bytes_per_token']} (MHA cache of the same "
+            f"heads: {out['mha_kv_bytes_per_token']}, with the rope "
+            f"dims {out['mha_kv_bytes_per_token_with_rope']})")
+        url = f"http://127.0.0.1:{server.port}"
+        seen = []
+        submit = sched.submit
+
+        def recording_submit(req):
+            seen.append(req)
+            return submit(req)
+        sched.submit = recording_submit
+        try:
+            flash.reset_launches()
+            t_batch = time.monotonic()
+            twin = prompt(24)
+            n_out = model.get("max_tokens", 32)
+            bodies = [{"prompt": prompt(n), "max_tokens": n_out,
+                       "temperature": 0.0} for n in model["lengths"]]
+            bodies += [{"prompt": list(twin), "max_tokens": n_out,
+                        "temperature": 0.0} for _ in range(2)]
+            with concurrent.futures.ThreadPoolExecutor(
+                    len(bodies)) as ex:
+                futs = [ex.submit(_post, url, b) for b in bodies]
+                docs = [_completion(*f.result(), n_out, f"request {i}")
+                        for i, f in enumerate(futs)]
+            out["batch_s"] = time.monotonic() - t_batch
+            out["batch_completion_tokens"] = sum(
+                d["usage"]["completion_tokens"] for d in docs)
+            twins = [r for r in seen if r.prompt_ids == twin]
+            if len(twins) != 2 or \
+                    twins[0].output_ids != twins[1].output_ids:
+                fail(f"{tag}: the twin prompts gave different outputs")
+            log(f"{tag} {len(bodies)} concurrent completions (prompt "
+                f"lengths {model['lengths']} + 2 x 24-token twins): all "
+                f"200, {out['batch_completion_tokens']} tokens in "
+                f"{out['batch_s']:.2f} s; twins identical")
+            shared = prompt(1024)
+            hits0 = engine.prefix_cache.hits
+            for tail in (200, 150):
+                _completion(*_post(url, {"prompt": shared + prompt(tail),
+                                         "max_tokens": 8}), 8,
+                            f"prefix {tail}")
+            out["prefix_hits"] = engine.prefix_cache.hits - hits0
+            if out["prefix_hits"] < 1:
+                fail(f"{tag}: the shared-prefix request missed the "
+                     f"prefix cache")
+            status, raw = _post(url, {"prompt": prompt(64),
+                                      "max_tokens": 8, "stream": True})
+            events = [ln[6:] for ln in raw.decode().splitlines()
+                      if ln.startswith("data: ")]
+            if status != 200 or events[-1] != "[DONE]":
+                fail(f"{tag}: the SSE stream did not end with [DONE]")
+            torch.cuda.synchronize()
+            launches = dict(flash.LAUNCHES)
+            serve_shapes = dict(flash.INT4_LAUNCHES_BY_SHAPE)
+        finally:
+            server.stop()
+        out["step"] = _step_times(torch, engine, prompt,
+                                  with_prefill=quantization == "none")
+        out["int4_per_decode_step"] = \
+            out["step"]["decode"]["launches"]["int4_matmul"]
+        with open(reqlog) as f:
+            recs = [json.loads(line) for line in f]
+        del engine, server, sched
+    out["launches"] = launches
+    out["int4_shapes_serving"] = {f"K={k} N={n}": c
+                                  for (k, n), c in serve_shapes.items()}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    _no_attention_kernels(tag, launches)
+    if quantization == "int4":
+        for _, K, N in V3_INT4_SHAPES:
+            if serve_shapes.get((K, N), 0) <= 0:
+                fail(f"{tag}: B4 never launched at K {K}, N {N} while "
+                     f"serving ({out['int4_shapes_serving']})")
+        if launches["int4_matmul"] <= 0:
+            fail(f"{tag}: int4_matmul was never launched while serving")
+    if sum(serve_shapes.values()) != launches["int4_matmul"]:
+        fail(f"{tag}: B4's launches by shape {out['int4_shapes_serving']} "
+             f"do not sum to its {launches['int4_matmul']} launches")
+    ttft = sorted(r["ttft_s"] for r in recs if r.get("ttft_s") is not None)
+    tpot = sorted(r["tpot_s"] for r in recs if r.get("tpot_s"))
+    out["requests"] = len(recs)
+    out["ttft_median_s"] = statistics.median(ttft)
+    out["tpot_median_s"] = statistics.median(tpot)
+    log(f"{tag} {len(recs)} requests: TTFT median "
+        f"{out['ttft_median_s'] * 1e3:.1f} ms (max {ttft[-1] * 1e3:.1f}); "
+        f"TPOT median {out['tpot_median_s'] * 1e3:.2f} ms; "
+        f"{out['prefix_hits']} prefix-cache hit(s); launches while "
+        f"serving {launches}; B4 launches by shape while serving "
+        f"{out['int4_shapes_serving']}, in one 8-slot decode step "
+        f"{out['int4_per_decode_step']}; peak device memory "
+        f"{out['peak_gib']:.2f} GiB")
+    return out
+
+
+def phase_mla_int4_kernel(torch):
+    """B4 against its plain version at m = 8 (a decode step of 8 slots)
+    at DeepSeek-V3's int4 shapes (`V3_INT4_SHAPES`: the shared experts'
+    K 7168, N 2048 and the dense layers' K 7168, N 18432), L2 flushed,
+    with the byte bound and `_weight_int4pack_mm`'s time; the first must
+    repeat its bits."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    timer = Timer(torch, torch.device("cuda"))
+    weights = {}
+    cases = [int4_case(torch, timer, gen, weights, name, 8, K, N,
+                       repeat_bits=i == 0)
+             for i, (name, K, N) in enumerate(V3_INT4_SHAPES)]
+    for c in cases:
+        log(f"[kernels] int4_matmul DeepSeek-V3 {c['case']}: share of bound "
+            f"{c['share_of_bound']:.3f}; bf16 torch.mm over the dequantized "
+            f"weight {c['bf16_mm_ms']:.4f} ms; _weight_int4pack_mm err "
+            f"{c['library_err']}")
+    del weights
+    return check_cases({"int4_matmul": cases})
+
+
 SOURCES = {
     "flash_decode": ("ome_tpu_torch/ops/csrc/flash_decode.cu",
                      "ome_tpu/ops/flash.py:148"),
@@ -5686,6 +6340,14 @@ def main() -> int:
     for key, model in FAMILY_SERVERS:
         run(key, phase_serve, torch, model=model,
             free=f"the {model['label']} server")
+    run("mla_identity", phase_mla_identity, torch)
+    run("mla_checkpoint", phase_mla_checkpoint, torch,
+        free="the DeepSeek checkpoint")
+    run("mla_pd", phase_mla_pd, torch, free="the DeepSeek PD servers")
+    for key, model, quantization in MLA_SERVERS:
+        run(key, phase_serve_mla, torch, model, quantization,
+            free=f"the {model['label']} {quantization} server")
+    run("mla_int4_kernel", phase_mla_int4_kernel, torch)
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -5752,6 +6414,12 @@ def main() -> int:
                                           "prefill bf16 B=1 Sq=2048 "),
              go["flash_prefill"])):
         kernels.append(entry(name, label, case, n))
+    # B4 at DeepSeek-V3's shapes (launches: the V3 int4 server's, by shape)
+    v3 = report["serve_deepseek_v3_int4"]["int4_shapes_serving"]
+    for case, (leaf, K, N) in zip(report["mla_int4_kernel"]["int4_matmul"],
+                                  V3_INT4_SHAPES):
+        kernels.append(entry("int4_matmul", f"int4_matmul DeepSeek-V3 {leaf} "
+                             f"K {K} N {N} m 8", case, v3[f"K={K} N={N}"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -73,6 +73,8 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import heapq
+import itertools
 import logging
 import queue
 import threading
@@ -87,7 +89,7 @@ from ..models import llama
 from ..models.config import ModelConfig
 from ..models.lora import _target_dims, load_adapter_matrices
 from ..models.params import Params
-from ..ops.flash import (check_head_dim, check_paged_coverage,
+from ..ops.flash import (check_model_head_dim, check_paged_coverage,
                          quantize_rows)
 from .sampling import sample, spec_verify
 
@@ -112,6 +114,12 @@ class DecodeState:
 class UnknownAdapterError(ValueError):
     """Request names a LoRA adapter the engine doesn't have loaded — a
     PER-REQUEST error, never a scheduler fault."""
+
+
+# the reference engine's refusal of paged KV (ome_tpu/engine/core.py)
+PAGED_REFUSAL = ("paged KV supports standard rmsnorm GQA models; "
+                 "MLA/MoE/sliding-window/parallel-block/layernorm/sink "
+                 "models use the dense cache")
 
 
 class PagedKVUnsupported(ValueError):
@@ -281,33 +289,41 @@ class PrefixCache:
     def _evict_locked(self):
         """Drop least-recently-used LEAF nodes until within budget
         (parents stay useful for the prompts that still share them).
+        A parent that an eviction leaves childless becomes a candidate
+        at its own tick, so the order is LRU over the leaves of the
+        moment: a chain just put outlives an older one whole. (The
+        reference evicts every leaf of one pass in tick order before it
+        looks at the parents that pass exposed, the leaf just put
+        among them: a put of n blocks into a full tier that holds one
+        older chain dropped the tail of both.)
         With the host tier on, an evicted leaf is returned as
         (path, node) for the caller to spill AFTER releasing the lock —
         the device-to-host copy waits, and a lock region must never
         reach a wait."""
         spills = []
-        while self.bytes > self.capacity_bytes:
-            leaves = []
-            stack = [(self._root, ())]
-            while stack:
-                node_map, path = stack.pop()
-                for key, node in node_map.items():
-                    if node["children"]:
-                        stack.append((node["children"], path + key))
-                    else:
-                        leaves.append((node["last"], node_map, key, node,
-                                       path + key))
-            if not leaves:
-                return spills
-            leaves.sort(key=lambda t: t[0])
-            for _, parent_map, key, node, path in leaves:
-                if self.bytes <= self.capacity_bytes:
-                    return spills
-                self.bytes -= self._leaf_bytes(*node["kv"])
-                self.evictions += 1
-                if self.host_capacity_bytes > 0:
-                    spills.append((path, node))
-                del parent_map[key]
+        if self.bytes <= self.capacity_bytes:
+            return spills
+        # (last, order, (parent map, key, node, path, parent's entry))
+        heap, order = [], itertools.count()
+        stack = [(self._root, (), None)]
+        while stack:
+            node_map, path, up = stack.pop()
+            for key, node in node_map.items():
+                entry = (node_map, key, node, path + key, up)
+                if node["children"]:
+                    stack.append((node["children"], path + key, entry))
+                else:
+                    heap.append((node["last"], next(order), entry))
+        heapq.heapify(heap)
+        while self.bytes > self.capacity_bytes and heap:
+            _, _, (parent_map, key, node, path, up) = heapq.heappop(heap)
+            self.bytes -= self._leaf_bytes(*node["kv"])
+            self.evictions += 1
+            if self.host_capacity_bytes > 0:
+                spills.append((path, node))
+            del parent_map[key]
+            if up is not None and not up[2]["children"]:
+                heapq.heappush(heap, (up[2]["last"], next(order), up))
         return spills
 
     def _spill(self, spills) -> None:
@@ -510,9 +526,10 @@ class InferenceEngine:
                  seed: int = 0, mask_table_rows: int = 64,
                  lora_slots: int = 0, lora_rank: int = 16):
         self.device = resolve_device(device)
-        # every attention step on a card runs the CUDA kernels: refuse a
-        # head_dim they do not take here, not at the first prefill
-        check_head_dim(cfg.head_dim, self.device)
+        # every attention step on a card runs the CUDA kernels (MLA's
+        # plain products excepted): refuse a head_dim they do not take
+        # here, not at the first prefill
+        check_model_head_dim(cfg, self.device)
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_seq = max_seq or cfg.max_seq_len
@@ -549,10 +566,12 @@ class InferenceEngine:
                 ("parallel blocks", cfg.parallel_block),
                 ("attention sinks", cfg.attn_sinks)) if on]
             if refused:
+                # the reference's sentence word for word, then what this
+                # model has (the port also serves one model-wide window)
                 raise PagedKVUnsupported(
-                    "paged KV supports standard rmsnorm GQA models, with "
-                    "or without one sliding window; this model has "
-                    f"{', '.join(refused)}: serve it from the dense cache")
+                    f"{PAGED_REFUSAL}; this model has "
+                    f"{', '.join(refused)}: serve it from the dense cache "
+                    "(one model-wide sliding window is served paged)")
             if self.device.type == "cuda":
                 # every paged decode step runs the CUDA kernel; refuse a
                 # shape it does not take here rather than at the first

@@ -32,7 +32,7 @@ from ..device import resolve_device
 from ..models import llama
 from ..models.config import ModelConfig
 from ..models.params import Params
-from ..ops.flash import check_head_dim
+from ..ops.flash import check_model_head_dim
 
 
 def forward_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -47,10 +47,14 @@ def forward_embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if freqs is None:
         freqs = llama.rope_frequencies(cfg, dev)
     x = llama._embed_scaled(params, cfg, tokens)
+    # the `layers` block alone, as the reference's embedding scan runs
+    # it: a DeepSeek model's leading `dense_layers` are skipped there and
+    # here (ROADMAP Queue C)
     layers = params["layers"]
-    for i, (window, use_rope) in enumerate(llama.layer_windows(cfg)):
+    windows = llama.layer_windows(cfg)
+    for i in range(llama._block_depth(layers)):
         x = llama._layer(x, llama._layer_params(layers, i), cfg, freqs,
-                         positions, None, None, None, None, window, use_rope)
+                         positions, None, None, None, None, *windows[i])
     x = llama.block_norm(x, params, "final_norm", cfg)
     # last REAL token pools the sequence (decoder embedding convention)
     rows = torch.arange(B, device=dev)
@@ -67,7 +71,7 @@ class EmbeddingEngine:
                  buckets: Optional[List[int]] = None,
                  device: Optional[Union[str, torch.device]] = None):
         self.device = resolve_device(device)
-        check_head_dim(cfg.head_dim, self.device)
+        check_model_head_dim(cfg, self.device)
         self.cfg = cfg
         self.model = llama.Llama(cfg, params).to(self.device)
         self.max_seq = max_seq or min(cfg.max_seq_len, 8192)

@@ -92,18 +92,25 @@ def upload_planes(k, v, device, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
             to_device(_as_tensor(v), device, dtype))
 
 
+def _bytes_of(a) -> memoryview:
+    """A contiguous buffer's bytes as a flat view; an empty plane (the
+    zero-width v plane of an MLA latent cache) is no bytes, which
+    `memoryview.cast` cannot express."""
+    view = memoryview(a)
+    return view.cast("B") if view.nbytes else memoryview(b"")
+
+
 def _plane_view(x: torch.Tensor) -> memoryview:
     """The bytes of a host plane, without a copy (bf16 through int16)."""
     t = x.detach().cpu().contiguous()
     view = _TORCH_VIEW.get(t.dtype)
-    return memoryview((t.view(view) if view is not None else t).numpy()
-                      ).cast("B")
+    return _bytes_of((t.view(view) if view is not None else t).numpy())
 
 
 def _pack(header: bytes, *planes) -> bytes:
     """Length-prefixed header + planes, copied once into the blob."""
     return b"".join([struct.pack("<I", len(header)), header,
-                     *(memoryview(p).cast("B") for p in planes)])
+                     *(_bytes_of(p) for p in planes)])
 
 
 def _read_plane(body, offset: int, shape, dtype: torch.dtype):

@@ -22,7 +22,11 @@ DIR is a HuggingFace model directory: config.json plus safetensors
 weights (one file, or shards with model.safetensors.index.json), loaded
 by `models/checkpoint.load_params` onto the device;
 `--random-weights` instead draws the weights from `--seed` for the
-shape in DIR/config.json.
+shape in DIR/config.json. Every architecture of the reference's gate is
+served, the MLA family included (`DeepseekV2ForCausalLM`,
+`DeepseekV3ForCausalLM`: DeepSeek-V2, V2-Lite, V3, Kimi-K2, over a
+latent KV cache); a MoE model runs the ragged dispatch
+(`moe_impl="ragged"`), as the reference serves it on one device.
 `--kv-block` serves from a paged KV pool (bf16, or int8 with
 `--kv-dtype int8`) whose decode attention runs the paged CUDA kernel;
 a model or block size that kernel does not take exits with the
@@ -374,14 +378,14 @@ def load_params_cfg(args, device):
     """(params, cfg) on `device`: the safetensors checkpoint in
     --model-dir, or random weights from --seed for its config.json. A
     head_dim the CUDA kernels do not take exits before any weight is
-    read."""
+    read (MLA models launch none of them: `check_model_head_dim`)."""
     from ..models import checkpoint
     from ..models.params import init_params, param_count
-    from ..ops.flash import check_head_dim
+    from ..ops.flash import check_model_head_dim
 
     def refuse_head_dim(cfg):
         try:
-            check_head_dim(cfg.head_dim, device)
+            check_model_head_dim(cfg, device)
         except NotImplementedError as e:
             raise SystemExit(f"--model-dir {args.model_dir}: {e}")
 

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -57,9 +57,17 @@ class QTensor:
     axis: int = -1
 
     def dequant(self, dtype=torch.bfloat16) -> torch.Tensor:
-        if self.bits == 8:
-            return (self.q.float() * self.s).to(dtype)
-        return _unpack4(self.q, self.s, self.axis).to(dtype)
+        """The weight in `dtype`: each fp32 product of a value and its
+        scale rounded once to `dtype`, as in the reference, and written
+        straight into the output, so that on a card no fp32 copy of the
+        weight is made (a 256-expert DeepSeek-V3 stack would take
+        twice its bf16 size in one)."""
+        out = torch.empty(self.shape, dtype=dtype, device=self.q.device)
+        if self.bits == 4:
+            return _unpack4(self.q, self.s, self.axis, out)
+        # float8 does not promote with fp32: it is widened first
+        q = self.q if self.q.dtype == torch.int8 else self.q.float()
+        return torch.mul(q, self.s.float(), out=out)
 
     def take(self, idx: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
         """Row gather (embedding lookup) without a full dequant."""
@@ -93,26 +101,31 @@ class QTensor:
         return n
 
 
-def _unpack4(q: torch.Tensor, s: torch.Tensor, axis: int) -> torch.Tensor:
-    """Dequantize half-packed int4: q [..., K/2, ...] -> f32 [..., K, ...].
+def _unpack4(q: torch.Tensor, s: torch.Tensor, axis: int,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dequantize half-packed int4: q [..., K/2, ...] -> [..., K, ...]
+    into `out` (fp32 when None).
 
     Low nibble of byte j is row j, high nibble row K/2 + j, both sign-
-    extended (in int32: a left shift by 28 then an arithmetic right
-    shift, and an arithmetic right shift by 4); s has n_groups
-    contiguous groups along the axis."""
+    extended (an int8 left shift by 4 then an arithmetic right shift,
+    and an arithmetic right shift by 4); s has n_groups contiguous
+    groups along the axis. Each product is taken in fp32 and rounded
+    once to out's dtype."""
     axis = axis % q.dim()
     n_groups = s.shape[axis]
-    pre, post = tuple(q.shape[:axis]), tuple(q.shape[axis + 1:])
-    q32 = q.to(torch.int32)
-    lo = (q32 << 28) >> 28
-    hi = q32 >> 4
-    full = torch.cat([lo, hi], dim=axis).float()
-    K = 2 * q.shape[axis]
-    gsize = K // n_groups
-    fr = full.reshape(pre + (n_groups, gsize) + post)
-    sr = s.reshape(tuple(s.shape[:axis]) + (n_groups, 1)
-                   + tuple(s.shape[axis + 1:]))
-    return (fr * sr).reshape(pre + (K,) + post)
+    half = q.shape[axis]
+    K = 2 * half
+    shape = tuple(q.shape[:axis]) + (K,) + tuple(q.shape[axis + 1:])
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=q.device)
+    nib = torch.empty(shape, dtype=torch.int8, device=q.device)
+    torch.bitwise_right_shift(torch.bitwise_left_shift(q, 4), 4,
+                              out=nib.narrow(axis, 0, half))
+    torch.bitwise_right_shift(q, 4, out=nib.narrow(axis, half, half))
+    groups = (n_groups, K // n_groups)
+    torch.mul(nib.unflatten(axis, groups), s.float().unsqueeze(axis + 1),
+              out=out.unflatten(axis, groups))
+    return out
 
 
 def _amax(w32: torch.Tensor, axes) -> torch.Tensor:
@@ -191,16 +204,24 @@ _INT8_ONLY = {"w_down", "ws_down", "wo"}
 def _per_layer(fn, v: torch.Tensor, axes) -> QTensor:
     """`fn(v, axes)` on a stacked [L, ...] leaf, one layer slab at a
     time, into preallocated planes: the same bytes as the whole-leaf
-    call, with one layer's temporaries."""
+    call, with one layer's temporaries. A slab whose own leading axis
+    is not a contraction axis (an expert stack [E, ...], MLA's per-head
+    w_uk / w_uv) is cut again along that axis, for the same reason and
+    with the same bytes: no scale spans it."""
     inner = tuple(a - 1 for a in axes)
-    first = fn(v[0], inner)
+
+    def one(slab):
+        if 0 not in inner and slab.dim() >= 3:
+            return _per_layer(fn, slab, inner)
+        return fn(slab, inner)
+    first = one(v[0])
     q = torch.empty((v.shape[0],) + tuple(first.q.shape),
                     dtype=first.q.dtype, device=v.device)
     s = torch.empty((v.shape[0],) + tuple(first.s.shape),
                     dtype=first.s.dtype, device=v.device)
     q[0], s[0] = first.q, first.s
     for i in range(1, v.shape[0]):
-        qt = fn(v[i], inner)
+        qt = one(v[i])
         q[i], s[i] = qt.q, qt.s
     return QTensor(q=q, s=s, bits=first.bits, axis=first.axis)
 

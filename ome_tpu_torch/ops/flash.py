@@ -81,6 +81,8 @@ M_INIT = -1.0e30  # finite lowest running max: exp(x - M_INIT) underflows to 0
 LAUNCHES = {"flash_decode": 0, "flash_prefill": 0,
             "flash_paged_decode": 0, "flash_decode_quantized": 0,
             "int4_matmul": 0}
+# int4_matmul's launches by (K, N), counted at the same launch
+INT4_LAUNCHES_BY_SHAPE: dict = {}
 
 # head_dims the CUDA kernels take (B1, B2, B3, B5)
 _DIMS = (64, 96, 128, 256)
@@ -94,6 +96,7 @@ _RECIP_127 = 1.0 / 127.0    # rounded to f32 where it multiplies a f32 tensor
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    INT4_LAUNCHES_BY_SHAPE.clear()
 
 
 def _dims_text() -> str:
@@ -110,6 +113,17 @@ def check_head_dim(head_dim: int, device) -> None:
         raise NotImplementedError(
             f"head_dim {head_dim}: the CUDA attention kernels take "
             f"head_dim {_dims_text()}")
+
+
+def check_model_head_dim(cfg, device) -> None:
+    """`check_head_dim` for a model config, where its attention runs the
+    kernels: MLA attention (`cfg.mla`: DeepSeek, Kimi-K2) is plain
+    products over the latent cache that launch none of them, so its
+    derived head_dim (hidden / heads, 56 for DeepSeek-V3) is not
+    checked. The engine, the embedding engine and `serve`'s loader call
+    this one predicate."""
+    if not cfg.mla:
+        check_head_dim(cfg.head_dim, device)
 
 
 def check_group(name: str, H: int, K: int) -> None:

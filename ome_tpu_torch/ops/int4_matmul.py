@@ -40,7 +40,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from .flash import LAUNCHES
+from .flash import INT4_LAUNCHES_BY_SHAPE, LAUNCHES
 
 MAX_M = 256   # flattened batch rows the kernel takes (decode, short prefill)
 _BN = 512     # the reference's column block; its divisibility rule stays
@@ -284,9 +284,9 @@ def _scratch(dev: torch.device, stream: int, plan: Int4Plan
 def int4_matmul(x: torch.Tensor, qt, out_dtype=torch.bfloat16
                 ) -> torch.Tensor:
     """y[..., N] = x[..., K] @ dequant(qt) in `out_dtype`: the CUDA
-    kernel for a CUDA tensor (counted as LAUNCHES["int4_matmul"]; a
-    shape outside `int4_eligible` raises), the plain version for a CPU
-    tensor."""
+    kernel for a CUDA tensor (counted as LAUNCHES["int4_matmul"] and by
+    (K, N) in INT4_LAUNCHES_BY_SHAPE; a shape outside `int4_eligible`
+    raises), the plain version for a CPU tensor."""
     if not x.is_cuda:
         return int4_matmul_ref(x, qt, out_dtype)
     if not int4_eligible(tuple(x.shape), qt):
@@ -334,4 +334,5 @@ def int4_matmul(x: torch.Tensor, qt, out_dtype=torch.bfloat16
         raise RuntimeError(f"int4_matmul: kernel launch failed with CUDA "
                            f"error {rc}")
     LAUNCHES["int4_matmul"] += 1
+    INT4_LAUNCHES_BY_SHAPE[(k, n)] = INT4_LAUNCHES_BY_SHAPE.get((k, n), 0) + 1
     return out.reshape(*lead, n)

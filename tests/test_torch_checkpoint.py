@@ -17,7 +17,7 @@ Then:
 * an architecture outside the gate is refused by both packages;
   Qwen2 (attention biases) converts to the same tree and `load_params`
   serves it, while the same checkpoint under a config that asks for
-  shared experts (not ported) is refused by name;
+  an architecture the reference does not serve is refused by name;
 * `--quantization int4` quantizes the loaded tree to the reference's
   bytes, and `serve --model-dir DIR` (no `--random-weights`) answers
   with the greedy tokens of an engine over the same weights.
@@ -188,10 +188,10 @@ def test_qwen2_converts_equal_but_is_refused_by_name(ckpts, tmp_path):
     loaded, _ = checkpoint.load_params(d, dtype=torch.bfloat16,
                                        device="cpu")
     _assert_trees_equal(loaded, ref)
-    hf = dict(CONFIGS["qwen2"], num_experts=4, num_experts_per_tok=2,
-              n_shared_experts=1)
+    hf = dict(CONFIGS["qwen2"],
+              architectures=["MllamaForConditionalGeneration"])
     (tmp_path / "config.json").write_text(json.dumps(hf))
-    with pytest.raises(NotImplementedError, match="shared experts"):
+    with pytest.raises(checkpoint.SafetensorsError, match="Mllama"):
         checkpoint.load_params(str(tmp_path), device="cpu")
 
 

@@ -170,6 +170,63 @@ def test_host_budget_bounds_the_lru_like_the_reference():
     assert t.match([16, 17, 18, 19, 9]) is not None
 
 
+def _chain_planes(ids, seed):
+    k = np.random.default_rng(seed).standard_normal(
+        (1, 1, len(ids), 1, 2)).astype(np.float32)
+    return k, -k
+
+
+N_CHAIN = 4
+CHAIN_A = list(range(1, 1 + N_CHAIN * BLOCK))
+CHAIN_B = list(range(100, 100 + N_CHAIN * BLOCK))
+CHAIN_KW = dict(capacity_bytes=N_CHAIN * BLOCK_BYTES, block=BLOCK,
+                min_prefix=BLOCK, host_capacity_bytes=4 * N_CHAIN
+                * BLOCK_BYTES)
+
+
+def test_put_into_a_full_tier_evicts_the_older_chain_first():
+    """A tier that holds one chain of n blocks takes the put of another
+    n-block chain by evicting the older chain whole: LRU over the
+    leaves of the moment. The reference evicts every leaf of one pass,
+    the new chain's last block among them, so there the new chain
+    keeps half its blocks; the port departs from it here."""
+    got = {}
+    for name, pc, conv in (("ref", JaxPrefixCache(**CHAIN_KW), jnp.asarray),
+                           ("port", PrefixCache(**CHAIN_KW),
+                            torch.from_numpy)):
+        for seed, ids in enumerate((CHAIN_A, CHAIN_B)):
+            k, v = _chain_planes(ids, seed)
+            pc.put(ids, conv(k), conv(v), len(ids), len(ids))
+        got[name] = pc.match(CHAIN_B + [0])[2]
+        pc.drain_swapins()
+        assert pc.tier_conservation()[0]
+    assert got == {"ref": N_CHAIN // 2 * BLOCK, "port": N_CHAIN * BLOCK}
+
+
+def test_put_after_swapins_keeps_the_whole_chain():
+    """A host hit's recomputing put that lands after some of the chain's
+    swap-ins (the swap thread runs beside the prefill) leaves the whole
+    chain on the device, and the chain it displaced whole in the host
+    tier."""
+    pc = PrefixCache(**CHAIN_KW)
+    for seed, ids in enumerate((CHAIN_A, CHAIN_B)):
+        k, v = _chain_planes(ids, seed)
+        pc.put(ids, torch.from_numpy(k), torch.from_numpy(v), len(ids),
+               len(ids))
+    for j in (1, 2):        # two of the chain's blocks swapped in first
+        pc._swapin_one(tuple(CHAIN_A[:j * BLOCK]))
+    assert pc.host_swapins == 2
+    k, v = _chain_planes(CHAIN_A, 0)
+    pc.put(CHAIN_A, torch.from_numpy(k), torch.from_numpy(v),
+           len(CHAIN_A), len(CHAIN_A))
+    hit = pc.match(CHAIN_A + [0])
+    assert hit[2] == N_CHAIN * BLOCK
+    np.testing.assert_array_equal(hit[0].numpy(), k)
+    assert all(tuple(CHAIN_B[:j * BLOCK]) in pc._host
+               for j in range(1, N_CHAIN + 1))
+    assert pc.tier_conservation() == (True, N_CHAIN, N_CHAIN)
+
+
 def test_tier_disabled_without_budget():
     t = Twin(dev_blocks=2, host_blocks=0)
     for start in range(0, 16, 4):

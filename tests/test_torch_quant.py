@@ -181,3 +181,46 @@ def test_llama_module_holds_quantized_leaves(quantized):
             assert got.q is leaf.q and got.s is leaf.s
         else:
             assert got is leaf
+
+
+@pytest.mark.parametrize("mode,shape,axes", [
+    # int4 with an odd group count: the packed halves split group 1
+    ("int4", (384, 96), (0,)),
+    # int4 with one group along the axis (K 200 is not a multiple of 128)
+    ("int4", (200, 64), (0,)),
+    # an expert stack [E, D, F], the contraction over D
+    ("int4", (4, 256, 64), (1,)),
+    ("int8", (4, 256, 64), (1,)),
+    ("fp8", (4, 256, 64), (1,)),
+])
+def test_dequant_into_output_bit_identical(mode, shape, axes):
+    """`dequant` writes each fp32 product straight into the output; its
+    bits equal the reference's whole-array dequant in fp32 and bf16, at
+    group layouts the model configs above do not reach."""
+    fns = {"int8": (jquant.quantize_tensor, quant.quantize_tensor),
+           "int4": (jquant.quantize_tensor_int4,
+                    quant.quantize_tensor_int4),
+           "fp8": (jquant.quantize_tensor_fp8, quant.quantize_tensor_fp8)}
+    jfn, tfn = fns[mode]
+    w = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    jq, tq = jfn(jnp.asarray(w), axes), tfn(_t(w), axes)
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        want = np.asarray(jq.dequant(jdt))
+        got = to_numpy(tq.dequant(tdt))
+        np.testing.assert_array_equal(
+            got, want.view(np.uint16) if tdt == torch.bfloat16 else want)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_expert_stacks_quantize_by_slice_to_the_whole_leaf_bytes(mode):
+    """An expert stack [L, E, D, F] is quantized one expert at a time
+    (`_per_layer`); its bytes equal one call on the whole leaf."""
+    fn = {"int8": quant.quantize_tensor, "fp8": quant.quantize_tensor_fp8,
+          "int4": quant.quantize_tensor_int4}[mode]
+    w = _t(np.random.default_rng(4).standard_normal(
+        (2, 3, 256, 32)).astype(np.float32))
+    whole, sliced = fn(w, (2,)), quant._per_layer(fn, w, (2,))
+    assert (whole.bits, whole.axis) == (sliced.bits, sliced.axis)
+    np.testing.assert_array_equal(to_numpy(sliced.q), to_numpy(whole.q))
+    np.testing.assert_array_equal(to_numpy(sliced.s), to_numpy(whole.s))

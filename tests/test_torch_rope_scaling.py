@@ -130,12 +130,14 @@ def test_check_supported_admits_the_families_and_refuses_mla():
                 "first_k_dense_replace": 1, "kv_lora_rank": 16,
                 "q_lora_rank": 16, "qk_nope_head_dim": 8,
                 "qk_rope_head_dim": 8, "v_head_dim": 8, "vocab_size": 64}
+    # the MLA family is served too (tests/test_torch_mla.py): V3's
+    # sigmoid_v3 router with its selection bias, V2's softmax_v2
     cfg = ModelConfig.from_hf_config(deepseek)
-    for name in ("MLA attention", "shared experts", "first_k_dense",
-                 "sigmoid_v3", "router_bias"):
-        with pytest.raises(NotImplementedError, match=name):
-            check_supported(cfg)
+    assert cfg.mla and cfg.router_scoring == "sigmoid_v3" and cfg.router_bias
+    check_supported(cfg)
     v2 = ModelConfig.from_hf_config(dict(
         deepseek, architectures=["DeepseekV2ForCausalLM"]))
-    with pytest.raises(NotImplementedError, match="softmax_v2"):
-        check_supported(v2)
+    assert v2.router_scoring == "softmax_v2"
+    check_supported(v2)
+    with pytest.raises(NotImplementedError, match="'topk_softplus'"):
+        check_supported(cfg.replace(router_scoring="topk_softplus"))

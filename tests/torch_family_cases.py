@@ -2,6 +2,10 @@
 and gpt-oss tests (tests/test_torch_gemma2.py, test_torch_cohere.py,
 test_torch_phimoe.py, test_torch_gptoss.py).
 
+The MLA family (DeepSeek-V2-Lite, V2, V3, V3 with yarn, Kimi-K2:
+`MLA_FAMILIES`) has 3 layers, the first of them dense, with seeded
+MLA norms and selection bias.
+
 Each family is a tiny HuggingFace-style config.json dict parsed by both
 packages' `ModelConfig.from_hf_config`: 2 layers (Cohere2 4: one period
 of its pattern), hidden 64, 4 heads over 2 KV heads of 16 dims, a
@@ -80,6 +84,53 @@ FAMILIES = {
                                  "beta_fast": 32.0, "beta_slow": 1.0,
                                  "original_max_position_embeddings": 32}),
 }
+# the MLA family (tests/test_torch_mla*.py): 3 layers, the first dense
+# (first_k_dense_replace 1), 4 query heads of 16 + 8 (nope + rope) dims
+# over a 32-value latent, v 16, 4 experts of 48 (8 for V3-shaped ones)
+_DEEPSEEK = dict(num_hidden_layers=3, moe_intermediate_size=48,
+                 n_shared_experts=1, num_experts_per_tok=2,
+                 kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                 v_head_dim=16, first_k_dense_replace=1)
+FAMILIES.update({
+    # DeepSeek-V2-Lite: no q LoRA, plain greedy top-k, no normalization
+    "dsv2lite": dict(_DEEPSEEK, architectures=["DeepseekV2ForCausalLM"],
+                     model_type="deepseek_v2", n_routed_experts=4,
+                     q_lora_rank=None, topk_method="greedy", n_group=1,
+                     topk_group=1, norm_topk_prob=False,
+                     routed_scaling_factor=1.0),
+    # DeepSeek-V2: q LoRA and group-limited greedy (2 groups, top 1),
+    # a scaling factor it applies without normalization
+    "dsv2": dict(_DEEPSEEK, architectures=["DeepseekV2ForCausalLM"],
+                 model_type="deepseek_v2", n_routed_experts=4,
+                 q_lora_rank=24, topk_method="group_limited_greedy",
+                 n_group=2, topk_group=1, norm_topk_prob=False,
+                 routed_scaling_factor=1.5),
+    # DeepSeek-V3: sigmoid scores, seeded selection bias, top-2-sum
+    # group scores, normalization and the scaling factor
+    "dsv3": dict(_DEEPSEEK, architectures=["DeepseekV3ForCausalLM"],
+                 model_type="deepseek_v3", n_routed_experts=8,
+                 num_experts_per_tok=3, q_lora_rank=24, n_group=2,
+                 topk_group=1, norm_topk_prob=True,
+                 routed_scaling_factor=2.5),
+    # DeepSeek-V3 with the yarn scaling its checkpoints ship (mscale
+    # corrections of the scores and of cos/sin), past the original window
+    "dsv3yarn": dict(_DEEPSEEK, architectures=["DeepseekV3ForCausalLM"],
+                     model_type="deepseek_v3", n_routed_experts=8,
+                     num_experts_per_tok=3, q_lora_rank=24, n_group=2,
+                     topk_group=1, norm_topk_prob=True,
+                     routed_scaling_factor=2.5,
+                     rope_scaling={"rope_type": "yarn", "factor": 4.0,
+                                   "beta_fast": 32, "beta_slow": 1,
+                                   "mscale": 0.707, "mscale_all_dim": 1.0,
+                                   "original_max_position_embeddings": 16}),
+    # Kimi-K2 (DeepseekV3ForCausalLM): one group, more experts per token
+    "kimik2": dict(_DEEPSEEK, architectures=["DeepseekV3ForCausalLM"],
+                   model_type="kimi_k2", n_routed_experts=8,
+                   num_experts_per_tok=4, q_lora_rank=24, n_group=1,
+                   topk_group=1, norm_topk_prob=True,
+                   routed_scaling_factor=2.827),
+})
+MLA_FAMILIES = ("dsv2lite", "dsv2", "dsv3", "dsv3yarn", "kimik2")
 GREEDY = (np.zeros(SLOTS, np.float32), np.zeros(SLOTS, np.int32),
           np.ones(SLOTS, np.float32))
 
@@ -146,6 +197,15 @@ def seeded_tree(jcfg, seed: int) -> dict:
         lay["we_down_b"] = noise((L, E, D), 0.1)
     if jcfg.lm_head_bias:
         tree["lm_head_bias"] = noise((jcfg.vocab_size,), 0.5)
+    if jcfg.mla:
+        # the MLA norms of both blocks, the dense block's layer norms,
+        # and V3's selection bias (zero in the init: inert)
+        for blk in (lay, tree.get("dense_layers", {})):
+            for name in ("q_a_norm", "kv_a_norm", "attn_norm", "mlp_norm"):
+                if name in blk and (blk is not lay or "_a_" in name):
+                    blk[name] = norm_scale(blk[name].shape)
+        if "router_bias" in lay:
+            lay["router_bias"] = noise(lay["router_bias"].shape, 0.05)
     return tree
 
 
