@@ -53,7 +53,7 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    bits;
 4. serve: the OpenAI HTTP server from `ome_tpu_torch.engine.serve.
    build_server` at the Llama-3-8B shape, all 32 layers (random bf16
-   weights from a seed; phases 5-7 run at this depth too, the other
+   weights from a seed; phases 5-6 run at this depth too, the other
    8B-width servers at `CUT_LAYERS` = 8), answering concurrent
    completions, a stream, a prefix-cache hit and a repeated prompt, with the kernel launch counters read around it;
    then the engine's decode and prefill step times;
@@ -64,8 +64,8 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    idle, B3 launched and B1 not;
 6. paged int8: `--kv-dtype int8` with the same seed: first tokens equal
    the bf16 server's, B3's int8 branch launched, pool conserved;
-7. serve int4: the dense server again with `--quantization int4`
-   (weights quantized at load): the same requests, B4 launched by its
+7. serve int4: the dense server again, `CUT_LAYERS` deep, with
+   `--quantization int4` (weights quantized at load): the same requests, B4 launched by its
    decode steps and short prefills, a prompt over 256 tokens through the
    dequantizing route; weight bytes, memory and step times;
 8. step times: the dense, paged bf16 and paged int8 engines' decode
@@ -162,8 +162,8 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    medians mixed against the same prompts to the base model; decode
    step wall and device ms, idle share, launches and the delta's device
    ms with and without adapters in the batch; the stacks' bytes;
-31. embeddings (`phase_embed`): e5-mistral-7b-instruct's widths at full
-   size in bf16 through `serve --task embed` (`/v1/embeddings` for 8
+31. embeddings (`phase_embed`): e5-mistral-7b-instruct's widths,
+   `CUT_LAYERS` deep, in bf16 through `serve --task embed` (`/v1/embeddings` for 8
    inputs, completions refused), then 48 inputs of 16-6000 tokens over
    the five buckets, one forward each (B2 at batch N per layer): batch,
    tokens/s, embeddings/s, device ms, idle share and B2 launches per
@@ -188,8 +188,8 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    scheduler streams identical; B1 and B2 launched (gpt-oss's sinks in
    them) and no CUDA call of the plain attention;
 34.-37. bf16 servers (`FAMILY_SERVERS`, through `phase_serve`), 13
-   requests each: Gemma-2-9B, command-r7b and gpt-oss-20b at full size
-   and Phi-3.5-MoE at 16 of its 32 layers (prompts up to 6000 tokens,
+   requests each: Gemma-2-9B, command-r7b, gpt-oss-20b and Phi-3.5-MoE
+   at full width, `CUT_LAYERS` deep (prompts up to 6000 tokens,
    past the 4096-row window; Phi-3.5-MoE's longrope lists seeded, the
    long ones in use; peak device memory): TTFT / TPOT medians,
    decode-step device and wall ms, idle share, top kernels, B1 / B2
@@ -222,6 +222,31 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    decode step; B4 at both shapes at m 8 against its plain version
    (`phase_mla_int4_kernel`), timed with L2 flushed beside its byte
    bound and `_weight_int4pack_mm`.
+41. B1 and B2 at the per-rank shapes of tp 2 (`phase_tp_kernels`,
+   `TP_SHAPES`: Llama-3-8B and Mixtral-8x7B halved, H 16 over K 4,
+   D 128), and B4 at the 8B's per-rank int4 shapes (`TP_INT4_SHAPES`),
+   against their plain versions;
+42. tensor parallelism on one card (`phase_tp_identity`): two ranks on
+   cuda:0 over gloo, this process the leader and a child process
+   (`--tp-follower`) rank 1 replaying its op stream; fp32 at 4 layers of
+   the Llama-3-8B, Mixtral-8x7B and DeepSeek-V2-Lite widths: first-step
+   logits within 2e-4 of tp=1, single-step, `decode_multi` K=4 and
+   spec-4 / K-4 scheduler streams equal to tp=1's, the follower's tokens
+   equal to the leader's op for op at temperature 0.8 with top-k and
+   top-p; the 8B widths again with int4 leaves: B4 launched on both
+   ranks at the per-rank shapes, logits within 2e-4 and single-step
+   streams equal to a tp=1 int4 engine's; and two NCCL ranks on one
+   card refused (`NCCL_PROBE`);
+43. `serve --tp 2 --device cuda:0` at Llama-3-8B full size, bf16
+   (`phase_serve_tp`): phase 4's 13 requests (the three sequential
+   ones at 8 tokens), TTFT / TPOT medians, the
+   streams against phase 4's, B1 and B2 launched on both ranks, each
+   rank's decode-step device and wall ms and collectives' share over an
+   8-slot window (rank 1's by `--rank-stats`), peak memory per rank;
+44. the LWS environment (`phase_tp_lws`): two `serve` processes under
+   JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID with
+   `--control-port` and `--tp-backend gloo`, 4 fp32 layers of the 8B widths: completions equal
+   the tp=1 server's; the follower killed, the leader's /health 503.
 
 The kernels phase also runs B2 at the dense verify's shape: B 8 slots,
 Sq 5 rows each from its own base (60 to 4090) over a 4096-row cache,
@@ -235,20 +260,25 @@ exits non-zero without that line. Longer per-case results go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-# the depth of the Llama-3-8B-width phases cut to keep the whole script
-# inside its time budget: the weight turns (8, 9), the host tier (22) and
-# PD (23) first, then the step-plan servers (13, 14), peering (24), the
-# LoRA server (30) and phase 31's 8B step. The main servers (4-7), whose
-# launches feed the kernels line, keep the 8B's 32 layers.
+# the depth of the phases cut to keep the whole script inside its time
+# budget: the weight turns (8, 9), the host tier (22) and PD (23) first,
+# then the step-plan servers (13, 14), peering (24), the LoRA server (30)
+# and phase 31's 8B step; since the tp phases (41-44), also the
+# embeddings (31), the later families' servers (34-37) and the int4
+# server (7). The main bf16 servers (4-6), whose launches feed the
+# kernels line, keep the 8B's 32 layers, and DeepSeek-V2-Lite (39) its
+# 27.
 CUT_LAYERS = 8
 # device time of one cold 2048-token bf16 prefill of the 8B engine with
 # the mma.sync prefill kernel that the wgmma kernel replaced (NVIDIA
@@ -393,8 +423,6 @@ PHI35_MOE = {"_source": "microsoft/Phi-3.5-MoE-instruct config.json "
                               "long_factor": _seeded_factors(36, 64, 40.0),
                               "short_mscale": 1.243163121016122,
                               "long_mscale": 1.243163121016122}}
-# 16 of its 32 layers in bf16 are ~42 GB; all 32 are ~84 GB
-PHI35_MOE_SERVED_LAYERS = 16
 GPT_OSS_20B = {"_source": "openai/gpt-oss-20b config.json",
                "architectures": ["GptOssForCausalLM"], "model_type": "gpt_oss",
                "vocab_size": 201088, "hidden_size": 2880,
@@ -1982,9 +2010,9 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
 
     hf, name, cfg = _model_hf(model)
     rng = random.Random(seed)
-    tag = "[serve]" if quantization == "none" else f"[serve {quantization}]"
-    if model is not None:
-        tag = f"[serve {name}]"
+    tag = "[serve]" if model is None else f"[serve {name}]"
+    if quantization != "none":
+        tag = f"{tag[:-1]} {quantization}]"
 
     def prompt(n):
         return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
@@ -2050,6 +2078,11 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
             twins = [r for r in seen if r.prompt_ids == twin]
             if len(twins) != 2 or twins[0].output_ids != twins[1].output_ids:
                 fail("serve: the twin prompts gave different outputs")
+            # each batch request's tokens, in body order (phase 43 holds
+            # the tp 2 server's against them)
+            out["streams"] = [next(list(r.output_ids) for r in seen
+                                   if r.prompt_ids == b["prompt"])
+                              for b in bodies]
             log(f"{tag} {len(bodies)} concurrent completions (prompt "
                 f"lengths {lengths} + 2 x 24-token twins): all 200, "
                 f"{out['batch_completion_tokens']} tokens in "
@@ -5027,7 +5060,8 @@ def phase_embed(torch, timeout: float = 900):
 
 
 def embed_measure(torch, seed: int = 0, n_inputs: int = 48) -> int:
-    """Decoder embeddings at e5-mistral-7b-instruct's full size in bf16
+    """Decoder embeddings at e5-mistral-7b-instruct's widths, `CUT_LAYERS`
+    of its 32 layers, in bf16
     (random weights from the seed), through `serve --task embed`:
     `/v1/embeddings` answers 8 inputs and `/v1/completions` is refused
     with the reference's error; then the EmbeddingEngine over 48 inputs
@@ -5052,6 +5086,7 @@ def embed_measure(torch, seed: int = 0, n_inputs: int = 48) -> int:
     from ome_tpu_torch.ops import flash
 
     hf = {k: v for k, v in E5_MISTRAL_7B.items() if k != "_source"}
+    hf["num_hidden_layers"] = CUT_LAYERS  # time budget: 8 of its 32
     rng = random.Random(seed + 31)
     tag = "[embed]"
 
@@ -5613,16 +5648,19 @@ def _family_identity(torch, label, hf, seed, n_layers, steps, prompt_lens):
 FAMILY_LENGTHS_LONG = [16, 300, 1100, 2200, 3500, 4500, 5200, 6000]
 FAMILY_SERVERS = (
     ("serve_gemma2_9b", {"hf": GEMMA2_9B, "label": "Gemma-2-9B",
+                         "layers": CUT_LAYERS,
                          "seed_leaves": True, "max_seq": 8192,
                          "lengths": FAMILY_LENGTHS_LONG}),
     ("serve_gpt_oss_20b", {"hf": GPT_OSS_20B, "label": "gpt-oss-20b",
+                           "layers": CUT_LAYERS,
                            "seed_leaves": True, "max_seq": 8192,
                            "lengths": FAMILY_LENGTHS_LONG}),
     ("serve_phi35_moe", {"hf": PHI35_MOE, "label": "Phi-3.5-MoE",
-                         "layers": PHI35_MOE_SERVED_LAYERS,
+                         "layers": CUT_LAYERS,
                          "seed_leaves": True, "max_seq": 8192,
                          "lengths": FAMILY_LENGTHS_LONG}),
     ("serve_command_r7b", {"hf": COMMAND_R7B, "label": "command-r7b",
+                           "layers": CUT_LAYERS,
                            "seed_leaves": True, "max_seq": 8192,
                            "lengths": FAMILY_LENGTHS_LONG}),
 )
@@ -6244,6 +6282,797 @@ def phase_mla_int4_kernel(torch):
     return check_cases({"int4_matmul": cases})
 
 
+# -- phases 41-44: tensor-parallel serving, two ranks sharing one card ----------
+
+TP = 2
+# the per-rank attention of Llama-3-8B and Mixtral-8x7B at tp 2 (32 query
+# heads over 8 KV heads, halved): the group size G stays 4
+TP_SHAPES = ((16, 4, 128),)
+TP_LOGITS_ATOL = 2e-4
+
+
+def tp_logits_atol(quantization: str, n_layers: int, max_abs: float
+                   ) -> float:
+    """The first-step logits' tolerance of tp=2 against tp=1: fp32
+    products differ only in the order of two partial sums
+    (TP_LOGITS_ATOL); B4 rounds its input rows to bf16, so where tp's
+    reordered sums land an fp32 activation on the other side of a bf16
+    rounding, that element moves one bf16 ulp (2^-7 of its value). As
+    in phase 9's B4 check, those steps add up as a random walk over the
+    P = 7 x n_layers + 1 projections: 2^-7 x sqrt(P) of max |logits|."""
+    if quantization == "none":
+        return TP_LOGITS_ATOL
+    return 2 ** -7 * math.sqrt(7 * n_layers + 1) * max_abs
+TP_SAMPLING = (0.8, 40, 0.9)  # temperature, top_k, top_p
+# (label, HF config or None for the 8B, weights): fp32 at the three
+# widths, then the 8B widths with int4 leaves (B4 on each rank's column
+# slices; wo and w_down stay int8, as quantize_params keeps them)
+TP_MODELS = (("Llama-3-8B", None, "none"),
+             ("Mixtral-8x7B", MIXTRAL_8X7B, "none"),
+             ("DeepSeek-V2-Lite", DEEPSEEK_V2_LITE, "none"),
+             ("Llama-3-8B int4", None, "int4"))
+# B4 at the per-rank shapes of the 8B's int4 leaves at tp 2 (K 4096
+# whole; N halved): w_gate / w_up, wq, wk / wv
+TP_INT4_SHAPES = (("w_gate", 4096, 7168), ("wq", 4096, 2048),
+                  ("wk", 4096, 512))
+NCCL_PROBE = r"""
+import datetime, os, sys, torch, torch.distributed as dist
+rank, port = int(sys.argv[1]), sys.argv[2]
+try:
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            device_id=torch.device("cuda:0"),
+                            timeout=datetime.timedelta(seconds=60))
+    t = torch.ones(4, device="cuda:0")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    print("NCCL_OK", flush=True)
+except Exception as e:
+    lines = [ln for ln in str(e).splitlines() if ln.strip()]
+    print("NCCL_REFUSED", lines[-1] if lines else repr(e), flush=True)
+os._exit(0)
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_tp_kernels(torch):
+    """B1 and B2 at the per-rank shapes of tp 2 (`TP_SHAPES`: Llama-3-8B
+    and Mixtral-8x7B, H 16 over K 4, D 128), each against its plain
+    version: B1 in bf16 and fp32 at the 8B lengths, B2 causal 2048 in
+    bf16 and a suffix chunk in fp32; B4 at the 8B's per-rank int4 shapes
+    (`TP_INT4_SHAPES`) at m 8 with an fp32 output, as phase 42's int4
+    ranks run it."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    timer = Timer(torch, torch.device("cuda"))
+    lengths = [0, 1, 17, 128, 300, 1023, 2049, 4095]
+    cases = {"flash_decode": [], "flash_prefill": []}
+    for H, K, D in TP_SHAPES:
+        kw = {"H": H, "K": K, "D": D}
+        cases["flash_decode"] += [
+            decode_case(torch, timer, gen, "bf16", lengths, **kw),
+            decode_case(torch, timer, gen, "fp32", lengths, **kw)]
+        cases["flash_prefill"] += [
+            prefill_case(torch, timer, gen, "bf16", 2048, 2048, 0, **kw),
+            prefill_case(torch, timer, gen, "fp32", 512, 2048, 1024, **kw)]
+    weights = {}
+    cases["int4_matmul"] = [
+        int4_case(torch, timer, gen, weights, name, 8, K, N, "fp32")
+        for name, K, N in TP_INT4_SHAPES]
+    del weights
+    for name, rows in cases.items():
+        for c in rows:
+            log(f"[tp] {name} per rank at tp {TP}: {c['case']}: ms "
+                f"{c['ms']:.4f}, bound {c['bound_ms']:.4f} ms "
+                f"({c['bound_by']}), share {c['bound_ms'] / c['ms']:.3f}")
+    return check_cases(cases)
+
+
+def _tp_cfg(torch, hf, n_layers: int):
+    """A TP_MODELS entry at `n_layers`, fp32, tied embeddings (the head
+    is then the vocab-sharded embedding, transposed); the MoE models on
+    the dense impl, which a tp group serves."""
+    from ome_tpu_torch.models.config import ModelConfig, llama3_8b
+    cfg = llama3_8b() if hf is None else ModelConfig.from_hf_config(hf)
+    cfg = cfg.replace(num_layers=n_layers, dtype=torch.float32,
+                      tie_word_embeddings=True)
+    return cfg.replace(moe_impl="dense") if cfg.is_moe else cfg
+
+
+def _tp_params(torch, cfg, seed: int, quantization: str = "none",
+               group=None):
+    """The seeded init: the whole tree, or with `group` its rank's
+    slices; quantized as serve's load does (a rank takes the split
+    contractions' scales over the group, a collective)."""
+    from ome_tpu_torch.models.params import init_params
+    from ome_tpu_torch.models.quant import quantize_params
+    from ome_tpu_torch.parallel import comm
+    from ome_tpu_torch.parallel.sharding import split_contraction
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, torch.device("cuda"),
+                         shard=None if group is None else (group.rank, TP))
+    if quantization == "none":
+        return params
+    with comm.use(group):
+        return quantize_params(
+            params, mode=quantization, consume=True,
+            split_contraction=split_contraction() if group else (),
+            amax_all=comm.amax)
+
+
+def _scale_embed(eng) -> None:
+    """The engine's embeddings (its head, tied) scaled by EMBED_SCALE in
+    place, after the logits check (at the init's scale, as phase 38's:
+    fp32 rounding grows with the logits), so that greedy streams repeat
+    tokens for the drafter; a quantized table through its scales."""
+    from ome_tpu_torch.models.quant import QTensor
+    e = eng.model.params["embed"]
+    (e.s if isinstance(e, QTensor) else e).mul_(EMBED_SCALE)
+
+
+class _TokenLog:
+    """A rank's engine, recording every op's sampled tokens in op order
+    (the leader and a follower must record the same)."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.log = []
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def prefill(self, *a, **kw):
+        out = self.engine.prefill(*a, **kw)
+        self.log.append(["prefill", int(out[0])])
+        return out
+
+    def decode(self, *a, **kw):
+        import numpy as np
+        state, toks = self.engine.decode(*a, **kw)
+        self.log.append(["decode", np.asarray(toks).tolist()])
+        return state, toks
+
+    def decode_multi(self, *a, **kw):
+        import numpy as np
+        state, toks, adv = self.engine.decode_multi(*a, **kw)
+        self.log.append(["decode_multi", np.asarray(toks).tolist(),
+                         np.asarray(adv).tolist()])
+        return state, toks, adv
+
+    def verify(self, *a, **kw):
+        import numpy as np
+        state, out, acc = self.engine.verify(*a, **kw)
+        self.log.append(["verify", np.asarray(out).tolist(),
+                         np.asarray(acc).tolist()])
+        return state, out, acc
+
+
+def _tp_streams(eng, prompts, steps: int, sampling=None):
+    """Streams of `prompts` through prefill/insert and `steps - 1`
+    decode steps (greedy unless `sampling`); the slots are freed
+    after."""
+    import numpy as np
+    n = eng.max_slots
+    t, k, p = sampling or (0.0, 0, 1.0)
+    arrays = (np.full(n, t, np.float32), np.full(n, k, np.int32),
+              np.full(n, p, np.float32))
+    state = eng.new_state()
+    out = []
+    for slot, ids in enumerate(prompts):
+        tok, kv, length, bucket = eng.prefill(ids, t, k, p)
+        state = eng.insert(state, kv, slot, length, tok, bucket)
+        out.append([int(tok)])
+    for _ in range(steps - 1):
+        state, toks = eng.decode(state, *arrays)
+        for slot, tok in enumerate(np.asarray(toks)[:len(prompts)]):
+            out[slot].append(int(tok))
+    for slot in range(len(prompts)):
+        eng.free_slot(slot)
+    return out
+
+
+def _tp_script(torch, eng, prompts, steps: int, full: bool = True):
+    """The streams a tp identity run compares: single steps, (`full`)
+    `decode_multi` K=4 and the scheduler at spec 4 / K 4, and sampled
+    steps at `TP_SAMPLING`."""
+    out = {"single": _tp_streams(eng, prompts, steps),
+           "spec_proposed": None, "spec_accepted": None}
+    if full:
+        out["multi"] = _multi_streams(torch, eng, prompts, steps, k=4)
+        out["spec"], sched = _sched_streams(
+            eng, prompts, steps, pipeline_depth=1, spec_tokens=4,
+            steps_per_dispatch=4)
+        out["spec_proposed"] = sched.stats["spec_proposed_tokens_total"]
+        out["spec_accepted"] = sched.stats["spec_accepted_tokens_total"]
+    out["sampled"] = _tp_streams(eng, prompts, 8, sampling=TP_SAMPLING)
+    return out
+
+
+def _tp_logits(torch, model, toks, ctx):
+    """A forward's fp32 logits of `toks` through `model` under `ctx`
+    (a tp engine's collectives, or nothing)."""
+    with ctx, torch.no_grad():
+        return model(toks)[0].float()
+
+
+def _int4_by_shape():
+    """B4's launches since the last reset, by "K=.. N=.."."""
+    from ome_tpu_torch.ops.flash import INT4_LAUNCHES_BY_SHAPE
+    return {f"K={k} N={n}": c for (k, n), c in
+            sorted(INT4_LAUNCHES_BY_SHAPE.items())}
+
+
+def tp_follower(spec) -> int:
+    """Rank 1 of `phase_tp_identity` (`python3 chip_smoke.py
+    --tp-follower SPEC`): for each TP_MODELS entry, its slices on the
+    leader's card, the first-step logits' collectives, then the
+    leader's op stream, replayed through a `_TokenLog`; the logs and
+    launch counts go to spec["out"]."""
+    import torch
+
+    from ome_tpu_torch.engine import multihost
+    from ome_tpu_torch.engine.sharded import ShardedInferenceEngine
+    from ome_tpu_torch.ops import flash
+    from ome_tpu_torch.parallel import comm
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = comm.Group.init(spec["coordinator"], 1, TP, "gloo")
+    results = {}
+    try:
+        for (label, hf, quant), port in zip(TP_MODELS, spec["ports"]):
+            cfg = _tp_cfg(torch, hf, spec["layers"])
+            eng = ShardedInferenceEngine(
+                _tp_params(torch, cfg, spec["seed"], quant, group), cfg,
+                tp=TP, group=group, max_slots=4,
+                max_seq=1024, device="cuda", seed=spec["seed"])
+            toks = torch.tensor([spec["logits_tokens"]], device="cuda")
+            _tp_logits(torch, eng.model, toks, eng._ctx())
+            _scale_embed(eng)
+            flash.reset_launches()
+            sub = multihost.OpSubscriber("127.0.0.1", port)
+            rec = _TokenLog(eng)
+            rc = multihost.follower_loop(rec, sub)
+            sub.close()
+            torch.cuda.synchronize()
+            results[label] = {"rc": rc, "log": rec.log,
+                              "launches": dict(flash.LAUNCHES),
+                              "int4_by_shape": _int4_by_shape(),
+                              "peak_gib": torch.cuda.max_memory_allocated()
+                              / 2**30}
+            del eng, rec
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    finally:
+        with open(spec["out"], "w") as f:
+            json.dump(results, f)
+        group.close()
+    return 0
+
+
+def _nccl_probe():
+    """Two NCCL ranks on cuda:0 (started now, read by `_nccl_result`)."""
+    port = str(_free_port())
+    return [subprocess.Popen([sys.executable, "-c", NCCL_PROBE, str(r),
+                              port], stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+            for r in range(TP)]
+
+
+def _nccl_group_of_one(torch) -> bool:
+    """The port's NCCL branch of `comm.Group` (what ranks on cards of
+    their own run) built and run on this card as a group of one: a sum
+    and a broadcast give their input back."""
+    from ome_tpu_torch.parallel import comm
+    group = comm.Group.init(f"127.0.0.1:{_free_port()}", 0, 1, "nccl",
+                            device=torch.device("cuda:0"), timeout=60)
+    try:
+        x = torch.arange(8, dtype=torch.bfloat16, device="cuda")
+        y = group.all_reduce(x.clone())
+        z = group.broadcast(x.clone())
+        torch.cuda.synchronize()
+        ok = torch.equal(x, y) and torch.equal(x, z)
+    finally:
+        group.close()
+    log(f"[tp] comm.Group on NCCL, a group of one on cuda:0: sum and "
+        f"broadcast {'equal their input' if ok else 'WRONG'}")
+    if not ok:
+        fail("tp: the NCCL group of one changed its input")
+    return ok
+
+
+def _nccl_result(procs) -> str:
+    lines = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+            out = (out or "") + "NCCL_TIMEOUT"
+        got = [ln for ln in out.splitlines() if ln.startswith("NCCL_")]
+        tail = [ln for ln in (err or "").splitlines() if ln.strip()][-1:]
+        lines += got or [f"exit {p.returncode}: {tail}"]
+    return "; ".join(lines)
+
+
+def phase_tp_identity(torch, seed: int = 0, n_layers: int = 4,
+                      steps: int = 24):
+    """tp=2 against tp=1 on the card, fp32, `n_layers` of the Llama-3-8B,
+    Mixtral-8x7B and DeepSeek-V2-Lite widths (`TP_MODELS`): rank 0 in
+    this process, rank 1 a child process (`tp_follower`), both on
+    cuda:0 over gloo; this process is the leader, its ops replicated to
+    the follower over the control channel (`engine/multihost.py`).
+    First-step logits within TP_LOGITS_ATOL of the tp=1 engine's; single
+    steps, `decode_multi` K=4 and the spec-4 / K-4 scheduler streams
+    equal tp=1's; at TP_SAMPLING the follower's tokens equal the
+    leader's, op for op; B1 and B2 launched on both ranks (the MLA model
+    launches neither). Then the 8B widths with int4 leaves (each rank
+    quantizes its slices, as serve's load does): logits within
+    `tp_logits_atol` and single-step streams equal to a tp=1 int4
+    engine's, the follower's tokens equal the leader's, and B4 launched
+    on both ranks at the per-rank shapes (`TP_INT4_SHAPES`). The logits are compared at the init's scale, the
+    streams run with the embeddings scaled by EMBED_SCALE (`_scale_embed`). Also: two NCCL ranks on one card are refused
+    (`NCCL_PROBE`), which is why ranks that share a card run gloo."""
+    import random
+    import tempfile
+
+    from ome_tpu_torch.engine import multihost
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.engine.sharded import ShardedInferenceEngine
+    from ome_tpu_torch.ops import flash
+    from ome_tpu_torch.parallel import comm
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    t0 = time.monotonic()
+    nccl = _nccl_probe()
+    coordinator = f"127.0.0.1:{_free_port()}"
+    ports = [_free_port() for _ in TP_MODELS]
+    rng = random.Random(seed + 41)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "follower.json")
+        logits_tokens = [rng.randrange(3, 30000) for _ in range(64)]
+        spec = {"coordinator": coordinator, "ports": ports, "seed": seed,
+                "layers": n_layers, "out": out_path,
+                "logits_tokens": logits_tokens}
+        follower = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-follower",
+             json.dumps(spec)])
+        group = comm.Group.init(coordinator, 0, TP, "gloo")
+        try:
+            for (label, hf, quant), port in zip(TP_MODELS, ports):
+                cfg = _tp_cfg(torch, hf, n_layers)
+                prompts = _echo_prompts(
+                    [[rng.randrange(3, 30000) for _ in range(n)]
+                     for n in (20, 75, 150, 300)],
+                    [[rng.randrange(3, 30000) for _ in range(8)]
+                     for _ in range(4)])
+                toks = torch.tensor([logits_tokens], device="cuda")
+                # tp=1: the whole tree on the card, the same seed
+                full = quant == "none"
+                one = InferenceEngine(_tp_params(torch, cfg, seed, quant),
+                                      cfg, max_slots=4, max_seq=1024,
+                                      device="cuda", seed=seed)
+                ref_logits = _tp_logits(torch, one.model, toks,
+                                        contextlib.nullcontext())
+                _scale_embed(one)
+                ref = _tp_script(torch, one, prompts, steps, full)
+                del one
+                _free_device(torch, f"the {label} tp=1 engine")
+                eng = ShardedInferenceEngine(
+                    _tp_params(torch, cfg, seed, quant, group), cfg,
+                    tp=TP, group=group, max_slots=4,
+                    max_seq=1024, device="cuda", seed=seed)
+                got_logits = _tp_logits(torch, eng.model, toks, eng._ctx())
+                _scale_embed(eng)
+                err = float((got_logits - ref_logits).abs().max())
+                atol = tp_logits_atol(quant, n_layers,
+                                      float(ref_logits.abs().max()))
+                flash.reset_launches()
+                c0, n0 = group.seconds, group.calls
+                pub = multihost.OpPublisher(TP - 1, port=port,
+                                            host="127.0.0.1")
+                rec = _TokenLog(eng)
+                got = _tp_script(torch, multihost.ReplicatedEngine(rec, pub),
+                                 prompts, steps, full)
+                pub.close()
+                torch.cuda.synchronize()
+                launches = dict(flash.LAUNCHES)
+                keys = [k for k in ("single", "multi", "spec") if k in got]
+                res[label] = {
+                    "weights": quant, "int4_by_shape_rank0": _int4_by_shape(),
+                    "logits_max_abs_err": err, "logits_atol": atol,
+                    "layers": n_layers,
+                    "streams_identical": {k: got[k] == ref[k] for k in keys},
+                    "first_diff": {
+                        k: [_first_diff(a, b) for a, b in zip(got[k], ref[k])]
+                        for k in keys},
+                    "spec_proposed": got["spec_proposed"],
+                    "spec_accepted": got["spec_accepted"],
+                    "leader_log": rec.log, "launches_rank0": launches,
+                    "collectives": group.calls - n0,
+                    "collective_s": group.seconds - c0,
+                    "local_heads": (eng.cfg.num_heads,
+                                    eng.cfg.kv_cache_heads)}
+                log(f"[tp] {label} fp32 activations, {n_layers} layers, tp "
+                    f"{TP} on one card: logits max_abs_err {err:.3e} (tol "
+                    f"{atol:.3g}); streams equal to tp=1 "
+                    f"{res[label]['streams_identical']}; spec proposed "
+                    f"{got['spec_proposed']}, accepted "
+                    f"{got['spec_accepted']}; {res[label]['collectives']} "
+                    f"collectives, {res[label]['collective_s']:.2f} s; "
+                    f"rank 0 launches {launches}; heads per rank (query, "
+                    f"KV) {res[label]['local_heads']}")
+                del eng, rec
+                _free_device(torch, f"the {label} tp=2 rank 0")
+        finally:
+            try:
+                follower.wait(timeout=300)
+            except subprocess.TimeoutExpired:
+                follower.kill()
+                follower.wait()
+            group.close()
+        if follower.returncode != 0 or not os.path.exists(out_path):
+            fail(f"tp identity: the follower rank exited "
+                 f"{follower.returncode}")
+        with open(out_path) as f:
+            rank1 = json.load(f)
+    res["nccl_two_ranks_one_card"] = _nccl_result(nccl)
+    log(f"[tp] NCCL, two ranks on cuda:0: {res['nccl_two_ranks_one_card']}")
+    res["nccl_group_of_one"] = _nccl_group_of_one(torch)
+    for label, _, quant in TP_MODELS:
+        r, f1 = res[label], rank1.get(label)
+        if f1 is None or f1["rc"] != 0:
+            fail(f"tp identity: {label}: the follower's replay ended "
+                 f"{None if f1 is None else f1['rc']}")
+        r["launches_rank1"] = f1["launches"]
+        r["int4_by_shape_rank1"] = f1["int4_by_shape"]
+        r["rank1_peak_gib"] = f1["peak_gib"]
+        r["follower_tokens_equal"] = f1["log"] == r["leader_log"]
+        del r["leader_log"]
+        if r["logits_max_abs_err"] > r["logits_atol"]:
+            fail(f"tp identity: {label}: logits differ from tp=1 by "
+                 f"{r['logits_max_abs_err']:.3e}")
+        if not all(r["streams_identical"].values()):
+            fail(f"tp identity: {label}: streams differ from tp=1 "
+                 f"{r['first_diff']}")
+        if not r["follower_tokens_equal"]:
+            fail(f"tp identity: {label}: the follower's tokens differ "
+                 f"from the leader's")
+        mla = "DeepSeek" in label
+        for rank, lc in (("rank 0", r["launches_rank0"]),
+                         ("rank 1", r["launches_rank1"])):
+            for name in ("flash_decode", "flash_prefill"):
+                if (lc[name] > 0) == mla:
+                    fail(f"tp identity: {label}: {rank} launched {name} "
+                         f"{lc[name]} times")
+            if (lc["int4_matmul"] > 0) != (quant == "int4"):
+                fail(f"tp identity: {label}: {rank} launched int4_matmul "
+                     f"{lc['int4_matmul']} times")
+        if quant == "int4":
+            want = {f"K={K} N={N}" for _, K, N in TP_INT4_SHAPES}
+            for rank in ("rank0", "rank1"):
+                if not want <= set(r[f"int4_by_shape_{rank}"]):
+                    fail(f"tp identity: {label}: {rank} launched B4 at "
+                         f"{r[f'int4_by_shape_{rank}']}, not at every "
+                         f"per-rank shape {sorted(want)}")
+            log(f"[tp] {label}: B4 launches by shape, rank 0 "
+                f"{r['int4_by_shape_rank0']}, rank 1 "
+                f"{r['int4_by_shape_rank1']}")
+        log(f"[tp] {label}: the follower's tokens equal the leader's op "
+            f"for op (greedy and at temperature {TP_SAMPLING[0]}, top_k "
+            f"{TP_SAMPLING[1]}, top_p {TP_SAMPLING[2]}); rank 1 launches "
+            f"{r['launches_rank1']}, rank 1 peak "
+            f"{r['rank1_peak_gib']:.2f} GiB")
+    res["secs"] = time.monotonic() - t0
+    return res
+
+
+def _tp_window(torch, engine, stats_dir, prompt, iters: int = 10):
+    """Decode-step times of a serving tp group, rank 0 measured here and
+    rank 1 by its `--rank-stats` window: 8 slots prefilled (lengths
+    64-2164) through the leader's ReplicatedEngine, then `iters` decode
+    steps while `stats_dir`/window exists, each ending in a synchronize;
+    rank 0's device time from one torch.profiler session over them, its
+    collectives' seconds from its group."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    n = engine.max_slots
+    greedy = (np.zeros(n, np.float32), np.zeros(n, np.int32),
+              np.ones(n, np.float32))
+    state = engine.new_state()
+    for slot in range(n):
+        tok, kv, length, bucket = engine.prefill(prompt(64 + 300 * slot))
+        state = engine.insert(state, kv, slot, length, tok, bucket)
+    for _ in range(2):
+        state, toks = engine.decode(state, *greedy)
+        np.asarray(toks)
+    group = engine._engine.group
+    window = os.path.join(stats_dir, "window")
+    open(window, "w").close()
+    c0 = group.seconds
+    walls = []
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                t = time.perf_counter()
+                state, toks = engine.decode(state, *greedy)
+                np.asarray(toks)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+    finally:
+        os.remove(window)
+    busy = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        busy += us
+    for slot in range(n):
+        engine.free_slot(slot)
+    return {"steps": iters, "wall_ms": statistics.median(walls) * 1e3,
+            "device_ms": busy / 1e3 / iters,
+            "collective_share": (group.seconds - c0) / sum(walls)}
+
+
+def phase_serve_tp(torch, seed: int = 0, before=None):
+    """`serve --tp 2 --device cuda:0` at the Llama-3-8B shape, all 32
+    layers, bf16 random weights from the seed of phase 4: the leader
+    (rank 0) in this process, serve's own follower rank as its child,
+    both on cuda:0 over gloo. Phase 4's requests (8 lengths to 3000
+    tokens and two twins at once, a shared-prefix pair, an SSE stream):
+    TTFT and TPOT medians, each batch stream's agreement with phase 4's
+    (`before`), B1 and B2 launched on both ranks, then an 8-slot decode
+    window (`_tp_window`): each rank's device ms per step, wall ms and
+    the collectives' share; peak device memory per rank from the server
+    up."""
+    import concurrent.futures
+    import random
+    import tempfile
+
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.ops import flash
+
+    hf, name, cfg = _model_hf(None)
+    rng = random.Random(seed)
+    tag = f"[serve tp {TP}]"
+
+    def prompt(n):
+        return [rng.randrange(3, cfg.vocab_size) for _ in range(n)]
+    out = {"model": name, "layers": cfg.num_layers, "tp": TP}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(hf, f)
+        reqlog = os.path.join(tmp, "requests.jsonl")
+        stats_dir = os.path.join(tmp, "stats")
+        os.makedirs(stats_dir)
+        t0 = time.monotonic()
+        server, sched, engine = serve.build_server(
+            ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
+             "--max-slots", "8", "--max-seq", "4096", "--port", "0",
+             "--host", "127.0.0.1", "--request-log", reqlog,
+             "--tp", str(TP), "--device", "cuda:0",
+             "--rank-stats", stats_dir])
+        torch.cuda.synchronize()
+        out["startup_s"] = time.monotonic() - t0
+        torch.cuda.reset_peak_memory_stats()
+        out["rank0_gib_after_startup"] = torch.cuda.memory_allocated() / 2**30
+        log(f"{tag} {name}, {cfg.num_layers} layers, bf16, two ranks on "
+            f"cuda:0: server up in {out['startup_s']:.1f} s; rank 0 holds "
+            f"{out['rank0_gib_after_startup']:.2f} GiB ({engine.cfg.num_heads}"
+            f" of {cfg.num_heads} query heads, {engine.cfg.kv_cache_heads} "
+            f"of {cfg.num_kv_heads} KV heads)")
+        url = f"http://127.0.0.1:{server.port}"
+        seen = []
+        submit = sched.submit
+
+        def recording_submit(req):
+            seen.append(req)
+            return submit(req)
+        sched.submit = recording_submit
+        try:
+            flash.reset_launches()
+            lengths = [16, 100, 400, 800, 1500, 2200, 2600, 3000]
+            twin = prompt(24)
+            bodies = [{"prompt": prompt(n), "max_tokens": 32,
+                       "temperature": 0.0} for n in lengths]
+            bodies += [{"prompt": list(twin), "max_tokens": 32,
+                        "temperature": 0.0} for _ in range(2)]
+            t_batch = time.monotonic()
+            with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
+                futs = [ex.submit(_post, url, b) for b in bodies]
+                docs = [_completion(*f.result(), 32, f"request {i}")
+                        for i, f in enumerate(futs)]
+            out["batch_s"] = time.monotonic() - t_batch
+            out["batch_completion_tokens"] = sum(
+                d["usage"]["completion_tokens"] for d in docs)
+            streams = [next(r.output_ids for r in seen
+                            if r.prompt_ids == b["prompt"])
+                       for b in bodies]
+            # the three sequential requests take 8 tokens (time: each
+            # step is a few hundred ms through gloo)
+            shared = prompt(1024)
+            _completion(*_post(url, {"prompt": shared + prompt(200),
+                                     "max_tokens": 8}), 8, "prefix 1")
+            _completion(*_post(url, {"prompt": shared + prompt(150),
+                                     "max_tokens": 8}), 8, "prefix 2")
+            status, raw = _post(url, {"prompt": prompt(64),
+                                      "max_tokens": 8, "stream": True})
+            events = [ln[6:] for ln in raw.decode().splitlines()
+                      if ln.startswith("data: ")]
+            if status != 200 or events[-1] != "[DONE]":
+                fail(f"{tag}: the SSE stream did not end with [DONE]")
+            torch.cuda.synchronize()
+            out["launches"] = dict(flash.LAUNCHES)
+            out["window"] = {"rank0": _tp_window(torch, engine, stats_dir,
+                                                 prompt)}
+            out["rank0_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            server.stop()
+        with open(os.path.join(stats_dir, "rank1.json")) as f:
+            rank1 = json.load(f)
+        with open(reqlog) as f:
+            recs = [json.loads(line) for line in f]
+    w1 = rank1["window"]
+    if not w1["decode_ops"] or w1["device_ms"] is None:
+        fail(f"{tag}: rank 1 measured no decode window ({w1})")
+    out["window"]["rank1"] = {
+        "steps": w1["decode_ops"],
+        "wall_ms": w1["wall_s"] / w1["decode_ops"] * 1e3,
+        "device_ms": w1["device_ms"] / w1["decode_ops"],
+        "collective_share": w1["comm_s"] / w1["wall_s"]}
+    out["rank1_peak_gib"] = rank1["peak_bytes"] / 2**30
+    out["launches_rank1"] = rank1["launches"]
+    out["collectives_rank1"] = rank1["collectives"]
+    for rank, lc in (("rank 0", out["launches"]),
+                     ("rank 1", out["launches_rank1"])):
+        for kname in ("flash_decode", "flash_prefill"):
+            if lc[kname] <= 0:
+                fail(f"{tag}: {rank} never launched {kname} while serving")
+    ttft = sorted(r["ttft_s"] for r in recs if r.get("ttft_s") is not None)
+    tpot = sorted(r["tpot_s"] for r in recs if r.get("tpot_s"))
+    out["requests"] = len(recs)
+    out["ttft_median_s"] = statistics.median(ttft)
+    out["tpot_median_s"] = statistics.median(tpot)
+    ref = (before or {}).get("streams")
+    if ref:
+        out["streams_equal_tp1"] = sum(a == b for a, b in zip(streams, ref))
+        out["first_tokens_equal_tp1"] = sum(
+            a[:1] == b[:1] for a, b in zip(streams, ref))
+        out["first_diff_tp1"] = [_first_diff(a, b)
+                                 for a, b in zip(streams, ref)]
+        if out["first_tokens_equal_tp1"] * 2 < len(ref):
+            fail(f"{tag}: only {out['first_tokens_equal_tp1']} of "
+                 f"{len(ref)} first tokens equal the tp=1 server's")
+        log(f"{tag} against the tp=1 server (phase 4, same weights and "
+            f"prompts): {out['streams_equal_tp1']} of {len(ref)} 32-token "
+            f"streams equal, {out['first_tokens_equal_tp1']} first tokens "
+            f"equal; first differing step per stream "
+            f"{out['first_diff_tp1']}")
+    log(f"{tag} {len(recs)} requests: TTFT median "
+        f"{out['ttft_median_s'] * 1e3:.1f} ms, TPOT median "
+        f"{out['tpot_median_s'] * 1e3:.2f} ms; launches rank 0 "
+        f"{out['launches']}, rank 1 {out['launches_rank1']}")
+    for rank in ("rank0", "rank1"):
+        w = out["window"][rank]
+        log(f"{tag} {rank} decode step (8 slots, {w['steps']} steps): wall "
+            f"{w['wall_ms']:.2f} ms, device {w['device_ms']:.2f} ms "
+            f"(torch.profiler), collectives {w['collective_share']:.2f} of "
+            f"the wall time; peak {out[rank + '_peak_gib']:.2f} GiB")
+    return out
+
+
+def phase_tp_lws(torch, seed: int = 0, n_layers: int = 4):
+    """The LWS environment contract: two `python -m
+    ome_tpu_torch.engine.serve` processes, JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES=2 / JAX_PROCESS_ID 0 and 1, `--control-port`, both
+    on cuda:0 (`--tp-backend gloo`: the two ranks share the card,
+    which NCCL refuses), Llama-3-8B widths at `n_layers` in fp32: their
+    completions equal an in-process `--tp 1` server's; then the follower
+    is killed and the leader's /health turns 503 ("dead")."""
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.models.config import llama3_8b
+    hf = _hf_config(llama3_8b().replace(num_layers=n_layers))
+    res = {"layers": n_layers}
+    bodies = [{"prompt": p, "max_tokens": 16, "temperature": 0.0}
+              for p in ([5, 17, 300, 4000, 12, 9], list(range(100, 400)),
+                        [77] * 40)]
+
+    def texts(url):
+        return [json.loads(_post(url, b)[1])["choices"][0]["text"]
+                for b in bodies]
+
+    def health(url):
+        try:
+            with urllib.request.urlopen(url + "/health", timeout=10) as r:
+                return r.status
+        except urllib.error.HTTPError as e:
+            return e.code
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(hf, f)
+        common = ["--model-dir", tmp, "--random-weights", "--seed",
+                  str(seed), "--dtype", "float32", "--max-slots", "4",
+                  "--max-seq", "1024", "--host", "127.0.0.1"]
+        server, _, _ = serve.build_server(common + ["--port", "0",
+                                                    "--device", "cuda:0"])
+        try:
+            want = texts(f"http://127.0.0.1:{server.port}")
+        finally:
+            server.stop()
+        _free_device(torch, "the tp=1 server")
+        coord, ctrl, http = _free_port(), _free_port(), _free_port()
+        procs = []
+        t0 = time.monotonic()
+        for pid in range(TP):
+            env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:"
+                       f"{coord}", JAX_NUM_PROCESSES=str(TP),
+                       JAX_PROCESS_ID=str(pid))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "ome_tpu_torch.engine.serve",
+                 *common, "--device", "cuda:0", "--port", str(http),
+                 "--control-port", str(ctrl), "--tp-backend", "gloo"],
+                env=env,
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+        url = f"http://127.0.0.1:{http}"
+        try:
+            while True:
+                try:
+                    if health(url) == 200:
+                        break
+                except OSError:
+                    pass
+                if any(p.poll() is not None for p in procs):
+                    fail(f"tp lws: a rank exited "
+                         f"{[p.poll() for p in procs]} before serving")
+                if time.monotonic() - t0 > 300:
+                    fail("tp lws: the group did not serve within 300 s")
+                time.sleep(0.5)
+            res["startup_s"] = time.monotonic() - t0
+            got = texts(url)
+            res["completions_equal_tp1"] = got == want
+            if got != want:
+                fail(f"tp lws: the group's completions differ from tp=1: "
+                     f"{got} vs {want}")
+            procs[1].kill()
+            procs[1].wait()
+            t1 = time.monotonic()
+            while health(url) != 503:
+                if time.monotonic() - t1 > 60:
+                    fail("tp lws: the leader stayed healthy 60 s after its "
+                         "follower was killed")
+                time.sleep(0.05)
+            res["unhealthy_after_s"] = time.monotonic() - t1
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+                    try:
+                        p.wait(timeout=60)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                        p.wait()
+        res["leader_exit"] = procs[0].returncode
+    log(f"[tp lws] two serve processes under JAX_COORDINATOR_ADDRESS / "
+        f"JAX_NUM_PROCESSES / JAX_PROCESS_ID with --control-port, cuda:0, "
+        f"8B widths {n_layers} layers fp32: up in {res['startup_s']:.1f} s, "
+        f"completions equal the tp=1 server's; follower killed, leader "
+        f"/health 503 after {res['unhealthy_after_s']:.2f} s; leader exit "
+        f"{res['leader_exit']}")
+    return res
+
+
 SOURCES = {
     "flash_decode": ("ome_tpu_torch/ops/csrc/flash_decode.cu",
                      "ome_tpu/ops/flash.py:148"),
@@ -6268,6 +7097,7 @@ def main() -> int:
     except ImportError as e:
         fail(f"the ome_tpu_torch package is not importable here ({e}); "
              "run from the root of the repository")
+    from ome_tpu_torch.models.config import llama3_8b
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     phase_s = report["phase_s"] = {}
@@ -6289,7 +7119,8 @@ def main() -> int:
         first_tokens=report["paged_bf16"]["first_tokens"],
         free="the paged int8 server")
     run("serve_int4", phase_serve, torch, quantization="int4",
-        free="the int4 server")
+        model={"hf": _hf_config(llama3_8b()), "label": "Llama-3-8B",
+               "layers": CUT_LAYERS}, free="the int4 server")
     run("step_turns", phase_step_turns, torch,
         free="the step-time engines")
     run("quant_turns", phase_quant_turns, torch,
@@ -6348,6 +7179,12 @@ def main() -> int:
         run(key, phase_serve_mla, torch, model, quantization,
             free=f"the {model['label']} {quantization} server")
     run("mla_int4_kernel", phase_mla_int4_kernel, torch)
+    run("tp_kernels", phase_tp_kernels, torch)
+    run("tp_identity", phase_tp_identity, torch,
+        free="the tp identity engines")
+    run("serve_tp", phase_serve_tp, torch, before=report["serve"],
+        free="the tp 2 server")
+    run("tp_lws", phase_tp_lws, torch)
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -6420,6 +7257,21 @@ def main() -> int:
                                   V3_INT4_SHAPES):
         kernels.append(entry("int4_matmul", f"int4_matmul DeepSeek-V3 {leaf} "
                              f"K {K} N {N} m 8", case, v3[f"K={K} N={N}"]))
+    # B1 and B2 at the per-rank shapes of tp 2 (H 16, K 4; launches: rank
+    # 0 of the tp 2 server, phase 43)
+    tpk = report["tp_kernels"]
+    for name in ("flash_decode", "flash_prefill"):
+        H, K, D = TP_SHAPES[0]
+        kernels.append(entry(name, f"{name} per rank at tp {TP} (H {H}, K "
+                             f"{K}, D {D})", tpk[name][0],
+                             report["serve_tp"]["launches"][name]))
+    # B4 at the 8B's per-rank int4 shapes of tp 2 (launches: rank 0 of
+    # phase 42's int4 group, by shape)
+    t4 = report["tp_identity"]["Llama-3-8B int4"]["int4_by_shape_rank0"]
+    for case, (leaf, K, N) in zip(tpk["int4_matmul"], TP_INT4_SHAPES):
+        kernels.append(entry("int4_matmul", f"int4_matmul per rank at tp "
+                             f"{TP} (Llama-3-8B {leaf} K {K} N {N} m 8)",
+                             case, t4[f"K={K} N={N}"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -6429,4 +7281,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-follower"]:
+        # rank 1 of phase_tp_identity, started by it
+        sys.exit(tp_follower(json.loads(sys.argv[2])))
     sys.exit(main())

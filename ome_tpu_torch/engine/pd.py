@@ -729,7 +729,10 @@ def make_pd_prefill_handler(engine):
                 int(payload.get("top_k", 0)),
                 float(payload.get("top_p", 1.0)), **kwargs)
             t1 = time.monotonic()
-            blob = serialize_kv(token, gather_kv(k), gather_kv(v),
+            # a tp group's engine gathers every rank's KV heads (its
+            # followers join the gather in their pd_export replay)
+            gather = getattr(engine, "gather_kv", gather_kv)
+            blob = serialize_kv(token, gather(k), gather(v),
                                 true_len, bucket, quantize=quantize)
             timings.append({"prefill_s": t1 - t0,
                             "serialize_s": time.monotonic() - t1,

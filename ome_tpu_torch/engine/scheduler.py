@@ -2546,12 +2546,17 @@ class Scheduler:
     def _prefill_req(self, req: Request, span: Optional[Span] = None):
         """Engine prefill for one request; constrained requests pass
         the grammar mask for their FIRST sampled token. An eligible
-        request (base model, unconstrained, not a PD decode node) whose
-        router named a prefix peer tries that peer first; any failure
-        falls through to the local prefill."""
+        request (base model, unconstrained, not a PD decode node, not a
+        tp group's leader) whose router named a prefix peer tries that
+        peer first; any failure falls through to the local prefill. A
+        group leader (`multihost.ReplicatedEngine`) prefills locally:
+        its followers could not follow a fetch only the leader made (the
+        reference's leader fetches, and its followers insert their own
+        last prefill instead)."""
         pd_node = getattr(self.engine, "pd_request_context", False)
         if (req.prefix_peer and req.adapter is None and req.masker is None
-                and not pd_node):
+                and not pd_node
+                and not getattr(self.engine, "replicated", False)):
             fetched = self._peer_prefill(req, req.prefix_peer)
             if fetched is not None:
                 return fetched

@@ -67,8 +67,33 @@ it needs cuBLAS without a workspace (`CUBLAS_WORKSPACE_CONFIG=:0:0`), so
 that an input's embedding does not depend on its batch: `main` sets it
 before anything touches CUDA, and `build_server` refuses to start
 without it.
+`--tp N` serves the model tensor-parallel over N ranks, one process
+each (`engine/sharded.py`, `parallel/`): the leader (rank 0, this
+process) serves HTTP and runs the scheduler, and publishes its op stream
+to the followers, which replay it (`engine/multihost.py`). Without the
+LWS environment the leader starts the N-1 followers itself, on this
+host, with its own command line. Under the LWS multi-host contract
+(JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, and
+torchrun's LOCAL_RANK for a rank's index on its host) every process is
+one rank, tp defaults to the number of processes, the coordinator
+address is the group's torch.distributed rendezvous and
+`--control-port` (default 5858) the leader's op channel. Rank r serves
+on `cuda:<local rank>`, or every local rank on the card `--device
+cuda:i` names, or on the CPU, and makes that card its current device.
+The collectives run on gloo on the CPU and on NCCL on cards, unless
+`--tp-backend` names one: single-host `--tp N --device cuda:i` puts
+every rank on one card, which NCCL refuses, so that leader picks gloo
+and hands it to its followers; ranks that share a card under the LWS
+environment pass `--tp-backend gloo` themselves.
+Under tp > 1 the reference's refusals stand, in its words: named
+adapters (`--lora-slots`), paged KV, int8 KV and the host prefix tier;
+a model whose parameters the sharding rules do not all name exits
+naming the parameter; `--task embed` is refused with `--tp` > 1 and
+under the multi-host environment.
 `build_server(argv)` does everything `main` does except block, so a
-caller (chip_smoke.py, the tests) drives the same code in process.
+caller (chip_smoke.py, the tests) drives the same code in process; a
+tp group's followers are child processes of that caller, stopped with
+the server.
 
 Flags of the reference outside this slice are either not defined here
 (argparse then names them as unrecognized) or refused when given a
@@ -82,6 +107,8 @@ import argparse
 import json
 import logging
 import os
+import socket
+import subprocess
 import sys
 import threading
 import time
@@ -89,11 +116,6 @@ import time
 import torch
 
 log = logging.getLogger("ome.engine.serve")
-
-# multi-host serving is configured through this environment contract
-# (controllers/reconcilers/multinode.py); the port serves one host
-_MULTIHOST_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
-                  "JAX_PROCESS_ID")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -262,15 +284,33 @@ def build_parser() -> argparse.ArgumentParser:
                         "when any are given)")
     p.add_argument("--lora-rank", type=int, default=16,
                    help="max adapter rank a LoRA slot holds")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size: ranks, one process each "
+                        "(default: the LWS group's process count, else "
+                        "1)")
+    p.add_argument("--control-port", type=int, default=None,
+                   help="leader->follower op-replication port for "
+                        "multi-host serving (default: engine/multihost "
+                        "CONTROL_PORT)")
+    p.add_argument("--tp-backend", choices=("nccl", "gloo"), default=None,
+                   help="the tp group's collectives backend (default: "
+                        "gloo on the CPU and for single-host --tp N "
+                        "ranks sharing the card --device cuda:i names, "
+                        "else NCCL)")
+    p.add_argument("--rank-stats", default=None, metavar="DIR",
+                   help="a follower rank writes its counters (ops "
+                        "replayed, collectives, kernel launches, peak "
+                        "device memory; the device time of the decode "
+                        "ops it replays while DIR/window exists) to "
+                        "DIR/rank<r>.json when it stops")
     # flags of the reference kept for their default only: any other
     # value asks for a feature this port does not have yet
-    p.add_argument("--tp", type=int, default=1)
     p.add_argument("--ledger-mode", default="off")
     return p
 
 
 # flag -> the only value this slice serves
-_SLICE_DEFAULTS = {"tp": 1, "ledger_mode": "off"}
+_SLICE_DEFAULTS = {"ledger_mode": "off"}
 
 # flags that configure generation, at their defaults: an embeddings
 # deployment refuses any other value by name (the reference ignores
@@ -278,12 +318,13 @@ _SLICE_DEFAULTS = {"tp": 1, "ledger_mode": "off"}
 _GENERATION_ONLY = {"journal": None, "disaggregation_mode": "none",
                     "kv_block": 0, "quantization": "none",
                     "spec_tokens": 0, "steps_per_dispatch": 1,
-                    "prefix_cache_host_mb": 0, "lora_slots": None}
+                    "prefix_cache_host_mb": 0, "lora_slots": None,
+                    "tp": 1}
 
 
-def check_slice(args, env=None) -> None:
-    """Exit with a message naming the flag (or environment) that asks
-    for something outside this slice of the port."""
+def check_slice(args) -> None:
+    """Exit with a message naming the flag that asks for something
+    outside this slice of the port."""
     for dest, want in _SLICE_DEFAULTS.items():
         got = getattr(args, dest)
         if got != want:
@@ -327,12 +368,51 @@ def check_slice(args, env=None) -> None:
         raise SystemExit("--prefill-url/--prefill-peer/--pd-local-fallback "
                          "configure a PD decode node: they need "
                          "--disaggregation-mode decode")
-    env = os.environ if env is None else env
-    if env.get(_MULTIHOST_ENV[0]) and \
-            int(env.get(_MULTIHOST_ENV[1], "1") or 1) > 1:
+    if args.tp < 1:
+        raise SystemExit(f"--tp {args.tp}: must be >= 1")
+
+
+def lora_slot_count(args) -> int:
+    """--lora-slots, or its default: max(4, named adapters) when any
+    are named, else 0."""
+    _, named = _adapter_args(args)
+    if args.lora_slots is not None:
+        return args.lora_slots
+    return max(4, len(named)) if named else 0
+
+
+def check_tp(args) -> None:
+    """The reference's refusals under tp > 1, in its words
+    (`sharded.tp_refusal`)."""
+    from .sharded import tp_refusal
+    why = tp_refusal(args.tp, lora_slot_count(args),
+                     args.kv_block or args.kv_blocks,
+                     args.kv_dtype == "int8", args.prefix_cache_host_mb)
+    if why:
+        raise SystemExit(why)
+
+
+def check_group(args, dist) -> None:
+    """What a multi-host environment `dist` (multihost.DistContext)
+    asks of the flags: tp defaults to its process count (the reference
+    spans every chip of the group), and a process is one rank."""
+    if dist is None:
+        return
+    if args.task == "embed":
+        # embeddings are stateless single-host programs; a multi-host
+        # embed group would leave followers waiting on a control
+        # channel the embed leader never opens
+        raise SystemExit("--task embed does not support multi-host "
+                         "serving (unset JAX_COORDINATOR_ADDRESS or use "
+                         "one process)")
+    if args.tp <= 1:
+        args.tp = dist.num_processes
+        log.info("multi-host: tp=%d over %d processes", args.tp,
+                 dist.num_processes)
+    if args.tp != dist.num_processes:
         raise SystemExit(
-            f"multi-host environment ({', '.join(_MULTIHOST_ENV)}) is "
-            "not supported by the PyTorch engine yet; serve one host")
+            f"--tp {args.tp}: the group has {dist.num_processes} "
+            "processes (JAX_NUM_PROCESSES), one tensor-parallel rank each")
 
 
 def _adapter_args(args):
@@ -374,14 +454,35 @@ def _load_cfg(model_dir: str, dtype):
     return cfg.replace(dtype=dtype)
 
 
-def load_params_cfg(args, device):
+def check_tp_model(args) -> None:
+    """Exit naming --tp when the model's heads do not split over it
+    (the reference's divisibility checks), from config.json alone."""
+    from ..models import checkpoint
+    from .sharded import check_divisible
+    try:
+        cfg = _load_cfg(args.model_dir, torch.float32) \
+            if args.random_weights else checkpoint.load_config(
+                args.model_dir)
+        check_divisible(cfg, args.tp)
+    except ValueError as e:
+        raise SystemExit(f"--tp {args.tp}: {e}")
+    except (checkpoint.SafetensorsError, FileNotFoundError) as e:
+        raise SystemExit(f"--model-dir {args.model_dir}: {e}")
+
+
+def load_params_cfg(args, device, shard=None):
     """(params, cfg) on `device`: the safetensors checkpoint in
     --model-dir, or random weights from --seed for its config.json. A
     head_dim the CUDA kernels do not take exits before any weight is
-    read (MLA models launch none of them: `check_model_head_dim`)."""
+    read (MLA models launch none of them: `check_model_head_dim`).
+    `shard` = (rank, tp): a tensor-parallel rank's slices only, drawn
+    or read slab by slab (`init_params`, `checkpoint.load_params`); a
+    parameter the sharding rules do not name exits naming it, and so
+    does a tp the model's heads do not divide."""
     from ..models import checkpoint
     from ..models.params import init_params, param_count
     from ..ops.flash import check_model_head_dim
+    from ..parallel.sharding import UnshardableLeaf
 
     def refuse_head_dim(cfg):
         try:
@@ -396,18 +497,27 @@ def load_params_cfg(args, device):
         refuse_head_dim(cfg)
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
-        params = init_params(cfg, gen, device)
+        try:
+            params = init_params(cfg, gen, device, shard=shard)
+        except (UnshardableLeaf, ValueError) as e:
+            if shard is None:
+                raise
+            raise SystemExit(f"--tp {args.tp}: {e}")
         log.info("initialized random weights: %.2fM params on %s in "
-                 "%.1fs", param_count(params) / 1e6, device,
-                 time.monotonic() - t0)
+                 "%.1fs%s", param_count(params) / 1e6, device,
+                 time.monotonic() - t0,
+                 f" (rank {shard[0]} of tp {shard[1]})" if shard else "")
         return params, cfg
     try:
         cfg = checkpoint.load_config(args.model_dir)
         refuse_head_dim(cfg)
         params, cfg = checkpoint.load_params(args.model_dir, cfg=cfg,
-                                             dtype=dtype, device=device)
+                                             dtype=dtype, device=device,
+                                             shard=shard)
+    except UnshardableLeaf as e:
+        raise SystemExit(f"--tp {args.tp}: {e}")
     except (checkpoint.SafetensorsError, NotImplementedError,
-            FileNotFoundError) as e:
+            FileNotFoundError, ValueError) as e:
         raise SystemExit(f"--model-dir {args.model_dir}: {e}")
     log.info("loaded checkpoint from %s: %.2fM params on %s in %.1fs",
              args.model_dir, param_count(params) / 1e6, device,
@@ -416,39 +526,61 @@ def load_params_cfg(args, device):
     if merge_dir:
         from ..models.lora import merge_lora
         try:
-            merged = merge_lora(params, cfg, merge_dir)
+            merged = merge_lora(params, cfg, merge_dir, shard=shard)
         except (ValueError, OSError, checkpoint.SafetensorsError) as e:
             raise SystemExit(f"--adapter {merge_dir}: {e}")
         log.info("merged %d LoRA deltas from %s", merged, merge_dir)
     return params, cfg
 
 
-def load_engine(args):
-    """The InferenceEngine for `args` on --device: the checkpoint in
-    --model-dir, or random weights from --seed."""
+def load_engine(args, rank=None):
+    """The engine for `args`: the checkpoint in --model-dir, or random
+    weights from --seed. One device: an InferenceEngine on --device.
+    `rank` = (mesh.RankInfo, comm.Group) of a tp group: this rank's
+    ShardedInferenceEngine on its own device, over its slices."""
     from ..device import resolve_device
     from ..models.quant import quantize_params, quantized_bytes
+    from ..parallel import comm
+    from ..parallel.sharding import split_contraction
     from .core import InferenceEngine, PagedKVUnsupported
 
-    device = resolve_device(args.device)
-    params, cfg = load_params_cfg(args, device)
-    if cfg.is_moe:
+    info, group = rank if rank is not None else (None, None)
+    device = info.device if info is not None else \
+        resolve_device(args.device)
+    shard = (info.rank, info.tp) if info is not None else None
+    params, cfg = load_params_cfg(args, device, shard=shard)
+    if cfg.is_moe and shard is None:
         # one device: the ragged grouped-product dispatch, as the
         # reference serves with tp 1 (the dense impl computes every
-        # expert for every token)
+        # expert for every token); tp > 1 keeps the dense impl
         cfg = cfg.replace(moe_impl="ragged")
     if args.quantization != "none":
         t0 = time.monotonic()
-        # leaf by leaf, dropping each bf16 leaf once quantized
-        params = quantize_params(params, mode=args.quantization,
-                                 consume=True)
+        # leaf by leaf, dropping each bf16 leaf once quantized; a rank
+        # takes the scales of a split contraction over the group
+        with comm.use(group):
+            params = quantize_params(
+                params, mode=args.quantization, consume=True,
+                split_contraction=split_contraction() if shard else (),
+                amax_all=comm.amax)
         log.info("quantized weights to %s (weight-only) in %.1fs: %.2f GB "
                  "of weights", args.quantization, time.monotonic() - t0,
                  quantized_bytes(params) / 1e9)
     max_seq = args.max_seq or min(cfg.max_seq_len, 8192)
     _, named_adapters = _adapter_args(args)
-    lora_slots = args.lora_slots if args.lora_slots is not None else \
-        (max(4, len(named_adapters)) if named_adapters else 0)
+    lora_slots = lora_slot_count(args)
+    if info is not None:
+        from .sharded import ShardedInferenceEngine
+        engine = ShardedInferenceEngine(
+            params, cfg, tp=info.tp, group=group,
+            max_slots=args.max_slots, max_seq=max_seq,
+            prefix_cache_bytes=args.prefix_cache_mb << 20,
+            device=device, seed=args.seed)
+        log.info("rank %d/%d: %d of %d query heads, %d of %d KV heads on "
+                 "%s", info.rank, info.tp, engine.cfg.num_heads,
+                 cfg.num_heads, engine.cfg.kv_cache_heads,
+                 cfg.kv_cache_heads, device)
+        return engine
     try:
         engine = InferenceEngine(
             params, cfg, max_slots=args.max_slots, max_seq=max_seq,
@@ -632,22 +764,161 @@ def check_embed_workspace(device) -> None:
         f"{got!r}): set it {when}, as serve's main does")
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _loopback(dist) -> None:
+    """gloo picks its network interface from the host name; a group
+    whose rendezvous is on this host talks over the loopback device."""
+    if dist.coordinator_host in ("127.0.0.1", "localhost"):
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+
+
+class TPGroup:
+    """A serving tp group's leader-side handles: its DistContext, its
+    rank and comm.Group, the follower processes this leader started
+    (single-host `--tp N`), and the op publisher. `close` ends the group
+    in order: the stop op, the followers' exit, the collectives."""
+
+    def __init__(self, dist, control_port: int, procs=()):
+        self.dist = dist
+        self.control_port = control_port
+        self.procs = list(procs)
+        self.info = None
+        self.group = None
+        self.publisher = None
+
+    def join(self, device, backend=None) -> None:
+        _loopback(self.dist)
+        try:
+            self.info, self.group = self.dist.join(device, backend)
+        except RuntimeError as e:
+            raise SystemExit(f"--device {device}: {e}")
+
+    def close(self, timeout: float = 60.0) -> None:
+        if self.publisher is not None:
+            self.publisher.close()
+            self.publisher = None
+        for p in self.procs:
+            try:
+                p.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                log.error("follower pid %d did not stop; killing it", p.pid)
+                p.kill()
+                p.wait()
+        if self.procs:
+            log.info("followers exited: %s",
+                     [p.returncode for p in self.procs])
+        if self.group is not None:
+            self.group.close()
+            self.group = None
+
+
+def _start_group(args, argv, dist):
+    """The leader's TPGroup: under the LWS environment (`dist`), this
+    process's place in it; for `--tp N` without it, a group on this
+    host whose N-1 followers this process starts now, each `python -m
+    ome_tpu_torch.engine.serve` with the same arguments under the
+    environment contract. None for tp 1."""
+    from . import multihost
+    named_card = torch.device(args.device or "cuda").index is not None
+    if dist is not None:
+        if named_card and args.tp_backend is None:
+            log.warning("--device %s under the LWS environment: the "
+                        "collectives run on NCCL (a card of this pod's "
+                        "own); ranks that share this card need "
+                        "--tp-backend gloo", args.device)
+        return TPGroup(dist, args.control_port or multihost.CONTROL_PORT)
+    if args.tp <= 1:
+        return None
+    if named_card and args.tp_backend is None:
+        # every rank of this host on the one named card: NCCL refuses
+        # two ranks on one device
+        args.tp_backend = "gloo"
+    coordinator = f"127.0.0.1:{_free_port()}"
+    control = args.control_port or _free_port()
+    dist = multihost.DistContext(coordinator=coordinator,
+                                 num_processes=args.tp, process_id=0)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    argv = list(sys.argv[1:] if argv is None else argv)
+    procs = []
+    for r in range(1, args.tp):
+        env = dict(os.environ)
+        env.update({multihost.JAX_COORDINATOR_ENV: coordinator,
+                    multihost.JAX_NUM_PROCESSES_ENV: str(args.tp),
+                    multihost.JAX_PROCESS_ID_ENV: str(r),
+                    multihost.LOCAL_RANK_ENV: str(r),
+                    "PYTHONPATH": os.pathsep.join(
+                        [root] + [x for x in [env.get("PYTHONPATH")]
+                                  if x])})
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "ome_tpu_torch.engine.serve", *argv,
+             "--control-port", str(control)]
+            + (["--tp-backend", args.tp_backend] if args.tp_backend
+               else []), env=env))
+    log.info("tp=%d on this host: started follower ranks 1-%d (pids %s), "
+             "rendezvous %s, op channel port %d", args.tp, args.tp - 1,
+             [p.pid for p in procs], coordinator, control)
+    return TPGroup(dist, control, procs)
+
+
+def serve_follower(args, dist) -> int:
+    """A follower rank (JAX_PROCESS_ID > 0): join the group, load this
+    rank's engine, then replay the leader's op stream until it stops (0)
+    or drops (1). Followers never serve HTTP."""
+    from . import multihost
+    check_slice(args)
+    check_group(args, dist)
+    check_tp(args)
+    check_tp_model(args)
+    grp = TPGroup(dist, args.control_port or multihost.CONTROL_PORT)
+    grp.join(args.device, args.tp_backend)
+    try:
+        with torch.no_grad():
+            engine = load_engine(args, rank=(grp.info, grp.group))
+        stats = multihost.RankStats(args.rank_stats, grp.info.rank,
+                                    grp.group, grp.info.device) \
+            if args.rank_stats else None
+        sub = multihost.OpSubscriber(dist.coordinator_host,
+                                     grp.control_port)
+        log.info("follower %d/%d replaying leader ops", dist.process_id,
+                 dist.num_processes)
+        try:
+            return multihost.follower_loop(
+                engine, sub,
+                pd_export=(args.disaggregation_mode == "prefill"),
+                stats=stats)
+        finally:
+            sub.close()
+            if stats is not None:
+                log.info("rank stats written to %s", stats.write())
+    finally:
+        grp.close()
+
+
 def build_server(argv=None):
     """Everything `main` does short of blocking: parse `argv`, check
     the slice, build engine, scheduler and server, and start serving.
-    Returns (server, scheduler, engine); the caller stops the server."""
+    Returns (server, scheduler, engine); the caller stops the server.
+    With tp > 1 this process is the group's leader (rank 0); the group
+    ends with the server (`server.on_stop`)."""
     from ..priority import coerce_priority, parse_weight_spec
-    from ..telemetry.flight import FlightRecorder
-    from ..telemetry.reqlog import coerce as coerce_reqlog
-    from ..telemetry.tracing import SpanLog
-    from .journal import RequestJournal
-    from .pd import RemotePrefillEngine, make_pd_prefill_handler
-    from .scheduler import Scheduler
-    from .server import EngineServer
-    from .tokenizer import load_tokenizer
+    from .multihost import init_from_env
 
     args = build_parser().parse_args(argv)
     check_slice(args)
+    dist = init_from_env()
+    if dist is not None and not dist.is_leader:
+        raise SystemExit(
+            f"JAX_PROCESS_ID {dist.process_id}: a follower rank serves no "
+            "HTTP; `python -m ome_tpu_torch.engine.serve` replays the "
+            "leader's ops there (serve_follower)")
+    check_group(args, dist)
+    check_tp(args)
     if _adapter_args(args)[0] and args.random_weights:
         log.error("--adapter merge requires a real checkpoint "
                   "(incompatible with --random-weights); name=dir "
@@ -678,22 +949,69 @@ def build_server(argv=None):
                 class_wait_caps[coerce_priority(cls)] = float(secs)
     except ValueError as e:
         raise SystemExit(str(e))
+    if args.task == "embed":
+        check_embed_workspace(args.device)
+    if args.tp > 1:
+        # before any rank starts: heads the tp does not divide
+        check_tp_model(args)
+    grp = _start_group(args, argv, dist)
+    try:
+        return _build(args, grp, class_weights, class_wait_caps)
+    except BaseException:
+        if grp is not None:
+            for p in grp.procs:
+                p.kill()
+            grp.procs = []
+            grp.close()
+        raise
+
+
+def _build(args, grp, class_weights, class_wait_caps):
+    """build_server's body once the group (or None) is set up."""
+    from ..telemetry.flight import FlightRecorder
+    from ..telemetry.reqlog import coerce as coerce_reqlog
+    from ..telemetry.tracing import SpanLog
+    from .journal import RequestJournal
+    from .multihost import OpPublisher, ReplicatedEngine
+    from .pd import RemotePrefillEngine, make_pd_prefill_handler
+    from .scheduler import Scheduler
+    from .server import EngineServer
+    from .tokenizer import load_tokenizer
+
     reqlog = coerce_reqlog(args.request_log)
     span_log = SpanLog(args.span_log, component="engine") \
         if args.span_log else None
     pd_prefill = None
     embedder = None
+
+    def engine_of_group():
+        # one device, or this rank of the group (the op publisher
+        # opens once every follower has loaded and connected)
+        if grp is None:
+            return load_engine(args)
+        grp.join(args.device, args.tp_backend)
+        with torch.no_grad():
+            eng = load_engine(args, rank=(grp.info, grp.group))
+        grp.publisher = OpPublisher(grp.dist.num_processes - 1,
+                                    port=grp.control_port)
+        return eng
+
+    def replicated(eng):
+        # a group's leader publishes every op before it runs it
+        return eng if grp is None else ReplicatedEngine(eng, grp.publisher)
+
     if args.task == "embed":
-        check_embed_workspace(args.device)
         # stateless: no decode loop, completions are refused
         embedder = load_embedder(args)
         scheduler = _NullScheduler()
     elif args.disaggregation_mode == "prefill":
-        engine = load_engine(args)
+        # a group's /pd/prefill runs on every rank through the same op
+        # replication; the followers join the KV's gather
+        engine = replicated(engine_of_group())
         pd_prefill = make_pd_prefill_handler(engine)
         scheduler = _PrefillNodeScheduler(engine)
     else:
-        engine = load_engine(args)
+        engine = engine_of_group()
         if args.disaggregation_mode == "decode":
             # one reqlog for the server's request records and the PD
             # client's peer-failure records, joinable by trace id
@@ -705,9 +1023,15 @@ def build_server(argv=None):
             log.info("PD decode node: prefill pool %s%s",
                      prefill_urls(args),
                      " (local fallback)" if args.pd_local_fallback else "")
-        elif args.prefix_cache_mb > 0:
+        if grp is not None:
+            # the scheduler publishes ops from ONE thread in execution
+            # order (followers replay strictly sequentially)
+            engine = replicated(engine)
+        elif args.prefix_cache_mb > 0 and \
+                args.disaggregation_mode == "none":
             # a replica with a prefix cache is also a prefix DONOR: peers
-            # fetch hot prefix KV over the same /pd/prefill path
+            # fetch hot prefix KV over the same /pd/prefill path (one
+            # device only, as the reference's donor is single-host)
             pd_prefill = make_pd_prefill_handler(engine)
         journal = None
         if args.journal:
@@ -722,7 +1046,7 @@ def build_server(argv=None):
                 provenance=provenance)
             log.info("request journal at %s (fsync=%s)", journal.path,
                      args.journal_fsync)
-        scheduler = Scheduler(engine, overlap=True,
+        scheduler = Scheduler(engine, overlap=grp is None,
                               journal=journal,
                               spec_tokens=args.spec_tokens,
                               steps_per_dispatch=args.steps_per_dispatch,
@@ -744,6 +1068,16 @@ def build_server(argv=None):
                           request_log=reqlog, pd_prefill=pd_prefill,
                           embedder=embedder, structured=embedder is None,
                           debug_endpoints=args.debug_endpoints)
+    if grp is not None:
+        # a follower that drops its control channel fails the group: the
+        # leader turns unhealthy at once (its /health answers 503)
+        def lost(why, scheduler=scheduler):
+            log.error("tp group lost a rank (%s); marking unhealthy", why)
+            scheduler.healthy = False
+        grp.publisher.on_lost = lost
+        if grp.publisher.lost is not None:
+            lost(grp.publisher.lost)
+        server.on_stop.append(grp.close)
     if embedder is not None:
         log.info("serving embeddings of %s on %s:%d (device=%s buckets=%s)",
                  name, args.host, server.port, embedder.device,
@@ -753,12 +1087,12 @@ def build_server(argv=None):
     log.info("serving %s on %s:%d (device=%s slots=%d max_seq=%d "
              "kv_block=%d kv_dtype=%s quantization=%s spec_tokens=%d "
              "steps_per_dispatch=%d prefix_cache_host_mb=%d "
-             "disaggregation_mode=%s)", name, args.host, server.port,
+             "disaggregation_mode=%s tp=%d)", name, args.host, server.port,
              engine.device, engine.max_slots, engine.max_seq,
              engine.kv_block, args.kv_dtype if engine.kv_block else "-",
              args.quantization, args.spec_tokens,
              args.steps_per_dispatch, args.prefix_cache_host_mb,
-             args.disaggregation_mode)
+             args.disaggregation_mode, args.tp)
     if getattr(scheduler, "journal", None) is not None:
         # restart resume BEFORE serving: unfinished requests of the
         # previous process re-enter the queue ahead of new traffic
@@ -771,6 +1105,12 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(message)s")
     args = build_parser().parse_args(argv)
+    from .multihost import init_from_env
+    dist = init_from_env()
+    if dist is not None and not dist.is_leader:
+        # followers never serve HTTP: they join the group, then replay
+        # the leader's op stream
+        return serve_follower(args, dist)
     if args.task == "embed":
         # before anything touches CUDA (`check_embed_workspace`)
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG",

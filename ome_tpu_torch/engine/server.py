@@ -156,6 +156,8 @@ class EngineServer:
         # X-OME-Draining marker the router treats as "skip, don't
         # count a failure"; in-flight requests keep streaming
         self.draining = False
+        # callables run by stop() once the scheduler has stopped
+        self.on_stop: list = []
         self.started_at = time.time()
         # cross-replica prefix reuse (docs/kv-hierarchy.md): digests
         # of recently served prefixes, reported in the /ready body so
@@ -843,3 +845,6 @@ class EngineServer:
         if self._thread:
             self._thread.join(timeout=5)
         self.request_log.close()
+        # after the scheduler's last op: a tp group's teardown (serve)
+        for fn in self.on_stop:
+            fn()

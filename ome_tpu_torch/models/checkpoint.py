@@ -83,11 +83,22 @@ class SafetensorsFile:
     def shape(self, name: str) -> tuple:
         return self._tensors[name][1]
 
-    def read(self, name: str) -> torch.Tensor:
-        """The tensor's bytes as a CPU tensor of its stored dtype."""
+    def read(self, name: str, lazy: bool = False) -> torch.Tensor:
+        """The tensor's bytes as a CPU tensor of its stored dtype.
+        `lazy`: a view of the file mapped into memory (copy on write),
+        so only the bytes a slice of it touches are read from disk — a
+        tensor-parallel rank reads its own slices."""
         st, shape, start, end = self._tensors[name]
         dt, view = _DTYPES[st]
         n = int(np.prod(shape)) if shape else 1
+        if lazy and n:
+            if end - start != n * dt.itemsize:
+                raise SafetensorsError(
+                    f"{self.path}: short read for {name}")
+            mm = np.memmap(self.path, dtype=dt, mode="c",
+                           offset=self._data_start + start, shape=shape)
+            t = torch.from_numpy(mm)
+            return t.view(view) if view is not None else t
         buf = bytearray(end - start)
         with open(self.path, "rb") as f:
             f.seek(self._data_start + start)
@@ -163,10 +174,10 @@ class Checkpoint:
     def __contains__(self, name: str) -> bool:
         return name in self._where
 
-    def read(self, name: str) -> torch.Tensor:
+    def read(self, name: str, lazy: bool = False) -> torch.Tensor:
         if name not in self._where:
             raise KeyError(name)
-        return self._file(self._where[name]).read(name)
+        return self._file(self._where[name]).read(name, lazy=lazy)
 
 
 # -- HF -> llama.py param tree ---------------------------------------------
@@ -174,18 +185,32 @@ class Checkpoint:
 
 class _Stacker:
     """Fills [L, ...] stacked tensors on `device` one layer at a time
-    (no 2x peak)."""
+    (no 2x peak). With `shard` = (rank, tp), each layer's leaf is cut to
+    the rank's slice (`parallel/sharding.py`) before it goes to the
+    device; `presliced` leaves (the rank's experts only) are kept as
+    given."""
 
     def __init__(self, num_layers: int, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, block: str = "layers",
+                 shard: Optional[Tuple[int, int]] = None):
         self.L = num_layers
         self.dtype = dtype
         self.device = device
+        self.block = block
+        self.shard = shard
         self.out: Dict[str, torch.Tensor] = {}
 
     def put(self, key: str, layer: int, arr: torch.Tensor,
-            dtype: Optional[torch.dtype] = None) -> None:
+            dtype: Optional[torch.dtype] = None,
+            presliced: bool = False) -> None:
         dt = dtype or self.dtype
+        if self.shard is not None and not presliced:
+            from ..parallel.sharding import leaf_spec, shard_slice, tp_dim
+            dim = tp_dim(leaf_spec(self.block, key))
+            arr = shard_slice(arr, None if dim is None else dim - 1,
+                              *self.shard, name=f"{self.block}.{key}")
+        if self.shard is not None:  # widened as convert_llama's take
+            arr = arr.to(self.device).float()
         if key not in self.out:
             self.out[key] = torch.empty((self.L,) + tuple(arr.shape),
                                         dtype=dt, device=self.device)
@@ -193,7 +218,8 @@ class _Stacker:
 
 
 def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
-                  device: Union[str, torch.device] = "cpu"
+                  device: Union[str, torch.device] = "cpu",
+                  shard: Optional[Tuple[int, int]] = None
                   ) -> Dict[str, Any]:
     """Map HF checkpoint names/layouts onto the llama.py param tree.
 
@@ -217,15 +243,25 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
     selection bias `mlp.gate.e_score_correction_bias` (fp32), its
     shared experts and its first_k_dense leading layers, which go into
     a separate `dense_layers` stack.
+
+    `shard` = (rank, tp) gives a tensor-parallel rank's slices of every
+    leaf (`parallel/sharding.py`) and reads only them: tensors are
+    mapped from the files, a leaf is cut to the rank's slice before it
+    is copied (a stacked expert leaf reads the rank's experts only), so
+    no rank ever holds the whole tree. A leaf the rules do not name
+    raises `sharding.UnshardableLeaf`.
     """
     dev = torch.device(device)
+    if shard is not None and shard[1] == 1:
+        shard = None
     t_dt = dtype or torch.bfloat16
     f32 = torch.float32
     L, D, H, K, Dh = (cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                       cfg.num_kv_heads, cfg.head_dim)
     n_dense = cfg.first_k_dense if cfg.is_moe and cfg.first_k_dense else 0
-    st_main = _Stacker(L - n_dense, t_dt, dev)
-    st_dense = _Stacker(n_dense, t_dt, dev) if n_dense else None
+    st_main = _Stacker(L - n_dense, t_dt, dev, "layers", shard)
+    st_dense = _Stacker(n_dense, t_dt, dev, "dense_layers", shard) \
+        if n_dense else None
     layernorm = cfg.norm_type == "layernorm"
 
     def take(name: str) -> torch.Tensor:
@@ -233,7 +269,30 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
             # bare AutoModel checkpoints (MistralModel/Qwen2Model
             # embedding repos) drop the "model." prefix
             name = name[len("model."):]
+        if shard is not None:
+            # mapped, in its stored dtype: the rank's slice is cut (and
+            # widened) by _Stacker.put / top() before anything is read
+            return ckpt.read(name, lazy=True)
         return ckpt.read(name).to(dev).to(f32)
+
+    def top(name: str, t: torch.Tensor) -> torch.Tensor:
+        # a top-level leaf: the rank's slice on the device, in float32
+        if shard is not None:
+            from ..parallel.sharding import leaf_spec, shard_slice, tp_dim
+            t = shard_slice(t, tp_dim(leaf_spec(None, name)), *shard,
+                            name=name)
+        return t.to(dev).to(f32)
+
+    def expert_ids():
+        # the experts this rank keeps (all of them without a shard)
+        E = cfg.num_experts
+        if shard is None:
+            return range(E)
+        if E % shard[1]:
+            raise ValueError(f"tp={shard[1]} must divide dim 1 of "
+                             f"parameter layers.we_gate (size {E})")
+        n = E // shard[1]
+        return range(shard[0] * n, (shard[0] + 1) * n)
 
     def linear_in_out(name: str) -> torch.Tensor:
         return take(name).t()  # [out,in] -> [in,out]
@@ -361,7 +420,7 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
             for leaf, hf in names:
                 st.put(leaf, i, torch.stack([
                     linear_in_out(f"{moe}experts.{e}.{hf}.weight")
-                    for e in range(cfg.num_experts)]))
+                    for e in expert_ids()]), presliced=True)
             if cfg.num_shared_experts > 0:
                 for sn in ("mlp.shared_experts.", "mlp.shared_expert."):
                     if p + sn + "gate_proj.weight" in ckpt:
@@ -384,21 +443,22 @@ def convert_llama(ckpt: Checkpoint, cfg, dtype=None,
             st.put("w_down", i, linear_in_out(p + "mlp.down_proj.weight"))
 
     params: Dict[str, Any] = {
-        "embed": take("model.embed_tokens.weight").to(t_dt),
-        "final_norm": take("model.norm.weight").to(t_dt),
+        "embed": top("embed", take("model.embed_tokens.weight")).to(t_dt),
+        "final_norm": top("final_norm", take("model.norm.weight")).to(t_dt),
         "layers": st_main.out,
     }
     if st_dense is not None:
         params["dense_layers"] = st_dense.out
     if layernorm:
-        params["final_norm_bias"] = take("model.norm.bias").to(t_dt)
+        params["final_norm_bias"] = top("final_norm_bias",
+                                        take("model.norm.bias")).to(t_dt)
     if not cfg.tie_word_embeddings and "lm_head.weight" in ckpt:
         # some checkpoints omit lm_head despite tie=False in config:
         # the model then falls back to the tied embeddings
-        params["lm_head"] = linear_in_out(
-            "lm_head.weight").to(t_dt).contiguous()
+        params["lm_head"] = top("lm_head", linear_in_out(
+            "lm_head.weight")).to(t_dt).contiguous()
     if cfg.lm_head_bias and "lm_head.bias" in ckpt:
-        params["lm_head_bias"] = take("lm_head.bias")
+        params["lm_head_bias"] = top("lm_head_bias", take("lm_head.bias"))
     return params
 
 
@@ -542,7 +602,8 @@ def load_config(model_dir: str):
 
 
 def load_params(model_dir: str, cfg=None, dtype=None,
-                device: Optional[Union[str, torch.device]] = None
+                device: Optional[Union[str, torch.device]] = None,
+                shard: Optional[Tuple[int, int]] = None
                 ) -> Tuple[Dict[str, Any], Any]:
     """Load (params, cfg) from a HF model directory onto `device`
     (default CUDA; 'cpu' only when asked for).
@@ -551,7 +612,8 @@ def load_params(model_dir: str, cfg=None, dtype=None,
     architecture gate; a configuration the port cannot run
     (`params.check_supported`) is refused before any weight is read.
     `dtype` (a torch dtype; default bfloat16) is the weights' and the
-    compute dtype."""
+    compute dtype. `shard` = (rank, tp): a tensor-parallel rank's slices
+    only (`convert_llama`)."""
     from ..device import resolve_device
     from .params import check_supported
     dev = resolve_device(device)
@@ -559,7 +621,8 @@ def load_params(model_dir: str, cfg=None, dtype=None,
         cfg = load_config(model_dir)
     check_supported(cfg)
     ckpt = Checkpoint(model_dir)
-    params = convert_llama(ckpt, cfg, dtype=dtype, device=dev)
+    params = convert_llama(ckpt, cfg, dtype=dtype, device=dev,
+                           shard=shard)
     if dtype is not None:
         cfg = cfg.replace(dtype=dtype)
     return params, cfg

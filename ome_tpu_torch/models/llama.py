@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import attention
+from ..parallel import comm
 from ..ops.flash import quantize_rows
 from ..ops.int4_matmul import int4_eligible, int4_matmul
 from ..ops.paged import paged_attention, paged_attention_multi
@@ -355,10 +356,13 @@ def _activate(gate: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def dense_mlp(x: torch.Tensor, p, cfg: ModelConfig,
               lora: Lora = None) -> torch.Tensor:
+    """The gated MLP. Under tp its hidden dim is split over the ranks
+    (w_gate/w_up by column, w_down by row): the down projection's
+    partial outputs are summed (`comm.reduce_sum`)."""
     gate = _proj_lora(x, p, "w_gate", lora, cfg.dtype)
     up = _proj_lora(x, p, "w_up", lora, cfg.dtype)
-    return _proj_lora(_activate(gate, cfg) * up, p, "w_down", lora,
-                      cfg.dtype)
+    return comm.reduce_sum(_proj_lora(_activate(gate, cfg) * up, p,
+                                      "w_down", lora, cfg.dtype))
 
 
 # -- mixture of experts -----------------------------------------------------
@@ -481,7 +485,10 @@ def moe_mlp_dense(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     router weight (reference `moe_mlp_dense`): O(E) products, static
     shapes; the fp32 cross-check of the ragged dispatch. gpt-oss's
     expert biases are added to each expert's gate, up and output (the
-    output's before the routing weight scales it)."""
+    output's before the routing weight scales it).
+    Under tp the experts are split over the ranks (expert parallelism):
+    a rank computes its own E/tp experts and mixes them by their columns
+    of the routing weights; `moe_mlp` sums the ranks' partial outputs."""
     weights, idx = _route(x, p, cfg)
     gate = torch.einsum("bsd,edf->bsef", x, _w(p["we_gate"], cfg.dtype))
     up = torch.einsum("bsd,edf->bsef", x, _w(p["we_up"], cfg.dtype))
@@ -494,6 +501,9 @@ def moe_mlp_dense(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
         expert_out = expert_out + p["we_down_b"]
     onehot = F.one_hot(idx, cfg.num_experts).to(weights.dtype)
     mix = torch.einsum("bske,bsk->bse", onehot, weights)
+    e_local = expert_out.shape[2]
+    if e_local != cfg.num_experts:  # this rank's experts' columns
+        mix = mix.narrow(-1, comm.rank_and_size()[0] * e_local, e_local)
     return torch.einsum("bsed,bse->bsd", expert_out,
                         mix.to(expert_out.dtype))
 
@@ -529,7 +539,13 @@ def moe_mlp_ragged(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     biases where the model has them), weight each row, put the
     rows back in (token, pick) order and add each token's k rows in pick
     order in the rows' dtype, then cast to x's dtype. Static shapes and
-    no host read, so a `decode_multi` chunk stays free of syncs."""
+    no host read, so a `decode_multi` chunk stays free of syncs. One
+    device only: under tp the experts are split and the dense impl runs,
+    as in the reference."""
+    if comm.current() is not None:
+        raise NotImplementedError(
+            "the ragged MoE dispatch runs on one device; a tp group "
+            "serves moe_impl='dense'")
     B, S, D = x.shape
     k, E = cfg.experts_per_token, cfg.num_experts
     T = B * S
@@ -574,14 +590,16 @@ def _shared_mlp(x: torch.Tensor, p) -> torch.Tensor:
 
 def moe_mlp(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     """Top-k MoE block (reference `moe_mlp`), plus DeepSeek's shared
-    experts (`_shared_mlp`) added to the routed experts' output."""
+    experts (`_shared_mlp`) added to the routed experts' output. Under
+    tp both are partial (experts split, the shared experts' hidden dim
+    split): one sum over the ranks covers the two."""
     if cfg.moe_impl == "ragged":
         out = moe_mlp_ragged(x, p, cfg)
     else:
         out = moe_mlp_dense(x, p, cfg)
     if cfg.num_shared_experts > 0:
         out = out + _shared_mlp(x, p)
-    return out
+    return comm.reduce_sum(out)
 
 
 # -- forward ---------------------------------------------------------------
@@ -589,10 +607,13 @@ def moe_mlp(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
 
 def _embed(emb, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Embedding lookup in the compute dtype; a quantized table
-    dequantizes only the rows it gathers (`QTensor.take`)."""
+    dequantizes only the rows it gathers (`QTensor.take`). Under tp the
+    table is split by vocab rows (`comm.embed_lookup`)."""
     if isinstance(emb, QTensor):
-        return emb.take(tokens, dtype)
-    return emb[tokens.long()].to(dtype)
+        return comm.embed_lookup(lambda t: emb.take(t, dtype), tokens,
+                                 emb.q.shape[0], dtype)
+    return comm.embed_lookup(lambda t: emb[t.long()].to(dtype), tokens,
+                             emb.shape[0], dtype)
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor,
@@ -620,12 +641,13 @@ def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
     LayerNorm) and roped q/k/v, in the reference's order; shared by the
     dense and paged paths. `rope=False` is Cohere2's NoPE global
     layers."""
+    # heads from the weights: a tp rank holds H/tp and K/tp of them
     q = _proj_lora(h, lp, "wq", lora, cfg.dtype,
-                   out_dims=(cfg.num_heads, cfg.head_dim))
+                   out_dims=(-1, cfg.head_dim))
     k = _proj_lora(h, lp, "wk", lora, cfg.dtype,
-                   out_dims=(cfg.num_kv_heads, cfg.head_dim))
+                   out_dims=(-1, cfg.head_dim))
     v = _proj_lora(h, lp, "wv", lora, cfg.dtype,
-                   out_dims=(cfg.num_kv_heads, cfg.head_dim))
+                   out_dims=(-1, cfg.head_dim))
     if cfg.attn_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -634,9 +656,12 @@ def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
         # the reference's own dispatch: LayerNorm only under
         # layernorm_nobias, RMSNorm otherwise (layernorm included)
         if cfg.norm_type == "layernorm_nobias":
-            # command-r-plus: per-(head, dim) weighted LayerNorm
-            q = layer_norm(q, lp["q_norm"], None, cfg.rms_norm_eps)
-            k = layer_norm(k, lp["k_norm"], None, cfg.rms_norm_eps)
+            # command-r-plus: per-(head, dim) weighted LayerNorm; the
+            # norms stay whole under tp, a rank takes its heads' rows
+            q = layer_norm(q, comm.local_rows(lp["q_norm"], q.shape[-2]),
+                           None, cfg.rms_norm_eps)
+            k = layer_norm(k, comm.local_rows(lp["k_norm"], k.shape[-2]),
+                           None, cfg.rms_norm_eps)
         else:
             q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps,
                          cfg.unit_offset_norm)
@@ -651,8 +676,11 @@ def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
 def _out_proj(attn: torch.Tensor, lp, cfg: ModelConfig,
               lora: Lora = None) -> torch.Tensor:
     """o_proj with the rows' adapter deltas, plus its bias where the
-    checkpoint carries one."""
-    a = _proj_lora(attn, lp, "wo", lora, cfg.dtype, flatten=2)
+    checkpoint carries one. Under tp a rank's heads give a partial
+    output: the ranks' parts are summed first, then the bias is added
+    once."""
+    a = comm.reduce_sum(_proj_lora(attn, lp, "wo", lora, cfg.dtype,
+                                   flatten=2))
     if "bo" in lp:
         a = a + lp["bo"]
     return a
@@ -757,7 +785,9 @@ def _final_logits(params: Params, cfg: ModelConfig,
     with preferred_element_type=float32): on a card the bf16 product
     writes fp32 directly; elsewhere the product runs in fp32. Then, on
     the fp32 logits, the head's bias (Phi-3.5-MoE), command-r's
-    logit_scale and Gemma 2's final softcap."""
+    logit_scale and Gemma 2's final softcap. Under tp the head (tied or
+    not) is split by vocab columns: the fp32 logits are gathered whole
+    (`comm.gather_last`) before the bias, scale and softcap."""
     x = block_norm(x, params, "final_norm", cfg)
     tied = "lm_head" not in params
     head = params["embed" if tied else "lm_head"]
@@ -771,7 +801,7 @@ def _final_logits(params: Params, cfg: ModelConfig,
         logits = torch.mm(x2, head, out_dtype=torch.float32)
     else:
         logits = x2.float() @ head.float()
-    logits = logits.reshape(*lead, -1)
+    logits = comm.gather_last(logits.reshape(*lead, -1))
     if "lm_head_bias" in params:
         logits = logits + params["lm_head_bias"]
     if cfg.logit_scale is not None:

@@ -147,9 +147,12 @@ def load_adapter_matrices(adapter_dir: str, cfg,
     return {k: (a, b) for k, (a, b) in out.items()}
 
 
-def merge_lora(params: Dict[str, Any], cfg, adapter_dir: str) -> int:
+def merge_lora(params: Dict[str, Any], cfg, adapter_dir: str,
+               shard=None) -> int:
     """Fold the adapter into `params` in place (numpy leaves, or torch
-    tensors on their device, before quantization).
+    tensors on their device, before quantization). `shard` = (rank, tp):
+    `params` holds a tensor-parallel rank's slices (torch leaves), and
+    each delta is cut to the same slice first (`parallel/sharding.py`).
 
     Returns the number of (layer, module) pairs merged. Raises on rank
     mismatches or targets the model doesn't have.
@@ -170,6 +173,12 @@ def merge_lora(params: Dict[str, Any], cfg, adapter_dir: str) -> int:
             # [out, in] goes over as it is; the layout change runs on
             # the leaf's device (the same values, without a host copy)
             d = reshape(torch.from_numpy(delta).to(leaf.device), cfg)
+            if shard is not None and shard[1] > 1:
+                from ..parallel.sharding import (leaf_spec, shard_slice,
+                                                 tp_dim)
+                dim = tp_dim(leaf_spec("layers", leaf_name))
+                d = shard_slice(d, None if dim is None else dim - 1,
+                                shard[0], shard[1], leaf_name)
             leaf[layer] = (leaf[layer].float() + d).to(leaf.dtype)
         else:
             if leaf_name not in writable:

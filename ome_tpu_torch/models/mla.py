@@ -29,6 +29,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from ..parallel import comm
 from .config import ModelConfig
 
 
@@ -206,4 +207,7 @@ def mla_attention(h: torch.Tensor, lp, cfg: ModelConfig,
                                positions[0] if k_pos is None else k_pos,
                                kv_len)
         attn_out = torch.einsum("bhst,bthv->bshv", attn.to(v.dtype), v)
-    return torch.einsum("bshv,hvd->bsd", attn_out, _w(lp["wo"], dt))
+    # under tp a rank holds H/tp heads (wq/wq_b, w_uk, w_uv, wo) and the
+    # whole latent cache: its heads' output is partial, summed over ranks
+    return comm.reduce_sum(torch.einsum("bshv,hvd->bsd", attn_out,
+                                        _w(lp["wo"], dt)))

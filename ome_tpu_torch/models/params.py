@@ -25,8 +25,9 @@ tensors stacked on a leading [L, ...] axis (`layers["wq"]` is
 
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -116,7 +117,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: Union[str, torch.device]) -> Params:
+                device: Union[str, torch.device],
+                shard: Optional[Tuple[int, int]] = None) -> Params:
     """Random weights for `cfg` on `device` (the generator must live on
     the same device). Each stacked leaf is filled one layer at a time,
     and an expert leaf [L, E, ...] one expert at a time, so the fp32
@@ -131,121 +133,180 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     `wo` [L, H, v, D]), DeepSeek's MoE its shared experts `ws_*` and
     V3's fp32 selection bias `router_bias` (zero), and first_k_dense
     models a `dense_layers` block of that many dense layers, drawn
-    before `layers`."""
+    before `layers`.
+
+    `shard` = (rank, tp) makes rank `rank`'s slice of every leaf under
+    the tensor-parallel rules (`parallel/sharding.py`): each slab (a
+    layer, an expert, a 2-D leaf) is drawn whole, in the same order and
+    from the same generator as without `shard`, and only the rank's part
+    of it is kept. So the slices equal the unsharded tree's, and the
+    draw never holds more than one slab beyond the rank's shard. A leaf
+    the rules do not name raises `sharding.UnshardableLeaf`."""
     check_supported(cfg)
     device = torch.device(device)
+    rank, tp = shard or (0, 1)
+    bname: Optional[str] = None  # the block being drawn (None: top)
+
+    def tp_dim(name):
+        if tp == 1:
+            return None
+        from ..parallel.sharding import leaf_spec, tp_dim as spec_dim
+        return spec_dim(leaf_spec(bname, name))
+
+    def local(name, shape):
+        dim = tp_dim(name)
+        shape = list(shape)
+        if dim is not None:
+            if shape[dim] % tp:
+                raise ValueError(
+                    f"tp={tp} must divide dim {dim} of parameter "
+                    f"{name} (size {shape[dim]})")
+            shape[dim] //= tp
+        return dim, tuple(shape)
+
+    def whole(name, t):
+        # a constant leaf (norm scale, bias): its slice, made directly
+        dim, shape = local(name, t.shape)
+        return t if dim is None else t.narrow(
+            dim, 0, shape[dim]).clone()
     D, H, K, Dh, F = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                       cfg.head_dim, cfg.intermediate_size)
     L = cfg.num_layers
     out_std = 0.02 / math.sqrt(2 * L)
 
-    def normal(shape, std=0.02, per_expert=False):
-        out = torch.empty(shape, dtype=cfg.dtype, device=device)
-        slabs = (out.flatten(0, 1) if per_expert
-                 else out if len(shape) >= 3 else out[None])
-        for slab in slabs:
-            slab.copy_(torch.randn(slab.shape, generator=generator,
-                                   device=device,
-                                   dtype=torch.float32).mul_(std))
+    def normal(name, shape, std=0.02, per_expert=False):
+        # slabs: each expert of each layer, each layer, or the 2-D leaf
+        dim, lshape = local(name, shape)
+        out = torch.empty(lshape, dtype=cfg.dtype, device=device)
+        lead = 2 if per_expert else 1 if len(shape) >= 3 else 0
+        n = None if dim is None else lshape[dim]
+        for idx in itertools.product(*map(range, shape[:lead])):
+            slab = torch.randn(shape[lead:], generator=generator,
+                               device=device,
+                               dtype=torch.float32).mul_(std)
+            if dim is not None and dim < lead:  # a slab of one rank
+                if idx[dim] // n != rank:
+                    continue
+                idx = idx[:dim] + (idx[dim] % n,) + idx[dim + 1:]
+            elif dim is not None:
+                slab = slab.narrow(dim - lead, rank * n, n)
+            out[idx].copy_(slab)
         return out
 
-    def zeros(*shape, dtype=None):
-        return torch.zeros(shape, dtype=dtype or cfg.dtype, device=device)
+    def zeros(name, *shape, dtype=None):
+        return whole(name, torch.zeros(shape, dtype=dtype or cfg.dtype,
+                                       device=device))
 
-    def scale(*shape):
+    def scale(name, *shape):
         # unit-offset (Gemma) norms store scale - 1: zeros = identity
         if cfg.unit_offset_norm:
-            return zeros(*shape)
-        return torch.ones(shape, dtype=cfg.dtype, device=device)
+            return zeros(name, *shape)
+        return whole(name, torch.ones(shape, dtype=cfg.dtype,
+                                      device=device))
 
     layernorm = cfg.norm_type == "layernorm"
-    embed = normal((cfg.vocab_size, D))  # drawn first, as it always was
+    # drawn first, as it always was
+    embed = normal("embed", (cfg.vocab_size, D))
 
     def block(L: int, moe: bool) -> Params:
         """One stacked block of L layers (`layers`, or DeepSeek's
         leading dense `dense_layers`)."""
-        layers: Params = {"attn_norm": scale(L, D)}
+        layers: Params = {"attn_norm": scale("attn_norm", L, D)}
         if not cfg.parallel_block:  # command-r: one norm feeds both
-            layers["mlp_norm"] = scale(L, D)
+            layers["mlp_norm"] = scale("mlp_norm", L, D)
         if cfg.mla:
             qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
             r = cfg.kv_lora_rank
             if cfg.q_lora_rank:
-                layers.update(wq_a=normal((L, D, cfg.q_lora_rank)),
-                              q_a_norm=scale(L, cfg.q_lora_rank),
-                              wq_b=normal((L, cfg.q_lora_rank, H, qk)))
+                layers.update(
+                    wq_a=normal("wq_a", (L, D, cfg.q_lora_rank)),
+                    q_a_norm=scale("q_a_norm", L, cfg.q_lora_rank),
+                    wq_b=normal("wq_b", (L, cfg.q_lora_rank, H, qk)))
             else:
-                layers["wq"] = normal((L, D, H, qk))
+                layers["wq"] = normal("wq", (L, D, H, qk))
             layers.update(
-                wkv_a=normal((L, D, r + cfg.qk_rope_head_dim)),
-                kv_a_norm=scale(L, r),
-                w_uk=normal((L, H, cfg.qk_nope_head_dim, r)),
-                w_uv=normal((L, H, r, cfg.v_head_dim)),
-                wo=normal((L, H, cfg.v_head_dim, D), out_std))
+                wkv_a=normal("wkv_a", (L, D, r + cfg.qk_rope_head_dim)),
+                kv_a_norm=scale("kv_a_norm", L, r),
+                w_uk=normal("w_uk", (L, H, cfg.qk_nope_head_dim, r)),
+                w_uv=normal("w_uv", (L, H, r, cfg.v_head_dim)),
+                wo=normal("wo", (L, H, cfg.v_head_dim, D), out_std))
         else:
-            layers.update(wq=normal((L, D, H, Dh)), wk=normal((L, D, K, Dh)),
-                          wv=normal((L, D, K, Dh)),
-                          wo=normal((L, H, Dh, D), out_std))
+            layers.update(wq=normal("wq", (L, D, H, Dh)),
+                          wk=normal("wk", (L, D, K, Dh)),
+                          wv=normal("wv", (L, D, K, Dh)),
+                          wo=normal("wo", (L, H, Dh, D), out_std))
         if layernorm:
-            layers["attn_norm_bias"] = zeros(L, D)
-            layers["mlp_norm_bias"] = zeros(L, D)
+            layers["attn_norm_bias"] = zeros("attn_norm_bias", L, D)
+            layers["mlp_norm_bias"] = zeros("mlp_norm_bias", L, D)
         if cfg.post_block_norms:
-            layers["attn_post_norm"] = scale(L, D)
-            layers["mlp_post_norm"] = scale(L, D)
+            layers["attn_post_norm"] = scale("attn_post_norm", L, D)
+            layers["mlp_post_norm"] = scale("mlp_post_norm", L, D)
         if cfg.qk_norm:
             # command-r-plus norms per (head, dim), Qwen3 per dim
             per_head = cfg.norm_type == "layernorm_nobias"
-            layers["q_norm"] = scale(L, H, Dh) if per_head else scale(L, Dh)
-            layers["k_norm"] = scale(L, K, Dh) if per_head else scale(L, Dh)
+            layers["q_norm"] = scale("q_norm", L, H, Dh) if per_head \
+                else scale("q_norm", L, Dh)
+            layers["k_norm"] = scale("k_norm", L, K, Dh) if per_head \
+                else scale("k_norm", L, Dh)
         if cfg.attn_bias:
-            layers["bq"] = zeros(L, H, Dh)
-            layers["bk"] = zeros(L, K, Dh)
-            layers["bv"] = zeros(L, K, Dh)
+            layers["bq"] = zeros("bq", L, H, Dh)
+            layers["bk"] = zeros("bk", L, K, Dh)
+            layers["bv"] = zeros("bv", L, K, Dh)
             if cfg.attn_sinks or layernorm:  # gpt-oss, Phi-3.5-MoE
-                layers["bo"] = zeros(L, D)
+                layers["bo"] = zeros("bo", L, D)
         if cfg.attn_sinks:
-            layers["sinks"] = zeros(L, H, dtype=torch.float32)
+            layers["sinks"] = zeros("sinks", L, H, dtype=torch.float32)
         if moe:
             E, Fm = cfg.num_experts, cfg.moe_intermediate_size or F
-            layers["router"] = normal((L, D, E))
-            layers["we_gate"] = normal((L, E, D, Fm), per_expert=True)
-            layers["we_up"] = normal((L, E, D, Fm), per_expert=True)
-            layers["we_down"] = normal((L, E, Fm, D), out_std,
+            layers["router"] = normal("router", (L, D, E))
+            layers["we_gate"] = normal("we_gate", (L, E, D, Fm),
+                                       per_expert=True)
+            layers["we_up"] = normal("we_up", (L, E, D, Fm),
+                                     per_expert=True)
+            layers["we_down"] = normal("we_down", (L, E, Fm, D), out_std,
                                        per_expert=True)
             if cfg.moe_bias:
-                layers["router_b"] = zeros(L, E, dtype=torch.float32)
-                layers["we_gate_b"] = zeros(L, E, Fm)
-                layers["we_up_b"] = zeros(L, E, Fm)
-                layers["we_down_b"] = zeros(L, E, D)
+                layers["router_b"] = zeros("router_b", L, E,
+                                           dtype=torch.float32)
+                layers["we_gate_b"] = zeros("we_gate_b", L, E, Fm)
+                layers["we_up_b"] = zeros("we_up_b", L, E, Fm)
+                layers["we_down_b"] = zeros("we_down_b", L, E, D)
             elif cfg.router_bias:  # DeepSeek-V3's selection bias
-                layers["router_bias"] = zeros(L, E, dtype=torch.float32)
+                layers["router_bias"] = zeros("router_bias", L, E,
+                                              dtype=torch.float32)
             if cfg.num_shared_experts > 0:
                 Fs = Fm * cfg.num_shared_experts
-                layers["ws_gate"] = normal((L, D, Fs))
-                layers["ws_up"] = normal((L, D, Fs))
-                layers["ws_down"] = normal((L, Fs, D), out_std)
+                layers["ws_gate"] = normal("ws_gate", (L, D, Fs))
+                layers["ws_up"] = normal("ws_up", (L, D, Fs))
+                layers["ws_down"] = normal("ws_down", (L, Fs, D), out_std)
         else:
-            layers["w_gate"] = normal((L, D, F))
-            layers["w_up"] = normal((L, D, F))
-            layers["w_down"] = normal((L, F, D), out_std)
+            layers["w_gate"] = normal("w_gate", (L, D, F))
+            layers["w_up"] = normal("w_up", (L, D, F))
+            layers["w_down"] = normal("w_down", (L, F, D), out_std)
         return layers
 
     n_dense = cfg.first_k_dense if cfg.is_moe else 0
-    dense = block(n_dense, moe=False) if n_dense else None
+    dense = None
+    if n_dense:
+        bname = "dense_layers"
+        dense = block(n_dense, moe=False)
+    bname = "layers"
     layers = block(L - n_dense, cfg.is_moe)
+    bname = None
     params: Params = {
         "embed": embed,
         "layers": layers,
-        "final_norm": scale(D),
+        "final_norm": scale("final_norm", D),
     }
     if dense is not None:
         params["dense_layers"] = dense
     if layernorm:
-        params["final_norm_bias"] = zeros(D)
+        params["final_norm_bias"] = zeros("final_norm_bias", D)
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = normal((D, cfg.vocab_size))
+        params["lm_head"] = normal("lm_head", (D, cfg.vocab_size))
     if cfg.lm_head_bias:
-        params["lm_head_bias"] = zeros(cfg.vocab_size, dtype=torch.float32)
+        params["lm_head_bias"] = zeros("lm_head_bias", cfg.vocab_size,
+                                       dtype=torch.float32)
     return params
 
 

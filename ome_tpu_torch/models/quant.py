@@ -132,20 +132,31 @@ def _amax(w32: torch.Tensor, axes) -> torch.Tensor:
     return w32.abs().amax(dim=tuple(axes), keepdim=True)
 
 
-def quantize_tensor(w: torch.Tensor, contract_axes) -> QTensor:
+def quantize_tensor(w: torch.Tensor, contract_axes,
+                    amax_all=None) -> QTensor:
     """Per-output-channel symmetric int8: scales span `contract_axes`
-    (the dims the matmul sums over)."""
+    (the dims the matmul sums over). `amax_all` (a tp rank's
+    `comm.amax`) takes the max over the ranks when `w` is one rank's
+    slice of a contraction dim, so the bytes equal the whole weight's."""
     w32 = w.float()
-    s = _amax(w32, contract_axes).clamp_min(1e-8) / 127.0
+    a = _amax(w32, contract_axes)
+    if amax_all is not None:
+        a = amax_all(a)
+    s = a.clamp_min(1e-8) / 127.0
     q = torch.round(w32 / s).clamp(-127, 127).to(torch.int8)
     return QTensor(q=q, s=s, bits=8)
 
 
-def quantize_tensor_fp8(w: torch.Tensor, contract_axes) -> QTensor:
+def quantize_tensor_fp8(w: torch.Tensor, contract_axes,
+                        amax_all=None) -> QTensor:
     """Per-output-channel scaled float8_e4m3fn (one byte per weight, a
-    floating 3-bit mantissa), scaled to the format's finite max 448."""
+    floating 3-bit mantissa), scaled to the format's finite max 448;
+    `amax_all` as in `quantize_tensor`."""
     w32 = w.float()
-    s = _amax(w32, contract_axes).clamp_min(1e-8) / 448.0
+    a = _amax(w32, contract_axes)
+    if amax_all is not None:
+        a = amax_all(a)
+    s = a.clamp_min(1e-8) / 448.0
     q = (w32 / s).to(torch.float8_e4m3fn)
     return QTensor(q=q, s=s, bits=8)
 
@@ -227,7 +238,8 @@ def _per_layer(fn, v: torch.Tensor, axes) -> QTensor:
 
 
 def quantize_params(params: Params, mode: str = "int8",
-                    group: int = 128, consume: bool = False) -> Params:
+                    group: int = 128, consume: bool = False,
+                    split_contraction=(), amax_all=None) -> Params:
     """Quantize the big matmul weights (the experts of a MoE layer
     included, over D); norms, biases and the MoE router stay full
     precision, as in the reference (tiny, and routing is
@@ -241,7 +253,12 @@ def quantize_params(params: Params, mode: str = "int8",
     `consume`: then each leaf is removed from it once quantized, so a
     caller that holds no other reference frees the full-precision
     weights leaf by leaf (device memory peaks near the larger of the
-    two trees, not their sum)."""
+    two trees, not their sum).
+    A tp rank quantizes its own slices: the stacked leaves named in
+    `split_contraction` (those whose tensor-parallel dim is contracted:
+    wo, w_down, ws_down, all kept at int8 or fp8) take their scales'
+    max over the ranks through `amax_all`, so every rank's bytes and
+    scales equal its slice of the whole tree's."""
     if mode not in ("int8", "int4", "fp8"):
         raise ValueError(f"unknown quantization mode {mode!r}")
     int4 = mode == "int4"
@@ -255,6 +272,12 @@ def quantize_params(params: Params, mode: str = "int8",
         if k not in _LAYER_CONTRACT:
             return v
         axes = _LAYER_CONTRACT[k]
+        if k in split_contraction:
+            if int4 and k not in _INT8_ONLY:
+                raise ValueError(f"int4 {k} would pack along a split dim")
+            fn = base_q
+            return _per_layer(lambda w, a: fn(w, a, amax_all=amax_all),
+                              v, axes)
         if int4 and k not in _INT8_ONLY:
             try:
                 return _per_layer(int4_q, v, axes)

@@ -560,7 +560,8 @@ def flash_decode(q, k, v, lo, hi, scale: float,
                                f"CUDA error {rc}")
         LAUNCHES["flash_decode"] += 1
         return out
-    return head_split(launch, q, K, sinks)
+    with torch.cuda.device(dev):  # the C side launches on the current card
+        return head_split(launch, q, K, sinks)
 
 
 def flash_prefill(q, k, v, base, kv_hi, scale: float,
@@ -595,7 +596,8 @@ def flash_prefill(q, k, v, base, kv_hi, scale: float,
                                f"CUDA error {rc}")
         LAUNCHES["flash_prefill"] += 1
         return out
-    return head_split(launch, q, K, sinks)
+    with torch.cuda.device(dev):  # the C side launches on the current card
+        return head_split(launch, q, K, sinks)
 
 
 def check_paged_coverage(block: int, head_dim: int, num_heads: int,
@@ -691,7 +693,8 @@ def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,
                                f"error {rc}")
         LAUNCHES[name] += 1
         return out
-    return head_split(launch, q, K)
+    with torch.cuda.device(dev):
+        return head_split(launch, q, K)
 
 
 def _kv_hi(kv_len, B: int, S: int, device) -> torch.Tensor:

@@ -27,6 +27,11 @@ scale) rounded to bf16; products accumulated in fp32; the sum cast to
   caller (`models/llama._proj`) asks `int4_eligible` first, which is
   the reference's dispatch rule written as a predicate and the
   kernel's coverage at once.
+* A tp rank's int4 leaves are column slices (w_gate / w_up / wq / wk /
+  wv split on N; K stays whole), so each rank launches the kernel on
+  its own slice. The reference turns its kernel off under tp
+  (`_no_int4_kernel`) only because GSPMD cannot partition a Pallas
+  call; the port's ranks run local slices, where that does not apply.
 
 Nothing is built or imported from the CUDA toolchain when this module
 is imported.
@@ -326,10 +331,12 @@ def int4_matmul(x: torch.Tensor, qt, out_dtype=torch.bfloat16
     part, cnt = _scratch(dev, stream, plan)
     from . import _build
     fn = _build.kernel("int4_matmul")
-    rc = fn(x2.data_ptr(), qp2.data_ptr(), s2.data_ptr(), out.data_ptr(),
-            part.data_ptr(), cnt.data_ptr(), m, k, x2.shape[1], n, gsize,
-            plan.block_m, plan.splits, plan.grid, plan.stages,
-            int(out_dtype == torch.bfloat16), stream)
+    with torch.cuda.device(dev):  # the C side launches on the current card
+        rc = fn(x2.data_ptr(), qp2.data_ptr(), s2.data_ptr(),
+                out.data_ptr(), part.data_ptr(), cnt.data_ptr(), m, k,
+                x2.shape[1], n, gsize, plan.block_m, plan.splits,
+                plan.grid, plan.stages, int(out_dtype == torch.bfloat16),
+                stream)
     if rc != 0:
         raise RuntimeError(f"int4_matmul: kernel launch failed with CUDA "
                            f"error {rc}")

@@ -42,7 +42,12 @@ def test_port_files_found():
                  "ome_tpu_torch/models/mla.py",
                  "ome_tpu_torch/engine/core.py",
                  "ome_tpu_torch/engine/embed.py",
-                 "ome_tpu_torch/engine/serve.py", "chip_smoke.py"):
+                 "ome_tpu_torch/engine/serve.py",
+                 "ome_tpu_torch/engine/sharded.py",
+                 "ome_tpu_torch/engine/multihost.py",
+                 "ome_tpu_torch/parallel/mesh.py",
+                 "ome_tpu_torch/parallel/sharding.py",
+                 "ome_tpu_torch/parallel/comm.py", "chip_smoke.py"):
         assert must in names
 
 

@@ -18,7 +18,11 @@ served: `--prefix-cache-host-mb`, a `--disaggregation-mode prefill` node
 (completions 503, `/pd/prefill` answers), a `--disaggregation-mode
 decode` node whose pool is `--prefill-peer` plus `--prefill-url`
 (`--pd-attempt-timeout`) answering what a monolithic server answers,
-and `--pd-local-fallback` serving with no live peer.
+and `--pd-local-fallback` serving with no live peer. Tensor parallelism
+is served: `--tp 2 --device cpu` answers with the `--tp 1` stream (a
+follower process started by the server), `--control-port` is parsed,
+the LWS environment sets tp to its process count, and the reference's
+refusals under tp > 1 come in its words.
 """
 
 import json
@@ -122,13 +126,13 @@ def test_health_metrics_and_refusals(served):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--tp", "2"], ["--quantization", "nf4"], ["--kv-block", "-16"],
+    ["--tp", "0"], ["--quantization", "nf4"], ["--kv-block", "-16"],
     ["--kv-dtype", "int8"], ["--profile-dir", "/nonexistent"],
     ["--disaggregation-mode", "decode"], ["--spec-tokens", "-1"],
     ["--steps-per-dispatch", "0"],
     ["--journal", "/nonexistent", "--disaggregation-mode", "prefill"],
     ["--task", "classify"], ["--ledger-mode", "auto"],
-    ["--control-port", "9000"], ["--adapter", "a=/nonexistent"],
+    ["--control-port", "x"], ["--adapter", "a=/nonexistent"],
     ["--lora-slots", "-1"],
 ], ids=lambda a: a[0])
 def test_out_of_slice_flags_exit_naming_the_flag(model_dir, argv, capsys):
@@ -164,12 +168,27 @@ def test_quantized_server_answers(model_dir, mode):
 
 
 def test_multihost_env_and_checkpoints_refuse(model_dir):
+    from ome_tpu_torch.engine import multihost
+    dist = multihost.init_from_env({"JAX_COORDINATOR_ADDRESS": "h:1",
+                                    "JAX_NUM_PROCESSES": "2"})
     args = serve.build_parser().parse_args(
         ["--model-dir", model_dir, "--random-weights"])
-    with pytest.raises(SystemExit, match="multi-host"):
-        serve.check_slice(args, env={"JAX_COORDINATOR_ADDRESS": "h:1",
-                                     "JAX_NUM_PROCESSES": "2"})
-    serve.check_slice(args, env={})
+    serve.check_slice(args)
+    # the group is served: tp defaults to its process count
+    serve.check_group(args, dist)
+    assert args.tp == 2
+    # a process is one rank: another --tp is refused naming it
+    args = serve.build_parser().parse_args(
+        ["--model-dir", model_dir, "--random-weights", "--tp", "4"])
+    with pytest.raises(SystemExit, match="--tp 4"):
+        serve.check_group(args, dist)
+    # embeddings refuse the multi-host environment, in the reference's
+    # words
+    args = serve.build_parser().parse_args(
+        ["--model-dir", model_dir, "--random-weights", "--task", "embed"])
+    with pytest.raises(SystemExit, match="--task embed does not support "
+                                         "multi-host serving"):
+        serve.check_group(args, dist)
     # without --random-weights the directory must hold a checkpoint:
     # a config.json alone exits naming --model-dir
     with pytest.raises(SystemExit, match="--model-dir"):
@@ -257,3 +276,128 @@ def test_prefill_urls_need_the_decode_mode(model_dir):
         serve.build_server(["--model-dir", model_dir, "--random-weights",
                             "--device", "cpu", "--prefill-url",
                             "http://127.0.0.1:9"])
+
+
+# the reference's refusals under tp > 1 (ome_tpu/engine/serve.py), word
+# for word
+TP_REFUSALS = {
+    "lora": (["--adapter", "a=/x"],
+             "multi-LoRA serving is single-host tp=1 for now (adapter "
+             "stacks are unsharded); use a merged --adapter dir with tp>1"),
+    "paged": (["--kv-block", "16"],
+              "--kv-block/--kv-blocks (paged KV) is single-host tp=1 for "
+              "now (the sharded engine keeps the dense per-slot cache); "
+              "drop the flags with tp>1"),
+    "kv_int8": (["--kv-dtype", "int8"],
+                "--kv-dtype int8 quantizes the paged block pool, which is "
+                "single-host tp=1 for now; drop the flag with tp>1"),
+    "host_tier": (["--prefix-cache-host-mb", "64"],
+                  "--prefix-cache-host-mb (host-DRAM prefix tier) is "
+                  "single-host tp=1 for now; drop the flag with tp>1"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TP_REFUSALS))
+def test_tp_refusals_are_the_references(model_dir, case):
+    argv, words = TP_REFUSALS[case]
+    args = serve.build_parser().parse_args(
+        ["--model-dir", model_dir, "--random-weights", "--tp", "2", *argv])
+    with pytest.raises(SystemExit) as e:
+        serve.check_tp(args)
+    assert str(e.value) == words
+    args.tp = 1
+    serve.check_tp(args)  # tp 1 serves them
+
+
+def test_tp_refusals_of_the_port(model_dir):
+    # embeddings are one device's (the reference ignores --tp there)
+    with pytest.raises(SystemExit, match="--tp configures generation"):
+        serve.build_server(["--model-dir", model_dir, "--random-weights",
+                            "--device", "cpu", "--task", "embed",
+                            "--tp", "2"])
+    # heads a tp does not divide exit naming --tp before any weight
+    with pytest.raises(SystemExit, match="--tp 3: tp=3 must divide "
+                                         "num_kv_heads=2"):
+        serve.build_server(["--model-dir", model_dir, "--random-weights",
+                            "--device", "cpu", "--tp", "3"])
+
+
+def test_control_port_is_parsed():
+    args = serve.build_parser().parse_args(
+        ["--model-dir", "/m", "--control-port", "9000", "--tp", "2"])
+    assert (args.control_port, args.tp) == (9000, 2)
+    assert serve.build_parser().parse_args(
+        ["--model-dir", "/m"]).control_port is None
+
+
+@pytest.mark.parametrize("device,given,want", [
+    ("cuda:0", None, "gloo"),      # every rank on the one card
+    ("cuda", None, None),          # a card per rank: NCCL
+    ("cpu", None, None),           # gloo by the device
+    ("cuda:0", "nccl", "nccl")])   # the caller's choice stands
+def test_single_host_tp_hands_its_backend_to_the_followers(
+        monkeypatch, device, given, want):
+    """`--tp 2` without the LWS environment: ranks that share the card
+    `--device cuda:i` names run gloo (NCCL refuses two ranks on one
+    device), and the leader passes that choice to the follower it
+    starts; otherwise the backend follows the device."""
+    started = []
+
+    class Proc:
+        pid = 0
+
+        def __init__(self, cmd, env):
+            started.append((cmd, env))
+    monkeypatch.setattr(serve.subprocess, "Popen", Proc)
+    argv = ["--model-dir", "/m", "--tp", "2", "--device", device] + (
+        ["--tp-backend", given] if given else [])
+    args = serve.build_parser().parse_args(argv)
+    grp = serve._start_group(args, argv, None)
+    assert args.tp_backend == want and len(grp.procs) == 1
+    (cmd, env), = started
+    assert env["JAX_PROCESS_ID"] == "1" and env["JAX_NUM_PROCESSES"] == "2"
+    follower = serve.build_parser().parse_args(cmd[3:])
+    assert follower.tp_backend == want and follower.device == device
+
+
+def test_lws_named_card_keeps_nccl_and_warns(monkeypatch, caplog):
+    """Under the LWS environment `--device cuda:0` is each pod's own
+    card: NCCL, with a warning that ranks sharing it need
+    `--tp-backend gloo`."""
+    from ome_tpu_torch.engine.multihost import DistContext
+    args = serve.build_parser().parse_args(
+        ["--model-dir", "/m", "--device", "cuda:0"])
+    dist = DistContext("leader:6000", 2, 0)
+    with caplog.at_level("WARNING", logger=serve.log.name):
+        grp = serve._start_group(args, [], dist)
+    assert grp.procs == [] and args.tp_backend is None
+    assert "--tp-backend gloo" in caplog.text
+
+
+def test_tp2_server_answers_the_tp1_stream(model_dir, served):
+    url, _, _ = served
+    prompts = ["tensor parallel", [5, 9, 14, 3]]
+    want = [json.loads(_post(url, {"prompt": p, "max_tokens": 12,
+                                   "temperature": 0.0})[1])
+            ["choices"][0]["text"] for p in prompts]
+    server, sched, engine = _cpu_server(model_dir, "--tp", "2")
+    try:
+        from ome_tpu_torch.engine.multihost import ReplicatedEngine
+        assert isinstance(engine, ReplicatedEngine)
+        assert engine.tp == 2 and engine.cfg.num_heads == 2
+        got = [json.loads(_post(f"http://127.0.0.1:{server.port}",
+                                {"prompt": p, "max_tokens": 12,
+                                 "temperature": 0.0})[1])
+               ["choices"][0]["text"] for p in prompts]
+    finally:
+        server.stop()
+    assert got == want
+
+
+def test_follower_environment_serves_no_http(model_dir, monkeypatch):
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    monkeypatch.setenv("JAX_PROCESS_ID", "1")
+    with pytest.raises(SystemExit, match="follower rank serves no HTTP"):
+        serve.build_server(["--model-dir", model_dir, "--random-weights",
+                            "--device", "cpu", "--port", "0"])
