@@ -182,7 +182,7 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
 33. fp32 identity on the card (`phase_family_identity`), 4 layers at
    the published widths of Gemma-2-9B, command-r v01, command-r7b (one
    period of P 4), Phi-3.5-MoE and gpt-oss-20b, biases, sinks and norm
-   scales seeded: first-step logits (a 4200-token prefill, then one
+   scales seeded: first-step logits (a 2000-token prefill, then one
    decode step) within 2e-4 of the same forward through the kernels'
    plain versions; single-step, `decode_multi` K=4 and spec-4 / K-4
    scheduler streams identical; B1 and B2 launched (gpt-oss's sinks in
@@ -268,9 +268,13 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+# the card's memory rate and dense bf16 peak: the H100 row of the port's
+# device table (ome_tpu_torch/perf/ledger.py, which the online roofline
+# reads too), set by phase_device
+HBM_BYTES_PER_S = None
 # the depth of the phases cut to keep the whole script inside its time
 # budget: the weight turns (8, 9), the host tier (22) and PD (23) first,
 # then the step-plan servers (13, 14), peering (24), the LoRA server (30)
@@ -288,7 +292,7 @@ PREFILL_2048_DEVICE_MS_BEFORE = 66.75
 # turns) with the int4 kernel that the TMA/persistent one replaced
 # (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
 INT4_STEP_DEVICE_MS_BEFORE = 34.8
-PEAK_FLOPS = {"bf16": 989e12,      # dense tensor-core bf16
+PEAK_FLOPS = {"bf16": None,        # dense tensor-core bf16 (phase_device)
               "fp32": 67e12}       # fp32 outside the tensor cores
 ATOL = {"bf16": 2e-2, "fp32": 2e-4}
 # cache lengths of the 8 slots of the B2 verify cases (Sq = 5 from each)
@@ -532,7 +536,19 @@ def phase_device(torch):
              "MoE ragged dispatch (models/llama.py::_grouped) needs it")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        from ome_tpu_torch.perf.ledger import device_spec
+    except ImportError as e:
+        fail(f"the ome_tpu_torch package is not importable here ({e}); "
+             "run from the root of the repository")
+    global HBM_BYTES_PER_S
+    spec = device_spec(torch.device("cuda"))
+    HBM_BYTES_PER_S = spec["hbm_gbps"] * 1e9
+    PEAK_FLOPS["bf16"] = spec["peak_tflops"] * 1e12
     log(f"[device] nvidia-smi: {card}")
+    log(f"[device] roofline row of the port's device table: "
+        f"{spec['hbm_gbps']} GB/s, {spec['peak_tflops']} bf16 TFLOP/s "
+        f"(kind {spec['kind']!r})")
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
@@ -1836,6 +1852,232 @@ def _completion(status, raw, max_tokens, what):
     return doc
 
 
+def _http(url: str, method: str = "GET", body=None, timeout: float = 600):
+    """(status, headers, body bytes) of one request; an HTTP error status
+    is returned, not raised."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, method=method,
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, dict(e.headers), e.read()
+
+
+def _scrape(url: str) -> dict:
+    """{sample with its labels: value} of one /metrics scrape (which
+    refreshes the scheduler's gauges, the HBM partition among them)."""
+    status, _, raw = _http(url + "/metrics")
+    if status != 200:
+        fail(f"/metrics: HTTP {status}")
+    out = {}
+    for line in raw.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, _, val = line.rpartition(" ")
+            out[key] = float(val)
+    return out
+
+
+@contextlib.contextmanager
+def _first_logits(engine):
+    """Inside the block, record the logits of the engine's first
+    sampling (a prefill's: the step that samples a stream's first token)
+    as a float32 CPU tensor [V] in the yielded list. A tp leader's
+    ReplicatedEngine is read through its own rank's engine, whose
+    logits are gathered whole."""
+    inner = getattr(engine, "_engine", engine)
+    got, sample = [], inner._sample
+
+    def recording(logits, *a):
+        if not got:
+            got.append(logits[0].float().cpu())
+        return sample(logits, *a)
+    inner._sample = recording
+    try:
+        yield got
+    finally:
+        del inner._sample
+
+
+# the prompt whose first-step logits phases 4 and 43 compare (tp=2 against
+# tp=1, bf16, the same weights)
+GAP_PROMPT_LEN = 64
+
+
+def _gap_logits(url, engine, sched, seed: int, vocab: int, tag: str):
+    """The first-step logits of the gap prompt, sent alone to an idle
+    server."""
+    import random
+    rng = random.Random(seed + 43)
+    ids = [rng.randrange(3, vocab) for _ in range(GAP_PROMPT_LEN)]
+    _wait_idle(sched)
+    with _first_logits(engine) as got:
+        _completion(*_post(url, {"prompt": ids, "max_tokens": 1,
+                                 "temperature": 0.0}), 1, "gap prompt")
+    if not got:
+        fail(f"{tag}: the gap prompt's prefill sampled nothing")
+    return got[0]
+
+
+# kernel-name fragments of B1 (the dense decode core) and B2 (bf16
+# prefill) in a torch.profiler trace
+TRACE_KERNELS = {"flash_decode": "decode_tc", "flash_prefill": "prefill_wgmma"}
+
+
+def _trace_kernels(path: str) -> dict:
+    """{kernel: launches} counted from a Chrome trace's kernel events."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    counts = dict.fromkeys(TRACE_KERNELS, 0)
+    counts["all_kernels"] = 0
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        counts["all_kernels"] += 1
+        for name, frag in TRACE_KERNELS.items():
+            if frag in ev.get("name", ""):
+                counts[name] += 1
+    return counts
+
+
+def _attribution(torch, url, engine, prompt, tag):
+    """Performance attribution of a live server launched with
+    --debug-endpoints and --profile-dir: the program ledger's entries
+    (each must be counted on the card), the HBM partition beside the
+    allocator's own numbers, the online roofline, and a 2-second
+    profile taken while a stream decodes (B1 must be in the trace, and
+    B2 where a prefill fell inside the window; a second concurrent
+    capture must get 409)."""
+    out = {}
+    status, _, raw = _http(url + "/debug/programs")
+    if status != 200:
+        fail(f"{tag}: GET /debug/programs: HTTP {status}")
+    doc = json.loads(raw)
+    keys = ("program", "source", "flops", "bytes", "expected_ms",
+            "dispatches", "argument_bytes", "output_bytes")
+    out["programs"] = [{k: e[k] for k in keys} for e in doc["programs"]]
+    log(f"{tag} /debug/programs: mode {doc['mode']}, {doc['count']} "
+        f"programs, device {doc['device']}")
+    for e in out["programs"]:
+        log(f"{tag}   {e['program']}: source {e['source']}, flops "
+            f"{e['flops']:.6g}, bytes {e['bytes']:.6g}, expected_ms "
+            f"{e['expected_ms']:.4f}, dispatches {e['dispatches']}")
+    bad = [e["program"] for e in out["programs"] if e["source"] != "counted"]
+    if bad or not out["programs"]:
+        fail(f"{tag}: ledger entries not counted on the card: {bad}")
+
+    m = _scrape(url)
+    part = {t: m[f'ome_engine_hbm_tenant_bytes{{tenant="{t}"}}']
+            for t in ("weights", "kv_cache", "prefix_cache", "workspace")}
+    for k in ("bytes_in_use", "bytes_limit", "peak_bytes"):
+        part[k] = m[f"ome_engine_hbm_{k}"]
+    out["hbm"] = part
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["memory_reserved"] = torch.cuda.memory_reserved()
+    log(f"{tag} HBM partition (/metrics, GB): " + ", ".join(
+        f"{k} {v / 1e9:.3f}" for k, v in part.items())
+        + f"; torch.cuda.max_memory_allocated {out['max_memory_allocated'] / 1e9:.3f}"
+        f", memory_reserved {out['memory_reserved'] / 1e9:.3f}")
+    out["roofline_efficiency"] = m["ome_engine_roofline_efficiency"]
+    out["step_achieved_gbps"] = m["ome_engine_step_achieved_gbps"]
+    log(f"{tag} ome_engine_roofline_efficiency {out['roofline_efficiency']:.4f}"
+        f" (the ledger's expected ms over the last decode dispatch's wall "
+        f"time); ome_engine_step_achieved_gbps "
+        f"{out['step_achieved_gbps']:.1f}")
+
+    # the profile: a stream decodes, a capture starts, a second capture
+    # meets it, a prefill lands inside the window
+    decoding = threading.Event()
+    streamed = []
+
+    def stream():
+        # 96 tokens outlast the 2 s window (a step takes 50-80 ms here)
+        st, _, raw = _http(url + "/v1/completions", "POST",
+                           {"prompt": prompt(64), "max_tokens": 96,
+                            "temperature": 0.0, "stream": True})
+        streamed.append((st, raw.count(b"data: ")))
+    t_stream = threading.Thread(target=stream)
+    t_stream.start()
+    # a 64-token prefill arms its slot well within half a second
+    time.sleep(0.5)
+    got = {}
+
+    def capture():
+        got["first"] = _http(url + "/debug/profile?seconds=2", "POST")
+    t_cap = threading.Thread(target=capture)
+    t0 = time.monotonic()
+    t_cap.start()
+    time.sleep(0.3)
+    second = _http(url + "/debug/profile?seconds=1", "POST")
+    time.sleep(0.3)
+    pre = _http(url + "/v1/completions", "POST",
+                {"prompt": prompt(300), "max_tokens": 2,
+                 "temperature": 0.0})
+    prefill_in_window = time.monotonic() - t0 < 1.9
+    t_cap.join(timeout=120)
+    t_stream.join(timeout=600)
+    status, _, raw = got.get("first", (None, None, b"{}"))
+    if status != 200:
+        fail(f"{tag}: POST /debug/profile: HTTP {status} {raw[:200]!r}")
+    res = json.loads(raw)
+    if not res.get("captured") or not os.path.exists(res.get("trace", "")):
+        fail(f"{tag}: the profile wrote no trace: {res}")
+    if second[0] != 409 or second[1].get("Retry-After") != "1":
+        fail(f"{tag}: a concurrent capture got HTTP {second[0]}, not 409 "
+             f"with Retry-After")
+    if pre[0] != 200 or not streamed or streamed[0][0] != 200:
+        fail(f"{tag}: requests during the profile failed: {pre[0]}, "
+             f"{streamed}")
+    counts = _trace_kernels(res["trace"])
+    out["profile"] = {"seconds": res["seconds"], "kernels": counts,
+                      "trace_bytes": os.path.getsize(res["trace"]),
+                      "second_capture": second[0],
+                      "prefill_in_window": prefill_in_window,
+                      "stream_events": streamed[0][1],
+                      "programs": len(res.get("programs", []))}
+    # the trace holds every kernel of the window (tens of MB): counted,
+    # then removed so that it does not travel back with the outputs
+    os.remove(res["trace"])
+    log(f"{tag} POST /debug/profile?seconds=2 while a stream decodes: "
+        f"{res['seconds']} s captured, trace {out['profile']['trace_bytes']}"
+        f" bytes; kernel events {counts}; prefill inside the window "
+        f"{prefill_in_window}; a concurrent POST got {second[0]}")
+    if counts["flash_decode"] <= 0:
+        fail(f"{tag}: the profile's trace holds no B1 launch: {counts}")
+    if prefill_in_window and counts["flash_prefill"] <= 0:
+        fail(f"{tag}: a prefill fell inside the profile but the trace "
+             f"holds no B2 launch: {counts}")
+    return out
+
+
+def _export_spans(path: str, tag: str) -> dict:
+    """The server's span log through the port's exporter: tracks, spans
+    and events of the Chrome trace, written beside the other outputs."""
+    from ome_tpu_torch.telemetry import export
+    spans = export.load_spans([path])
+    doc = export.build_trace(spans)
+    tracks = sum(1 for e in doc["traceEvents"]
+                 if e["ph"] == "M" and e["name"] == "process_name")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    dest = os.path.join(OUT_DIR, "serve_spans_trace.json")
+    with open(dest, "w") as f:
+        json.dump(doc, f, separators=(",", ":"))
+    out = {"tracks": tracks, "spans": doc["otherData"]["span_count"],
+           "traces": len(export.trace_ids(spans)),
+           "events": len(doc["traceEvents"])}
+    log(f"{tag} span log exported (ome_tpu_torch.telemetry.export): "
+        f"{out['tracks']} track(s), {out['spans']} spans over "
+        f"{out['traces']} traces, {out['events']} trace events -> {dest}")
+    if not out["spans"]:
+        fail(f"{tag}: the span log holds no span")
+    return out
+
+
 def _device_profile(torch, fn, iters: int):
     """Summed device time per call of `fn` and its five costliest
     device operations (ms per call, launches per call, name), from
@@ -1843,9 +2085,10 @@ def _device_profile(torch, fn, iters: int):
     aten operators per call and the five with the most self CPU time
     (ms per call, calls per call, name)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import ProfilerActivity
+
+    from ome_tpu_torch.telemetry.profiler import session
+    with session([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -1991,14 +2234,19 @@ def _randomize_biases(torch, engine, seed: int, std: float) -> None:
 
 
 def phase_serve(torch, seed: int = 0, quantization: str = "none",
-                model=None):
+                model=None, attribution: bool = False):
     """The dense server at the Llama-3-8B shape, bf16 weights or
     `--quantization int4` (whose decode steps and prefills of up to 256
     tokens run B4, and whose longer prefills take the dequantizing
     route); or, with `model`, another published configuration in bf16
     (its q/k/v biases drawn non-zero where it has them; a MoE model also
     reports its MoE block's device time and the experts a decode step
-    reads)."""
+    reads). With `attribution` (phase 4) the server also runs with
+    --debug-endpoints, --profile-dir and --span-log: its program ledger,
+    HBM partition, online roofline and a profile (`_attribution`), the
+    first-step logits of the gap prompt (phase 43 compares tp=2's), the
+    ledger's expected ms beside the profiler's device ms of the decode
+    and 2048-token prefill programs, and its span log exported."""
     import concurrent.futures
     import random
     import tempfile
@@ -2026,12 +2274,15 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
         with open(os.path.join(tmp, "config.json"), "w") as f:
             json.dump(hf, f)
         reqlog = os.path.join(tmp, "requests.jsonl")
+        spans = os.path.join(tmp, "spans.jsonl")
+        extra = ["--debug-endpoints", "--span-log", spans, "--profile-dir",
+                 os.path.join(OUT_DIR, "profile")] if attribution else []
         t0 = time.monotonic()
         server, sched, engine = serve.build_server(
             ["--model-dir", tmp, "--random-weights", "--seed", str(seed),
              "--max-slots", "8", "--max-seq", str(max_seq), "--port", "0",
              "--host", "127.0.0.1", "--request-log", reqlog,
-             "--quantization", quantization])
+             "--quantization", quantization] + extra)
         if model.get("bias_std"):
             _randomize_biases(torch, engine, seed, model["bias_std"])
         if model.get("seed_leaves"):
@@ -2126,9 +2377,34 @@ def phase_serve(torch, seed: int = 0, quantization: str = "none",
                 fail(f"serve: /health says {health}")
             torch.cuda.synchronize()
             launches = dict(flash.LAUNCHES)
+            if attribution:
+                out["attribution"] = _attribution(torch, url, engine, prompt,
+                                                  tag)
+                # a CPU tensor, popped by phase 43 (not in the JSON report)
+                out["gap_logits"] = _gap_logits(url, engine, sched, seed,
+                                                cfg.vocab_size, tag)
         finally:
             server.stop()
         out["step"] = _step_times(torch, engine, prompt)
+        if attribution:
+            progs = {e["program"]: e for e in engine.ledger.snapshot()}
+            rows = {}
+            for name, key in (("decode", "decode"),
+                              ("prefill_2048", "prefill[bucket=2048]")):
+                e, st = progs.get(key), out["step"][name]
+                if e is None:
+                    fail(f"{tag}: the ledger has no {key} entry")
+                rows[key] = {"expected_ms": e["expected_ms"],
+                             "device_ms": st["device_ms"],
+                             "wall_ms": st["wall_ms"],
+                             "flops": e["flops"], "bytes": e["bytes"]}
+                log(f"{tag} ledger {key}: expected_ms {e['expected_ms']:.4f}"
+                    f" (flops {e['flops']:.6g} counted, bytes "
+                    f"{e['bytes']:.6g} modelled) against the profiler's "
+                    f"device {st['device_ms']} ms (wall {st['wall_ms']:.3f} "
+                    f"ms)")
+            out["attribution"]["expected_vs_device"] = rows
+            out["attribution"]["spans"] = _export_spans(spans, tag)
         if cfg.is_moe:
             out["moe"] = _moe_profile(torch, engine, prompt)
         with open(reqlog) as f:
@@ -2463,7 +2739,9 @@ def phase_step_turns(torch, seed: int = 0, rounds: int = 2,
     over one set of Llama-3-8B-width weights, `n_layers` deep (8 slots
     armed at lengths 64-2164, max_seq 4096, kv_block 128), timed in turns
     (A B C C B A): the step is host-bound, so only times taken side by
-    side in one run compare."""
+    side in one run compare. Then the program ledger's cost: the dense
+    engine (ledger auto, counted on the card) against a twin over the
+    same weights with the ledger off (`_ledger_cost`)."""
     import random
 
     from ome_tpu_torch.engine.core import InferenceEngine
@@ -2500,7 +2778,49 @@ def phase_step_turns(torch, seed: int = 0, rounds: int = 2,
         busy = ", ".join(f"{x:.2f}" for x in out[name]["device_ms"] if x)
         log(f"[steps] {name} decode step, runs in turns: wall {walls} ms; "
             f"device busy {busy} ms")
-    del engines, params
+    from ome_tpu_torch.perf.ledger import ProgramLedger
+    off = InferenceEngine(params, cfg, max_slots=8, max_seq=4096,
+                          device="cuda", seed=seed,
+                          ledger=ProgramLedger(mode="off"))
+    out["ledger_cost"] = _ledger_cost(
+        torch, {"auto": engines["dense"], "off": off}, prompt)
+    del engines, params, off
+    return out
+
+
+def _ledger_cost(torch, engines, prompt, steps: int = 50):
+    """Median wall time of one decode step (8 slots armed at lengths
+    64-2164, host read of the tokens included) of each engine, in turns
+    of `steps` steps (A B B A)."""
+    import numpy as np
+    dev = torch.device("cuda")
+    greedy = (torch.zeros(8, device=dev),
+              torch.zeros(8, dtype=torch.int32, device=dev),
+              torch.ones(8, device=dev))
+    states = {}
+    for name, eng in engines.items():
+        state = eng.new_state()
+        for slot in range(eng.max_slots):
+            tok, kv, n, bucket = eng.prefill(prompt(64 + 300 * slot))
+            state = eng.insert(state, kv, slot, n, tok, bucket)
+        for _ in range(3):  # warm: the auto ledger counted its keys already
+            state, toks = eng.decode(state, *greedy)
+            np.asarray(toks)
+        states[name] = state
+    walls = {name: [] for name in engines}
+    for name in list(engines) + list(engines)[::-1]:
+        eng = engines[name]
+        for _ in range(steps):
+            t = time.perf_counter()
+            states[name], toks = eng.decode(states[name], *greedy)
+            np.asarray(toks)
+            walls[name].append((time.perf_counter() - t) * 1e3)
+    out = {name: {"median_ms": statistics.median(w), "steps": len(w)}
+           for name, w in walls.items()}
+    log(f"[steps] ledger cost, dense engine decode step in turns of "
+        f"{steps} steps: " + ", ".join(
+            f"ledger {name} median {r['median_ms']:.4f} ms over "
+            f"{r['steps']} steps" for name, r in out.items()))
     return out
 
 
@@ -5671,13 +5991,14 @@ def phase_family_identity(torch, seed: int = 0, n_layers: int = 4,
     """fp32, `n_layers` deep (Cohere2: one period of its pattern P 4),
     at each family's published widths (`FAMILY_MODELS`), biases, sinks
     and norm scales seeded: the first-step logits of the card's forward
-    (a prefill past the 4096-row window, then one decode step) within
-    2e-4 of the same forward through the kernels' plain versions; greedy
+    (a 2000-token prefill, then one decode step; the 4096-row windows
+    are met by the servers of phases 34-37) within 2e-4 of the same
+    forward through the kernels' plain versions; greedy
     streams identical across single steps, `decode_multi` K=4 and the
     spec-4 / K-4 scheduler; B1 and B2 launched (gpt-oss's sinks in
     them) and no CUDA call of the plain attention."""
     return {label: _family_identity(torch, label, hf, seed, n_layers, steps,
-                                    (37, 900, 4200))
+                                    (37, 900, 2000))
             for label, hf in FAMILY_MODELS}
 
 
@@ -6911,6 +7232,11 @@ def phase_serve_tp(torch, seed: int = 0, before=None):
                 fail(f"{tag}: the SSE stream did not end with [DONE]")
             torch.cuda.synchronize()
             out["launches"] = dict(flash.LAUNCHES)
+            ref_logits = (before or {}).pop("gap_logits", None)
+            if ref_logits is not None:
+                out["first_step_gap"] = _logit_gap(
+                    _gap_logits(url, engine, sched, seed, cfg.vocab_size,
+                                tag), ref_logits, tag)
             out["window"] = {"rank0": _tp_window(torch, engine, stats_dir,
                                                  prompt)}
             out["rank0_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -6966,6 +7292,22 @@ def phase_serve_tp(torch, seed: int = 0, before=None):
             f"{w['wall_ms']:.2f} ms, device {w['device_ms']:.2f} ms "
             f"(torch.profiler), collectives {w['collective_share']:.2f} of "
             f"the wall time; peak {out[rank + '_peak_gib']:.2f} GiB")
+    return out
+
+
+def _logit_gap(got, ref, tag: str) -> dict:
+    """The first-step logits of tp=2 (`got`) against tp=1's (`ref`):
+    their largest difference beside one bf16 ulp of the largest logit
+    (the CPU test holds the same gap against the reference's tp=2)."""
+    top = float(ref.abs().max())
+    out = {"max_abs_gap": float((got - ref).abs().max()),
+           "max_abs_logit": top,
+           "bf16_ulp": 2.0 ** (math.floor(math.log2(top)) - 7),
+           "argmax_equal": int(got.argmax()) == int(ref.argmax())}
+    log(f"{tag} first-step bf16 logits of the gap prompt, tp={TP} against "
+        f"tp=1 (phase 4): max |gap| {out['max_abs_gap']:.6g}, one bf16 ulp "
+        f"of max |logit| {out['max_abs_logit']:.6g} is "
+        f"{out['bf16_ulp']:.6g}; argmax equal {out['argmax_equal']}")
     return out
 
 
@@ -7088,15 +7430,15 @@ SOURCES = {
 }
 
 
+def _warm_ledger(torch) -> None:
+    from ome_tpu_torch.perf.ledger import ProgramLedger
+    ProgramLedger(device=torch.device("cuda")).prepare()
+
+
 def main() -> int:
     t0 = time.monotonic()
     import torch
     card = phase_device(torch)
-    try:
-        import ome_tpu_torch  # noqa: F401
-    except ImportError as e:
-        fail(f"the ome_tpu_torch package is not importable here ({e}); "
-             "run from the root of the repository")
     from ome_tpu_torch.models.config import llama3_8b
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
@@ -7109,10 +7451,16 @@ def main() -> int:
         log(f"[phase] {key}: {phase_s[key]:.1f} s")
         if free:
             _free_device(torch, free)
+    # the ledger's counter set-up (an import of seconds) runs while nvcc
+    # builds the kernels, not inside phase 4's server start
+    warm = threading.Thread(target=_warm_ledger, args=(torch,))
+    warm.start()
     run("build", phase_build)
+    warm.join()
     run("kernel_cases", phase_kernels, torch)
     run("headdim_kernels", phase_headdim_kernels, torch)
-    run("serve", phase_serve, torch, free="the dense server")
+    run("serve", phase_serve, torch, attribution=True,
+        free="the dense server")
     run("paged_bf16", phase_serve_paged, torch, "bf16",
         free="the paged bf16 server")
     run("paged_int8", phase_serve_paged, torch, "int8",

@@ -91,6 +91,7 @@ from ..models.lora import _target_dims, load_adapter_matrices
 from ..models.params import Params
 from ..ops.flash import (check_model_head_dim, check_paged_coverage,
                          quantize_rows)
+from ..perf.ledger import ProgramLedger
 from .sampling import sample, spec_verify
 
 log = logging.getLogger("ome.engine.core")
@@ -524,7 +525,8 @@ class InferenceEngine:
                  kv_dtype: Optional[str] = None,
                  device: Optional[Union[str, torch.device]] = None,
                  seed: int = 0, mask_table_rows: int = 64,
-                 lora_slots: int = 0, lora_rank: int = 16):
+                 lora_slots: int = 0, lora_rank: int = 16,
+                 ledger=None):
         self.device = resolve_device(device)
         # every attention step on a card runs the CUDA kernels (MLA's
         # plain products excepted): refuse a head_dim they do not take
@@ -648,6 +650,18 @@ class InferenceEngine:
         # sentinel every index array defaults to)
         self.mask_table_rows = int(mask_table_rows)
         self._mask_table_dev: Optional[torch.Tensor] = None
+        # program cost ledger (perf/ledger.py): every op below runs its
+        # dispatch through _ledger_capture, so each program key gets one
+        # cost entry; the default is mode "auto" (counted on a card, the
+        # analytic model elsewhere)
+        if ledger is None:
+            ledger = ProgramLedger()
+        if ledger.device is None:
+            ledger.device = self.device
+        ledger.prepare()
+        self.ledger = ledger
+        self._weight_bytes: Optional[int] = None
+        self._param_count: Optional[int] = None
 
     def _sample(self, logits, temperature, top_k, top_p) -> torch.Tensor:
         with self._rng_lock:
@@ -669,9 +683,72 @@ class InferenceEngine:
         if self.kv_quantized:
             return cfg.num_layers * cfg.kv_cache_heads * (
                 cfg.kv_cache_k_dim + cfg.kv_cache_v_dim + 2 * 4)
-        itemsize = torch.empty((), dtype=cfg.dtype).element_size()
+        itemsize = cfg.dtype.itemsize
         return (cfg.num_layers * cfg.kv_cache_heads
                 * (cfg.kv_cache_k_dim + cfg.kv_cache_v_dim) * itemsize)
+
+    # -- cost model (perf ledger and HBM accountant) --------------------
+
+    def weight_bytes(self) -> int:
+        """Device bytes of one full weight read: the quantizer's byte
+        model over the model's leaves and the LoRA stacks (which the
+        reference keeps among its params) — shared by the cost ledger
+        and the HbmAccountant's weights tenant (perf/hbm.py)."""
+        if self._weight_bytes is None:
+            from ..models.quant import QTensor, _leaves, quantized_bytes
+            tree = {"model": self.model.params, "lora": dict(self._lora)}
+            count = 0
+            for leaf in _leaves(tree):
+                count += (leaf.q.numel() + leaf.s.numel()
+                          if isinstance(leaf, QTensor) else leaf.numel())
+            self._param_count = count
+            self._weight_bytes = quantized_bytes(tree)
+        return self._weight_bytes
+
+    def _cost_model(self, tokens: int, kv_rows: int,
+                    weight_passes: int = 1) -> Dict[str, float]:
+        """Analytic {flops, bytes} for a program moving the whole
+        weight set `weight_passes` times while processing `tokens`
+        positions against `kv_rows` cached KV rows (the reference's
+        model, at the port's byte counts)."""
+        wb = self.weight_bytes()
+        return {
+            "bytes": float(weight_passes * wb
+                           + kv_rows * self.kv_row_bytes()),
+            "flops": 2.0 * self._param_count * max(tokens, 1),
+        }
+
+    def _kv_capacity_rows(self) -> int:
+        """KV rows the decode cache can address — the bytes a decode
+        step's attention streams in the worst case."""
+        if self.kv_block:
+            return self.kv_blocks * self.kv_block
+        return self.max_slots * self.max_seq
+
+    def _ledger_capture(self, name: str, static_desc: str, fn, args, *,
+                        tokens: int, kv_rows: int,
+                        weight_passes: int = 1):
+        """Run the dispatch `fn()` of program `name` through the ledger
+        and return its result; `args` are the tensors it reads. The
+        ledger's own failures never reach the caller."""
+        led = self.ledger
+        if led.mode == "off":
+            return fn()
+        try:
+            model = self._cost_model(tokens, kv_rows, weight_passes)
+        except Exception:  # noqa: BLE001 - observability only
+            log.debug("ledger cost model failed for %s", name,
+                      exc_info=True)
+            return fn()
+        return led.capture(name, static_desc, fn, (self.model,) + args,
+                           model)
+
+    def _program(self, base: str, mask, mask_idx) -> str:
+        """The reference's program name of a decode-batch op:
+        `base` + _masked_idx / _masked + _paged."""
+        masked = ("_masked_idx" if mask_idx is not None
+                  else "_masked" if mask is not None else "")
+        return base + masked + ("_paged" if self.kv_block else "")
 
     @torch.no_grad()
     def new_state(self) -> DecodeState:
@@ -1022,6 +1099,7 @@ class InferenceEngine:
         # across adapters, or with the base, would be silently wrong
         hit = None if (first_mask is not None or aid != 0) \
             else self.prefix_cache.match(ids, usable=_usable)
+        prefix = None
         if hit is not None:
             pk, pv, plen, _ = hit
             plen = _pow2_keep(plen)  # discard the ragged tail blocks
@@ -1029,32 +1107,44 @@ class InferenceEngine:
             sbucket = _bucketize(len(suffix), self.prefill_buckets)
             bucket = _bucketize(plen + sbucket, self.prefill_buckets)
             keep = min(plen, bucket)
-            cache = llama.KVCache.create(cfg, 1, bucket, device=dev)
-            cache.k[:, :, :keep] = pk[:, :, :keep]
-            cache.v[:, :, :keep] = pv[:, :, :keep]
-            cache.index = plen
+            prefix = (pk[:, :, :keep], pv[:, :, :keep], plen)
             padded = torch.tensor([suffix + [0] * (sbucket - len(suffix))],
                                   dtype=torch.int32, device=dev)
             last = torch.tensor([len(suffix) - 1], device=dev)
+            name, desc = "prefill_suffix", f"total={bucket},keep={keep}"
+            tokens = sbucket
         else:
             bucket = _bucketize(len(ids), self.prefill_buckets)
-            cache = llama.KVCache.create(cfg, 1, bucket, device=dev)
             padded = torch.tensor([ids + [0] * (bucket - len(ids))],
                                   dtype=torch.int32, device=dev)
             last = torch.tensor([len(ids) - 1], device=dev)
+            name = "prefill" if first_mask is None else "prefill_masked"
+            desc, tokens = f"bucket={bucket}", bucket
         lora = {}
         if aid:
             lora = dict(lora=self._lora, adapter_ids=torch.tensor(
                 [aid], dtype=torch.int32, device=dev))
-        logits, new_cache = self.model(padded, cache=cache, rows=last,
-                                       **lora)
-        last_logits = logits[:, 0]
+        allowed = None
         if first_mask is not None:
             allowed = _sampling_array(np.asarray(first_mask, bool)[None],
                                       torch.bool, dev)
-            last_logits = torch.where(allowed, last_logits, -torch.inf)
-        tok = self._sample(last_logits, *sampling)
-        k, v = new_cache.k, new_cache.v
+
+        def run():
+            cache = llama.KVCache.create(cfg, 1, bucket, device=dev)
+            if prefix is not None:
+                pk, pv, cache.index = prefix
+                cache.k[:, :, :pk.shape[2]] = pk
+                cache.v[:, :, :pv.shape[2]] = pv
+            logits, new_cache = self.model(padded, cache=cache, rows=last,
+                                           **lora)
+            last_logits = logits[:, 0]
+            if allowed is not None:
+                last_logits = torch.where(allowed, last_logits, -torch.inf)
+            return (self._sample(last_logits, *sampling), new_cache.k,
+                    new_cache.v)
+        tok, k, v = self._ledger_capture(
+            name, desc, run, (padded, prefix, sampling, allowed, lora),
+            tokens=tokens, kv_rows=bucket)
         if aid == 0:
             self.prefix_cache.put(ids, k, v, len(ids), bucket)
         return int(tok[0]), (k, v), len(ids), bucket
@@ -1243,14 +1333,22 @@ class InferenceEngine:
         allowed = self._masks(mask, mask_idx)
         if self.kv_block:
             self._grow_blocks()
-        logits, lengths = self._forward_step(state, state.tokens[:, None],
-                                             self._batch_lora())
-        last = logits[:, -1]
-        if allowed is not None:
-            last = torch.where(allowed, last, -torch.inf)
-        toks = self._sample(last, *sampling)
-        state.lengths = lengths
-        state.tokens = toks
+        lora = self._batch_lora()
+
+        def run():
+            logits, lengths = self._forward_step(
+                state, state.tokens[:, None], lora)
+            last = logits[:, -1]
+            if allowed is not None:
+                last = torch.where(allowed, last, -torch.inf)
+            toks = self._sample(last, *sampling)
+            state.lengths = lengths
+            state.tokens = toks
+            return toks
+        toks = self._ledger_capture(
+            self._program("decode", mask, mask_idx), "", run,
+            (state, sampling, allowed, lora), tokens=self.max_slots,
+            kv_rows=self._kv_capacity_rows())
         return state, TokenHandle(toks)
 
     @torch.no_grad()
@@ -1292,27 +1390,34 @@ class InferenceEngine:
             self._grow_blocks_spec(n if lookahead_rows is None
                                    else int(lookahead_rows))
         B = self.max_slots
-        done = (budget <= 0) | (state.tokens[:, None]
-                                == stop_ids).any(dim=1)
-        acc = torch.zeros((B, n), dtype=torch.int32, device=dev)
-        adv = torch.zeros((B,), dtype=torch.int32, device=dev)
         lora = self._batch_lora()  # one set of stacks for the chunk
-        for i in range(n):
-            active = (~done) & (budget > i) & (state.lengths
-                                               < self.max_seq)
-            logits, lengths = self._forward_step(state,
-                                                 state.tokens[:, None],
-                                                 lora)
-            last = logits[:, -1]
-            if allowed is not None:
-                last = torch.where(allowed[:, i], last, -torch.inf)
-            toks = torch.where(active, self._sample(last, *sampling),
-                               state.tokens)
-            done = done | (toks[:, None] == stop_ids).any(dim=1)
-            acc[:, i] = toks
-            adv += active.to(torch.int32)
-            state.lengths = torch.where(active, lengths, state.lengths)
-            state.tokens = toks
+
+        def run():
+            done = (budget <= 0) | (state.tokens[:, None]
+                                    == stop_ids).any(dim=1)
+            acc = torch.zeros((B, n), dtype=torch.int32, device=dev)
+            adv = torch.zeros((B,), dtype=torch.int32, device=dev)
+            for i in range(n):
+                active = (~done) & (budget > i) & (state.lengths
+                                                   < self.max_seq)
+                logits, lengths = self._forward_step(
+                    state, state.tokens[:, None], lora)
+                last = logits[:, -1]
+                if allowed is not None:
+                    last = torch.where(allowed[:, i], last, -torch.inf)
+                toks = torch.where(active, self._sample(last, *sampling),
+                                   state.tokens)
+                done = done | (toks[:, None] == stop_ids).any(dim=1)
+                acc[:, i] = toks
+                adv += active.to(torch.int32)
+                state.lengths = torch.where(active, lengths, state.lengths)
+                state.tokens = toks
+            return acc, adv
+        cap = self._kv_capacity_rows()
+        acc, adv = self._ledger_capture(
+            self._program("decode_multi", mask, mask_idx), f"n={n}", run,
+            (state, sampling, budget, stop_ids, allowed, lora),
+            tokens=B * n, kv_rows=n * cap, weight_passes=n)
         return state, TokenHandle(acc), TokenHandle(adv)
 
     @torch.no_grad()
@@ -1349,17 +1454,26 @@ class InferenceEngine:
         if self.kv_block:
             self._grow_blocks_spec(k + 1 if lookahead_rows is None
                                    else int(lookahead_rows))
-        toks = torch.cat([state.tokens[:, None], drafts], dim=1)
-        logits, _ = self._forward_step(state, toks, self._batch_lora())
-        if mask_idx is not None:
-            logits = torch.where(self._masks(None, mask_idx), logits,
-                                 -torch.inf)
-        elif mask is not None:
-            logits[:, 0] = torch.where(self._masks(mask, None),
-                                       logits[:, 0], -torch.inf)
-        out, accepted = self._spec_verify(logits, drafts, draft_len,
-                                          *sampling)
-        state.lengths = state.lengths + accepted + 1
-        state.tokens = torch.gather(out, 1,
-                                    accepted.long()[:, None])[:, 0]
+        allowed = self._masks(mask, mask_idx)
+        lora = self._batch_lora()
+
+        def run():
+            toks = torch.cat([state.tokens[:, None], drafts], dim=1)
+            logits, _ = self._forward_step(state, toks, lora)
+            if mask_idx is not None:
+                logits = torch.where(allowed, logits, -torch.inf)
+            elif mask is not None:
+                logits[:, 0] = torch.where(allowed, logits[:, 0],
+                                           -torch.inf)
+            out, accepted = self._spec_verify(logits, drafts, draft_len,
+                                              *sampling)
+            state.lengths = state.lengths + accepted + 1
+            state.tokens = torch.gather(out, 1,
+                                        accepted.long()[:, None])[:, 0]
+            return out, accepted
+        rows = self.max_slots * (k + 1)
+        out, accepted = self._ledger_capture(
+            self._program("verify", mask, mask_idx), f"k={k}", run,
+            (state, drafts, draft_len, sampling, allowed, lora),
+            tokens=rows, kv_rows=self._kv_capacity_rows() + rows)
         return state, TokenHandle(out), TokenHandle(accepted)

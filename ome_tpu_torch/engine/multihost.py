@@ -510,9 +510,10 @@ class RankStats:
             os.path.join(self.out_dir, "window"))
         if in_window and self._prof is None and \
                 self.device.type == "cuda":
-            from torch.profiler import ProfilerActivity, profile
-            self._prof = profile(activities=[ProfilerActivity.CUDA])
-            self._prof.__enter__()
+            # the process's one profiler session (telemetry/profiler.py)
+            from ..telemetry.profiler import session
+            self._session = session()
+            self._prof = self._session.__enter__()
         elif not in_window and op == "decode":
             self._end_window()
         self._in = in_window
@@ -533,7 +534,7 @@ class RankStats:
     def _end_window(self) -> None:
         if self._prof is None:
             return
-        self._prof.__exit__(None, None, None)
+        self._session.__exit__(None, None, None)
         busy = 0.0
         for ev in self._prof.key_averages():
             us = getattr(ev, "self_device_time_total", None)

@@ -60,8 +60,12 @@ records append at each step boundary, and a `shutdown` eviction (or an
 generated tokens folded into the prompt, so a greedy stream continues
 byte-identical to an uninterrupted run.
 
-Not ported yet: the program cost ledger and the HBM accountant gauges
-(`--ledger-mode` refuses every value but off).
+Performance attribution (ome_tpu_torch/perf): the engine's program cost
+ledger exports through the scheduler's registry and flight ring, a real
+engine gets an HBM accountant refreshed on every /metrics scrape, and
+each decode dispatch feeds the online roofline gauges (the ledger's
+expected ms and bytes over the measured dispatch time) and the
+slow-step detector, whose `slow_step` event names the program.
 """
 
 from __future__ import annotations
@@ -81,6 +85,7 @@ import numpy as np
 import torch
 
 from .. import faults
+from ..perf.hbm import HbmAccountant
 from ..priority import CLASS_LEVEL, DEFAULT_PRIORITY, PRIORITY_CLASSES
 from ..priority import class_wait_caps as _wait_caps_table
 from ..priority import class_weights as _weights_table
@@ -148,13 +153,15 @@ class _MultiStep:
     flight), the chunk size and the dispatch timestamp for the
     decode_chunk span."""
 
-    __slots__ = ("out", "advanced", "k", "t_dispatch")
+    __slots__ = ("out", "advanced", "k", "t_dispatch", "cost")
 
-    def __init__(self, out, advanced, k, t_dispatch):
+    def __init__(self, out, advanced, k, t_dispatch, cost=None):
         self.out = out
         self.advanced = advanced
         self.k = k
         self.t_dispatch = t_dispatch
+        # the chunk's program ledger entry (None without a ledger)
+        self.cost = cost
 
 
 class StepPlan:
@@ -683,6 +690,15 @@ class Scheduler:
         bindf = getattr(engine, "bind_flight", None)
         if callable(bindf):
             bindf(self.flight)
+        # performance attribution (ome_tpu_torch/perf): the engine's
+        # program cost ledger exports through this registry and flight
+        # ring, and a real engine gets an HBM accountant refreshed from
+        # update_gauges() (fakes in tests have no cfg -> None)
+        led = getattr(engine, "ledger", None)
+        if led is not None and callable(getattr(led, "bind", None)):
+            led.bind(self.registry, self.flight)
+        self.hbm = HbmAccountant.for_engine(engine, self.registry,
+                                            self.flight)
         # step-phase attribution from timestamps the loop already
         # crosses: dispatch (the decode call), mask_apply (grammar mask
         # build), device_wait (blocking at the lag-queue read),
@@ -791,6 +807,23 @@ class Scheduler:
             "ome_engine_class_queue_depth",
             "Pending-queue depth by priority class",
             labelnames=("class",)))
+        # online roofline: the ledger's bytes-per-dispatch over the
+        # measured dispatch time, gauged every step and distributed for
+        # the long view; only meaningful when the engine carries a
+        # ledger (fakes skip the update path)
+        self._g_roofline_eff = R.gauge(
+            "ome_engine_roofline_efficiency",
+            "Expected-over-measured time of the last decode dispatch "
+            "(1.0 = running at the device roofline)")
+        self._g_achieved_gbps = R.gauge(
+            "ome_engine_step_achieved_gbps",
+            "Ledger bytes of the last decode dispatch over its "
+            "measured wall time, in GB/s")
+        self._h_roofline_eff = R.histogram(
+            "ome_engine_roofline_step_efficiency",
+            "Per-dispatch roofline efficiency distribution",
+            buckets=(0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8,
+                     0.9, 1.0, 1.25, 1.5))
         self._c_slow_steps = R.counter(
             "ome_engine_slow_steps_total",
             "Decode steps exceeding slow_step_factor x the rolling "
@@ -1106,6 +1139,10 @@ class Scheduler:
         pd = getattr(self.engine, "update_pd_gauges", None)
         if callable(pd):
             pd()
+        # live device-memory partition (perf/hbm.py): refreshed per
+        # scrape, not per step
+        if self.hbm is not None:
+            self.hbm.update(self.engine)
 
     # -- public --------------------------------------------------------
 
@@ -1885,6 +1922,13 @@ class Scheduler:
                      start_wall=time.time() - (time.monotonic()
                                                - step.t_dispatch))
             s.end().set(steps_per_dispatch=step.k, tokens=emitted)
+            if step.cost is not None:
+                # cost attribution from the program ledger: which
+                # program this chunk ran and what the roofline said it
+                # should have cost
+                s.set(program=step.cost["program"],
+                      expected_ms=round(step.cost["expected_ms"], 3),
+                      program_bytes=step.cost["bytes"])
             self.span_log.write(s)
         self._flight_event("multi_chunk", k=step.k, emitted=emitted)
         self._ph_sample.observe(time.monotonic() - t_fetched)
@@ -2369,7 +2413,10 @@ class Scheduler:
                 budget=plan.budget, stop_ids=self._stop_table(),
                 lookahead_rows=self._inflight_rows() + plan.rows,
                 **kw)
-            toks = _MultiStep(out, adv, plan.k, t0)
+            led = getattr(self.engine, "ledger", None)
+            toks = _MultiStep(
+                out, adv, plan.k, t0,
+                cost=led.last_dispatch() if led is not None else None)
         elif plan.mask_idx is not None:
             self.state, toks = self.engine.decode(
                 self.state, *sampling, mask_idx=plan.mask_idx)
@@ -2391,7 +2438,7 @@ class Scheduler:
             self._ph_device_loop.observe(dt)
         else:
             self._ph_dispatch.observe(dt)
-        self._observe_slow_step(dt_step, n_steps, gap_s, plan.mask_s)
+        self._observe_roofline(dt, dt_step, n_steps, gap_s, plan.mask_s)
         self._inc("decode_steps_total", n_steps)
         if plan.kind == "verify":
             self._inc("spec_steps_total")
@@ -2440,23 +2487,37 @@ class Scheduler:
             self._drain_inflight()
         return True
 
-    def _observe_slow_step(self, dt_step: float, k_steps: int, gap_s,
-                           mask_s: float) -> None:
-        """Slow-step outlier detection against the rolling median of
-        recent per-step times ("slow" relative to this batch shape on
-        this device); warm-up is excluded by requiring a half-full
-        window before judging."""
+    def _observe_roofline(self, dt: float, dt_step: float, k_steps: int,
+                          gap_s, mask_s: float) -> None:
+        """Per-dispatch online roofline and slow-step outlier
+        detection. Both read the ledger entry of the program just
+        dispatched — engines without one (fakes, remote wrappers) only
+        feed the slow-step window. "Slow" is relative to the rolling
+        median of recent per-step times (this batch shape on this
+        device); warm-up is excluded by requiring a half-full window
+        before judging."""
+        led = getattr(self.engine, "ledger", None)
+        entry = led.last_dispatch() if led is not None else None
+        if entry is not None and dt > 0:
+            self._g_achieved_gbps.set(entry["bytes"] / dt / 1e9)
+            eff = (entry["expected_ms"] / 1000.0) / dt
+            self._g_roofline_eff.set(eff)
+            self._h_roofline_eff.observe(eff)
         win = self._step_window
         if len(win) >= win.maxlen // 2:
             med = sorted(win)[len(win) // 2]
             if med > 0 and dt_step > self.slow_step_factor * med:
                 self._c_slow_steps.inc()
-                self._flight_event(
-                    "slow_step", step_ms=round(dt_step * 1e3, 3),
+                fields = dict(
+                    step_ms=round(dt_step * 1e3, 3),
                     median_ms=round(med * 1e3, 3),
                     ratio=round(dt_step / med, 2), k_steps=k_steps,
                     mask_ms=round(mask_s * 1e3, 3),
                     gap_ms=round((gap_s or 0.0) * 1e3, 3))
+                if entry is not None:
+                    fields["program"] = entry["program"]
+                    fields["expected_ms"] = round(entry["expected_ms"], 3)
+                self._flight_event("slow_step", **fields)
         win.append(dt_step)
 
     def _spec_headroom(self, k: int) -> bool:

@@ -90,14 +90,20 @@ adapters (`--lora-slots`), paged KV, int8 KV and the host prefix tier;
 a model whose parameters the sharding rules do not all name exits
 naming the parameter; `--task embed` is refused with `--tp` > 1 and
 under the multi-host environment.
+Performance attribution, on by default as in the reference: every
+engine carries a program cost ledger (`--ledger-mode`, default auto:
+FLOPs counted at each program's first dispatch on a card, the analytic
+model on the CPU; each tp rank keeps its own), served by `GET
+/debug/programs` with `--debug-endpoints`; `--profile-dir DIR` enables
+`POST /debug/profile?seconds=N` (torch.profiler traces into DIR).
 `build_server(argv)` does everything `main` does except block, so a
 caller (chip_smoke.py, the tests) drives the same code in process; a
 tp group's followers are child processes of that caller, stopped with
 the server.
 
-Flags of the reference outside this slice are either not defined here
-(argparse then names them as unrecognized) or refused when given a
-non-default value, with a message naming the flag: nothing is silently
+Flags of the reference outside this slice are not defined here
+(argparse then names them as unrecognized); values this port does not
+serve are refused with a message naming the flag: nothing is silently
 ignored.
 """
 
@@ -209,10 +215,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "via OME_FAULTS")
     p.add_argument("--request-log", default=None,
                    help="JSONL request-log path")
+    p.add_argument("--profile-dir", default=None,
+                   help="enable POST /debug/profile?seconds=N: on-demand "
+                        "torch.profiler traces of the card into this "
+                        "directory (no-op off the card; off when unset)")
     p.add_argument("--span-log", default=None, metavar="PATH",
-                   help="span-timeline JSONL path")
+                   help="span-timeline JSONL path (merged into a Perfetto "
+                        "timeline by python -m "
+                        "ome_tpu_torch.telemetry.export)")
     p.add_argument("--debug-endpoints", action="store_true",
-                   help="enable GET /debug/events and GET /debug/state")
+                   help="enable GET /debug/events (flight-recorder ring), "
+                        "GET /debug/state (scheduler snapshot) and GET "
+                        "/debug/programs (program cost ledger); 403 when "
+                        "off")
+    p.add_argument("--ledger-mode", default="auto",
+                   choices=("auto", "full", "model", "off"),
+                   help="program cost ledger: auto = FLOPs counted at "
+                        "each program's first dispatch on a card, the "
+                        "analytic model elsewhere; full/model force a "
+                        "path; off disables capture")
     p.add_argument("--flight-events", type=int, default=2048,
                    metavar="N", help="flight-recorder ring capacity")
     p.add_argument("--quantization",
@@ -303,14 +324,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "device memory; the device time of the decode "
                         "ops it replays while DIR/window exists) to "
                         "DIR/rank<r>.json when it stops")
-    # flags of the reference kept for their default only: any other
-    # value asks for a feature this port does not have yet
-    p.add_argument("--ledger-mode", default="off")
     return p
 
-
-# flag -> the only value this slice serves
-_SLICE_DEFAULTS = {"ledger_mode": "off"}
 
 # flags that configure generation, at their defaults: an embeddings
 # deployment refuses any other value by name (the reference ignores
@@ -325,13 +340,6 @@ _GENERATION_ONLY = {"journal": None, "disaggregation_mode": "none",
 def check_slice(args) -> None:
     """Exit with a message naming the flag that asks for something
     outside this slice of the port."""
-    for dest, want in _SLICE_DEFAULTS.items():
-        got = getattr(args, dest)
-        if got != want:
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(
-                f"{flag} {got}: not supported by the PyTorch engine yet "
-                f"(this slice serves only {flag} {want})")
     if args.kv_block < 0:
         raise SystemExit(f"--kv-block {args.kv_block}: must be 0 (dense "
                          "cache) or a positive block size in tokens")
@@ -542,6 +550,7 @@ def load_engine(args, rank=None):
     from ..models.quant import quantize_params, quantized_bytes
     from ..parallel import comm
     from ..parallel.sharding import split_contraction
+    from ..perf.ledger import ProgramLedger
     from .core import InferenceEngine, PagedKVUnsupported
 
     info, group = rank if rank is not None else (None, None)
@@ -569,13 +578,15 @@ def load_engine(args, rank=None):
     max_seq = args.max_seq or min(cfg.max_seq_len, 8192)
     _, named_adapters = _adapter_args(args)
     lora_slots = lora_slot_count(args)
+    # the engine's program cost ledger (one per rank under tp)
+    ledger = ProgramLedger(mode=args.ledger_mode)
     if info is not None:
         from .sharded import ShardedInferenceEngine
         engine = ShardedInferenceEngine(
             params, cfg, tp=info.tp, group=group,
             max_slots=args.max_slots, max_seq=max_seq,
             prefix_cache_bytes=args.prefix_cache_mb << 20,
-            device=device, seed=args.seed)
+            device=device, seed=args.seed, ledger=ledger)
         log.info("rank %d/%d: %d of %d query heads, %d of %d KV heads on "
                  "%s", info.rank, info.tp, engine.cfg.num_heads,
                  cfg.num_heads, engine.cfg.kv_cache_heads,
@@ -589,7 +600,7 @@ def load_engine(args, rank=None):
             kv_block=args.kv_block, kv_blocks=args.kv_blocks,
             kv_dtype=args.kv_dtype if args.kv_block else None,
             device=device, seed=args.seed, lora_slots=lora_slots,
-            lora_rank=args.lora_rank)
+            lora_rank=args.lora_rank, ledger=ledger)
     except PagedKVUnsupported as e:
         # the paged guards (model family, the CUDA kernel's coverage):
         # exit with the engine's reason instead of serving another cache
@@ -1067,6 +1078,7 @@ def _build(args, grp, class_weights, class_wait_caps):
                           model_name=name, host=args.host, port=args.port,
                           request_log=reqlog, pd_prefill=pd_prefill,
                           embedder=embedder, structured=embedder is None,
+                          profile_dir=args.profile_dir,
                           debug_endpoints=args.debug_endpoints)
     if grp is not None:
         # a follower that drops its control channel fails the group: the

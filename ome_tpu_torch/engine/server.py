@@ -24,8 +24,11 @@ decodes with it (an unknown id is a 404 once adapters are loaded);
 Embeddings: a `--task embed` deployment answers `POST /v1/embeddings`
 (`engine/embed.py`) and refuses generation.
 
-Not ported yet: the on-demand profiler (`POST /debug/profile` answers
-501).
+Performance attribution: `GET /debug/programs` (with
+`--debug-endpoints`) serves the engine's program cost ledger
+(perf/ledger.py), and `POST /debug/profile?seconds=N` (with
+`--profile-dir`) takes an on-demand torch.profiler trace of the card
+(telemetry/profiler.py).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from typing import Optional
 from .. import faults
 from ..priority import coerce_priority
 from ..telemetry import Registry, tracing
+from ..telemetry import profiler as _profiler
 from ..models.checkpoint import SafetensorsError
 from ..telemetry.reqlog import coerce as _coerce_reqlog
 from .scheduler import (Request, Scheduler, SchedulerDraining,
@@ -104,7 +108,7 @@ class EngineServer:
                  port: int = 0,
                  ready_queue_limit: Optional[int] = None,
                  registry: Optional[Registry] = None,
-                 request_log=None,
+                 request_log=None, profile_dir: Optional[str] = None,
                  debug_endpoints: bool = False,
                  fetch_bps: Optional[float] = None,
                  pd_prefill=None, embedder=None, structured: bool = True):
@@ -131,6 +135,9 @@ class EngineServer:
                          or Registry())
         # JSONL request log: RequestLog instance, path, or None (off)
         self.request_log = _coerce_reqlog(request_log)
+        # POST /debug/profile exists only when the operator named a
+        # directory for its traces (--profile-dir); 403 otherwise
+        self.profile_dir = profile_dir
         # GET /debug/events + /debug/state are the same kind of
         # operator opt-in (--debug-endpoints): they expose request ids
         # and scheduler internals, so they answer 403 by default
@@ -287,6 +294,8 @@ class EngineServer:
                     self._debug_events()
                 elif self.path.split("?", 1)[0] == "/debug/state":
                     self._debug_state()
+                elif self.path.split("?", 1)[0] == "/debug/programs":
+                    self._debug_programs()
                 else:
                     self._json(404, {"error": "not found"})
 
@@ -320,6 +329,24 @@ class EngineServer:
                 doc = fl.state()
                 doc["events"] = fl.snapshot(n)
                 return self._json(200, doc)
+
+            def _debug_programs(self):
+                """GET /debug/programs — the engine's program cost
+                ledger (perf/ledger.py): one entry per program key with
+                FLOPs, bytes moved, argument/output bytes and expected
+                roofline ms."""
+                if not self._debug_guard():
+                    return
+                led = getattr(getattr(outer.scheduler, "engine", None),
+                              "ledger", None)
+                if led is None:
+                    return self._json(404, {
+                        "error": "engine has no program ledger"})
+                return self._json(200, {
+                    "device": led.device_spec(),
+                    "mode": led.mode,
+                    "count": len(led),
+                    "programs": led.snapshot()})
 
             def _debug_state(self):
                 """GET /debug/state — live scheduler snapshot (slots,
@@ -435,11 +462,26 @@ class EngineServer:
                 self.wfile.write(blob)
 
             def _profile(self):
-                """POST /debug/profile — the on-demand profiler capture
-                is not ported to the PyTorch engine yet."""
-                return self._json(501, {
-                    "error": "/debug/profile is not ported to the "
-                             "PyTorch engine yet"})
+                """POST /debug/profile?seconds=N — guarded on-demand
+                torch.profiler capture (telemetry/profiler.py)."""
+                if outer.profile_dir is None:
+                    return self._json(403, {
+                        "error": "profiling disabled (launch with "
+                                 "--profile-dir to enable)"})
+                qs = urllib.parse.urlparse(self.path).query
+                params = urllib.parse.parse_qs(qs)
+                led = getattr(getattr(outer.scheduler, "engine", None),
+                              "ledger", None)
+                try:
+                    seconds = float(params.get("seconds", ["1"])[0])
+                    result = _profiler.capture(outer.profile_dir,
+                                               seconds, ledger=led)
+                except ValueError as e:
+                    return self._json(400, {"error": str(e)})
+                except _profiler.ProfileInProgress as e:
+                    return self._json(409, {"error": str(e)},
+                                      headers={"Retry-After": "1"})
+                return self._json(200, result)
 
             def do_DELETE(self):
                 outer._http_requests.labels(

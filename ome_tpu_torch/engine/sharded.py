@@ -100,7 +100,8 @@ class ShardedInferenceEngine(InferenceEngine):
     `params` is this rank's slices (`sharding.shard_params`, or
     `init_params(shard=...)` and the checkpoint loader, which never make
     the whole tree). `cfg` is the model's; `self.cfg` is this rank's (`local_config`) and
-    `self.model_cfg` the model's."""
+    `self.model_cfg` the model's. Its `ledger` (one per rank) describes
+    this rank's programs: its slices' bytes and FLOPs."""
 
     def __init__(self, params, cfg: ModelConfig, tp: int = 1,
                  max_slots: int = 8, max_seq: Optional[int] = None,
@@ -109,7 +110,7 @@ class ShardedInferenceEngine(InferenceEngine):
                  prefix_cache_bytes: int = 0,
                  lora_slots: int = 0, lora_rank: int = 16,
                  device: Optional[Union[str, torch.device]] = None,
-                 seed: int = 0, **kw):
+                 seed: int = 0, ledger=None, **kw):
         check_divisible(cfg, tp)
         if group is not None:
             if group.size != tp:
@@ -130,7 +131,7 @@ class ShardedInferenceEngine(InferenceEngine):
                          max_seq=max_seq, prefill_buckets=prefill_buckets,
                          prefix_cache_bytes=prefix_cache_bytes,
                          device=device, seed=seed, lora_slots=lora_slots,
-                         lora_rank=lora_rank, **kw)
+                         lora_rank=lora_rank, ledger=ledger, **kw)
 
     def _ctx(self):
         """An op's context: the group's collectives."""

@@ -62,7 +62,10 @@ Beside each kernel sits its plain PyTorch version (`flash_decode_ref`,
 plain version only for a tensor on the CPU; for a CUDA tensor it
 launches the kernel or raises — there is no fallback. `LAUNCHES` counts
 the kernel launches of each wrapper (ops/paged.py's included), so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels. Inside a
+`count_kernel_flops()` block each launch also reports its FLOPs (the
+program ledger's counted mode, perf/ledger.py: FlopCounterMode does not
+see a ctypes launch), with the formulas chip_smoke's kernel bounds use.
 
 Nothing is built or imported from the CUDA toolchain when this module
 is imported.
@@ -71,6 +74,8 @@ is imported.
 from __future__ import annotations
 
 import bisect
+import contextlib
+import threading
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -97,6 +102,49 @@ def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
     INT4_LAUNCHES_BY_SHAPE.clear()
+
+
+# this thread's open FLOP sink (a list), or None
+_FLOP_SINK = threading.local()
+
+
+@contextlib.contextmanager
+def count_kernel_flops():
+    """Collect the FLOPs of the kernels this thread launches inside the
+    block: yields a list of callables, one per launch, each giving that
+    launch's count (an int, or an int tensor on the card where the count
+    depends on the data) when called after the block."""
+    prev = getattr(_FLOP_SINK, "sink", None)
+    sink = _FLOP_SINK.sink = []
+    try:
+        yield sink
+    finally:
+        _FLOP_SINK.sink = prev
+
+
+def _report_flops(count) -> None:
+    """Add a launch's FLOPs (`count`, a callable) to this thread's open
+    sink, if any."""
+    sink = getattr(_FLOP_SINK, "sink", None)
+    if sink is not None:
+        sink.append(count)
+
+
+def _rows(lo, hi) -> torch.Tensor:
+    """KV rows the windows [lo[b], hi[b]) attend, summed (on the device;
+    lo None: from row 0)."""
+    span = hi if lo is None else hi - lo
+    return span.clamp(min=0).sum(dtype=torch.int64)
+
+
+def _prefill_pairs(base, kv_hi, Sq: int, window) -> torch.Tensor:
+    """(query row, key row) pairs a causal prefill attends: row i of
+    sequence b at base[b] + i sees [pos - window + 1 or 0,
+    min(pos + 1, kv_hi[b]))."""
+    pos = base[:, None].long() + torch.arange(Sq, device=base.device)
+    top = torch.minimum(pos + 1, kv_hi[:, None].long())
+    lo = (pos - window + 1).clamp(min=0) if window else 0
+    return (top - lo).clamp(min=0).sum()
 
 
 def _dims_text() -> str:
@@ -559,6 +607,7 @@ def flash_decode(q, k, v, lo, hi, scale: float,
             raise RuntimeError(f"flash_decode: kernel launch failed with "
                                f"CUDA error {rc}")
         LAUNCHES["flash_decode"] += 1
+        _report_flops(lambda: 4 * D * qc.shape[2] * _rows(lo, hi))
         return out
     with torch.cuda.device(dev):  # the C side launches on the current card
         return head_split(launch, q, K, sinks)
@@ -595,6 +644,8 @@ def flash_prefill(q, k, v, base, kv_hi, scale: float,
             raise RuntimeError(f"flash_prefill: kernel launch failed with "
                                f"CUDA error {rc}")
         LAUNCHES["flash_prefill"] += 1
+        _report_flops(lambda: 4 * D * qc.shape[2] * _prefill_pairs(
+            base, kv_hi, Sq, window))
         return out
     with torch.cuda.device(dev):  # the C side launches on the current card
         return head_split(launch, q, K, sinks)
@@ -692,6 +743,7 @@ def paged_decode_launch(name: str, q, k_pool, v_pool, table, lo, hi,
             raise RuntimeError(f"{name}: kernel launch failed with CUDA "
                                f"error {rc}")
         LAUNCHES[name] += 1
+        _report_flops(lambda: 4 * D * qc.shape[2] * _rows(lo, hi))
         return out
     with torch.cuda.device(dev):
         return head_split(launch, q, K)

@@ -45,7 +45,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from .flash import INT4_LAUNCHES_BY_SHAPE, LAUNCHES
+from .flash import INT4_LAUNCHES_BY_SHAPE, LAUNCHES, _report_flops
 
 MAX_M = 256   # flattened batch rows the kernel takes (decode, short prefill)
 _BN = 512     # the reference's column block; its divisibility rule stays
@@ -342,4 +342,5 @@ def int4_matmul(x: torch.Tensor, qt, out_dtype=torch.bfloat16
                            f"error {rc}")
     LAUNCHES["int4_matmul"] += 1
     INT4_LAUNCHES_BY_SHAPE[(k, n)] = INT4_LAUNCHES_BY_SHAPE.get((k, n), 0) + 1
+    _report_flops(lambda: 2 * m * k * n)
     return out.reshape(*lead, n)

@@ -13,8 +13,9 @@ the same way. Four pieces, each usable alone:
                 (`GET /debug/events?n=`, crash-dumped on recovery);
   * reqlog    — per-request JSONL records (`--request-log`).
 
-The on-demand profiler (`ome_tpu/telemetry/profiler.py`) is not ported
-yet: `POST /debug/profile` answers 501.
+Two more modules are imported on their own: `profiler` (the on-demand
+torch.profiler capture behind `POST /debug/profile`) and `export` (span
+logs to a Chrome trace, `python -m ome_tpu_torch.telemetry.export`).
 """
 
 from .flight import FlightRecorder

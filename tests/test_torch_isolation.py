@@ -47,7 +47,12 @@ def test_port_files_found():
                  "ome_tpu_torch/engine/multihost.py",
                  "ome_tpu_torch/parallel/mesh.py",
                  "ome_tpu_torch/parallel/sharding.py",
-                 "ome_tpu_torch/parallel/comm.py", "chip_smoke.py"):
+                 "ome_tpu_torch/parallel/comm.py",
+                 "ome_tpu_torch/perf/__init__.py",
+                 "ome_tpu_torch/perf/ledger.py",
+                 "ome_tpu_torch/perf/hbm.py",
+                 "ome_tpu_torch/telemetry/profiler.py",
+                 "ome_tpu_torch/telemetry/export.py", "chip_smoke.py"):
         assert must in names
 
 

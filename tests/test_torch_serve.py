@@ -121,17 +121,18 @@ def test_health_metrics_and_refusals(served):
     status, body = _post(url, {"prompt": "x", "response_format":
                                {"type": "grammar"}})
     assert status == 400 and b"not supported" in body
+    # the reference's guard: /debug/profile exists only with --profile-dir
     status, _ = _post(url, {}, path="/debug/profile")
-    assert status == 501
+    assert status == 403
 
 
 @pytest.mark.parametrize("argv", [
     ["--tp", "0"], ["--quantization", "nf4"], ["--kv-block", "-16"],
-    ["--kv-dtype", "int8"], ["--profile-dir", "/nonexistent"],
+    ["--kv-dtype", "int8"], ["--profile-dir"],
     ["--disaggregation-mode", "decode"], ["--spec-tokens", "-1"],
     ["--steps-per-dispatch", "0"],
     ["--journal", "/nonexistent", "--disaggregation-mode", "prefill"],
-    ["--task", "classify"], ["--ledger-mode", "auto"],
+    ["--task", "classify"], ["--ledger-mode", "bogus"],
     ["--control-port", "x"], ["--adapter", "a=/nonexistent"],
     ["--lora-slots", "-1"],
 ], ids=lambda a: a[0])

@@ -281,3 +281,26 @@ def replicated(group, tree, cfg, ctrl_port):
         return {"rc": multihost.follower_loop(eng, sub), "log": eng.log}
     finally:
         sub.close()
+
+
+def bf16_last_logits(group, tree, cfg, tokens):
+    """This rank's last-row logits (as float32) of a whole-sequence
+    forward over its slices of the whole numpy tree cast to bfloat16,
+    with `cfg` in bfloat16."""
+    import torch
+
+    from ome_tpu_torch.engine.sharded import local_config
+    from ome_tpu_torch.models import llama
+    from ome_tpu_torch.models.params import from_jax_params
+    from ome_tpu_torch.parallel import comm
+    from ome_tpu_torch.parallel.sharding import shard_params
+
+    def bf16(t):
+        return {k: bf16(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.to(torch.bfloat16)
+    part = shard_params(bf16(from_jax_params(tree, "cpu")), group.rank,
+                        group.size)
+    with comm.use(group), torch.no_grad():
+        logits, _ = llama.forward(part, local_config(cfg, group.size),
+                                  torch.from_numpy(tokens))
+    return logits[:, -1].float().numpy()
