@@ -247,6 +247,27 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID with
    `--control-port` and `--tp-backend gloo`, 4 fp32 layers of the 8B widths: completions equal
    the tp=1 server's; the follower killed, the leader's /health 503.
+45. training (`phase_train`): B2's backward (`csrc/flash_prefill_bwd.cu`)
+   against its plain version's gradient (`BWD_CASES`: the 8B's heads at
+   causal 2048 and the training step's B 2 in bf16 and fp32, G 7, D 96
+   at G 1, Gemma-2-9B's D 256 with softcap 50, a window and logits that
+   reach the cap, G 32; dq, dk and dv within `BWD_REL_TOL` of each
+   gradient's rms, the fp32 case against the plain version in fp64; the
+   same bits on a second launch; planted faults written into a plain
+   backward, `BWD_FAULTS`, each beyond the same tolerance), with its
+   median ms, bound, share, plain ms and, where it computes the same
+   function, the backward of a causal SDPA call as a yardstick; whether
+   `torch._grouped_mm` has a backward here; `make_train_step` at the
+   8B's widths, `CUT_LAYERS` deep, bf16: 5 steps of 4 x 2048 tokens in
+   2 microbatches on a constant target, the loss falling every step,
+   the step's wall and device ms, tokens/s, model-FLOPs share, peak
+   memory and B2's forward and backward launches; the loss and
+   gradients of one step of 2 fp32 layers at the 8B widths through the
+   kernels against the same through their plain versions (loss within
+   2e-4 relative, each leaf's gradient within `TRAIN_ID_GRAD_RTOL` of
+   its rms; the same through a B2 whose backward swaps dk and dv must
+   fall outside it); and a save / restore / resume of a narrow model whose
+   next loss equals the uninterrupted run's bit for bit.
 
 The kernels phase also runs B2 at the dense verify's shape: B 8 slots,
 Sq 5 rows each from its own base (60 to 4090) over a 4096-row cache,
@@ -7415,6 +7436,498 @@ def phase_tp_lws(torch, seed: int = 0, n_layers: int = 4):
     return res
 
 
+# -- phase 45: training (B2's backward, the train step) -----------------------
+
+# the training step at full width (Llama-3-8B's widths, `CUT_LAYERS` deep,
+# bf16): a batch of TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_MICROBATCHES,
+# TRAIN_STEPS steps on constant targets
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICROBATCHES, TRAIN_STEPS = 4, 2048, 2, 5
+
+# backward cases: (label, B, H, K, D, S, softcap, window, q scale,
+# dtypes); the 8B's heads at the training step's sequences per microbatch
+# (TRAIN_BATCH / TRAIN_MICROBATCHES), Qwen2.5-7B's G 7, Phi-3-mini's D 96
+# at G 1, Gemma-2-9B's D 256 with its softcap and a window shorter than
+# S, and G 32. Gemma's q is scaled by 10 so that its logits (std ~10)
+# reach the cap, where 1 - (s/c)^2 falls to ~0.5: at randn's std 1 the
+# softcap is near the identity and its derivative near 1
+BWD_CASES = (("Llama-3-8B", TRAIN_BATCH // TRAIN_MICROBATCHES, 32, 8, 128,
+              TRAIN_SEQ, None, None, 1.0, ("bf16", "fp32")),
+             ("Qwen2.5-7B G 7", 1, 28, 4, 128, 2048, None, None, 1.0,
+              ("bf16",)),
+             ("Phi-3-mini D 96 G 1", 1, 32, 32, 96, 2048, None, None, 1.0,
+              ("bf16",)),
+             ("Gemma-2-9B D 256 softcap 50 window 1024", 1, 16, 8, 256,
+              2048, 50.0, 1024, 10.0, ("bf16",)),
+             ("G 32", 1, 32, 1, 128, 2048, None, None, 1.0, ("bf16",)))
+# tolerance of each gradient: max |kernel - plain| over its rms. The
+# kernel reads bf16 inputs and keeps every sum in fp32, as the plain
+# version does, so the two differ by fp32 summation order alone (bf16
+# cases 1.5e-5 to 3.1e-4 of rms on an H100): 2e-3 leaves a margin over
+# that and stays under what a bf16 rounding of P or dS moves (1.7e-2
+# and up, `BWD_FAULTS`)
+BWD_REL_TOL = {"bf16": 2e-3, "fp32": 2e-4}
+# planted faults of a plain backward written out by hand
+# (`_bwd_planted`), read against the plain version at every bf16 case
+# (the softcap derivative's omission where there is a softcap): each
+# must read beyond the tolerance, the sound one within it
+BWD_FAULTS = ("P in bf16", "dS in bf16", "no softcap derivative")
+
+
+def _bwd_planted(torch, q, k, v, dout, scale, softcap, window, fault):
+    """The causal prefill's backward at base 0 with kv_hi = S written out
+    in fp32 as the kernel computes it (P; dV = P^T dO; dP = dO V^T;
+    Delta = rowsum(P dP); dS = P (dP - Delta) times the softcap's
+    derivative 1 - (s/c)^2; dQ = dS K scale; dK = dS^T Q scale), with
+    one planted `fault` of `BWD_FAULTS` (None: none). A kernel that made
+    the fault would read what this reads against the plain version."""
+    B, S, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    f = torch.float32
+    qg = q.to(f).reshape(B, S, K, G, D)
+    kf, vf = k.to(f), v.to(f)
+    dg = dout.to(f).reshape(B, S, K, G, D)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
+    th = None
+    if softcap:
+        th = torch.tanh(s / softcap)
+        s = th * softcap
+    row = torch.arange(S, device=q.device)
+    valid = row[None, :] <= row[:, None]
+    if window:
+        valid &= row[None, :] > row[:, None] - window
+    p = torch.softmax(s.masked_fill(~valid, float("-inf")), dim=-1)
+    del s
+    if fault == "P in bf16":
+        p = p.bfloat16().float()
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dg)
+    dp = torch.einsum("bskgd,btkd->bkgst", dg, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    del p, dp
+    if softcap and fault != "no softcap derivative":
+        ds = ds * (1 - th * th)
+    del th
+    if fault == "dS in bf16":
+        ds = ds.bfloat16().float()
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf).reshape(B, S, H, D)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg)
+    return dq * scale, dk * scale, dv
+
+
+def _rel_errs(torch, got, ref):
+    """max |got - ref| over ref's rms, for each of dq, dk, dv."""
+    return {name: ((a.double() - r.double()).abs().max()
+                   / r.double().pow(2).mean().sqrt()).item()
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref)}
+
+
+def bwd_case(torch, timer, gen, label, B, H, K, D, S, softcap, window,
+             q_scale, dtype_name):
+    """B2's backward at one shape against `flash_prefill_bwd_ref` (fp32
+    autograd through the plain prefill, same inputs and dO): dq, dk and
+    dv each within BWD_REL_TOL of its rms, the same bits on a second
+    launch; the planted faults of `BWD_FAULTS` read against the same
+    plain version (the sound hand-written backward within the tolerance,
+    each fault beyond it); median ms, the bound
+    (10 D per (row, key) pair and head, or the bytes of q, k, v, o, dO,
+    dq, dk, dv), the plain version's ms and, as a yardstick, the
+    backward of one causal `scaled_dot_product_attention` call (none
+    with a softcap or window: SDPA takes no logit softcap, and is_causal
+    has no window)."""
+    from ome_tpu_torch.ops import flash
+    dev = torch.device("cuda")
+    dtype = torch.bfloat16 if dtype_name == "bf16" else torch.float32
+    q, k, v = _inputs(torch, gen, B, S, S, H, K, D, dtype, dev)
+    if q_scale != 1.0:
+        q = (q.float() * q_scale).to(dtype)
+    dout = torch.randn(B, S, H, D, generator=gen, device=dev,
+                       dtype=torch.float32).to(dtype)
+    scale = D ** -0.5
+    base = torch.zeros(B, dtype=torch.int32, device=dev)
+    kv_hi = torch.full((B,), S, dtype=torch.int32, device=dev)
+    before = flash.LAUNCHES["flash_prefill_bwd"]
+
+    def kernel():
+        return flash.flash_prefill_bwd(q, k, v, dout, scale, softcap, window)
+    got = kernel()
+    again = kernel()
+    torch.cuda.synchronize()
+    if flash.LAUNCHES["flash_prefill_bwd"] != before + 2:
+        fail(f"flash_prefill_bwd {label}: the wrapper did not launch")
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    if not same:
+        fail(f"flash_prefill_bwd {label} {dtype_name}: two launches on the "
+             f"same inputs gave different bits")
+    del again
+    tol = BWD_REL_TOL[dtype_name]
+    # fp32 against the plain version in fp64: the fp32 plain version's own
+    # sums are off fp64 by more than BWD_REL_TOL (its distance is kept)
+    ref = flash.flash_prefill_bwd_ref(
+        q, k, v, dout, scale, softcap, window,
+        torch.float64 if dtype_name == "fp32" else torch.float32)
+    plain32 = {}
+    if dtype_name == "fp32":
+        plain32 = _rel_errs(torch, flash.flash_prefill_bwd_ref(
+            q, k, v, dout, scale, softcap, window), ref)
+    for name, a in zip(("dq", "dk", "dv"), got):
+        if not torch.isfinite(a).all():
+            fail(f"flash_prefill_bwd {label} {dtype_name}: non-finite {name}")
+    rel = _rel_errs(torch, got, ref)
+    err = max((a.double() - r.double()).abs().max().item()
+              for a, r in zip(got, ref))
+    planted = {}
+    if dtype_name == "bf16":
+        for fault in (None,) + BWD_FAULTS:
+            if fault == "no softcap derivative" and not softcap:
+                continue
+            errs = _rel_errs(torch, _bwd_planted(
+                torch, q, k, v, dout, scale, softcap, window, fault), ref)
+            planted[fault or "none"] = errs
+            worst = max(errs.values())
+            if fault is None and worst > tol:
+                fail(f"flash_prefill_bwd {label}: the hand-written plain "
+                     f"backward is {errs} off the plain version, beyond "
+                     f"{tol}")
+            if fault is not None and worst <= tol:
+                fail(f"flash_prefill_bwd {label}: a backward with the "
+                     f"planted fault '{fault}' reads {errs}, within {tol}: "
+                     f"the case cannot see it")
+    del ref
+    ms = timer.ms(kernel)
+    plain_ms = timer.ms(lambda: flash.flash_prefill_bwd_ref(
+        q, k, v, dout, scale, softcap, window), iters=3, warmup=1)
+    lib_ms = None
+    lib_none = None
+    if softcap or window:
+        lib_none = ("none: SDPA takes no logit softcap" if softcap else
+                    "none: SDPA's is_causal takes no window")
+    else:
+        F = torch.nn.functional
+        qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        try:
+            o2 = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                enable_gqa=True)
+            g2 = dout.transpose(1, 2)
+            lib_ms = timer.ms(lambda: torch.autograd.grad(
+                o2, (qs, ks, vs), g2, retain_graph=True))
+        except TypeError:  # torch without enable_gqa: no yardstick
+            lib_none = "none: this torch's SDPA has no enable_gqa"
+    pairs = int(flash._prefill_pairs(base.cpu(), kv_hi.cpu(), S, window))
+    esize = q.element_size()
+    # q, o, dO, dq; k, v, dk, dv: each read or written once (the kernel
+    # reads no o and writes fp32 gradients; the bound counts the function)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * esize
+    bound = _bound(nbytes, 10 * D * H * pairs, dtype_name)
+    case = {"case": f"bwd {label} {dtype_name} B={B} S={S} H={H} K={K} "
+                    f"D={D} window={window} softcap={softcap} "
+                    f"q_scale={q_scale}",
+            "rel_errs": rel, "rel_tol": tol,
+            "plain_fp32_vs_fp64": plain32 or None,
+            "planted_faults": planted or None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_none": lib_none,
+            "bitwise_repeat": same, **bound}
+    if max(rel.values()) > tol:
+        fail(f"flash_prefill_bwd {case['case']}: errors over rms {rel} "
+             f"beyond {tol}")
+
+    def three(e):
+        return f"{e['dq']:.3e}/{e['dk']:.3e}/{e['dv']:.3e}"
+    log(f"[train] {case['case']}: dq/dk/dv err/rms {three(rel)} (tol {tol}"
+        + (f"; against fp64, where the fp32 plain version is "
+           f"{three(plain32)}" if plain32 else "")
+        + f"), bits repeat; {ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
+        f"{bound['bound_ms'] / ms:.3f}, plain {plain_ms:.3f} ms, SDPA "
+        f"backward {lib_none or f'{lib_ms:.4f} ms'}")
+    if planted:
+        log(f"[train]   planted faults, dq/dk/dv err/rms: "
+            + "; ".join(f"{name} {three(e)}" for name, e in planted.items()))
+    return case
+
+
+def phase_train_kernels(torch):
+    """B2's backward at `BWD_CASES` against its plain version."""
+    timer = Timer(torch, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    cases = []
+    for label, B, H, K, D, S, softcap, window, q_scale, dtypes in BWD_CASES:
+        for dt in dtypes:
+            cases.append(bwd_case(torch, timer, gen, label, B, H, K, D, S,
+                                  softcap, window, q_scale, dt))
+            _free_device(torch, f"the backward case {label} {dt}")
+    return {"flash_prefill_bwd": cases}
+
+
+TRAIN_TARGET = 7
+# at the default lr 3e-4 AdamW's first step alone takes a constant
+# target's loss from 12.57 to 4e-9 at these widths, and the next to 0.0
+# in fp32 (H100, 700 W): lr 1e-5 keeps 5 steps a falling trajectory
+TRAIN_LR = 1e-5
+# the identity step: 2 fp32 layers at the 8B's widths, the loss and
+# gradients of one step of a batch of 2 x 512 through the kernels and
+# through their plain versions
+TRAIN_ID_LAYERS, TRAIN_ID_SHAPE = 2, (2, 512)
+TRAIN_ID_LOSS_RTOL = 2e-4
+# each leaf's gradient: max |kernels - plain| over the plain gradient's
+# rms. On an H100 the sound step reads 8.9e-6 to 3.6e-4 (the
+# embedding's, whose rms the untouched rows dilute), the step with dk
+# and dv swapped 1.8 to 119 on every leaf that attention's gradient
+# reaches
+TRAIN_ID_GRAD_RTOL = 1e-3
+
+
+def _grouped_mm_backward(torch) -> str:
+    """Whether `torch._grouped_mm` (the MoE experts' ragged products on
+    the card) has a backward in this torch: "ok", or the error."""
+    dev = torch.device("cuda")
+    xs = torch.randn(256, 512, device=dev, dtype=torch.bfloat16,
+                     requires_grad=True)
+    w = torch.randn(8, 512, 256, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    offs = torch.arange(32, 257, 32, device=dev, dtype=torch.int32)
+    try:
+        torch._grouped_mm(xs, w, offs=offs).float().sum().backward()
+        torch.cuda.synchronize()
+        return "ok" if xs.grad is not None and w.grad is not None \
+            else "no gradient"
+    except Exception as e:  # noqa: BLE001 — recorded, not a failure
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def _train_8b(torch, batch: int):
+    """TRAIN_STEPS steps of the 8B's widths at `CUT_LAYERS` layers in
+    bf16 (tp = pp = dp = 1) through `make_train_step`; every loss must
+    fall, B2 and its backward must launch."""
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.models.params import param_count
+    from ome_tpu_torch.ops import flash
+    from ome_tpu_torch.parallel.mesh import MeshConfig
+    from ome_tpu_torch.train import step as ts
+    dev = torch.device("cuda")
+    cfg = llama3_8b().replace(num_layers=CUT_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    step, init_state = ts.make_train_step(cfg, MeshConfig(),
+                                          TRAIN_MICROBATCHES, lr=TRAIN_LR,
+                                          device=dev)
+    params, opt = init_state(seed=0)
+    n_params = param_count(params)
+    gen = torch.Generator(device=dev).manual_seed(45)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, TRAIN_SEQ),
+                           generator=gen, device=dev)
+    targets = torch.full_like(tokens, TRAIN_TARGET)
+    flash.reset_launches()
+    losses, walls = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, targets)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t)
+    launches = dict(flash.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or any(
+            b >= a for a, b in zip(losses, losses[1:])):
+        fail(f"train: the 8B-width losses did not fall every step: {losses}")
+    for name in ("flash_prefill", "flash_prefill_bwd"):
+        if launches[name] == 0:
+            fail(f"train: {name} was not launched by the training steps")
+    device_ms, top, _ = _device_profile(
+        torch, lambda: step(params, opt, tokens, targets), 1)
+    wall_ms = statistics.median(walls[1:]) * 1e3
+    n_tok = batch * TRAIN_SEQ
+    res = {"layers": CUT_LAYERS, "batch": batch, "seq": TRAIN_SEQ,
+           "lr": TRAIN_LR,
+           "microbatches": TRAIN_MICROBATCHES, "params": n_params,
+           "losses": losses, "step_wall_ms": [w * 1e3 for w in walls],
+           "wall_ms": wall_ms, "device_ms": device_ms,
+           "tokens_per_s": n_tok / wall_ms * 1e3,
+           "mfu": 6 * n_params * n_tok / (wall_ms / 1e3)
+           / PEAK_FLOPS["bf16"],
+           "max_memory_allocated": peak, "launches": launches,
+           "top_kernels": top}
+    log(f"[train] Llama-3-8B widths, {CUT_LAYERS} layers, bf16, "
+        f"{n_params / 1e9:.3f} B params, batch {batch} x {TRAIN_SEQ} in "
+        f"{TRAIN_MICROBATCHES} microbatches, lr {TRAIN_LR}: losses "
+        f"{' > '.join(f'{x:.4f}' for x in losses)}; step wall "
+        f"{wall_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}), device "
+        f"{device_ms:.1f} ms, {res['tokens_per_s']:.0f} tokens/s, "
+        f"model-FLOPs share {res['mfu']:.4f} of {PEAK_FLOPS['bf16'] / 1e12:.0f}"
+        f" TFLOP/s; max_memory_allocated {peak / 2**30:.2f} GiB; B2 "
+        f"forward {launches['flash_prefill']} / backward "
+        f"{launches['flash_prefill_bwd']} launches")
+    for ms, n, name in top:
+        log(f"[train]   device {ms:.2f} ms x{n} {name[:90]}")
+    return res
+
+
+def _swapped_flash_attention(torch):
+    """`flash.flash_attention` under grad through B2 whose backward hands
+    dk back as dv and dv as dk: a planted fault that the identity's
+    gradient check must reject."""
+    from ome_tpu_torch.ops import flash
+
+    class Swapped(flash.FlashPrefill):
+        @staticmethod
+        def backward(ctx, dout):
+            dq, dk, dv, *rest = flash.FlashPrefill.backward(ctx, dout)
+            return (dq, dv, dk, *rest)
+
+    def attend(q, k, v, *, positions, kv_len=None, sliding_window=None,
+               scale=None, logit_softcap=None, sinks=None):
+        flash.check_prefill_grad(q, k, v, positions, kv_len, sinks)
+        return Swapped.apply(q, k, v, scale or q.shape[-1] ** -0.5,
+                             logit_softcap, sliding_window)
+    return attend
+
+
+def _train_identity(torch):
+    """The loss and gradients of one train step of TRAIN_ID_LAYERS fp32
+    layers at the 8B's widths through the kernels (B2 and its backward)
+    against the same through their plain versions
+    (`_plain_flash_attention`): the loss within TRAIN_ID_LOSS_RTOL, each
+    leaf's gradient within TRAIN_ID_GRAD_RTOL of its rms; then through a
+    B2 whose backward swaps dk and dv, which must fall outside it."""
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.ops import flash
+    from ome_tpu_torch.parallel.mesh import MeshConfig
+    from ome_tpu_torch.train import step as ts
+    dev = torch.device("cuda")
+    cfg = llama3_8b().replace(num_layers=TRAIN_ID_LAYERS,
+                              dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(46)
+    tokens = torch.randint(0, cfg.vocab_size, TRAIN_ID_SHAPE, generator=gen,
+                           device=dev)
+    targets = torch.randint(0, cfg.vocab_size, TRAIN_ID_SHAPE,
+                            generator=gen, device=dev)
+    step, init_state = ts.make_train_step(cfg, MeshConfig(), 1, device=dev)
+    params, opt = init_state(seed=1)
+    del opt
+
+    def run(attend):
+        flash.reset_launches()
+        orig = flash.flash_attention
+        if attend is not None:
+            flash.flash_attention = attend
+        try:
+            loss, grads = step.loss_and_grads(params, tokens, targets)
+        finally:
+            flash.flash_attention = orig
+        return float(loss), dict(ts._leaves(grads)), dict(flash.LAUNCHES)
+    lk, gk, nk = run(None)
+    lp, gp, np_ = run(_plain_flash_attention)
+
+    def rel_errs(got):
+        return {n: ((got[n] - r).abs().max() / r.pow(2).mean().sqrt()).item()
+                for n, r in gp.items()}
+    rel = abs(lk - lp) / abs(lp)
+    grad_rel = rel_errs(gk)
+    del gk
+    ls, gs, ns = run(_swapped_flash_attention(torch))
+    swapped_rel = rel_errs(gs)
+    del gs, gp
+    worst = max(grad_rel, key=grad_rel.get)
+    res = {"loss_kernels": lk, "loss_plain": lp, "loss_rel": rel,
+           "loss_rtol": TRAIN_ID_LOSS_RTOL, "grad_rel_errs": grad_rel,
+           "grad_rtol": TRAIN_ID_GRAD_RTOL,
+           "swapped_dk_dv_grad_rel_errs": swapped_rel,
+           "launches_kernels": nk, "launches_plain": np_,
+           "launches_swapped": ns}
+    if rel > TRAIN_ID_LOSS_RTOL or grad_rel[worst] > TRAIN_ID_GRAD_RTOL:
+        fail(f"train identity: loss {lk} vs plain {lp} (rel {rel:.3e}, tol "
+             f"{TRAIN_ID_LOSS_RTOL}); gradients over rms {grad_rel} (tol "
+             f"{TRAIN_ID_GRAD_RTOL})")
+    if max(swapped_rel.values()) <= TRAIN_ID_GRAD_RTOL:
+        fail(f"train identity: a B2 backward that swaps dk and dv reads "
+             f"{swapped_rel}, within {TRAIN_ID_GRAD_RTOL}: the check "
+             f"cannot see it")
+    if nk["flash_prefill_bwd"] != TRAIN_ID_LAYERS or any(np_.values()) or \
+            ns["flash_prefill_bwd"] != TRAIN_ID_LAYERS:
+        fail(f"train identity: launches {nk} through the kernels, {np_} "
+             f"through the plain versions, {ns} through the swapped one")
+    caught = max(swapped_rel, key=swapped_rel.get)
+    log(f"[train] identity, {TRAIN_ID_LAYERS} fp32 layers at the 8B widths, "
+        f"batch {TRAIN_ID_SHAPE}: loss {lk:.7f} through the kernels, "
+        f"{lp:.7f} through their plain versions (rel {rel:.3e}, tol "
+        f"{TRAIN_ID_LOSS_RTOL}); gradients over rms at most "
+        f"{grad_rel[worst]:.3e} ({worst}; tol {TRAIN_ID_GRAD_RTOL}); B2 "
+        f"backward launched {nk['flash_prefill_bwd']} times, the plain step "
+        f"none; with dk and dv swapped in B2's backward the gradients read "
+        f"up to {swapped_rel[caught]:.3e} ({caught}; loss {ls:.7f})")
+    log("[train]   gradients over rms, kernels / swapped: " + "; ".join(
+        f"{n} {grad_rel[n]:.2e} / {swapped_rel[n]:.2e}" for n in grad_rel))
+    return res
+
+
+def _train_resume(torch):
+    """A narrow model (hidden 1024, 2 layers, bf16): 2 steps, save, one
+    more step; restore into a fresh step and take it again: the two
+    losses must be the same bits."""
+    import shutil
+
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.parallel.mesh import MeshConfig
+    from ome_tpu_torch.train import checkpoint
+    from ome_tpu_torch.train import step as ts
+    dev = torch.device("cuda")
+    cfg = llama3_8b().replace(hidden_size=1024, num_heads=8, num_kv_heads=2,
+                              intermediate_size=3584, num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 512), generator=gen,
+                           device=dev)
+    targets = torch.full_like(tokens, TRAIN_TARGET)
+    d = os.path.join(OUT_DIR, "train_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        step, init_state = ts.make_train_step(cfg, MeshConfig(), 2,
+                                              device=dev)
+        params, opt = init_state(seed=2)
+        for _ in range(2):
+            params, opt, _ = step(params, opt, tokens, targets)
+        checkpoint.save_train_state(d, 2, *step.whole(params, opt))
+        params, opt, loss_next = step(params, opt, tokens, targets)
+        del params, opt
+        step2, init2 = ts.make_train_step(cfg, MeshConfig(), 2, device=dev)
+        n, wp, wo = checkpoint.restore_train_state(d, None, None)
+        params, opt = init2(wp, wo)
+        params, opt, loss_resumed = step2(params, opt, tokens, targets)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same = bool(torch.equal(loss_next, loss_resumed))
+    if n != 2 or not same:
+        fail(f"train resume: step {n}, next loss {float(loss_next)!r} vs "
+             f"resumed {float(loss_resumed)!r}")
+    log(f"[train] checkpoint, hidden 1024, 2 layers, bf16: saved at step 2, "
+        f"restored; the next loss {float(loss_next):.6f} equals the "
+        f"uninterrupted run's bit for bit")
+    return {"loss_next": float(loss_next),
+            "loss_resumed": float(loss_resumed), "bitwise": same}
+
+
+def phase_train(torch):
+    """Phase 45: B2's backward against its plain version, the 8B-width
+    training step, the kernel/plain identity step and a resume."""
+    res = phase_train_kernels(torch)
+    res["grouped_mm_backward"] = _grouped_mm_backward(torch)
+    log(f"[train] torch._grouped_mm backward in torch {torch.__version__}: "
+        f"{res['grouped_mm_backward']}")
+    _free_device(torch, "the backward cases")
+    batch = TRAIN_BATCH
+    try:
+        res["step"] = _train_8b(torch, batch)
+    except torch.cuda.OutOfMemoryError:
+        _free_device(torch, "the 8B training step that ran out of memory")
+        batch //= 2
+        log(f"[train] out of memory at batch {TRAIN_BATCH}: batch {batch}")
+        res["step"] = _train_8b(torch, batch)
+    _free_device(torch, "the 8B-width training step")
+    res["identity"] = _train_identity(torch)
+    _free_device(torch, "the training identity steps")
+    res["resume"] = _train_resume(torch)
+    return res
+
+
 SOURCES = {
     "flash_decode": ("ome_tpu_torch/ops/csrc/flash_decode.cu",
                      "ome_tpu/ops/flash.py:148"),
@@ -7533,6 +8046,7 @@ def main() -> int:
     run("serve_tp", phase_serve_tp, torch, before=report["serve"],
         free="the tp 2 server")
     run("tp_lws", phase_tp_lws, torch)
+    run("train", phase_train, torch, free="the training phase")
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -7620,6 +8134,16 @@ def main() -> int:
         kernels.append(entry("int4_matmul", f"int4_matmul per rank at tp "
                              f"{TP} (Llama-3-8B {leaf} K {K} N {N} m 8)",
                              case, t4[f"K={K} N={N}"]))
+    # B2's backward: the 8B case; launches: the 8B-width training steps
+    bwd = report["train"]["flash_prefill_bwd"][0]
+    kernels.append({
+        "name": "flash_prefill_bwd", "route": "cuda",
+        "source": "ome_tpu_torch/ops/csrc/flash_prefill_bwd.cu",
+        "replaces": "ome_tpu/ops/attention.py:139",
+        "launches": report["train"]["step"]["launches"]["flash_prefill_bwd"],
+        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

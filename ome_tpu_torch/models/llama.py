@@ -358,7 +358,9 @@ def dense_mlp(x: torch.Tensor, p, cfg: ModelConfig,
               lora: Lora = None) -> torch.Tensor:
     """The gated MLP. Under tp its hidden dim is split over the ranks
     (w_gate/w_up by column, w_down by row): the down projection's
-    partial outputs are summed (`comm.reduce_sum`)."""
+    partial outputs are summed (`comm.reduce_sum`), and in training the
+    input's gradient over the ranks (`comm.copy_to_tp`)."""
+    x = comm.copy_to_tp(x)
     gate = _proj_lora(x, p, "w_gate", lora, cfg.dtype)
     up = _proj_lora(x, p, "w_up", lora, cfg.dtype)
     return comm.reduce_sum(_proj_lora(_activate(gate, cfg) * up, p,
@@ -488,10 +490,14 @@ def moe_mlp_dense(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     output's before the routing weight scales it).
     Under tp the experts are split over the ranks (expert parallelism):
     a rank computes its own E/tp experts and mixes them by their columns
-    of the routing weights; `moe_mlp` sums the ranks' partial outputs."""
+    of the routing weights; `moe_mlp` sums the ranks' partial outputs.
+    In training the experts' input and the routing weights are
+    `comm.copy_to_tp`'s: the router runs whole on every rank, and each
+    rank's experts give it part of their gradient."""
     weights, idx = _route(x, p, cfg)
-    gate = torch.einsum("bsd,edf->bsef", x, _w(p["we_gate"], cfg.dtype))
-    up = torch.einsum("bsd,edf->bsef", x, _w(p["we_up"], cfg.dtype))
+    xe = comm.copy_to_tp(x)
+    gate = torch.einsum("bsd,edf->bsef", xe, _w(p["we_gate"], cfg.dtype))
+    up = torch.einsum("bsd,edf->bsef", xe, _w(p["we_up"], cfg.dtype))
     if cfg.moe_bias:
         gate = gate + p["we_gate_b"]
         up = up + p["we_up_b"]
@@ -503,7 +509,8 @@ def moe_mlp_dense(x: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     mix = torch.einsum("bske,bsk->bse", onehot, weights)
     e_local = expert_out.shape[2]
     if e_local != cfg.num_experts:  # this rank's experts' columns
-        mix = mix.narrow(-1, comm.rank_and_size()[0] * e_local, e_local)
+        mix = comm.copy_to_tp(mix).narrow(
+            -1, comm.rank_and_size()[0] * e_local, e_local)
     return torch.einsum("bsed,bse->bsd", expert_out,
                         mix.to(expert_out.dtype))
 
@@ -583,6 +590,7 @@ def _shared_mlp(x: torch.Tensor, p) -> torch.Tensor:
     default: a quantized leaf dequantizes to bf16, and B4 leaves its
     product as bf16, even in an fp32 model."""
     bf16 = torch.bfloat16
+    x = comm.copy_to_tp(x)  # hidden dim split under tp
     gate = _proj(x, p["ws_gate"], bf16)
     up = _proj(x, p["ws_up"], bf16)
     return _proj(F.silu(gate) * up, p["ws_down"], bf16)
@@ -640,8 +648,10 @@ def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
     Phi-3.5-MoE), per-head normed (Qwen3 RMSNorm, command-r-plus
     LayerNorm) and roped q/k/v, in the reference's order; shared by the
     dense and paged paths. `rope=False` is Cohere2's NoPE global
-    layers."""
+    layers. Under tp the input's gradient is summed over the ranks
+    (`comm.copy_to_tp`), and so is that of a replicated per-head norm."""
     # heads from the weights: a tp rank holds H/tp and K/tp of them
+    h = comm.copy_to_tp(h)
     q = _proj_lora(h, lp, "wq", lora, cfg.dtype,
                    out_dims=(-1, cfg.head_dim))
     k = _proj_lora(h, lp, "wk", lora, cfg.dtype,
@@ -663,10 +673,10 @@ def _qkv(h: torch.Tensor, lp, cfg: ModelConfig, freqs: torch.Tensor,
             k = layer_norm(k, comm.local_rows(lp["k_norm"], k.shape[-2]),
                            None, cfg.rms_norm_eps)
         else:
-            q = rms_norm(q, lp["q_norm"], cfg.rms_norm_eps,
-                         cfg.unit_offset_norm)
-            k = rms_norm(k, lp["k_norm"], cfg.rms_norm_eps,
-                         cfg.unit_offset_norm)
+            q = rms_norm(q, comm.copy_to_tp(lp["q_norm"]),
+                         cfg.rms_norm_eps, cfg.unit_offset_norm)
+            k = rms_norm(k, comm.copy_to_tp(lp["k_norm"]),
+                         cfg.rms_norm_eps, cfg.unit_offset_norm)
     if rope:
         q = apply_rope(q, positions, freqs, cfg.rope_interleaved)
         k = apply_rope(k, positions, freqs, cfg.rope_interleaved)
@@ -779,11 +789,36 @@ def _embed_scaled(params: Params, cfg: ModelConfig,
     return x
 
 
+class _HeadProduct(torch.autograd.Function):
+    """x [N, D] @ head [D, V] in the inputs' dtype with fp32 output, on
+    the card (`torch.mm`'s out_dtype form, which has no derivative). Its
+    backward takes the fp32 gradient rounded to the inputs' dtype into
+    products that accumulate in fp32 (the reference's jax.grad runs them
+    in fp32: mixed precision's usual departure, for training only)."""
+
+    @staticmethod
+    def forward(ctx, x, head):
+        ctx.save_for_backward(x, head)
+        return torch.mm(x, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = dh = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.mm(g, head.t(), out_dtype=torch.float32).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dh = torch.mm(x.t(), g, out_dtype=torch.float32).to(head.dtype)
+        return dx, dh
+
+
 def _final_logits(params: Params, cfg: ModelConfig,
                   x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head with fp32 logits (the reference's einsum
     with preferred_element_type=float32): on a card the bf16 product
-    writes fp32 directly; elsewhere the product runs in fp32. Then, on
+    writes fp32 directly (`_HeadProduct`, which also differentiates it);
+    elsewhere the product runs in fp32. Then, on
     the fp32 logits, the head's bias (Phi-3.5-MoE), command-r's
     logit_scale and Gemma 2's final softcap. Under tp the head (tied or
     not) is split by vocab columns: the fp32 logits are gathered whole
@@ -796,9 +831,9 @@ def _final_logits(params: Params, cfg: ModelConfig,
     if tied:
         head = head.t()
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
+    x2 = comm.copy_to_tp(x.reshape(-1, x.shape[-1]))
     if x2.is_cuda and x2.dtype != torch.float32:
-        logits = torch.mm(x2, head, out_dtype=torch.float32)
+        logits = _HeadProduct.apply(x2, head)
     else:
         logits = x2.float() @ head.float()
     logits = comm.gather_last(logits.reshape(*lead, -1))

@@ -154,12 +154,16 @@ def mla_attention(h: torch.Tensor, lp, cfg: ModelConfig,
     dt = cfg.dtype
 
     # -- queries -------------------------------------------------------
+    # (under tp in training the inputs of the head-split products take
+    # `comm.copy_to_tp`, so that their gradients add over the ranks)
     if cfg.q_lora_rank:
         ql = torch.einsum("bsd,dr->bsr", h, _w(lp["wq_a"], dt))
         ql = rms_norm(ql, lp["q_a_norm"], cfg.rms_norm_eps)
-        q = torch.einsum("bsr,rhk->bshk", ql, _w(lp["wq_b"], dt))
+        q = torch.einsum("bsr,rhk->bshk", comm.copy_to_tp(ql),
+                         _w(lp["wq_b"], dt))
     else:
-        q = torch.einsum("bsd,dhk->bshk", h, _w(lp["wq"], dt))
+        q = torch.einsum("bsd,dhk->bshk", comm.copy_to_tp(h),
+                         _w(lp["wq"], dt))
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = rope_interleaved(q_pe, positions, cfg, freqs)
 
@@ -180,6 +184,7 @@ def mla_attention(h: torch.Tensor, lp, cfg: ModelConfig,
     else:
         full = latent[:, :, 0]                        # [B, S, r + rope]
         k_pos = None
+    full = comm.copy_to_tp(full)
     c_all, kpe_all = full[..., :r], full[..., r:]
     scale = cfg.mla_scale
 

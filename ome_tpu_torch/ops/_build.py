@@ -30,6 +30,7 @@ BUILD_DIR = os.path.join(
 SOURCES = {
     "flash_decode": "flash_decode.cu",
     "flash_prefill": "flash_prefill.cu",
+    "flash_prefill_bwd": "flash_prefill_bwd.cu",
     "flash_paged_decode": "flash_paged_decode.cu",
     "int4_matmul": "int4_matmul.cu",
 }
@@ -46,6 +47,9 @@ _SIGNATURES = {
     "flash_prefill": ("ome_flash_prefill",
                       [_P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
+    "flash_prefill_bwd": ("ome_flash_prefill_bwd",
+                          [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _I, _I,
+                                      _P]),
     "flash_paged_decode": ("ome_flash_paged_decode",
                            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,

@@ -13,7 +13,17 @@ collectives; the port runs one process per rank and calls them itself:
     its last dim) made whole on every rank;
   * `broadcast`: rank 0's tensor on every rank (the sampled ids);
   * `amax`: the element-wise max over ranks (quantization scales of a
-    weight whose contraction dim is split).
+    weight whose contraction dim is split);
+  * `copy_to_tp`: the identity, whose gradient is summed over the ranks
+    (Megatron's f): it stands at the input of every column-parallel
+    product (q/k/v, gate/up, the experts under tp, the vocab-sharded
+    head) and on a replicated weight that only the rank's own heads use,
+    so that the ranks' partial gradients of a replicated tensor add up.
+
+Training differentiates through them: `reduce_sum`'s gradient passes
+through unchanged (each rank's loss is the whole loss), so
+`embed_lookup` and `gather_last`, written over it, differentiate too.
+With grad off, or outside a group, each is the function serving runs.
 
 Every one is an `all_reduce` or a `broadcast` of torch.distributed (a
 gather is an all_reduce over a zero-filled buffer), the two collectives
@@ -106,6 +116,43 @@ class Group:
         self._timed(lambda: self.pg.allreduce([x], opts).wait())
         return x
 
+    def send(self, x: torch.Tensor, dst: int) -> None:
+        """`x` to rank `dst` of this group (a pipeline stage's
+        activation or its gradient). gloo moves host memory: a CUDA
+        tensor goes through a host copy."""
+        t = x.detach().contiguous()
+        if self.backend == "gloo" and t.is_cuda:
+            t = t.cpu()
+        self._timed(lambda: self.pg.send([t], dst, 0).wait())
+
+    def recv(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Rank `src`'s `send` into `x` (contiguous), in place."""
+        t = x.cpu() if self.backend == "gloo" and x.is_cuda else x
+        self._timed(lambda: self.pg.recv([t], src, 0).wait())
+        if t is not x:
+            x.copy_(t)
+        return x
+
+    def sendrecv(self, x: torch.Tensor, dst: int, out: torch.Tensor,
+                 src: int) -> torch.Tensor:
+        """`x` to rank `dst` and rank `src`'s into `out`, both posted
+        before either is waited on (a ring where every rank sends and
+        receives at once)."""
+        t = x.detach().contiguous()
+        o = out
+        if self.backend == "gloo" and t.is_cuda:
+            t, o = t.cpu(), out.cpu()
+
+        def both():
+            r = self.pg.recv([o], src, 1)
+            s = self.pg.send([t], dst, 1)
+            s.wait()
+            r.wait()
+        self._timed(both)
+        if o is not out:
+            out.copy_(o)
+        return out
+
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank `src`'s `x` on every rank, in place."""
         import torch.distributed as dist
@@ -143,12 +190,53 @@ def rank_and_size():
     return (0, 1) if g is None else (g.rank, g.size)
 
 
+def _tracked(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _ReduceSum(torch.autograd.Function):
+    """The sum over the ranks; its gradient passes through unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        return g.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToTp(torch.autograd.Function):
+    """The identity; its gradient is summed over the ranks."""
+
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.g.all_reduce(grad.contiguous().clone()), None
+
+
 def reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of every rank's partial `x` (the reference's psum)."""
+    """The sum of every rank's partial `x` (the reference's psum).
+    Outside autograd it reduces `x` in place."""
     g = _group.get()
     if g is None:
         return x
+    if _tracked(x):
+        return _ReduceSum.apply(x, g)
     return g.all_reduce(x.contiguous())
+
+
+def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
+    """`x` itself; under autograd in a group, its gradient is the sum of
+    the ranks' gradients (the input of a column-parallel product)."""
+    g = _group.get()
+    if g is None or not _tracked(x):
+        return x
+    return _CopyToTp.apply(x, g)
 
 
 def broadcast(x: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -176,9 +264,8 @@ def gather_last(x: torch.Tensor) -> torch.Tensor:
     if g is None:
         return x
     n = x.shape[-1]
-    full = x.new_zeros(*x.shape[:-1], n * g.size)
-    full[..., g.rank * n:(g.rank + 1) * n] = x
-    return g.all_reduce(full)
+    return reduce_sum(torch.nn.functional.pad(
+        x, (g.rank * n, (g.size - 1 - g.rank) * n)))
 
 
 def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -204,7 +291,7 @@ def embed_lookup(rows_of, tokens: torch.Tensor, local_rows: int,
     x = rows_of(torch.where(mine, t - lo, torch.zeros_like(t)))
     x = torch.where(mine[..., None], x.to(dtype),
                     torch.zeros((), dtype=dtype, device=x.device))
-    return g.all_reduce(x.contiguous())
+    return reduce_sum(x)
 
 
 def local_rows(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -214,4 +301,4 @@ def local_rows(t: torch.Tensor, n: int) -> torch.Tensor:
     g = _group.get()
     if g is None or t.shape[0] == n:
         return t
-    return t.narrow(0, g.rank * n, n)
+    return copy_to_tp(t).narrow(0, g.rank * n, n)
