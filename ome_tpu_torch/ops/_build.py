@@ -14,6 +14,7 @@ A failed compile raises with nvcc's stderr.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -31,6 +32,7 @@ SOURCES = {
     "flash_decode": "flash_decode.cu",
     "flash_prefill": "flash_prefill.cu",
     "flash_prefill_bwd": "flash_prefill_bwd.cu",
+    "flash_prefill_bwd_wgmma": "flash_prefill_bwd_wgmma.cu",
     "flash_paged_decode": "flash_paged_decode.cu",
     "int4_matmul": "int4_matmul.cu",
 }
@@ -45,11 +47,14 @@ _SIGNATURES = {
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P]),
     "flash_prefill": ("ome_flash_prefill",
-                      [_P, _P, _P, _P, _P, _P, _P,
+                      [_P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]),
     "flash_prefill_bwd": ("ome_flash_prefill_bwd",
-                          [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _I, _I,
+                          [_P] * 9 + [_I, _I, _I, _I, _I, _F, _F, _I, _P,
                                       _P]),
+    "flash_prefill_bwd_wgmma": ("ome_flash_prefill_bwd_wgmma",
+                                [_P] * 10 + [_I, _I, _I, _I, _I, _F, _F, _I,
+                                             _I, _P, _P]),
     "flash_paged_decode": ("ome_flash_paged_decode",
                            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
@@ -119,6 +124,15 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.monotonic() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SMs of CUDA `device` (a torch.device), which the launch plans
+    (`flash.decode_grid`, `flash.bwd_tile_plan`, `int4_plan`) size their
+    grids by."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def kernel(name: str):

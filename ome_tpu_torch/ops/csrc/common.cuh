@@ -542,11 +542,39 @@ inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
                        CUtensorMapSwizzle swizzle) {
   EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return false;
+  // the driver call needs a current context, which a thread that has not
+  // yet used the card lacks (autograd's backward thread, a fresh worker;
+  // torch's device guard binds none for the device already selected):
+  // cudaSetDevice binds the current device's primary context to it
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return enc(map, type, rank, const_cast<void*>(base), dims, strides, box,
              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 x [B, L, X, D] as the 4D map (D, X, L, B), box (64, bx, bl, 1),
+// 128-byte swizzle; coordinates past L, and past D, read as zeros
+inline bool encode_bf16_4d(CUtensorMap* map, const void* x, int B, int L, int X,
+                    int D, int bx, int bl) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)X, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)X * D * 2,
+                                 (cuuint64_t)L * X * D * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)bx, (cuuint32_t)bl, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// events: null, or cudaEvent_t handles that a caller times a wrapper's
+// launches with (ops/flash.py::flash_prefill_bwd's launch_events):
+// events[i] is recorded on st before launch i, events[n] after launch n-1
+inline cudaError_t mark(void* const* events, int i, cudaStream_t st) {
+  return events ? cudaEventRecord(static_cast<cudaEvent_t>(events[i]), st)
+                : cudaSuccess;
 }
 
 inline int sm_count() {

@@ -1,31 +1,31 @@
 // The backward of the causal GQA prefill attention (B2, flash_prefill.cu)
-// on its training path, for Hopper.
+// on its fp32 training path, for Hopper. bf16 inputs, the training
+// step's, go to the wgmma kernel of flash_prefill_bwd_wgmma.cu, which
+// takes the logsumexp the forward saved; this scalar kernel serves fp32
+// alone (the identity checks' fp32 steps), where tensor-core TF32 would
+// not hold fp32 tolerances.
 //
 // Replaces no Pallas kernel: the reference's train step differentiates
-// its XLA attention with jax.grad (ome_tpu/ops/attention.py:104-116;
-// none of its Pallas kernels has a backward). The port's training
-// forward runs B2 on the card, so its gradient is this kernel, behind
-// ops/flash.py::FlashPrefill.
+// its XLA attention with jax.grad (ome_tpu/ops/attention.py:48-81; none
+// of its Pallas kernels has a backward). The port's training forward
+// runs B2 on the card, so its gradient is this kernel (fp32) or the
+// wgmma one (bf16), behind ops/flash.py::FlashPrefill.
 //
 // The function: q [B, S, H, D], k, v [B, S, K, D] (G = H / K query heads
-// per KV head, any G) and the gradient dO [B, S, H, D] of the output. Query row i attends key rows j <= i and, with a sliding
-// window W, j > i - W: B2's contract at base 0 with kv_hi = S, the only
-// shape a training forward gives it. With s = scale q.k (then
-// s = c tanh(s / c) under a softcap c), P = exp(s - lse) and
+// per KV head, any G) and the gradient dO [B, S, H, D] of the output, all
+// fp32. Query row i attends key rows j <= i and, with a sliding window
+// W, j > i - W: B2's contract at base 0 with kv_hi = S, the only shape a
+// training forward gives it. With s = scale q.k (then s = c tanh(s / c)
+// under a softcap c), P = exp(s - lse) and
 //   dV = P^T dO,  dP = dO V^T,  dS = P (dP - Delta),  Delta = rowsum(P dP),
 //   dQ = scale dS' K,  dK = scale dS'^T Q,  dS' = dS (1 - (s / c)^2).
-// Inputs bf16 or fp32; every product and sum in fp32, and the gradients
-// written in fp32 (FlashPrefill casts them to the inputs' dtype): with
-// random inputs the largest gradient of a causal 2048-token prefill is
-// ~100x its rms (the first rows' softmax is concentrated), so rounding
-// it to bf16 alone would move it by ~0.2 rms.
+// Every product and sum in fp32. No sinks: the row pass recomputes a
+// logsumexp without them (check_prefill_grad refuses fp32 sinks).
 //
 // What bounds it on an H100: the operations of its five products, 10 D
 // per (row, key) pair and head (QK^T and dO V^T recomputed, P^T dO,
-// dS^T Q, dS K): 0.0869 ms for the 8B's heads at causal 2048 at the
-// 989 TFLOP/s bf16 peak. This first kernel is built to be right and
-// simple, not to reach that bound (the Hopper redesign on wgmma and TMA,
-// with the logsumexp saved by the forward, is later work):
+// dS^T Q, dS K): 2.5654 ms for the 8B's heads at causal 2048, B 2, at
+// the 67 TFLOP/s fp32 peak. This kernel is built to be right and simple:
 //   * three launches, no atomics, so a second launch gives the same
 //     bits: a row pass (one block per sequence, head and 64-row query
 //     tile) recomputes each row's logsumexp over its valid keys and
@@ -35,10 +35,10 @@
 //     holds dK and dV in registers; a dQ pass (one block per sequence,
 //     head and query tile) walks the key tiles its rows see;
 //   * every product runs on the CUDA cores in fp32 from shared-memory
-//     tiles converted at load (rows padded by one float, so a warp reads
-//     its 16 columns from 16 banks), each thread owning a 4 x 4 (at
-//     D 256, 32-row tiles: 2 x 2) block of a 64 x 64 score tile and a
-//     (tile / 16) x (D / 16) block of its outputs;
+//     tiles (rows padded by one float, so a warp reads its 16 columns
+//     from 16 banks), each thread owning a 4 x 4 (at D 256, 32-row
+//     tiles: 2 x 2) block of a 64 x 64 score tile and a (tile / 16) x
+//     (D / 16) block of its outputs;
 //   * the walks cover only the tiles that hold a valid pair (the causal
 //     frontier and the window), heaviest blocks first.
 //
@@ -59,17 +59,17 @@ __device__ __forceinline__ bool pair_valid(int i, int j, int S, int window) {
   return i < S && j <= i && (window <= 0 || j > i - window);
 }
 
-// rows r0 .. r0 + rows - 1 of head h of x [B, S, NH, D] -> dst [rows][D + 1]
-// in fp32; rows at or past S are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* x, int b,
+// rows r0 .. r0 + rows - 1 of head h of x [B, S, NH, D] -> dst [rows][D + 1];
+// rows at or past S are zero
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* x, int b,
                                           int r0, int rows, int S, int NH,
                                           int h) {
   for (int e = threadIdx.x; e < rows * D; e += kThreads) {
     const int r = e / D, d = e - r * D;
     const int i = r0 + r;
     float val = 0.f;
-    if (i < S) val = to_float(x[(((size_t)b * S + i) * NH + h) * D + d]);
+    if (i < S) val = x[(((size_t)b * S + i) * NH + h) * D + d];
     dst[r * (D + 1) + d] = val;
   }
 }
@@ -166,10 +166,10 @@ __device__ __forceinline__ void key_tiles(int q0, int S, int window, int& kt0,
 // of its rms at the 8B's causal 2048 on an H100: the output's rounding
 // enters every dS of its row.)
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_rows(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_rows(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              float* __restrict__ lse, float* __restrict__ delta, int S, int H,
              int K, float scale, float softcap, int window) {
   constexpr int BQ = tile_rows<D>(), BK = BQ, RM = BQ / 16, CN = BK / 16;
@@ -182,8 +182,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z, h = blockIdx.y, kh = h / (H / K);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
   const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  load_tile<T, D>(Qs, q, b, q0, BQ, S, H, h);
-  load_tile<T, D>(dOs, dout, b, q0, BQ, S, H, h);
+  load_tile<D>(Qs, q, b, q0, BQ, S, H, h);
+  load_tile<D>(dOs, dout, b, q0, BQ, S, H, h);
   float m[RM], l[RM], dacc[RM];
 #pragma unroll
   for (int rm = 0; rm < RM; ++rm) { m[rm] = kMInit; l[rm] = dacc[rm] = 0.f; }
@@ -192,8 +192,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = kt0; kt <= kt1; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile is read (and Q, dO are in)
-    load_tile<T, D>(Ks, k, b, k0, BK, S, K, kh);
-    load_tile<T, D>(Vs, v, b, k0, BK, S, K, kh);
+    load_tile<D>(Ks, k, b, k0, BK, S, K, kh);
+    load_tile<D>(Vs, v, b, k0, BK, S, K, kh);
     __syncthreads();
     float s[RM][CN], dp[RM][CN];
     tile_dot<D, RM, CN, true>(Qs, Ks, dOs, Vs, rg, cg, s, dp);
@@ -269,10 +269,10 @@ __device__ __forceinline__ void p_ds(const float* Qs, const float* Ks,
 
 // -- pass 2: dK and dV of one KV tile --------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              float* __restrict__ dk, float* __restrict__ dv, int S, int H, int K,
              float scale, float softcap, int window) {
@@ -290,8 +290,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z, kh = blockIdx.y, G = H / K;
   const int k0 = blockIdx.x * BK;  // the first key tiles see the most rows
   const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  load_tile<T, D>(Ks, k, b, k0, BK, S, K, kh);
-  load_tile<T, D>(Vs, v, b, k0, BK, S, K, kh);
+  load_tile<D>(Ks, k, b, k0, BK, S, K, kh);
+  load_tile<D>(Vs, v, b, k0, BK, S, K, kh);
   float acc_k[KM][DN], acc_v[KM][DN];
 #pragma unroll
   for (int km = 0; km < KM; ++km)
@@ -305,8 +305,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int qt = qt0; qt <= qt1; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // the previous tile's P, dS, Q, dO are read
-      load_tile<T, D>(Qs, q, b, q0, BQ, S, H, h);
-      load_tile<T, D>(dOs, dout, b, q0, BQ, S, H, h);
+      load_tile<D>(Qs, q, b, q0, BQ, S, H, h);
+      load_tile<D>(dOs, dout, b, q0, BQ, S, H, h);
       load_rows(lse_s, lse, b, h, H, q0, BQ, S);
       load_rows(dl_s, delta, b, h, H, q0, BQ, S);
       __syncthreads();
@@ -367,10 +367,10 @@ __global__ void __launch_bounds__(kThreads)
 
 // -- pass 3: dQ of one query tile ------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
+    bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            float* __restrict__ dq, int S, int H, int K, float scale,
            float softcap, int window) {
@@ -387,8 +387,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z, h = blockIdx.y, kh = h / (H / K);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest rows first
   const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  load_tile<T, D>(Qs, q, b, q0, BQ, S, H, h);
-  load_tile<T, D>(dOs, dout, b, q0, BQ, S, H, h);
+  load_tile<D>(Qs, q, b, q0, BQ, S, H, h);
+  load_tile<D>(dOs, dout, b, q0, BQ, S, H, h);
   load_rows(lse_s, lse, b, h, H, q0, BQ, S);
   load_rows(dl_s, delta, b, h, H, q0, BQ, S);
   float acc[RM][DN];
@@ -401,8 +401,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = kt0; kt <= kt1; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's K and dS are read
-    load_tile<T, D>(Ks, k, b, k0, BK, S, K, kh);
-    load_tile<T, D>(Vs, v, b, k0, BK, S, K, kh);
+    load_tile<D>(Ks, k, b, k0, BK, S, K, kh);
+    load_tile<D>(Vs, v, b, k0, BK, S, K, kh);
     __syncthreads();
     p_ds<D, RM, CN>(Qs, Ks, dOs, Vs, lse_s, dl_s, nullptr, dSs, q0, k0, S,
                     scale, softcap, window, rg, cg);
@@ -433,10 +433,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-int launch(const T* q, const T* k, const T* v, const T* dout,
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* dout,
            float* dq, float* dk, float* dv, float* lse, float* delta, int B, int S, int H,
-           int K, float scale, float softcap, int window, cudaStream_t st) {
+           int K, float scale, float softcap, int window, void* const* events,
+           cudaStream_t st) {
   constexpr int BQ = tile_rows<D>(), BK = BQ, LD = D + 1, LP = BK + 1;
   const int nq = (S + BQ - 1) / BQ, nk = (S + BK - 1) / BK;
   const size_t smem_rows = (size_t)2 * (BQ + BK) * LD * sizeof(float);
@@ -445,64 +446,64 @@ int launch(const T* q, const T* k, const T* v, const T* dout,
   const size_t smem_dq =
       ((size_t)2 * (BQ + BK) * LD + BQ * LP + 2 * BQ) * sizeof(float);
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(bwd_rows<T, D>,
+  if ((err = cudaFuncSetAttribute(bwd_rows<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_rows)) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(bwd_dkdv<T, D>,
+  if ((err = cudaFuncSetAttribute(bwd_dkdv<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_dkdv)) != cudaSuccess)
     return err;
-  if ((err = cudaFuncSetAttribute(bwd_dq<T, D>,
+  if ((err = cudaFuncSetAttribute(bwd_dq<D>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem_dq)) != cudaSuccess)
     return err;
-  bwd_rows<T, D><<<dim3(nq, H, B), kThreads, smem_rows, st>>>(
+  if ((err = mark(events, 0, st)) != cudaSuccess) return err;
+  bwd_rows<D><<<dim3(nq, H, B), kThreads, smem_rows, st>>>(
       q, k, v, dout, lse, delta, S, H, K, scale, softcap, window);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dkdv<T, D><<<dim3(nk, K, B), kThreads, smem_dkdv, st>>>(
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = mark(events, 1, st)) != cudaSuccess)
+    return err;
+  bwd_dkdv<D><<<dim3(nk, K, B), kThreads, smem_dkdv, st>>>(
       q, k, v, dout, lse, delta, dk, dv, S, H, K, scale, softcap, window);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dq<T, D><<<dim3(nq, H, B), kThreads, smem_dq, st>>>(
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = mark(events, 2, st)) != cudaSuccess)
+    return err;
+  bwd_dq<D><<<dim3(nq, H, B), kThreads, smem_dq, st>>>(
       q, k, v, dout, lse, delta, dq, S, H, K, scale, softcap, window);
-  return cudaGetLastError();
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return mark(events, 3, st);
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk, void* dv, float* lse,
+int dispatch(const float* q, const float* k, const float* v,
+             const float* dout, float* dq, float* dk, float* dv, float* lse,
              float* delta, int B, int S, int H, int K, int D, float scale,
-             float softcap, int window, cudaStream_t st) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(dout);
-  float* dqt = static_cast<float*>(dq);
-  float* dkt = static_cast<float*>(dk);
-  float* dvt = static_cast<float*>(dv);
-  if (D == 128) return launch<T, 128>(qt, kt, vt, gt, dqt, dkt, dvt, lse, delta, B, S, H, K, scale, softcap, window, st);
-  if (D == 64) return launch<T, 64>(qt, kt, vt, gt, dqt, dkt, dvt, lse, delta, B, S, H, K, scale, softcap, window, st);
-  if (D == 96) return launch<T, 96>(qt, kt, vt, gt, dqt, dkt, dvt, lse, delta, B, S, H, K, scale, softcap, window, st);
-  if (D == 256) return launch<T, 256>(qt, kt, vt, gt, dqt, dkt, dvt, lse, delta, B, S, H, K, scale, softcap, window, st);
+             float softcap, int window, void* const* events,
+             cudaStream_t st) {
+  if (D == 128) return launch<128>(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H, K, scale, softcap, window, events, st);
+  if (D == 64) return launch<64>(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H, K, scale, softcap, window, events, st);
+  if (D == 96) return launch<96>(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H, K, scale, softcap, window, events, st);
+  if (D == 256) return launch<256>(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H, K, scale, softcap, window, events, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// lse and delta: [B, H, S] fp32 scratch the wrapper allocates; dq, dk,
-// dv: fp32 outputs of q's, k's and v's shapes, every element written
-extern "C" int ome_flash_prefill_bwd(const void* q, const void* k,
-                                     const void* v, const void* dout,
-                                     void* dq, void* dk,
-                                     void* dv, float* lse, float* delta,
-                                     int B, int S, int H, int K, int D,
-                                     float scale, float softcap, int window,
-                                     int is_bf16, void* stream) {
+// q, dout [B, S, H, D], k, v [B, S, K, D]: contiguous fp32; lse and
+// delta: [B, H, S] fp32 scratch the wrapper allocates; dq, dk, dv: fp32
+// outputs of q's, k's and v's shapes, every element written; events:
+// null, or 4 cudaEvent_t recorded on the stream before bwd_rows, before
+// bwd_dkdv, before bwd_dq and after it (`mark`)
+extern "C" int ome_flash_prefill_bwd(const float* q, const float* k,
+                                     const float* v, const float* dout,
+                                     float* dq, float* dk, float* dv,
+                                     float* lse, float* delta, int B, int S,
+                                     int H, int K, int D, float scale,
+                                     float softcap, int window,
+                                     void** events, void* stream) {
   if (K <= 0 || H % K != 0) return cudaErrorInvalidValue;
   if (B == 0 || S == 0) return cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch<uint16_t>(q, k, v, dout, dq, dk, dv, lse, delta, B, S,
-                              H, K, D, scale, softcap, window, st);
-  return dispatch<float>(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H, K,
-                         D, scale, softcap, window, st);
+  return dispatch(q, k, v, dout, dq, dk, dv, lse, delta, B, S, H, K, D,
+                  scale, softcap, window, events,
+                  static_cast<cudaStream_t>(stream));
 }

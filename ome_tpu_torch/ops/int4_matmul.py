@@ -39,7 +39,6 @@ is imported.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
@@ -262,11 +261,6 @@ def int4_plan(m: int, k: int, n: int, gsize: int, sm_count: int
 # -- the CUDA launch -------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 # (device index, stream) -> (fp32 split partials, int32 tile counters):
 # allocated once and grown, never per launch. The kernel leaves every
 # counter at 0 when it ends, so launches on one stream reuse them.
@@ -326,10 +320,10 @@ def int4_matmul(x: torch.Tensor, qt, out_dtype=torch.bfloat16
     x2 = x2.contiguous()
     if x2.data_ptr() % 16:
         x2 = x2.clone()
-    plan = int4_plan(m, k, n, gsize, _sm_count(dev))
+    from . import _build
+    plan = int4_plan(m, k, n, gsize, _build.sm_count(dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
     part, cnt = _scratch(dev, stream, plan)
-    from . import _build
     fn = _build.kernel("int4_matmul")
     with torch.cuda.device(dev):  # the C side launches on the current card
         rc = fn(x2.data_ptr(), qp2.data_ptr(), s2.data_ptr(),

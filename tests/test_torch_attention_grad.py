@@ -8,7 +8,8 @@ window and with softcap 30. The plain version of B2's backward
 (`flash.flash_prefill_bwd_ref`, what chip_smoke holds the CUDA kernel
 against) agrees too. And the CUDA path's refusals (`check_prefill_grad`,
 which `flash_attention` runs under grad on a CUDA tensor) name a decode,
-sinks and each shape the backward kernel does not take. chip_smoke's
+fp32 sinks and each shape the backward kernels do not take; bf16 sinks
+are taken. chip_smoke's
 planted faults (a plain backward with P or dS rounded to bf16 or without
 the softcap's derivative; a backward that swaps dk and dv) do what its
 checks on the card rely on."""
@@ -77,6 +78,10 @@ def test_cuda_refusals_name_the_case():
     q, k, v = (torch.zeros(B, S, n, D) for n in (H, K, K))
     pos = torch.arange(S)[None]
     flash.check_prefill_grad(q, k, v, pos)  # the training shape: taken
+    # sinks are taken in bf16 (their gradient comes from the forward's
+    # lse), refused in fp32
+    flash.check_prefill_grad(q.bfloat16(), k.bfloat16(), v.bfloat16(), pos,
+                             sinks=torch.zeros(H))
     cases = [
         ((q[:, :1], k, v, pos[:, :1]), {}, "a decode"),
         ((q, k, v, pos), {"sinks": torch.zeros(H)}, "attention sinks"),
