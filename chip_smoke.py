@@ -128,9 +128,21 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
 23. PD: 8B-width prefill and decode nodes (`CUT_LAYERS` deep) against a
    monolithic server
    (`phase_pd`), bf16 dense and int8 paged, with each fetch's split,
-   failover across two prefill URLs and `--pd-local-fallback`;
+   failover across two prefill URLs and `--pd-local-fallback`; one bf16
+   request through the port's router whose only backend is the decode
+   node (`decoder=` pool) gives the node's direct stream;
 24. cross-replica prefix reuse (`phase_peering`): an `X-OME-Prefix-Peer`
    fetch from a donor replica, streams equal, one peer fetch counted;
+24a. the router (`phase_router`): the port's `RouterServer`
+   (`cache_aware`) in front of two 8B-width replicas, `CUT_LAYERS` deep:
+   three 1500-token prompts twice each, each pair on the replica the
+   rendezvous hash names, the second a device prefix-cache hit equal to
+   the replica's direct answer; a fourth prompt served by the other
+   replica, learned on one health sweep and injected as
+   X-OME-Prefix-Peer, one peer fetch, the owner's stream; 32 concurrent
+   SSE streams through `AsyncRouterServer` with the threaded router's
+   tokens; one replica stopped, its prompt served by the other with one
+   retry; TTFT / TPOT medians through each router against direct;
 25./26. Phi-3-mini-4k at full size (`PHI3_MINI_4K`: 32 layers, D 96,
    G 1, window 2047), bf16: the dense server as phase 4 (prompts of up
    to 3000 tokens, past the window: B1 and B2 at D 96 through their
@@ -4614,12 +4626,42 @@ def _first_diff(a, b):
                 min(len(a), len(b)))
 
 
+def _pd_through_router(dec, ids, want):
+    """One completion through the port's router whose only backend is
+    the PD decode node, in the decoder pool (`--backend decoder=URL`):
+    the router falls back from the empty engine pool to the decoders,
+    and the stream must be the one the node gave directly."""
+    from ome_tpu_torch.router import server as rserver
+    router = rserver.Router([rserver.Backend(dec.url, "decoder")],
+                            health_interval=3600)
+    rs = rserver.RouterServer(router, host="127.0.0.1", port=0).start()
+    try:
+        _completion(*_post_h(f"http://127.0.0.1:{rs.port}", {
+            "prompt": ids, "max_tokens": 32, "temperature": 0.0}), 32,
+            "PD request through the router")
+    finally:
+        rs.stop()
+    got = dec.stream(ids)
+    stats = router.stats
+    if got != want:
+        fail(f"PD through the router: the stream differs from the decode "
+             f"node's direct one at token {_first_diff(got, want)}")
+    if stats["requests_total"] != 1 or stats["retries_total"] or \
+            stats["no_backend_total"]:
+        fail(f"PD through the router: router counters {stats}")
+    log(f"[pd router] a {len(ids)}-token request through the port's router "
+        f"(decoder pool, the decode node its only backend): the stream the "
+        f"decode node gave directly")
+    return {"stream_equal": True, "router_stats": stats}
+
+
 def _pd_pair(torch, tmp, seed, prompts, mono_streams, flags, tag):
     """A prefill node and a decode node with `flags`, the prompts sent to
     the decode node at once: the streams against the monolithic
     server's (bf16: identical; int8 pools: the first tokens identical and
     the drift reported, see phase_pd), the launches of the run, the
-    per-request split of the fetch."""
+    per-request split of the fetch; bf16 also sends one request through
+    the port's router in front of the decode node."""
     from ome_tpu_torch.ops import flash
     pre = _Node(tmp, f"{tag}_prefill", seed, "--disaggregation-mode",
                 "prefill", *flags)
@@ -4641,6 +4683,8 @@ def _pd_pair(torch, tmp, seed, prompts, mono_streams, flags, tag):
         out = {"launches": launches, "fetches": rows, "drift": drift,
                "kv_conservation": dec.engine.kv_conservation(),
                "ttft_tpot_median_s": _medians(dec.records())}
+        if not flags:
+            out["router"] = _pd_through_router(dec, prompts[0], streams[0])
         if dec.engine.local_fallbacks or dec.engine.failovers:
             fail(f"PD {tag}: {dec.engine.failovers} failovers, "
                  f"{dec.engine.local_fallbacks} local fallbacks with a live "
@@ -4865,6 +4909,352 @@ def phase_peering(torch, seed: int = 0):
         f"own answer from its cache, and the replica's next answer from the "
         f"cache the fetch seeded")
     return {"peer_fetches": fetches, "streams_identical": True}
+
+
+# -- phase 24a: the router in front of the replicas ---------------------------
+
+
+ROUTER_PREFIX_TOKENS = 1500
+ROUTER_ASYNC_STREAMS = 32
+
+
+def _sse(url: str, body: dict, headers=None, timeout: float = 600):
+    """POST a streaming completion; (events, seconds from the request to
+    the stream's end) as the client saw them. (The time to the first
+    event says nothing here: the byte-level tokenizer emits no text for
+    most of a random model's tokens, so a stream's first event can come
+    late.)"""
+    import urllib.request
+    req = urllib.request.Request(
+        url + "/v1/completions",
+        data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        events = [raw.decode().strip() for raw in r
+                  if raw.startswith(b"data:")]
+    if not events or events[-1] != "data: [DONE]":
+        fail(f"router: a stream from {url} ended without [DONE]")
+    return events, time.monotonic() - t0
+
+
+def _routed_records(path: str) -> dict:
+    """{trace id: router request-log record} of a router's log."""
+    with open(path) as f:
+        return {r["trace_id"]: r for r in map(json.loads, f)}
+
+
+class _Traces:
+    """Streaming requests of a kind (direct, through a router), each
+    with a W3C traceparent minted here: the replicas' request-log records
+    keep the caller's trace id, through a router too, so each record is
+    told apart by kind and joined to the client's time for it."""
+
+    def __init__(self, seed: int):
+        import random
+        self._rng = random.Random(seed)
+        self.ids = {}
+        self.client_s = {}
+
+    def header(self, kind: str):
+        trace = "%032x" % self._rng.getrandbits(128)
+        self.ids.setdefault(kind, set()).add(trace)
+        return trace, {"traceparent":
+                       f"00-{trace}-{self._rng.getrandbits(64):016x}-01"}
+
+    def stream(self, kind: str, url: str, body: dict, header=None):
+        """One streaming request of `kind`; its events."""
+        trace, h = header or self.header(kind)
+        events, self.client_s[trace] = _sse(url, body, h)
+        return events
+
+    def medians(self, nodes, kind: str) -> dict:
+        """Over the replicas' records of one kind of request: TTFT and
+        TPOT medians, and the median of the client's time less the
+        replica's e2e for the same request (what the hops in front of
+        the replica add)."""
+        recs = [r for n in nodes for r in n.records()
+                if r.get("trace_id") in self.ids.get(kind, ())]
+        ttft, tpot = _medians(recs)
+        hop = statistics.median(self.client_s[r["trace_id"]] - r["e2e_s"]
+                                for r in recs)
+        return {"n": len(recs), "ttft_s": ttft, "tpot_s": tpot,
+                "added_s": hop}
+
+
+def phase_router(torch, seed: int = 0):
+    """The port's routers in front of two replicas at the Llama-3-8B
+    widths, `CUT_LAYERS` deep, bf16, prefix caches on (`_Node`), with
+    B1 and B2 launched through them. Threaded `RouterServer`,
+    `cache_aware`:
+    1. affinity: three seeded 1500-token prompts, each sent twice through
+       the router (greedy, 32 tokens): both land on the replica the
+       rendezvous hash names (the router's request log), the second is a
+       device prefix-cache hit there, and it equals that replica's direct
+       answer to the same prompt (a hit too); the first (cold) equals the
+       cold direct answer of the other replica, which holds the same
+       weights and runs the same kernels;
+    2. learn and inject: a fourth prompt served directly by the replica
+       the hash does not pick; after one health sweep the router's prefix
+       directory names it owner, and the prompt through the router
+       carries X-OME-Prefix-Peer to the picked replica, which fetches the
+       prefix KV from the owner (its `ome_engine_prefix_peer_fetches_total`
+       reads 1) and answers the owner's tokens;
+    3. `AsyncRouterServer` in front of the same replicas: 32 concurrent
+       SSE streams over the four prompts all complete, each with the
+       tokens the threaded router gave for its prompt; then the same 32
+       sent directly to the replicas, for comparison;
+    4. failover: one replica stopped, the prompt that hashes to it is
+       served by the other (twice, the threaded router retrying once),
+       `/health` shows it down and the counters read one retry, no 503.
+    Printed, not bounded: on the same prefix-hit streams (a second round
+    of step 1's prompts, through the threaded router and direct, and
+    step 3's 32 streams through the asyncio router and direct), TTFT and
+    TPOT medians from the replicas' request logs (each kind of request
+    told apart by the trace id it sent), and the median of the client's
+    time less the replica's e2e for the same request: what the hops in
+    front of the replica add."""
+    import concurrent.futures
+    import random
+    import tempfile
+    import urllib.request
+
+    from ome_tpu_torch.models.config import llama3_8b
+    from ome_tpu_torch.ops import flash
+    from ome_tpu_torch.router import aserver as rasync
+    from ome_tpu_torch.router import server as rserver
+
+    cfg = llama3_8b().replace(num_layers=CUT_LAYERS)
+    rng = random.Random(seed + 40)
+    prompts = [[rng.randrange(3, cfg.vocab_size)
+                for _ in range(ROUTER_PREFIX_TOKENS)] for _ in range(4)]
+
+    def body(ids):
+        return {"prompt": ids, "max_tokens": 32, "temperature": 0.0}
+    out = {}
+    tr = _Traces(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(_hf_config(cfg), f)
+        nodes = [_Node(tmp, f"replica{i}", seed) for i in range(2)]
+        urls = [n.url for n in nodes]
+        rlog = os.path.join(tmp, "router.jsonl")
+        alog = os.path.join(tmp, "arouter.jsonl")
+        router = rserver.Router([rserver.Backend(u) for u in urls],
+                                policy="cache_aware", health_interval=3600)
+        rs = rserver.RouterServer(router, host="127.0.0.1", port=0,
+                                  request_log=rlog).start()
+        base = f"http://127.0.0.1:{rs.port}"
+        # the replica the rendezvous hash names for each prompt, from a
+        # router of its own over the same URLs (no side effects)
+        hash_pick = rserver.Router([rserver.Backend(u) for u in urls])
+        picked = [urls.index(hash_pick.pick(
+            "engine", rserver.affinity_from_payload(body(p))).url)
+            for p in prompts]
+        ars = None
+        try:
+            flash.reset_launches()
+            # 1. affinity
+            streams = {}
+            for i, ids in enumerate(prompts[:3]):
+                k = picked[i]
+                _completion(*_post_h(urls[1 - k], body(ids)), 32,
+                            f"router: prompt {i} cold, direct to the "
+                            f"other replica")
+                cold_other = nodes[1 - k].stream(ids)
+                hits0 = nodes[k].engine.prefix_cache.hits
+                _completion(*_post_h(base, body(ids)), 32,
+                            f"router: prompt {i}, first")
+                first = nodes[k].stream(ids)
+                hits1 = nodes[k].engine.prefix_cache.hits
+                tr.stream("warm-up", base, body(ids))
+                second = nodes[k].stream(ids)
+                hits2 = nodes[k].engine.prefix_cache.hits
+                tr.stream("warm-up", urls[k], body(ids))
+                direct = nodes[k].stream(ids)
+                if (hits1 - hits0, hits2 - hits1) != (0, 1):
+                    fail(f"router: prompt {i}: prefix-cache hits "
+                         f"{hits1 - hits0} then {hits2 - hits1} on replica "
+                         f"{k} (want 0 then 1)")
+                if second != direct:
+                    fail(f"router: prompt {i}: the routed hit differs from "
+                         f"replica {k}'s direct answer at token "
+                         f"{_first_diff(second, direct)}")
+                if first != cold_other:
+                    fail(f"router: prompt {i}: the routed cold answer "
+                         f"differs from the other replica's cold answer at "
+                         f"token {_first_diff(first, cold_other)}")
+                streams[i] = second
+                out.setdefault("cold_equals_hit", []).append(first == second)
+            landed = [r["backend"] for r in
+                      _routed_records(rlog).values()]
+            want = [urls[picked[i]] for i in range(3) for _ in range(2)]
+            if landed != want:
+                fail(f"router: affinity: the router's log has {landed}, "
+                     f"the hash names {want}")
+            # a timed round: the same hits again, now that each
+            # replica's program for a hit has run once (a program's first
+            # dispatch carries the ledger's FLOP count)
+            for i, ids in enumerate(prompts[:3]):
+                for kind, url in (("threaded", base),
+                                  ("direct", urls[picked[i]])):
+                    tr.stream(kind, url, body(ids))
+                    if nodes[picked[i]].stream(ids) != streams[i]:
+                        fail(f"router: prompt {i}: the timed {kind} hit "
+                             f"differs from the first")
+            log(f"[router] affinity: 3 prompts of {ROUTER_PREFIX_TOKENS} "
+                f"tokens, 2 requests each through the cache_aware router, "
+                f"each pair on one replica ({[picked[i] for i in range(3)]}),"
+                f" the second a device prefix-cache hit equal to the "
+                f"replica's direct answer; the first equal to the other "
+                f"replica's cold answer; cold = hit: "
+                f"{out['cold_equals_hit']}")
+            # 2. learn and inject
+            ids = prompts[3]
+            k, o = picked[3], 1 - picked[3]
+            _completion(*_post_h(urls[o], body(ids)), 32,
+                        "router: the owner's cold answer")
+            _completion(*_post_h(urls[o], body(ids)), 32,
+                        "router: the owner's hit")
+            owner_stream = nodes[o].stream(ids)
+            router.check_health_once()
+            digest = rserver.prefix_digest(
+                rserver.affinity_from_payload(body(ids)))
+            if router.prefix_directory.lookup(digest) != urls[o]:
+                fail(f"router: after a health sweep the directory names "
+                     f"{router.prefix_directory.lookup(digest)} for the "
+                     f"fourth prompt, not its owner {urls[o]}")
+            _completion(*_post_h(base, body(ids)), 32,
+                        "router: the injected request")
+            got = nodes[k].stream(ids)
+            fetches = _scrape(urls[k]).get(
+                "ome_engine_prefix_peer_fetches_total")
+            stats = router.stats
+            if fetches != 1 or stats[
+                    "prefix_directory_peer_fetches_total"] != 1:
+                fail(f"router: inject: replica {k} counts {fetches} peer "
+                     f"fetches, the router {stats}")
+            if got != owner_stream:
+                fail(f"router: inject: the fetched stream differs from the "
+                     f"owner's at token {_first_diff(got, owner_stream)}")
+            streams[3] = got
+            log(f"[router] learn and inject: replica {o} served the fourth "
+                f"prompt, one health sweep put it in the directory, the "
+                f"request through the router went to replica {k} with "
+                f"X-OME-Prefix-Peer: 1 peer fetch there "
+                f"(ome_engine_prefix_peer_fetches_total {fetches:g}), the "
+                f"owner's stream")
+            # 3. the asyncio router, 32 concurrent streams
+            arouter = rserver.Router([rserver.Backend(u) for u in urls],
+                                     policy="cache_aware",
+                                     health_interval=3600)
+            ars = rasync.AsyncRouterServer(arouter, host="127.0.0.1",
+                                           port=0, request_log=alog).start()
+            abase = f"http://127.0.0.1:{ars.port}"
+            marks = [len(n.seen) for n in nodes]
+            order = [j % 4 for j in range(ROUTER_ASYNC_STREAMS)]
+            with concurrent.futures.ThreadPoolExecutor(
+                    ROUTER_ASYNC_STREAMS) as ex:
+                futs = [ex.submit(tr.stream, "async", abase,
+                                  body(prompts[j]), tr.header("async"))
+                        for j in order]
+                results = [f.result() for f in futs]
+            admitted = [(j, list(r.prompt_ids), list(r.output_ids))
+                        for j, n in enumerate(nodes)
+                        for r in n.seen[marks[j]:]]
+            if len(admitted) != ROUTER_ASYNC_STREAMS:
+                fail(f"router: async: {len(admitted)} requests admitted for "
+                     f"{ROUTER_ASYNC_STREAMS} streams")
+            for j, pids, toks in admitted:
+                i = prompts.index(pids)
+                if j != picked[i] or toks != streams[i]:
+                    fail(f"router: async: prompt {i} on replica {j} gave "
+                         f"tokens differing from the threaded router's at "
+                         f"{_first_diff(toks, streams[i])}")
+            texts = {}
+            for j, events in zip(order, results):
+                texts.setdefault(j, set()).add("".join(
+                    json.loads(e[len("data: "):])["choices"][0]["text"]
+                    for e in events[:-1]))
+            if any(len(v) != 1 for v in texts.values()):
+                fail("router: async: streams of one prompt differ in text")
+            ars.stop()
+            ars = None
+            # the same 32 streams sent directly, each to its prompt's
+            # replica: the async router's numbers beside direct ones
+            marks = [len(n.seen) for n in nodes]
+            with concurrent.futures.ThreadPoolExecutor(
+                    ROUTER_ASYNC_STREAMS) as ex:
+                futs = [ex.submit(tr.stream, "direct_concurrent",
+                                  urls[picked[j]], body(prompts[j]),
+                                  tr.header("direct_concurrent"))
+                        for j in order]
+                for f in futs:
+                    f.result()
+            for j, n in enumerate(nodes):
+                for r in n.seen[marks[j]:]:
+                    i = prompts.index(list(r.prompt_ids))
+                    if list(r.output_ids) != streams[i]:
+                        fail(f"router: direct concurrent: prompt {i} gave "
+                             f"other tokens than through the routers")
+            log(f"[router] async: {ROUTER_ASYNC_STREAMS} concurrent SSE "
+                f"streams through AsyncRouterServer over the 4 prompts, "
+                f"each on its prompt's replica with the threaded router's "
+                f"tokens; the same {ROUTER_ASYNC_STREAMS} sent directly give "
+                f"them too")
+            # 4. failover
+            f_idx = picked[0]
+            before = router.stats
+            nodes[f_idx].stop()
+            marks = [len(n.seen) for n in nodes]
+            for what in ("first", "second"):
+                _completion(*_post_h(base, body(prompts[0])), 32,
+                            f"router: failover, {what}")
+            served = nodes[1 - f_idx].seen[marks[1 - f_idx]:]
+            after = router.stats
+            status, _, raw = _http(base + "/health")
+            health = json.loads(raw)
+            down = [b["url"] for b in health["backends"]
+                    if not b["healthy"]]
+            delta = {key: after[key] - before[key] for key in after
+                     if after[key] != before[key]}
+            if len(served) != 2 or any(list(r.output_ids) != streams[0]
+                                       for r in served):
+                fail(f"router: failover: {len(served)} requests served by "
+                     f"the other replica, or a stream differs")
+            if down != [urls[f_idx]] or status != 200 or \
+                    delta.get("retries_total") != 1 or \
+                    delta.get("no_backend_total") or \
+                    delta.get("requests_total") != 2:
+                fail(f"router: failover: /health {status} down {down}, "
+                     f"counter deltas {delta}")
+            out["failover"] = delta
+            log(f"[router] failover: replica {f_idx} stopped; its prompt "
+                f"served twice by replica {1 - f_idx} with the same tokens; "
+                f"/health shows it down; counter deltas {delta}")
+            torch.cuda.synchronize()
+            launches = dict(flash.LAUNCHES)
+        finally:
+            if ars is not None:
+                ars.stop()
+            rs.stop()
+            for n in nodes:
+                n.stop()
+        for name in ("flash_decode", "flash_prefill"):
+            if launches[name] <= 0:
+                fail(f"router: {name} was never launched ({launches})")
+        med = {kind: tr.medians(nodes, kind)
+               for kind in ("direct", "threaded", "direct_concurrent",
+                            "async")}
+        out.update(launches=launches, medians=med,
+                   async_routed=len(_routed_records(alog)))
+    for k, m in med.items():
+        log(f"[router] {k}: TTFT median {m['ttft_s'] * 1e3:.2f} ms, TPOT "
+            f"median {m['tpot_s'] * 1e3:.2f} ms (replicas' request logs), "
+            f"client's time less the replica's e2e {m['added_s'] * 1e3:.2f}"
+            f" ms, median over {m['n']} prefix-hit streams")
+    log(f"[router] launches {launches}")
+    return out
 
 
 # -- phases 29-31: multi-LoRA and embeddings ----------------------------------
@@ -8256,6 +8646,7 @@ def main() -> int:
     run("host_tier", phase_host_tier, torch, free="the host-tier server")
     run("pd", phase_pd, torch, free="the PD servers")
     run("peering", phase_peering, torch, free="the peering replicas")
+    run("router", phase_router, torch, free="the routed replicas")
     phi3 = {"hf": PHI3_MINI_4K, "label": "Phi-3-mini-4k"}
     run("serve_phi3", phase_serve, torch, model=phi3,
         free="the Phi-3-mini server")

@@ -34,7 +34,6 @@ Performance attribution: `GET /debug/programs` (with
 from __future__ import annotations
 
 import codecs
-import hashlib
 import json
 import math
 import threading
@@ -49,6 +48,9 @@ from ..telemetry import Registry, tracing
 from ..telemetry import profiler as _profiler
 from ..models.checkpoint import SafetensorsError
 from ..telemetry.reqlog import coerce as _coerce_reqlog
+# the router's prefix-affinity key and digest: the digests this replica
+# advertises on /ready meet the router's fleet prefix directory
+from ..router.server import affinity_from_payload, prefix_digest
 from .scheduler import (Request, Scheduler, SchedulerDraining,
                         SchedulerOverloaded)
 from .tokenizer import load_tokenizer
@@ -68,27 +70,6 @@ def _path_label(path: str) -> str:
     if base.startswith("/v1/adapters/"):
         return "/v1/adapters"
     return base if base in _KNOWN_PATHS else "other"
-
-
-def affinity_from_payload(payload: dict) -> str:
-    """Prefix-affinity key: the leading content of the request (copy of
-    the router's ome_tpu/router/server.py::affinity_from_payload, so the
-    digests this replica advertises meet the router's)."""
-    if "prompt" in payload:
-        p = payload["prompt"]
-        p = p if isinstance(p, str) else "".join(map(str, p))
-        return p[:256]
-    msgs = payload.get("messages")
-    if msgs:
-        return json.dumps(msgs[:2])[:256]
-    return ""
-
-
-def prefix_digest(affinity_key: str) -> str:
-    """Stable short digest of a prefix-affinity key (copy of the
-    router's prefix_digest) — the fleet prefix directory's key."""
-    return hashlib.blake2b(affinity_key.encode(),
-                           digest_size=8).hexdigest()
 
 
 def _retry_after_str(seconds) -> str:

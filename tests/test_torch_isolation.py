@@ -52,7 +52,27 @@ def test_port_files_found():
                  "ome_tpu_torch/perf/ledger.py",
                  "ome_tpu_torch/perf/hbm.py",
                  "ome_tpu_torch/telemetry/profiler.py",
-                 "ome_tpu_torch/telemetry/export.py", "chip_smoke.py"):
+                 "ome_tpu_torch/telemetry/export.py",
+                 "ome_tpu_torch/router/__init__.py",
+                 "ome_tpu_torch/router/__main__.py",
+                 "ome_tpu_torch/router/server.py",
+                 "ome_tpu_torch/router/aserver.py",
+                 "ome_tpu_torch/router/gossip.py",
+                 "ome_tpu_torch/slo/__init__.py",
+                 "ome_tpu_torch/slo/spec.py",
+                 "ome_tpu_torch/slo/engine.py",
+                 "ome_tpu_torch/slo/rollup.py",
+                 "ome_tpu_torch/autoscale/__init__.py",
+                 "ome_tpu_torch/autoscale/scrape.py",
+                 "ome_tpu_torch/core/__init__.py",
+                 "ome_tpu_torch/core/errors.py",
+                 "ome_tpu_torch/core/serde.py",
+                 "ome_tpu_torch/core/meta.py",
+                 "ome_tpu_torch/core/client.py",
+                 "ome_tpu_torch/core/k8s.py",
+                 "ome_tpu_torch/core/kubeclient.py",
+                 "ome_tpu_torch/cmd/__init__.py",
+                 "ome_tpu_torch/cmd/manager.py", "chip_smoke.py"):
         assert must in names
 
 
@@ -99,6 +119,10 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
         "import ome_tpu_torch.ops.int4_matmul, ome_tpu_torch.models.quant\n"
         "import ome_tpu_torch.engine.serve, ome_tpu_torch.engine.server\n"
         "import ome_tpu_torch.engine.scheduler, ome_tpu_torch.engine.core\n"
+        "import ome_tpu_torch.router.server, ome_tpu_torch.router.aserver\n"
+        "import ome_tpu_torch.router.gossip, ome_tpu_torch.slo.rollup\n"
+        "import ome_tpu_torch.autoscale.scrape, ome_tpu_torch.core.kubeclient\n"
+        "import ome_tpu_torch.cmd.manager\n"
         "after = sorted(os.listdir(_build.BUILD_DIR)) "
         "if os.path.isdir(_build.BUILD_DIR) else []\n"
         "assert before == after, (before, after)\n"
