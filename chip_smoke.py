@@ -289,6 +289,32 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    through a B2 whose backward swaps dk and dv must fall outside it);
    and a save / restore / resume of a narrow model whose
    next loss equals the uninterrupted run's bit for bit.
+46. the fleet under faults and load (`phase_fleet`), through the port's
+   harness (`ome_tpu_torch/chaos.py`, `autoscale/`) with port engine
+   children on the card: the Llama-3-8B widths at 4 fp32 layers, random
+   weights from seed 0, 32-row paged blocks. Two chaos episodes (seeds
+   scanned from `_plan_episode`): one unified engine behind the asyncio
+   router with an engine_step fault and a SIGKILL mid-decode, and a PD
+   pair with a pd_insert fault and the prefill peer killed mid-handoff,
+   each over a bursty trace of two tenants (batch, every third request
+   interactive) on 3-block pools (the engines preempt and recompute);
+   every invariant of the harness holds and every greedy
+   stream a child's journal finished equals the oracle's by token ids;
+   B2 and B3 dispatched in the children (their program ledgers). The
+   closed loop (`run_closed_loop`, 1-2 replicas, the reference smoke's
+   bursty trace): 1 -> 2 -> 1 replicas, no request failed, no journal
+   entry left live. Two models (those widths and Qwen2.5-7B's, 4 layers)
+   under a weight budget that holds one: `ensure` on the second drains
+   and evicts the first; the first's child profiled while it serves (B2
+   and B3 in its own trace) and given two tenants (four batch requests
+   fill its two slots, two interactive ones arrive: a batch request is
+   preempted for them, its flight event read from /debug/events, and
+   every request finishes); the card's free memory back within 1 GiB.
+   Printed beside the card's name and power limit: each child's
+   spawn-to-/health seconds, respawn-to-resume and journal drain
+   seconds, the replicas over time, the scale-up's decision-to-
+   registered seconds, client e2e and the engines' TTFT/TPOT p50/p99,
+   each engine's memory.
 
 The kernels phase also runs B2 at the dense verify's shape: B 8 slots,
 Sq 5 rows each from its own base (60 to 4090) over a 4096-row cache,
@@ -302,10 +328,12 @@ exits non-zero without that line. Longer per-case results go to
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
 import os
+import pathlib
 import re
 import signal
 import statistics
@@ -8560,6 +8588,484 @@ def phase_train(torch):
     return res
 
 
+# -- phase 46: the fleet under faults and load --------------------------------
+
+FLEET_LAYERS = 4
+# the paged kernel's tile; two usable 32-row blocks (block 0 is the trash
+# block) for two slots: a sequence of the phase's traces (24-48 new tokens
+# over prompts of 5-13) crosses into its second block mid-decode, so two
+# running sequences exhaust the pool and the engine preempts and recomputes
+FLEET_KV_BLOCK = 32
+FLEET_KV_BLOCKS = 3
+# the closed loop and the fleet: the reference harness's 640 rows (40
+# blocks of 16) in 32-row blocks. The utilization gauge counts the trash
+# block as occupied, so a 3-block pool reads 1/3 when idle, above the
+# controller's scale-down threshold (0.3 of kv_util_high 0.9)
+FLEET_LOOP_KV_BLOCKS = 20
+FLEET_SEED_SCAN = 2000
+GiB = 1 << 30
+
+
+def _fleet_model_dir(root: str, hf: dict, layers: int) -> str:
+    """A model directory holding only config.json (`--random-weights`
+    draws the weights from seed 0), `layers` deep."""
+    d = os.path.join(root, hf["_source"].split()[0].replace("/", "--"))
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(dict(hf, num_hidden_layers=layers), f)
+    return d
+
+
+def _weight_bytes(hf: dict, layers: int) -> int:
+    """fp32 weight bytes of a dense Llama-family config at `layers`:
+    embedding and head (untied), q/k/v/o (and Qwen2's q/k/v biases), the
+    gated MLP and the norms."""
+    h, v = hf["hidden_size"], hf["vocab_size"]
+    H, K = hf["num_attention_heads"], hf["num_key_value_heads"]
+    D = hf.get("head_dim") or h // H
+    inter = hf["intermediate_size"]
+    bias = (H + 2 * K) * D if "qwen2" in hf.get("model_type", "") else 0
+    per_layer = (h * H * D + 2 * h * K * D + H * D * h + bias
+                 + 3 * h * inter + 2 * h)
+    tied = hf.get("tie_word_embeddings", False)
+    return 4 * (v * h * (1 if tied else 2) + layers * per_layer + h)
+
+
+def _scan_seed(chaos, topo, index, workload, spread, want):
+    """The first seed whose plan (`_plan_episode` of episode `index` over
+    this topology and workload) has the events `want` asks for, as the
+    reference's tests chose theirs."""
+    for seed in range(FLEET_SEED_SCAN):
+        ep = chaos._plan_episode(seed, index, topo, len(workload), spread,
+                                 workload=workload)
+        if want(ep):
+            return seed
+    fail(f"fleet: no seed below {FLEET_SEED_SCAN} plans the episode")
+
+
+def _hbm(sample: dict) -> float:
+    return sample.get("ome_engine_hbm_bytes_in_use", 0.0)
+
+
+def _preemptions(samples: dict) -> float:
+    return sum(v for s in samples.values() for k, v in s.items()
+               if k.startswith("ome_engine_class_preemptions_total"))
+
+
+def _kernels_ran(programs: dict, device: str) -> dict:
+    """Which attention kernels a child's program ledger shows dispatched:
+    on a CUDA engine a prefill program runs B2 and a paged decode program
+    B3 (the wrappers launch their kernel on a CUDA tensor or raise)."""
+    out = {"flash_prefill": 0, "flash_paged_decode": 0}
+    for row in programs.values():
+        on_card = (row.get("device") or {}).get("platform") == "gpu"
+        if on_card != (device != "cpu"):
+            continue
+        for key, n in (row.get("dispatches") or {}).items():
+            if key.startswith("prefill"):
+                out["flash_prefill"] += n or 0
+            elif key.startswith("decode") and "_paged" in key:
+                out["flash_paged_decode"] += n or 0
+    return out
+
+
+def _fleet_chaos(chaos, trace_mod, base: str, model_dir: str,
+                 device: str, card: str) -> dict:
+    """Two seeded chaos episodes through the port's harness: one unified
+    engine behind the asyncio router (an engine_step fault and a SIGKILL
+    mid-decode), and a PD pair (a pd_insert fault on the decode node, the
+    prefill peer killed mid-handoff). Each runs a bursty greedy/sampled
+    trace that keeps both slots busy (the kill lands on journaled work);
+    every invariant of the harness must hold, and every greedy stream a
+    child's journal finished must equal the oracle's by token ids."""
+    tr = trace_mod.synthetic_trace(20, n=14, base_rate=5.0,
+                                   burst_factor=3.0, max_tokens=(24, 48),
+                                   greedy_fraction=0.7)
+    for i, r in enumerate(tr):  # two tenants: every third interactive
+        r.priority = "interactive" if i % 3 == 2 else "batch"
+    path = os.path.join(base, "chaos-trace.jsonl")
+    trace_mod.save_trace(tr, path)
+    workload = chaos.requests_from_trace(pathlib.Path(path))
+    spread = max(3.0, max(r.delay for r in workload))
+    kv = dict(kv_block=FLEET_KV_BLOCK, kv_blocks=FLEET_KV_BLOCKS)
+    unified = chaos.Topology(prefill=0, decode=0, unified=1, router=True,
+                             **kv)
+    pd = chaos.Topology(prefill=1, decode=1, unified=0, router=False,
+                        pd_local_fallback=True, **kv)
+
+    def kill_mid_decode(ep):
+        return ("engine_step" in ep.fault_specs.get("unified0", "")
+                and [(a, t) for _, a, t in ep.events]
+                == [("sigkill", "unified0")]
+                and ep.events[0][0] >= 1.0)
+
+    def kill_mid_handoff(ep):
+        return (ep.fault_specs.get("decode0", "").startswith("pd_insert")
+                and [(a, t) for _, a, t in ep.events]
+                == [("kill_prefill", "prefill0")])
+    runner = chaos.ChaosRunner(unified, pathlib.Path(base) / "chaos",
+                               model_dir=model_dir, device=device,
+                               journal_drain_timeout=90.0)
+    out = {}
+    try:
+        for index, (label, topo, want) in enumerate((
+                ("unified", unified, kill_mid_decode),
+                ("pd", pd, kill_mid_handoff))):
+            seed = _scan_seed(chaos, topo, index, workload, spread, want)
+            ep = chaos._plan_episode(seed, index, topo, len(workload),
+                                     spread, workload=workload)
+            log(f"[fleet] chaos {label}: seed {seed} episode {index}, "
+                f"{len(ep.requests)} requests over {spread:.2f} s, faults "
+                f"{ep.fault_specs}, events "
+                f"{[(round(a, 2), b, c) for a, b, c in ep.events]}")
+            t0 = time.monotonic()
+            runner.run_episode(ep)
+            secs = time.monotonic() - t0
+            m = ep.measured
+            if ep.violations:
+                fail(f"fleet: chaos {label} (seed {seed}): "
+                     + "; ".join(ep.violations)[:4000])
+            ran = _kernels_ran(m["programs"], device)
+            greedy = sum(r.temperature == 0.0 for r in ep.requests)
+            tokens = {c: sum(s.get(f'ome_engine_class_tokens_total'
+                                   f'{{class="{c}"}}', 0.0)
+                             for s in m["metrics"].values())
+                      for c in ("interactive", "batch")}
+            res = {"seed": seed, "seconds": secs, "class_tokens": tokens,
+                   "schedule": ep.schedule(), "ready_s": m["ready_s"],
+                   "to_resume": m.get("to_resume", {}),
+                   "resume_s": m.get("resume_s", {}),
+                   "journal_drain_s": m["journal_drain_s"],
+                   "greedy_ids": m["greedy_ids"], "greedy_requests": greedy,
+                   "answered_200": sum(r.status == 200
+                                       for r in ep.requests),
+                   "kernels_in_children": ran,
+                   "preemptions": _preemptions(m["metrics"]),
+                   "hbm_bytes_in_use": {k: _hbm(s) for k, s in
+                                        m["metrics"].items()},
+                   "programs": m["programs"]}
+            out[label] = res
+            log(f"[fleet] chaos {label} ({card}): no violation in "
+                f"{secs:.1f} s; greedy streams held by token ids against "
+                f"the oracle {res['greedy_ids']}; journaled requests left "
+                f"for the respawn {res['to_resume']}; spawn-to-/health s "
+                f"per incarnation {m['ready_s']}; respawn-to-resume s "
+                f"{res['resume_s']}; journal drain "
+                f"{res['journal_drain_s']:.3f} s; preemptions "
+                f"{res['preemptions']:.0f}; tokens by class (last "
+                f"incarnations) {tokens}; kernels the children's "
+                f"ledgers show dispatched {ran}; allocator bytes in use per "
+                f"child incarnation (GiB) "
+                f"{ {k: round(v / GiB, 3) for k, v in res['hbm_bytes_in_use'].items()} }")
+            if res["greedy_ids"] <= 0:
+                fail(f"fleet: chaos {label}: no greedy stream was held "
+                     "against the oracle by token ids")
+            if label == "unified" and not res["to_resume"].get("unified0"):
+                fail("fleet: chaos unified: the SIGKILL left no journaled "
+                     "request for the respawn to resume")
+        out["oracle_ready_s"] = runner.oracle.ready_s if runner.oracle \
+            else []
+    finally:
+        runner.close()
+    ran = {k: sum(out[e]["kernels_in_children"][k] for e in ("unified", "pd"))
+           for k in ("flash_prefill", "flash_paged_decode")}
+    if min(ran.values()) <= 0:
+        fail(f"fleet: the children's program ledgers show no B2 or no B3 "
+             f"dispatch: {ran}")
+    out["kernels_in_children"] = ran
+    return out
+
+
+def _fleet_closed_loop(controller, trace_mod, base: str, model_dir: str,
+                       device: str, card: str) -> dict:
+    """`run_closed_loop` with 1-2 replicas on the reference smoke's seeded
+    bursty trace (seed 7, 16 requests, base rate 2/s, burst 8x, 24-48
+    tokens; the busiest 2 s doubled): up during the burst, back to one
+    after it, every request answered, no journal left live. The scale-up
+    spawn holds the controller's thread for a cold start (~20 s on the
+    card), so the loop settles up to 30 s after the replay for the
+    scale-down to land."""
+    path = os.path.join(base, "loop-trace.jsonl")
+    trace_mod.save_trace(trace_mod.synthetic_trace(
+        7, n=16, base_rate=2.0, burst_factor=8.0, max_tokens=(24, 48)), path)
+    args = controller.build_parser().parse_args([
+        "--trace", path, "--seed", "7", "--amplify", "2",
+        "--min-engines", "1", "--max-engines", "2", "--interval", "0.5",
+        "--slo-ttft-p99", "0.4", "--slo-queue-wait-p99", "0.2",
+        "--queue-depth-high", "1.5", "--up-stable-ticks", "2",
+        "--down-stable-ticks", "4", "--cooldown-ticks", "3",
+        "--down-threshold", "0.3", "--model-dir", model_dir,
+        "--kv-block", str(FLEET_KV_BLOCK), "--kv-blocks",
+        str(FLEET_LOOP_KV_BLOCKS), "--device", device,
+        "--settle-seconds", "30",
+        "--base-dir", os.path.join(base, "loop")])
+    t0 = time.monotonic()
+    rep = controller.run_closed_loop(args)
+    secs = time.monotonic() - t0
+    moves = [d for d in rep["decisions"] if d["target"] != d["size"]]
+    t_start = rep["decisions"][0]["at"] if rep["decisions"] else 0.0
+    sizes = [(0.0, 1)] + [(round(d["at"] - t_start, 2), d["target"])
+                          for d in moves]
+    ups = [s for s in rep["spawns"] if "decision_to_registered_s" in s]
+    out = {"seconds": secs, "replicas_over_time": sizes,
+           "scale_up_s": [s["decision_to_registered_s"] for s in ups],
+           "requests": rep["requests"], "errors": rep["errors"],
+           "journal_leftover": rep["journal_leftover"],
+           "drains": rep["drains"], "engine_seconds": rep["engine_seconds"],
+           **{k: rep[k] for k in (
+               "ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "tpot_p99_s",
+               "e2e_p50_s", "e2e_p99_s", "engine_requests",
+               "engine_ttft_p50_s", "engine_ttft_p99_s",
+               "engine_tpot_p50_s", "engine_tpot_p99_s")}}
+    log(f"[fleet] closed loop ({card}): {rep['requests']} requests, "
+        f"{rep['errors']} errors, in {secs:.1f} s; replicas over time "
+        f"(s from the first tick, replicas) {sizes}; scale-up decision to "
+        f"registered s {out['scale_up_s']}; client TTFT p50/p99 "
+        f"{rep['ttft_p50_s']}/{rep['ttft_p99_s']} s, TPOT p50/p99 "
+        f"{rep['tpot_p50_s']}/{rep['tpot_p99_s']} s (from SSE text deltas: "
+        f"None when no token streamed text), e2e p50/p99 {rep['e2e_p50_s']}/{rep['e2e_p99_s']} s; the "
+        f"engines' request logs ({rep['engine_requests']} requests): TTFT "
+        f"p50/p99 {rep['engine_ttft_p50_s']}/{rep['engine_ttft_p99_s']} s, "
+        f"TPOT p50/p99 {rep['engine_tpot_p50_s']}/"
+        f"{rep['engine_tpot_p99_s']} s; drains "
+        f"{[(d['name'], d['ok'], d['resumed']) for d in rep['drains']]}; "
+        f"journal entries left live {rep['journal_leftover']}")
+    if rep["errors"] or rep["completed"] != rep["requests"]:
+        fail(f"fleet: closed loop: {rep['errors']} of {rep['requests']} "
+             "requests failed")
+    if [t for _, t in sizes] != [1, 2, 1]:
+        fail(f"fleet: closed loop: replicas went {sizes}, not 1 -> 2 -> 1")
+    if not rep["drains"] or not all(d["ok"] for d in rep["drains"]):
+        fail(f"fleet: closed loop: drains {rep['drains']}")
+    if rep["journal_leftover"]:
+        fail(f"fleet: closed loop: {rep['journal_leftover']} journal "
+             "entries left live")
+    return out
+
+
+def _fleet_models(torch, fleet_mod, base: str, models, device: str,
+                  card: str) -> dict:
+    """Two models under a budget that holds one, each at its real fp32
+    weight bytes: `ensure` on the second drains and evicts the first. The
+    first's child is profiled while it serves (B2 and B3 in its trace)."""
+    on_card = device != "cpu"
+    entries = []
+    for label, hf, model_dir in models:
+        entries.append((label, model_dir, _weight_bytes(hf, FLEET_LAYERS)))
+    budget = max(w for _, _, w in entries) * 3 // 2
+    profile_dir = os.path.join(base, "profiles")
+    fleet = fleet_mod.ModelFleet(None, pathlib.Path(base) / "fleet", budget,
+                                 device=device)
+
+    def engine_args_for(model_dir):
+        def engine_args(port, name, journal_dir):
+            return ["--model-dir", model_dir, "--random-weights",
+                    "--dtype", "float32", "--host", "127.0.0.1",
+                    "--port", str(port), "--max-slots", "2",
+                    "--kv-block", str(FLEET_KV_BLOCK),
+                    "--kv-blocks", str(FLEET_LOOP_KV_BLOCKS),
+                    "--prefix-cache-mb", "8", "--drain-grace", "30",
+                    "--journal", str(journal_dir),
+                    "--journal-fsync", "always", "--debug-endpoints",
+                    "--profile-dir", profile_dir]
+        return engine_args
+    for label, model_dir, weight in entries:
+        fleet.register_model(label, weight, engine_args_for(model_dir))
+
+    def free():
+        return torch.cuda.mem_get_info()[0] if on_card else 0
+    out = {"budget_bytes": budget,
+           "weight_bytes": {lb: w for lb, _, w in entries}, "models": {}}
+    free0 = free()
+    pools = {}
+    try:
+        for i, (label, _, weight) in enumerate(entries):
+            t0 = time.monotonic()
+            pool = pools[label] = fleet.ensure(label)
+            secs = time.monotonic() - t0
+            member = pool._members[0]
+            url = member.proc.url
+            res = {"ensure_s": secs, "ready_s": list(member.proc.ready_s),
+                   "resident": fleet.resident_models(),
+                   "card_bytes": free0 - free()}
+            st, _, _ = _http(url + "/v1/completions", "POST", {
+                "prompt": "abcdefgh", "max_tokens": 40, "temperature": 0.0})
+            if st != 200:
+                fail(f"fleet: {label}: completion HTTP {st}")
+            m = _scrape(url)
+            res["hbm_bytes_in_use"] = m.get("ome_engine_hbm_bytes_in_use")
+            res["weights_tenant_bytes"] = m.get(
+                'ome_engine_hbm_tenant_bytes{tenant="weights"}')
+            if i == 0:
+                if on_card:
+                    res["profile"] = _fleet_profile(url)
+                res["class_preemption"] = _fleet_class_probe(url, card)
+            out["models"][label] = res
+            log(f"[fleet] model {label} ({card}): ensure {secs:.1f} s "
+                f"(spawn to /health {member.proc.ready_s}), weight bytes "
+                f"{weight} (the engine's weights tenant "
+                f"{res['weights_tenant_bytes']}), card bytes taken "
+                f"{res['card_bytes'] / GiB:.3f} GiB, allocator bytes in use "
+                f"{(res['hbm_bytes_in_use'] or 0) / GiB:.3f} GiB, resident "
+                f"{res['resident']}")
+        events = [(e.kind, e.model, e.freed_bytes) for e in fleet.events]
+        out["events"] = events
+        first, second = entries[0][0], entries[1][0]
+        if events != [("spawn", first, 0), ("evict", first, entries[0][2]),
+                      ("spawn", second, 0)] or \
+                fleet.resident_models() != [second]:
+            fail(f"fleet: ensure({second}) did not evict {first}: {events}, "
+                 f"resident {fleet.resident_models()}")
+        out["evicted_drains"] = [vars(r) for r in pools[first].drains]
+        if not out["evicted_drains"] or \
+                not all(r["ok"] for r in out["evicted_drains"]):
+            fail(f"fleet: the eviction's drain: {out['evicted_drains']}")
+    finally:
+        fleet.stop_all()
+    if on_card:
+        deadline = time.monotonic() + 60
+        while free0 - free() > GiB and time.monotonic() < deadline:
+            time.sleep(0.5)
+        out["card_bytes_after"] = free0 - free()
+        log(f"[fleet] after the fleet stopped ({card}): card free bytes "
+            f"{out['card_bytes_after'] / GiB:.3f} GiB below their value "
+            f"before the first spawn")
+        if out["card_bytes_after"] > GiB:
+            fail(f"fleet: the card's free memory did not come back: "
+                 f"{out['card_bytes_after'] / GiB:.2f} GiB short")
+    return out
+
+
+def _fleet_class_probe(url: str, card: str) -> dict:
+    """Two tenants on one fleet child (two slots, no KV pressure): four
+    batch requests fill both slots, then two interactive requests
+    arrive. Batch holds more than its weight share of the slots, so the
+    scheduler preempts one batch request for each interactive one (the
+    recompute fold, its flight event `preempt_class`), and every request
+    still finishes."""
+    def send(i, prio, n):
+        t0 = time.monotonic()
+        st, _, raw = _http(url + "/v1/completions", "POST", {
+            "prompt": f"tenant {prio} {i} abcdefgh", "max_tokens": n,
+            "temperature": 0.0, "priority": prio})
+        body = json.loads(raw) if st == 200 else {}
+        done[(prio, i)] = (st, time.monotonic() - t0,
+                           (body.get("choices") or [{}])[0].get(
+                               "finish_reason"))
+    done = {}
+    threads = [threading.Thread(target=send, args=(i, "batch", 96))
+               for i in range(4)]
+    for t in threads:
+        t.start()
+    time.sleep(0.3)
+    late = [threading.Thread(target=send, args=(i, "interactive", 16))
+            for i in range(2)]
+    for t in late:
+        t.start()
+    for t in threads + late:
+        t.join(timeout=300)
+    st, _, raw = _http(url + "/debug/events?n=2048")
+    events = json.loads(raw).get("events", []) if st == 200 else []
+    kinds = collections.Counter(e.get("event") for e in events)
+    out = {"requests": {f"{p} {i}": v for (p, i), v in sorted(done.items())},
+           "preempt_class": kinds["preempt_class"],
+           "preempt_fold": kinds["preempt_fold"]}
+    log(f"[fleet] two tenants on one child ({card}): class preemptions "
+        f"{out['preempt_class']}, KV-pressure preemptions "
+        f"{out['preempt_fold']}; (status, seconds, finish) per request "
+        f"{out['requests']}")
+    if len(done) != 6 or any(v[0] != 200 or v[2] not in ("length", "stop")
+                             for v in done.values()):
+        fail(f"fleet: two tenants: {out['requests']}")
+    if out["preempt_class"] < 1:
+        fail("fleet: two tenants: no batch request was preempted for the "
+             f"interactive ones (GET /debug/events HTTP {st})")
+    return out
+
+
+FLEET_TRACE_KERNELS = {"flash_prefill": r"prefill_(?:wgmma|f32)",
+                       "flash_paged_decode":
+                           r"decode_(?:tc|scalar)<[^>]*\btrue>"}
+
+
+def _fleet_profile(url: str) -> dict:
+    """POST /debug/profile on a fleet child, a request sent once the
+    capture is open (its prefill and decode fall inside the 2 s window):
+    the child's own trace, B2 and B3 counted by their kernels' names."""
+    got = {}
+
+    def capture():
+        got["res"] = _http(url + "/debug/profile?seconds=2", "POST")
+    t = threading.Thread(target=capture)
+    t.start()
+    try:
+        time.sleep(0.3)
+        served, _, _ = _http(url + "/v1/completions", "POST", {
+            "prompt": "a b c d e f", "max_tokens": 48, "temperature": 0.0})
+    finally:
+        t.join(timeout=300)
+    st, _, raw = got.get("res", (None, None, b"{}"))
+    res = json.loads(raw) if st == 200 else {}
+    if st != 200 or not res.get("captured") or \
+            not os.path.exists(res.get("trace", "")):
+        fail(f"fleet: POST /debug/profile: HTTP {st} {raw[:200]!r}")
+    with open(res["trace"]) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(res["trace"])
+    counts = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                     and re.search(p, e.get("name", "")))
+              for k, p in FLEET_TRACE_KERNELS.items()}
+    log(f"[fleet] a fleet child's own profile while it served: kernel "
+        f"launches {counts}")
+    if min(counts.values()) <= 0 or served != 200:
+        fail(f"fleet: the child's trace holds no B2 or no B3 launch: "
+             f"{counts} (request HTTP {served})")
+    return counts
+
+
+def phase_fleet(torch, card: str, device: str = "cuda",
+                models=None) -> dict:
+    """Phase 46: the fleet under faults and load, through the port's
+    harness (`ome_tpu_torch/chaos.py`, `autoscale/`) with port engine
+    children on `device`: two chaos episodes, the closed loop and two
+    models under a weight budget, at the Llama-3-8B widths (and
+    Qwen2.5-7B's) `FLEET_LAYERS` deep, fp32, random weights from seed 0.
+    `models` and `device="cpu"` rehearse it off the card."""
+    import tempfile
+    from ome_tpu_torch import chaos
+    from ome_tpu_torch.autoscale import controller, fleet, trace
+    from ome_tpu_torch.models.config import llama3_8b
+    base = tempfile.mkdtemp(prefix="ome-fleet-")
+    models = models or [("Llama-3-8B", dict(_hf_config(llama3_8b()),
+                                            _source="meta-llama/"
+                                            "Meta-Llama-3-8B config.json")),
+                        ("Qwen2.5-7B", QWEN25_7B)]
+    dirs = [(label, hf, _fleet_model_dir(base, hf, FLEET_LAYERS))
+            for label, hf in models]
+    free0 = torch.cuda.mem_get_info()[0] if device != "cpu" else 0
+    out = {}
+    try:
+        out["chaos"] = _fleet_chaos(chaos, trace, base, dirs[0][2], device,
+                                    card)
+        out["closed_loop"] = _fleet_closed_loop(controller, trace, base,
+                                                dirs[0][2], device, card)
+        out["models"] = _fleet_models(torch, fleet, base, dirs, device, card)
+    finally:
+        import shutil
+        shutil.rmtree(base, ignore_errors=True)
+    if out["chaos"]["unified"]["preemptions"] + \
+            out["chaos"]["pd"]["preemptions"] <= 0:
+        fail("fleet: the 3-block pools never preempted: the recompute "
+             "path did no work")
+    if device != "cpu":
+        short = free0 - torch.cuda.mem_get_info()[0]
+        out["card_bytes_short_at_end"] = short
+        if short > GiB:
+            fail(f"fleet: the card's free memory is {short / GiB:.2f} GiB "
+                 "below its value before the phase's first spawn")
+    return out
+
+
 SOURCES = {
     "flash_decode": ("ome_tpu_torch/ops/csrc/flash_decode.cu",
                      "ome_tpu/ops/flash.py:148"),
@@ -8680,6 +9186,7 @@ def main() -> int:
         free="the tp 2 server")
     run("tp_lws", phase_tp_lws, torch)
     run("train", phase_train, torch, free="the training phase")
+    run("fleet", phase_fleet, torch, card)
     report["total_s"] = time.monotonic() - t0
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -14,8 +14,17 @@ The port covers the default serving path: `engine/serve.py` ->
 `engine/sampling.py`, dense bf16 KV cache, prefix cache on; and the
 paged KV cache of `--kv-block` (bf16 or `--kv-dtype int8` pools), whose
 decode goes `models/llama.py::forward_paged` -> `ops/paged.py`.
+
+Importing the package imports no torch: the router and the chaos
+harness's controller side run without it (`resolve_device` loads
+`device.py`, and torch, on first use).
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,6 +1,6 @@
-"""Prometheus text-exposition client (port of
-ome_tpu/autoscale/scrape.py, which the fleet SLO rollup reads through
-`SharedScraper`; `_http` is a copy of ome_tpu/chaos.py's).
+"""Prometheus text-exposition client for the scaling controller and
+the fleet SLO rollup (`SharedScraper`); port of
+ome_tpu/autoscale/scrape.py.
 
 The controller decides from the SAME metrics a human would read on a
 dashboard — the engines' `ome_engine_ttft_seconds` /
@@ -15,17 +15,16 @@ yields the distribution of observations BETWEEN two scrapes; p99 is
 estimated by linear interpolation inside the bucket containing the
 target rank (the standard histogram_quantile estimator). A counter
 reset (engine restart) makes deltas negative — the window discards
-that sample and re-bases.
+that sample and re-bases, same discipline as chaos.MetricsWatch.
 """
 
 from __future__ import annotations
 
-import json
 import math
 import re
-import urllib.error
-import urllib.request
 from typing import Callable, Dict, List, Optional, Tuple
+
+from ..chaos import _http
 
 _SAMPLE_RE = re.compile(
     r'^(?P<name>[a-zA-Z_:][a-zA-Z0-9_:]*)'
@@ -61,32 +60,6 @@ def split_key(key: str) -> Tuple[str, Dict[str, str]]:
         return name, {}
     return name, {m.group(1): m.group(2)
                   for m in _LABEL_RE.finditer(rest[:-1])}
-
-
-def _http(url: str, payload: Optional[dict] = None,
-          timeout: float = 10.0,
-          headers: Optional[Dict[str, str]] = None
-          ) -> Tuple[int, object]:
-    """GET (payload None) or POST json; returns (status, parsed body).
-    Raises URLError/OSError on transport failure."""
-    data = None
-    hdrs = dict(headers) if headers else {}
-    if payload is not None:
-        data = json.dumps(payload).encode()
-        hdrs["Content-Type"] = "application/json"
-    req = urllib.request.Request(url, data=data, headers=hdrs)
-    try:
-        with urllib.request.urlopen(req, timeout=timeout) as resp:
-            raw = resp.read()
-            status = resp.status
-    except urllib.error.HTTPError as e:
-        raw = e.read()
-        status = e.code
-        e.close()
-    try:
-        return status, json.loads(raw)
-    except ValueError:
-        return status, raw
 
 
 def fetch_metrics(url: str, timeout: float = 5.0) -> Dict[str, float]:

@@ -212,28 +212,34 @@ DEGRADE_CAUSES = ("masked", "spec_realign")
 _STOP_TABLE_WIDTH = 4
 
 
-# WDRR quantum: deficit credit per class visit is weight x this many
-# tokens — large enough that one visit usually covers a typical head
-# request in one accumulation, small enough that a giant
-# max_new_tokens request cannot monopolize a rotation
-QUANTUM_TOKENS = 64
-
-
 class ClassQueues:
-    """Per-priority-class pending queues with a weighted deficit
-    round-robin pick order (Shreedhar & Varghese DRR), presenting the
+    """Per-priority-class pending queues served in weighted-fair order
+    (start-time fair queueing, Goyal et al.), presenting the
     queue.Queue surface the scheduler and its callers use: `maxsize`
     (per-class bound), `qsize()`, `empty()`, `put_nowait()` raising
     queue.Full, `get(timeout)`/`get_nowait()` raising queue.Empty, and
     a flat `.queue` snapshot view.
 
-    Each pick visits classes in a fixed rotation; a visit credits the
-    class's deficit counter with weight x QUANTUM_TOKENS and the head
-    request is served once the deficit covers its cost (its
-    max_new_tokens budget), staying on the class while credit lasts. A
-    class that empties forfeits its banked deficit. With a single class
-    enqueued — or with ``enabled=False`` — every pick degenerates to
-    plain FIFO."""
+    A request's cost is its max_new_tokens budget. On arrival it gets
+    a virtual start tag, max(V, F[class]), and advances its class's
+    finish tag F[class] by cost / weight; a pick serves the head whose
+    start tag is least (ties: the higher class) and sets the virtual
+    time V to that tag. While classes contend, served tokens track the
+    weights (8 : 4 : 1); no class starves; an idle class forfeits what
+    it did not use (its next start is V, never earlier); a single class
+    enqueued — or ``enabled=False`` — is plain FIFO; an oversized
+    request is deprioritized in proportion to its cost.
+
+    The reference (ome_tpu/engine/scheduler.py) serves the same weights
+    by deficit round-robin, which stays on a class while its 64 x
+    weight tokens of credit last: an interactive request arriving while
+    the cursor sits on batch waits behind up to 64 tokens of batch
+    admissions. With two slots that window is long enough for the
+    chaos harness's weighted-share invariant (invariant 6) to read the
+    queued interactive class as starved; a start tag puts it next in
+    line at the first free slot instead (and
+    `Scheduler._preempt_for_class` frees one when every slot is busy
+    and a lower class holds more than its share of them)."""
 
     def __init__(self, maxsize: int, weights=None,
                  enabled: bool = True):
@@ -246,11 +252,11 @@ class ClassQueues:
         self._not_empty = threading.Condition(self._lock)
         self._q: Dict[str, "collections.deque[Request]"] = {
             c: collections.deque() for c in self.classes}
-        self._deficit = {c: 0.0 for c in self.classes}
-        self._cursor = 0
-        # True when the cursor has just ARRIVED at a class: the quantum
-        # is credited once per arrival, not once per pick
-        self._fresh = True
+        # start tags of the queued requests, parallel to _q
+        self._tags: Dict[str, "collections.deque[float]"] = {
+            c: collections.deque() for c in self.classes}
+        self._finish = {c: 0.0 for c in self.classes}
+        self._vtime = 0.0
 
     def _cls(self, req) -> str:
         if not self.enabled:
@@ -282,35 +288,27 @@ class ClassQueues:
 
     def put_nowait(self, req: "Request") -> None:
         with self._lock:
-            dq = self._q[self._cls(req)]
+            cls = self._cls(req)
+            dq = self._q[cls]
             if self.maxsize and len(dq) >= self.maxsize:
                 raise queue.Full
+            start = max(self._vtime, self._finish[cls])
+            self._finish[cls] = start + (max(int(req.max_new_tokens), 1)
+                                         / self.weights[cls])
             dq.append(req)
+            self._tags[cls].append(start)
             self._not_empty.notify()
 
     def _pick_locked(self) -> Optional["Request"]:
-        if all(not d for d in self._q.values()):
+        best = None
+        for cls in self.classes:  # highest class first: it wins ties
+            tags = self._tags[cls]
+            if tags and (best is None or tags[0] < self._tags[best][0]):
+                best = cls
+        if best is None:
             return None
-        n = len(self.classes)
-        while True:
-            cls = self.classes[self._cursor % n]
-            dq = self._q[cls]
-            if not dq:
-                # an empty class forfeits banked credit (classic DRR)
-                self._deficit[cls] = 0.0
-                self._cursor += 1
-                self._fresh = True
-                continue
-            cost = max(int(dq[0].max_new_tokens), 1)
-            if self._fresh:
-                self._deficit[cls] += (self.weights[cls]
-                                       * QUANTUM_TOKENS)
-                self._fresh = False
-            if self._deficit[cls] >= cost:
-                self._deficit[cls] -= cost
-                return dq.popleft()
-            self._cursor += 1
-            self._fresh = True
+        self._vtime = self._tags[best].popleft()
+        return self._q[best].popleft()
 
     def get_nowait(self) -> "Request":
         with self._lock:
@@ -1148,13 +1146,25 @@ class Scheduler:
 
     def _queue_wait_estimate(self, depth: int) -> Optional[float]:
         """Rough seconds until a newly queued request would start
-        decoding: queue depth in batch waves x observed per-request
-        decode steps x observed step time. None until both EWMAs have
-        samples (cold start admits optimistically)."""
+        decoding: the requests of the queue that a free slot does not
+        take at once (depth less the slots free now, none being
+        admitted) in batch waves x observed per-request decode steps x
+        observed step time; 0.0 when a slot is free for it. None until
+        both EWMAs have samples (cold start admits optimistically).
+
+        The reference counts a whole wave for a request that finds a
+        slot free, so an idle replica whose step-time EWMA a slow
+        stretch raised sheds (429) its next long request; here it
+        admits it."""
         if depth <= 0 or self._ewma_step_s is None \
                 or self._ewma_req_steps is None:
             return None
-        waves = math.ceil(depth / self.engine.max_slots)
+        free = sum(1 for s in self.slots if s is None) \
+            - self._admitting - self._ready.qsize()
+        waiting = depth - max(free, 0)
+        if waiting <= 0:
+            return 0.0
+        waves = math.ceil(waiting / self.engine.max_slots)
         return waves * self._ewma_req_steps * self._ewma_step_s
 
     def _class_wait_estimate(self, cls: str,
@@ -1456,6 +1466,8 @@ class Scheduler:
         ONE prefill per decode step while streams are active, so a
         burst of long prompts adds bounded latency instead of stalling
         the batch."""
+        if self.priority_scheduling:
+            self._preempt_for_class()
         if self.overlap:
             admitted = self._insert_ready()
         else:
@@ -1476,6 +1488,88 @@ class Scheduler:
             self.stats["active_slots"] = sum(
                 r is not None for r in self.slots)
         return admitted or decoded
+
+    def _preempt_for_class(self) -> None:
+        """Class-aware preemption at admission. When every slot is
+        busy, no recompute-requeued request waits, and a class is
+        queued above a running request's, one running request of an
+        OVER-QUOTA class below the queued one leaves its slot: lowest
+        class first, then least progress since its admission. It takes
+        the recompute fold of paged-KV preemption and goes back into its
+        class queue, so the queued higher class takes the slot at the
+        next admission instead of after a whole request.
+
+        A class is over quota when it holds more slots than its weight
+        share of all the slots, rounded up, among the classes that hold
+        or wait for slots (`_preempt_rank`'s share, with the queued
+        classes counted). So a class with demand keeps at least one
+        slot, and keeps it while the higher class has a backlog: a
+        request that start-time fair queueing admits is not evicted at
+        the next step. A departure from the reference, which preempts
+        by class only under KV pool pressure: the chaos harness's
+        weighted-share invariant reads a queued class as starved while
+        it waits for a slot."""
+        if self._requeue or any(r is None for r in self.slots):
+            return
+        depths = self.pending.depths()
+        queued = [c for c, n in depths.items() if n]
+        if not queued:
+            return
+        top = max(CLASS_LEVEL.get(c, 1) for c in queued)
+        held = collections.Counter(self._class_of(r) for r in self.slots)
+        wsum = sum(self.class_weights[c] for c in set(held) | set(queued))
+        over = {c for c, n in held.items()
+                if n > math.ceil(len(self.slots) * self.class_weights[c]
+                                 / wsum - 1e-9)}
+
+        def rank(slot):
+            req = self.slots[slot]
+            return (CLASS_LEVEL.get(self._class_of(req), 1),
+                    len(req.output_ids) - int(self._base_out[slot]))
+        victims = [s for s in range(len(self.slots))
+                   if self._class_of(self.slots[s]) in over
+                   and rank(s)[0] < top]
+        if not victims:
+            return
+        slot = min(victims, key=rank)
+        req = self.slots[slot]
+        cls = self._class_of(req)
+        if self.pending.maxsize and depths.get(cls, 0) >= \
+                self.pending.maxsize:
+            return
+        # settle the lagged steps first: the victim's emitted tokens
+        # are final before they are folded into its prompt
+        self._flush_inflight()
+        if self.slots[slot] is not req or \
+                any(r is None for r in self.slots):
+            return  # a slot came free while the steps drained
+        self.engine.free_slot(slot)
+        self._evict_to_recompute(slot, "preempt_class")
+        try:
+            self.pending.put_nowait(req)
+        except queue.Full:  # its class filled up since the check
+            self._requeue.append(req)
+
+    def _evict_to_recompute(self, slot: int, event: str) -> Request:
+        """Take the request out of `slot` for recompute preemption: the
+        tokens generated SINCE this admission fold into its prompt
+        (outputs[:base_out] were folded by an earlier preemption and
+        already sit inside prompt_ids; re-adding them would corrupt the
+        resume prompt), and the caller requeues it for a re-prefill."""
+        req = self.slots[slot]
+        self.slots[slot] = None
+        self._slot_changed(slot)
+        self._temp[slot] = 0.0
+        base = int(self._base_out[slot])
+        req.prompt_ids = list(req.prompt_ids) + list(req.output_ids[base:])
+        self._flush_decode_chunk(req, final=True)
+        self._flight_event(event, slot=slot, request=req.id,
+                           folded=len(req.output_ids) - base)
+        self._inc("preemptions_total")
+        self._c_class_preempt[self._class_of(req)].inc()
+        if self.overlap:
+            self._free_slots.release()
+        return req
 
     # -- overlap mode: admission thread prefills, step() inserts -------
 
@@ -2460,29 +2554,9 @@ class Scheduler:
         # emitted by the drain above, before output_ids was folded in.
         take = getattr(self.engine, "take_preempted", None)
         for slot in (take() if take is not None else ()):
-            req = self.slots[slot]
-            if req is None:
-                continue
-            self.slots[slot] = None
-            self._slot_changed(slot)
-            self._temp[slot] = 0.0
-            # fold only the tokens generated SINCE this admission:
-            # outputs[:base_out] were folded by a previous preemption
-            # and already sit inside prompt_ids — re-adding them would
-            # corrupt the resume prompt the second time a request is
-            # preempted
-            req.prompt_ids = list(req.prompt_ids) + list(
-                req.output_ids[int(self._base_out[slot]):])
-            self._flush_decode_chunk(req, final=True)
-            self._flight_event("preempt_fold", slot=slot,
-                               request=req.id,
-                               folded=len(req.output_ids)
-                               - int(self._base_out[slot]))
-            self._requeue.appendleft(req)
-            self._inc("preemptions_total")
-            self._c_class_preempt[self._class_of(req)].inc()
-            if self.overlap:
-                self._free_slots.release()
+            if self.slots[slot] is not None:
+                self._requeue.appendleft(
+                    self._evict_to_recompute(slot, "preempt_fold"))
         if depth == 0:
             self._drain_inflight()
         return True

@@ -64,6 +64,13 @@ def test_port_files_found():
                  "ome_tpu_torch/slo/rollup.py",
                  "ome_tpu_torch/autoscale/__init__.py",
                  "ome_tpu_torch/autoscale/scrape.py",
+                 "ome_tpu_torch/autoscale/policy.py",
+                 "ome_tpu_torch/autoscale/trace.py",
+                 "ome_tpu_torch/autoscale/replay.py",
+                 "ome_tpu_torch/autoscale/pool.py",
+                 "ome_tpu_torch/autoscale/controller.py",
+                 "ome_tpu_torch/autoscale/fleet.py",
+                 "ome_tpu_torch/chaos.py",
                  "ome_tpu_torch/core/__init__.py",
                  "ome_tpu_torch/core/errors.py",
                  "ome_tpu_torch/core/serde.py",
@@ -129,6 +136,37 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
         "assert not _build._loaded and not _build.build_logs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ome_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_chaos_harness_loads_nothing_of_the_reference_at_run_time():
+    """The AST check above cannot see a module loaded by file path (the
+    reference's harness loads scripts/check_fault_points.py, which
+    imports ome_tpu.lint): run the port's preflight, build a runner and
+    the closed loop's pieces, and look at what is loaded."""
+    code = (
+        "import sys, tempfile, pathlib\n"
+        "from ome_tpu_torch import chaos\n"
+        "from ome_tpu_torch.autoscale import controller, fleet, pool, "
+        "replay\n"
+        "chaos.preflight_fault_points(['engine_step.raise@2', "
+        "'pd_fetch|http://x:1.raise@1 pd_insert.raise@3'])\n"
+        "base = pathlib.Path(tempfile.mkdtemp())\n"
+        "topo = chaos.Topology(prefill=0, decode=0, unified=1, "
+        "kv_block=32)\n"
+        "chaos.ChaosRunner(topo, base / 'c', device='cpu').close()\n"
+        "try:\n"
+        "    chaos.ChaosRunner(topo, base / 'g', device='cuda')\n"
+        "except chaos.ChaosError:\n"
+        "    pass\n"
+        "fleet.ModelFleet(None, base / 'f', 1, device='cpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib') or (m.startswith('ome_tpu') and "
+        "not m.startswith('ome_tpu_torch'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = _run(code)
