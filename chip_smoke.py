@@ -84,9 +84,19 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    from the fp32 pool over the same streams is reported;
 11. checkpoint: a Llama-3-8B-width checkpoint (4 layers, bf16, HF names,
    two shards + index) written from the port's seeded init under
-   chiprun_out/ (removed after), loaded back bit-equal (load GB/s), and
-   served with `--model-dir` and no `--random-weights`: its first greedy
-   tokens equal an engine's over the in-memory params;
+   chiprun_out/ (handed on to 11b), loaded back bit-equal (load GB/s),
+   and served with `--model-dir` and no `--random-weights`: its first
+   greedy tokens equal an engine's over the in-memory params;
+11b. weight plane (`phase_weight_plane`): phase 11's tree parsed by
+   `hfconfig` (family, exact parameter count), fetched from local://
+   by the port's weight-plane CLI, SIGKILLed mid-fetch (the serving
+   path absent) and resumed (every recorded object skipped), each
+   published object's sha256 equal to the source's, fetch GB/s; the
+   published tree served with one LoRA slot: /ready's fetch_bps equal
+   to the manifest's, phase 11's greedy tokens through B1 and B2; the
+   serving agent stages a rank-16 adapter zip from local:// and
+   hot-loads it (tokens equal an in-process twin's), then removes it;
+   the tree and the target are removed after;
 12. step plans: fp32 at the 8B widths, 4 layers, dense and fp32 paged
    pool: single steps, `decode_multi` K=4 and the scheduler at
    spec_tokens 4 / steps_per_dispatch 4 give identical greedy streams
@@ -250,9 +260,10 @@ Drives `ome_tpu_torch` only (never JAX, never `ome_tpu`):
    streams equal to a tp=1 int4 engine's; and two NCCL ranks on one
    card refused (`NCCL_PROBE`);
 43. `serve --tp 2 --device cuda:0` at Llama-3-8B full size, bf16
-   (`phase_serve_tp`): phase 4's 13 requests (the three sequential
-   ones at 8 tokens), TTFT / TPOT medians, the
-   streams against phase 4's, B1 and B2 launched on both ranks, each
+   (`phase_serve_tp`): three of phase 4's concurrent prompts (16, 800
+   and 3000 tokens) to 16 tokens, then its shared-prefix pair and SSE
+   stream at 8 tokens, TTFT / TPOT medians, the streams against phase
+   4's, B1 and B2 launched on both ranks, each
    rank's decode-step device and wall ms and collectives' share over an
    8-slot window (rank 1's by `--rank-stats`), peak memory per rank;
 44. the LWS environment (`phase_tp_lws`): two `serve` processes under
@@ -1890,7 +1901,7 @@ def check_cases(cases):
 
 
 def _hf_config(cfg) -> dict:
-    return {"architectures": ["LlamaForCausalLM"],
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
             "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
             "num_hidden_layers": cfg.num_layers,
             "num_attention_heads": cfg.num_heads,
@@ -3153,15 +3164,22 @@ def _bits(torch, t):
                    1: torch.uint8}[t.element_size()])
 
 
+def _ckpt_prompts(seed: int, vocab: int):
+    """The two prompts phase 11 serves (phase 11b serves them again)."""
+    import random
+    rng = random.Random(seed + 5)
+    return [[rng.randrange(3, vocab) for _ in range(n)] for n in (20, 300)]
+
+
 def phase_checkpoint(torch, seed: int = 0, n_layers: int = 4):
     """A Llama-3-8B-width checkpoint (n_layers deep, bf16, HF names, two
     shards + model.safetensors.index.json) written from the port's
-    seeded init under chiprun_out/ and removed after: loaded back by
+    seeded init under chiprun_out/ and handed on to phase 11b (`dir`;
+    removed here if this phase fails): loaded back by
     `models/checkpoint.load_params` onto the card, every leaf bit-equal
     to what was written (load GB/s printed), then served with
     `--model-dir` and no `--random-weights`: its first greedy tokens
     equal those of an engine over the in-memory params."""
-    import random
     import shutil
 
     from ome_tpu_torch.engine import serve
@@ -3185,6 +3203,7 @@ def phase_checkpoint(torch, seed: int = 0, n_layers: int = 4):
         with open(os.path.join(d, "config.json"), "w") as f:
             json.dump(_hf_config(cfg), f)
         nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+        out["param_count"] = sum(t.numel() for t in tensors.values())
         del tensors
         out["write_s"] = time.monotonic() - t0
         out["bytes"] = nbytes
@@ -3219,9 +3238,7 @@ def phase_checkpoint(torch, seed: int = 0, n_layers: int = 4):
             f"{out['write_s']:.1f} s; load_params to the card "
             f"{out['load_s']:.2f} s ({out['load_gbps']:.2f} GB/s); all "
             f"{len(want)} leaves bit-equal")
-        rng = random.Random(seed + 5)
-        prompts = [[rng.randrange(3, cfg.vocab_size) for _ in range(n)]
-                   for n in (20, 300)]
+        prompts = _ckpt_prompts(seed, cfg.vocab_size)
         steps = 8
         t0 = time.monotonic()
         server, sched, engine = serve.build_server(
@@ -3253,9 +3270,239 @@ def phase_checkpoint(torch, seed: int = 0, n_layers: int = 4):
             f"up in {out['serve_startup_s']:.1f} s): first {steps} greedy "
             f"tokens of {len(prompts)} prompts equal the engine's over "
             f"the in-memory params")
-    finally:
+    except BaseException:
         shutil.rmtree(d, ignore_errors=True)
+        raise
     del params
+    out["dir"] = d
+    return out
+
+
+# -- phase 11b: the weight plane ----------------------------------------------
+
+
+# each object's `weight_fetch.slow` pause in the run that is killed: the
+# manifest records the first shard well before the last object
+WP_SLOW_S = 0.25
+
+
+def _get_json(url: str, timeout: float = 60):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def phase_weight_plane(torch, card: str, ckpt: dict, seed: int = 0):
+    """Phase 11's checkpoint (Llama-3-8B widths, 4 layers, bf16: two
+    shards, the index, config.json; `ckpt["dir"]`, removed here) through
+    the port's weight plane: `hfconfig.parse_model_dir` gives its family
+    and the exact parameter count phase 11 wrote; the weight-plane CLI
+    (`python -m ome_tpu_torch.modelagent.weightplane`, a child) fetches
+    it from local:// into a target under chiprun_out/ with a
+    `weight_fetch.slow` rule and is SIGKILLed once its staging manifest
+    records a shard and before it records every object (the serving
+    path absent), then run again: it resumes every recorded object and
+    publishes, and each published object's sha256 equals the source's
+    (`chaos.kill_and_resume_fetch`, the chaos harness's kill episode).
+    Then `serve.build_server` serves the published tree with one LoRA
+    slot of rank 16: /ready's fetch_bps equals `published_fetch_bps`
+    and is above 0, and the first 8 greedy tokens of phase 11's prompts
+    equal phase 11's served tokens (B1 and B2 launched). The serving
+    agent stages a rank-16 PEFT adapter zip from local:// and hot-loads
+    it (`POST /v1/adapters`): its greedy tokens equal an in-process twin
+    engine's with the same adapter registered; taken out of the info
+    file, the adapter leaves `/v1/models` (`DELETE`)."""
+    import shutil
+    import zipfile
+
+    from ome_tpu_torch.agent.serving_agent import ServingAgent
+    from ome_tpu_torch.chaos import kill_and_resume_fetch
+    from ome_tpu_torch.engine import serve
+    from ome_tpu_torch.engine.core import InferenceEngine
+    from ome_tpu_torch.engine.scheduler import Request
+    from ome_tpu_torch.hfconfig import parse_model_dir
+    from ome_tpu_torch.modelagent import weightplane
+    from ome_tpu_torch.models import checkpoint
+    from ome_tpu_torch.ops import flash
+    from ome_tpu_torch.storage import native_available
+
+    src = ckpt["dir"]
+    tag = "[weight plane]"
+    base = os.path.join(OUT_DIR, "weight_plane")
+    target = os.path.join(base, "served", "llama3_8b_4l")
+    out = {"native_chunker": native_available()}
+    try:
+        shutil.rmtree(base, ignore_errors=True)
+        os.makedirs(os.path.dirname(target))
+        parsed = parse_model_dir(src)
+        out["parsed"] = {"model_type": parsed.model_type,
+                         "architecture": parsed.architecture,
+                         "parameter_count": parsed.parameter_count,
+                         "parameter_size": parsed.parameter_size,
+                         "capabilities": parsed.capabilities}
+        if (parsed.model_type, parsed.architecture) != (
+                "llama", "LlamaForCausalLM") or \
+                "TEXT_GENERATION" not in parsed.capabilities:
+            fail(f"{tag}: hfconfig parsed the checkpoint as {out['parsed']}")
+        if parsed.parameter_count != ckpt["param_count"]:
+            fail(f"{tag}: hfconfig's exact parameter count "
+                 f"{parsed.parameter_count} != the {ckpt['param_count']} "
+                 "phase 11 wrote")
+        log(f"{tag} hfconfig: {parsed.model_type} / {parsed.architecture}, "
+            f"{parsed.parameter_count} parameters ({parsed.parameter_size}) "
+            f"from the index, equal to what phase 11 wrote; native chunker "
+            f"loaded: {out['native_chunker']}")
+
+        # kill and resume (the chaos harness's contract), once a shard is
+        # recorded and before every object is
+        names = sorted(os.listdir(src))
+        sizes = {n: os.path.getsize(os.path.join(src, n)) for n in names}
+        res, violations = kill_and_resume_fetch(
+            src, target, name="llama3-8b-4l", slow_s=WP_SLOW_S,
+            kill_when=lambda m: any(n.endswith(".safetensors")
+                                    for n in m.objects), timeout=300)
+        if violations:
+            fail(f"{tag}: the kill and resume broke the weight plane's "
+                 f"contract: {violations}")
+        recorded, stats = sorted(res["recorded"]), res["stats"]
+        if not 0 < len(recorded) < len(names):
+            fail(f"{tag}: the staging manifest recorded {recorded} of "
+                 f"{names} at the kill")
+        if stats.get("fetched") != len(names) - len(recorded):
+            fail(f"{tag}: the re-run's stats {stats} do not fetch the "
+                 f"{len(names) - len(recorded)} objects not recorded")
+        want = res["source_sha256"]
+        if sorted(want) != names:
+            fail(f"{tag}: hashed {sorted(want)}, the source holds {names}")
+        man = weightplane.published_manifest(target)
+        if {n: r["sha256"] for n, r in man.objects.items()} != want:
+            fail(f"{tag}: the published manifest's digests are not the "
+                 "source's")
+        fetched = sum(sizes[n] for n in names if n not in recorded)
+        out.update(
+            killed_after_s=res["killed_after_s"],
+            rerun_wall_s=res["rerun_wall_s"], hash_s=res["hash_s"],
+            objects=len(names), bytes=sum(sizes.values()),
+            recorded_at_kill=recorded, resumed=stats["resumed"],
+            fetched_bytes=fetched, fetch_s=stats["seconds"],
+            fetch_gbps=fetched / stats["seconds"] / 1e9,
+            manifest_fetch_bps=weightplane.published_fetch_bps(target))
+        log(f"{tag} killed the weight-plane child {out['killed_after_s']:.2f}"
+            f" s in with {recorded} recorded (serving path absent); the "
+            f"re-run resumed {stats['resumed']}, fetched "
+            f"{stats['fetched']} ({fetched / 1e9:.3f} GB) and published "
+            f"in {out['rerun_wall_s']:.2f} s wall; all {len(names)} "
+            f"published sha256 equal the source's (hashed in "
+            f"{out['hash_s']:.2f} s)")
+        log(f"{tag} fetch {out['fetch_gbps']:.3f} GB/s (bytes fetched by "
+            f"the re-run over its fetch seconds, local:// on a warm page "
+            f"cache); the manifest's fetch_bps "
+            f"{out['manifest_fetch_bps'] / 1e9:.3f} GB/s counts every "
+            f"object's bytes over the re-run's seconds; card {card}")
+
+        # serve the published tree
+        flash.reset_launches()
+        t0 = time.monotonic()
+        server, sched, engine = serve.build_server(
+            ["--model-dir", target, "--lora-slots", "1", "--lora-rank",
+             str(LORA_RANK), "--max-slots", "2", "--max-seq", "1024",
+             "--port", "0", "--host", "127.0.0.1", "--seed", str(seed)])
+        out["serve_startup_s"] = time.monotonic() - t0
+        prompts = _ckpt_prompts(seed, engine.cfg.vocab_size)
+        url = f"http://127.0.0.1:{server.port}"
+        info = os.path.join(base, "adapters.json")
+        try:
+            ready = _get_json(url + "/ready")
+            out["ready_fetch_bps"] = ready.get("fetch_bps")
+            if ready.get("fetch_bps") != out["manifest_fetch_bps"] or \
+                    not out["manifest_fetch_bps"] > 0:
+                fail(f"{tag}: /ready says fetch_bps "
+                     f"{ready.get('fetch_bps')}, the published manifest "
+                     f"{out['manifest_fetch_bps']}")
+            reqs = [sched.submit(Request(prompt_ids=ids, max_new_tokens=8))
+                    for ids in prompts]
+            served = [list(r.wait_output(300)) for r in reqs]
+            if served != ckpt["first_tokens"]:
+                fail(f"{tag}: the published tree's greedy tokens {served} "
+                     f"differ from phase 11's {ckpt['first_tokens']}")
+            launches = dict(flash.LAUNCHES)
+            for name in ("flash_decode", "flash_prefill"):
+                if launches[name] <= 0:
+                    fail(f"{tag}: {name} was never launched while serving "
+                         "the published tree")
+            progs = engine.ledger.snapshot()
+            out["ledger_dispatches"] = {
+                kind: sum(e["dispatches"] for e in progs
+                          if e["program"].startswith(kind))
+                for kind in ("prefill", "decode")}
+            out["launches"] = {n: launches[n]
+                               for n in ("flash_decode", "flash_prefill")}
+            log(f"{tag} served the published tree (one LoRA slot, up in "
+                f"{out['serve_startup_s']:.1f} s): /ready fetch_bps "
+                f"{ready['fetch_bps']:.6g} equals the manifest's; first 8 "
+                f"greedy tokens of phase 11's prompts equal phase 11's; "
+                f"launches B1 {launches['flash_decode']}, B2 "
+                f"{launches['flash_prefill']}; the ledger's dispatches "
+                f"{out['ledger_dispatches']}")
+
+            # the serving agent: a rank-16 adapter zip from local://
+            cfg = engine.cfg
+            adir = _write_adapter(torch, os.path.join(base, "peft"), cfg,
+                                  seed + 900, dtype=torch.bfloat16)
+            store = os.path.join(base, "store")
+            os.makedirs(store)
+            with zipfile.ZipFile(os.path.join(store, "ft1.zip"), "w") as z:
+                for fn in ("adapter_config.json",
+                           "adapter_model.safetensors"):
+                    z.write(os.path.join(adir, fn), fn)
+            with open(info, "w") as f:
+                json.dump([{"name": "ft1",
+                            "storageUri": f"local://{store}"}], f)
+            agent = ServingAgent(info, os.path.join(base, "adapters"),
+                                 engine_url=url)
+            t0 = time.monotonic()
+            if not agent.sync():
+                fail(f"{tag}: the serving agent staged nothing")
+            out["adapter_stage_and_load_s"] = time.monotonic() - t0
+            ids = [m["id"] for m in _get_json(url + "/v1/models")["data"]]
+            if "ft1" not in ids:
+                fail(f"{tag}: /v1/models lists {ids} after the agent's "
+                     "hot-load")
+            reqs = [sched.submit(Request(prompt_ids=p, max_new_tokens=8,
+                                         adapter="ft1")) for p in prompts]
+            adapted = [list(r.wait_output(300)) for r in reqs]
+            with open(info, "w") as f:
+                json.dump([], f)
+            if not agent.sync():
+                fail(f"{tag}: the serving agent did not unload ft1")
+            ids = [m["id"] for m in _get_json(url + "/v1/models")["data"]]
+            if "ft1" in ids:
+                fail(f"{tag}: /v1/models still lists ft1 after the agent "
+                     "unloaded it")
+        finally:
+            server.stop()
+        del server, sched, engine
+        params, lcfg = checkpoint.load_params(target, dtype=torch.bfloat16,
+                                              device="cuda")
+        twin = InferenceEngine(params, lcfg, max_slots=2, max_seq=1024,
+                               device="cuda", seed=seed, lora_slots=1,
+                               lora_rank=LORA_RANK)
+        twin.register_adapter("ft1", adir)
+        ref, _, _ = _greedy_streams(torch, twin, prompts, 8,
+                                    adapters=["ft1", "ft1"])
+        del twin, params
+        if adapted != ref:
+            fail(f"{tag}: the hot-loaded adapter's greedy tokens {adapted} "
+                 f"differ from the twin engine's {ref}")
+        out["adapter_tokens_differ_from_base"] = adapted != served
+        log(f"{tag} serving agent: staged ft1.zip from local:// and "
+            f"hot-loaded it in {out['adapter_stage_and_load_s']:.2f} s; its "
+            f"greedy tokens equal the twin engine's (differ from the base "
+            f"model's: {out['adapter_tokens_differ_from_base']}); taken out "
+            f"of the info file, it left /v1/models")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        shutil.rmtree(src, ignore_errors=True)
     return out
 
 
@@ -7595,13 +7842,20 @@ def _tp_window(torch, engine, stats_dir, prompt, iters: int = 10):
             "collective_share": (group.seconds - c0) / sum(walls)}
 
 
+# phase 43's cut of phase 4's concurrent batch: the prompts of these
+# lengths (drawn as phase 4 draws all of them), to this many tokens
+TP_BATCH_LENGTHS = (16, 800, 3000)
+TP_BATCH_TOKENS = 16
+
+
 def phase_serve_tp(torch, seed: int = 0, before=None):
     """`serve --tp 2 --device cuda:0` at the Llama-3-8B shape, all 32
     layers, bf16 random weights from the seed of phase 4: the leader
     (rank 0) in this process, serve's own follower rank as its child,
-    both on cuda:0 over gloo. Phase 4's requests (8 lengths to 3000
-    tokens and two twins at once, a shared-prefix pair, an SSE stream):
-    TTFT and TPOT medians, each batch stream's agreement with phase 4's
+    both on cuda:0 over gloo. A cut of phase 4's requests: three of its
+    concurrent prompts (`TP_BATCH_LENGTHS`) to `TP_BATCH_TOKENS` tokens,
+    then its shared-prefix pair and SSE stream: TTFT and TPOT medians,
+    each batch stream's agreement with the start of phase 4's
     (`before`), B1 and B2 launched on both ranks, then an 8-slot decode
     window (`_tp_window`): each rank's device ms per step, wall ms and
     the collectives' share; peak device memory per rank from the server
@@ -7652,16 +7906,19 @@ def phase_serve_tp(torch, seed: int = 0, before=None):
         sched.submit = recording_submit
         try:
             flash.reset_launches()
+            # phase 4's prompts, drawn in its order (its twin first), so
+            # that the later draws are phase 4's too
             lengths = [16, 100, 400, 800, 1500, 2200, 2600, 3000]
-            twin = prompt(24)
-            bodies = [{"prompt": prompt(n), "max_tokens": 32,
-                       "temperature": 0.0} for n in lengths]
-            bodies += [{"prompt": list(twin), "max_tokens": 32,
-                        "temperature": 0.0} for _ in range(2)]
+            prompt(24)
+            drawn = [prompt(n) for n in lengths]
+            keep = [lengths.index(n) for n in TP_BATCH_LENGTHS]
+            bodies = [{"prompt": drawn[i], "max_tokens": TP_BATCH_TOKENS,
+                       "temperature": 0.0} for i in keep]
             t_batch = time.monotonic()
             with concurrent.futures.ThreadPoolExecutor(len(bodies)) as ex:
                 futs = [ex.submit(_post, url, b) for b in bodies]
-                docs = [_completion(*f.result(), 32, f"request {i}")
+                docs = [_completion(*f.result(), TP_BATCH_TOKENS,
+                                    f"request {i}")
                         for i, f in enumerate(futs)]
             out["batch_s"] = time.monotonic() - t_batch
             out["batch_completion_tokens"] = sum(
@@ -7721,6 +7978,7 @@ def phase_serve_tp(torch, seed: int = 0, before=None):
     out["tpot_median_s"] = statistics.median(tpot)
     ref = (before or {}).get("streams")
     if ref:
+        ref = [ref[i][:TP_BATCH_TOKENS] for i in keep]
         out["streams_equal_tp1"] = sum(a == b for a, b in zip(streams, ref))
         out["first_tokens_equal_tp1"] = sum(
             a[:1] == b[:1] for a, b in zip(streams, ref))
@@ -7730,8 +7988,8 @@ def phase_serve_tp(torch, seed: int = 0, before=None):
             fail(f"{tag}: only {out['first_tokens_equal_tp1']} of "
                  f"{len(ref)} first tokens equal the tp=1 server's")
         log(f"{tag} against the tp=1 server (phase 4, same weights and "
-            f"prompts): {out['streams_equal_tp1']} of {len(ref)} 32-token "
-            f"streams equal, {out['first_tokens_equal_tp1']} first tokens "
+            f"prompts): {out['streams_equal_tp1']} of {len(ref)} "
+            f"{TP_BATCH_TOKENS}-token streams equal, {out['first_tokens_equal_tp1']} first tokens "
             f"equal; first differing step per stream "
             f"{out['first_diff_tp1']}")
     log(f"{tag} {len(recs)} requests: TTFT median "
@@ -8989,19 +9247,25 @@ FLEET_TRACE_KERNELS = {"flash_prefill": r"prefill_(?:wgmma|f32)",
 
 
 def _fleet_profile(url: str) -> dict:
-    """POST /debug/profile on a fleet child, a request sent once the
-    capture is open (its prefill and decode fall inside the 2 s window):
-    the child's own trace, B2 and B3 counted by their kernels' names."""
+    """POST /debug/profile on a fleet child, with a request in flight
+    until the capture answers (the child's first capture opens its 2 s
+    window only once torch.profiler has started, which imports
+    torch._dynamo: seconds): the child's own trace, B2 and B3 counted by
+    their kernels' names."""
     got = {}
 
     def capture():
         got["res"] = _http(url + "/debug/profile?seconds=2", "POST")
     t = threading.Thread(target=capture)
     t.start()
+    served, n = None, 0
     try:
         time.sleep(0.3)
-        served, _, _ = _http(url + "/v1/completions", "POST", {
-            "prompt": "a b c d e f", "max_tokens": 48, "temperature": 0.0})
+        while t.is_alive() and served in (None, 200):
+            served, _, _ = _http(url + "/v1/completions", "POST", {
+                "prompt": f"a b c d e f {n}", "max_tokens": 48,
+                "temperature": 0.0})
+            n += 1
     finally:
         t.join(timeout=300)
     st, _, raw = got.get("res", (None, None, b"{}"))
@@ -9082,6 +9346,9 @@ SOURCES = {
 
 
 def _warm_ledger(torch) -> None:
+    """The ledger counter's set-up, and the import of torch._dynamo that
+    torch.profiler's first start pays (the profiled phases' windows)."""
+    import torch._dynamo  # noqa: F401
     from ome_tpu_torch.perf.ledger import ProgramLedger
     ProgramLedger(device=torch.device("cuda")).prepare()
 
@@ -9102,8 +9369,8 @@ def main() -> int:
         log(f"[phase] {key}: {phase_s[key]:.1f} s")
         if free:
             _free_device(torch, free)
-    # the ledger's counter set-up (an import of seconds) runs while nvcc
-    # builds the kernels, not inside phase 4's server start
+    # the ledger's counter set-up and torch.profiler's first-start import
+    # run while nvcc builds the kernels, not inside phase 4
     warm = threading.Thread(target=_warm_ledger, args=(torch,))
     warm.start()
     run("build", phase_build)
@@ -9127,6 +9394,8 @@ def main() -> int:
     run("stream_identity", phase_stream_identity, torch,
         free="the stream-identity engines")
     run("checkpoint", phase_checkpoint, torch, free="the checkpoint")
+    run("weight_plane", phase_weight_plane, torch, card,
+        report["checkpoint"], free="the weight-plane server")
     run("step_plans", phase_step_plans, torch,
         free="the step-plan engines")
     run("serve_spec", phase_serve_stepplan, torch, False,

@@ -5,9 +5,9 @@ workload as the reference's; the children are the port's engines
 (`ome_tpu_torch.engine.serve`) and asyncio routers
 (`ome_tpu_torch.router.aserver`), started on ``device`` (default
 cuda: a child that cannot start there fails the run, nothing falls
-back to the CPU). Left for later, refused by name: the weight-plane
-kill episode (``run_weight_kill_episode``, which needs the model
-agent's weight plane and storage) and ``--schedule`` (which needs the
+back to the CPU). The weight-plane kill episode
+(``run_weight_kill_episode``) drives the port's weight-plane CLI.
+Left for later, refused by name: ``--schedule`` (which needs the
 fleet simulator).
 
 The failure-handling ingredients — deterministic fault injection
@@ -1722,24 +1722,191 @@ class ChaosRunner:
                 f"have {have and have.get('stamp')})")
 
 
+# -- weight-plane kill episode (docs/model-fleet.md) -----------------
+
+
+def _hash_tree(root: pathlib.Path) -> Dict[str, str]:
+    """{relative path: sha256} of every file under `root` but the fetch
+    manifests, hashed on threads (hashlib lets go of the GIL over large
+    buffers, so a multi-GB checkpoint hashes in parallel)."""
+    import concurrent.futures
+
+    from .storage.base import sha256_file
+    files = [p for p in sorted(root.rglob("*"))
+             if p.is_file() and not p.name.startswith(".ome_fetch_")]
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        return dict(zip((str(p.relative_to(root)) for p in files),
+                        ex.map(lambda p: sha256_file(str(p)), files)))
+
+
+def kill_and_resume_fetch(src: pathlib.Path, target: pathlib.Path, *,
+                          name: str, slow_s: float, kill_when,
+                          timeout: float = 120.0
+                          ) -> Tuple[Dict[str, object], List[str]]:
+    """SIGKILL the port's weight-plane CLI mid-download of `src` (a
+    directory, fetched from local://) into `target`, re-run it, and
+    check the weight plane's failure contract (docs/model-fleet.md):
+
+      1. the serving path NEVER holds a partial tree — until a
+         complete publish it does not exist at all, and is never
+         ``is_published``;
+      2. every object the staging manifest recorded before the kill
+         has its staged bytes intact (size + sha256 match) — the
+         ledger never gets ahead of the disk;
+      3. the re-run RESUMES: every object recorded before the kill is
+         skipped (``resumed`` counts them all), the tree publishes,
+         and the published bytes are identical to the source.
+
+    The kill lands deterministically mid-download: each object is
+    paced by a ``weight_fetch.slow`` rule of `slow_s` seconds, and the
+    child is killed once `kill_when(manifest)` holds for its staging
+    manifest — not by racing a wall-clock sleep against process
+    startup. Returns what happened (``recorded``: the manifest's
+    records at the kill; ``stats``: the re-run's; ``source_sha256``;
+    ``killed_after_s``, ``rerun_wall_s``, ``hash_s``) and the violation
+    list (empty = contract held).
+    """
+    from .modelagent import weightplane
+    from .storage.base import sha256_file
+
+    preflight_fault_points([f"weight_fetch.slow={slow_s}@1:1"])
+    src, target = pathlib.Path(src), pathlib.Path(target)
+    out: Dict[str, object] = {}
+    violations: List[str] = []
+    n_objects = sum(1 for p in src.rglob("*") if p.is_file())
+    cli = [sys.executable, "-m", "ome_tpu_torch.modelagent.weightplane",
+           "--source", f"local://{src}", "--target", str(target),
+           "--name", name, "--workers", "2"]
+    staging = pathlib.Path(weightplane.staging_dir(str(target)))
+    t0 = time.monotonic()
+    with open(target.parent / "agent.log", "ab") as lf:
+        proc = subprocess.Popen(
+            cli + ["--faults", f"weight_fetch.slow={slow_s}@1:{n_objects}"],
+            stdout=lf, stderr=lf, cwd=str(REPO_ROOT))
+    deadline = t0 + timeout
+    try:
+        while True:
+            m = weightplane.FetchManifest.load(str(staging))
+            if m is not None and kill_when(m):
+                break
+            if proc.poll() is not None:
+                violations.append(
+                    f"agent exited (rc={proc.returncode}) before the "
+                    "kill point — the episode never got to kill "
+                    "mid-download")
+                return out, violations
+            if time.monotonic() > deadline:
+                violations.append(f"manifest never reached the kill "
+                                  f"point within {timeout:g}s")
+                return out, violations
+            # the serving path must not flicker into existence while
+            # the download is in flight
+            if target.exists():
+                violations.append(
+                    "serving path exists mid-download (invariant 1)")
+            time.sleep(0.01)
+        proc.kill()
+        proc.wait(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    out["killed_after_s"] = time.monotonic() - t0
+
+    # invariant 1: nothing partial at the serving path
+    if target.exists():
+        violations.append("serving path exists after mid-download "
+                          "SIGKILL (invariant 1)")
+    if weightplane.is_published(str(target)):
+        violations.append("partial tree reads as published "
+                          "(invariant 1)")
+
+    # invariant 2: the manifest never gets ahead of the disk
+    m = weightplane.FetchManifest.load(str(staging))
+    if m is None or not m.objects:
+        violations.append("no staging manifest survived the kill")
+        return out, violations
+    if m.complete:
+        violations.append("staging manifest marked complete before "
+                          "publish (invariant 1)")
+    recorded = dict(m.objects)
+    out["recorded"] = recorded
+    for rel, rec in recorded.items():
+        p = staging / rel
+        if not p.is_file():
+            violations.append(f"manifest records {rel} but the staged "
+                              "file is missing (invariant 2)")
+        elif p.stat().st_size != rec["size"] \
+                or sha256_file(str(p)) != rec["sha256"]:
+            violations.append(f"staged {rel} does not match its "
+                              "manifest record (invariant 2)")
+
+    # invariant 3: the re-run resumes from verified objects and
+    # publishes a byte-identical tree
+    t0 = time.monotonic()
+    rerun = subprocess.run(cli, capture_output=True, text=True,
+                           timeout=timeout, cwd=str(REPO_ROOT))
+    out["rerun_wall_s"] = time.monotonic() - t0
+    if rerun.returncode != 0:
+        violations.append(f"re-run failed (rc={rerun.returncode}): "
+                          f"{rerun.stdout[-300:]}{rerun.stderr[-300:]}")
+        return out, violations
+    stats = json.loads(rerun.stdout.strip().splitlines()[-1])
+    out["stats"] = stats
+    if stats.get("resumed", 0) != len(recorded):
+        violations.append(
+            f"re-run resumed {stats.get('resumed')} objects, expected "
+            f"every one of the {len(recorded)} recorded before the "
+            "kill (invariant 3)")
+    if not weightplane.is_published(str(target)):
+        violations.append("re-run did not publish (invariant 3)")
+    if staging.exists():
+        violations.append("staging dir survived publish (invariant 3)")
+    t0 = time.monotonic()
+    out["source_sha256"] = want = _hash_tree(src)
+    got = _hash_tree(target)
+    out["hash_s"] = time.monotonic() - t0
+    if got != want:
+        violations.append("published tree is not byte-identical to "
+                          "the source (invariant 3): "
+                          f"{sorted(set(got.items()) ^ set(want.items()))}")
+    return out, violations
+
+
+def run_weight_kill_episode(seed: int, base_dir: pathlib.Path, *,
+                            n_objects: int = 24, obj_kb: int = 8,
+                            slow_s: float = 0.05,
+                            timeout: float = 120.0) -> List[str]:
+    """SIGKILL the model agent mid-download and assert the weight
+    plane's failure contract (`kill_and_resume_fetch`) over a
+    seed-derived source tree: sizes and bytes reproduce per seed, and
+    the seed picks how many objects the manifest records before the
+    kill. The seed gives the reference's source tree and kill
+    threshold. Returns the violation list (empty = episode clean).
+    """
+    rng = random.Random(seed)
+    base_dir = pathlib.Path(base_dir)
+    src = base_dir / "source"
+    target = base_dir / "served" / "model"
+    target.parent.mkdir(parents=True, exist_ok=True)
+    src.mkdir(parents=True, exist_ok=True)
+    for i in range(n_objects):
+        size = obj_kb * 1024 + rng.randrange(obj_kb * 1024)
+        (src / f"shard-{i:03d}.bin").write_bytes(
+            rng.getrandbits(8 * size).to_bytes(size, "little"))
+    kill_after = rng.randint(max(2, n_objects // 4),
+                             max(3, n_objects // 2))
+    _, violations = kill_and_resume_fetch(
+        src, target, name=f"chaos-seed{seed}", slow_s=slow_s,
+        kill_when=lambda m: len(m.objects) >= kill_after, timeout=timeout)
+    return violations
+
+
 # -- left for later -------------------------------------------------
 
-WEIGHT_KILL_NOT_PORTED = (
-    "run_weight_kill_episode is not ported yet: it SIGKILLs the model "
-    "agent's weight plane mid-download, and the port has no "
-    "modelagent/weightplane.py or storage/ yet (ome_tpu/chaos.py's "
-    "weight-plane episode stays the reference's)")
 SCHEDULE_NOT_PORTED = (
     "--schedule is not ported yet: it down-converts a fleet-simulator "
     "FaultSchedule (sim/faultplan.py), and the port has no sim/ yet")
-
-
-def run_weight_kill_episode(seed: int, base_dir: pathlib.Path,
-                            **_kw) -> List[str]:
-    """The reference's weight-plane kill episode (docs/model-fleet.md),
-    refused by name until the port has the model agent's weight plane
-    and storage."""
-    raise ChaosError(WEIGHT_KILL_NOT_PORTED)
 
 
 # -- soak entry ------------------------------------------------------

@@ -53,12 +53,6 @@ def entry(device="cuda"):
     return fn, (params, tokens)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _rank_device(device: str, rank: int, n: int):
     """(device, backend) of rank `rank` of n: the CPU over gloo; a card
     per rank over NCCL where there are n cards, else every rank on
@@ -72,17 +66,19 @@ def _rank_device(device: str, rank: int, n: int):
     return torch.device("cuda", 0), "gloo"
 
 
-def _rank(rank: int, n: int, ports, device: str, q) -> None:
+def _rank(rank: int, n: int, port_q, device: str, q) -> None:
     try:
-        q.put((rank, "ok", run_rank(rank, n, ports, device)))
+        q.put((rank, "ok", run_rank(rank, n, port_q, device)))
     except Exception:  # noqa: BLE001 — the parent reports it
         import traceback
         q.put((rank, "error", traceback.format_exc()))
 
 
-def run_rank(rank: int, n: int, ports, device: str):
+def run_rank(rank: int, n: int, port_q, device: str):
     """One rank of `dryrun_multichip`; returns the lines it prints (rank
-    0's are the reference's)."""
+    0's are the reference's). Rank 0 binds the group's store on a port
+    the kernel picks and hands it to the other ranks through `port_q`;
+    the control channel's port travels through the store."""
     import numpy as np
 
     from .engine import multihost
@@ -98,8 +94,15 @@ def run_rank(rank: int, n: int, ports, device: str):
     dev, backend = _rank_device(device, rank, n)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    world = comm.Group.init(f"127.0.0.1:{ports[0]}", rank, n, backend,
-                            timeout=300)
+    if rank == 0:
+        store = comm.Group.host_store("127.0.0.1", n, timeout=300)
+        for _ in range(n - 1):
+            port_q.put(store.port)
+        world = comm.Group.init(f"127.0.0.1:{store.port}", rank, n,
+                                backend, timeout=300, store=store)
+    else:
+        world = comm.Group.init(f"127.0.0.1:{port_q.get(timeout=300)}",
+                                rank, n, backend, timeout=300)
     lines = []
     try:
         # MoE flagship config, so tp, pp, dp and the experts under tp are
@@ -153,14 +156,19 @@ def run_rank(rank: int, n: int, ports, device: str):
         # channel and its followers replay it — the tp group's other
         # ranks, or at tp 1 a follower engine on a thread of this process
         # (the reference's in-process analog)
-        ctrl = ports[1]
         if rank > 0:
+            ctrl = int(world.store.get("dryrun_ctrl_port"))
             sub = multihost.OpSubscriber("127.0.0.1", port=ctrl)
             rc = multihost.follower_loop(eng, sub)
             sub.close()
             if rc != 0:
                 raise RuntimeError(f"follower rank {rank} exited {rc}")
             return lines
+        # bound on a port the kernel picks before the followers are told
+        # it, so no other process can take it in between
+        ctrl_server = socket.create_server(("127.0.0.1", 0))
+        ctrl = ctrl_server.getsockname()[1]
+        world.store.set("dryrun_ctrl_port", str(ctrl))
         follower_rc = []
         thread = None
         if tp == 1:
@@ -172,8 +180,7 @@ def run_rank(rank: int, n: int, ports, device: str):
                 sub.close()
             thread = threading.Thread(target=run_follower, daemon=True)
             thread.start()
-        pub = multihost.OpPublisher(max(tp - 1, 1), port=ctrl,
-                                    host="127.0.0.1")
+        pub = multihost.OpPublisher(max(tp - 1, 1), server=ctrl_server)
         leader = multihost.ReplicatedEngine(eng, pub)
         lstate = leader.new_state()
         ltok, lkv, ltl, lb = leader.prefill([1, 2, 3, 4, 5])
@@ -199,10 +206,9 @@ def dryrun_multichip(n_devices: int, device: str = "cuda",
     each a process of its own; prints rank 0's lines."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    ports = (_free_port(), _free_port())
+    q, port_q = ctx.Queue(), ctx.Queue()
     procs = [ctx.Process(target=_rank,
-                         args=(r, n_devices, ports, device, q))
+                         args=(r, n_devices, port_q, device, q))
              for r in range(n_devices)]
     for p in procs:
         p.start()

@@ -163,8 +163,12 @@ class OpPublisher:
 
     def __init__(self, n_followers: int, port: int = CONTROL_PORT,
                  host: str = "0.0.0.0", accept_timeout: float = 600.0,
-                 on_lost: Optional[Callable[[str], None]] = None):
-        self._server = socket.create_server((host, port))
+                 on_lost: Optional[Callable[[str], None]] = None,
+                 server: Optional[socket.socket] = None):
+        # `server`: a listening socket the caller bound already (on port
+        # 0, its port told to the followers before they connect), in
+        # place of one bound here at host:port
+        self._server = server or socket.create_server((host, port))
         self._server.settimeout(accept_timeout)
         self._socks: List[socket.socket] = []
         self.on_lost = on_lost

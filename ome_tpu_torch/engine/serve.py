@@ -1073,9 +1073,16 @@ def _build(args, grp, class_weights, class_wait_caps):
                               priority_scheduling=not
                               args.no_priority_scheduling)
     name = args.model_name or args.model_dir.rstrip("/").rsplit("/", 1)[-1]
+    # measured weight-fetch throughput from the published fetch
+    # manifest, advertised on /ready for the router's cold-start
+    # Retry-After math; 0.0 for a tree the weight plane did not publish
+    from ..modelagent import weightplane
     server = EngineServer(scheduler, tokenizer=load_tokenizer(
                               args.model_dir),
-                          model_name=name, host=args.host, port=args.port,
+                          model_name=name,
+                          fetch_bps=weightplane.published_fetch_bps(
+                              args.model_dir),
+                          host=args.host, port=args.port,
                           request_log=reqlog, pd_prefill=pd_prefill,
                           embedder=embedder, structured=embedder is None,
                           profile_dir=args.profile_dir,

@@ -552,7 +552,9 @@ def save_checkpoint(model_dir: str, tensors: Dict[str, Any],
                     shards: int = 1) -> List[str]:
     """Write `tensors` into `model_dir` as `shards` safetensors files,
     with model.safetensors.index.json when there is more than one (the
-    layout huggingface_hub writes). Returns the file names."""
+    layout huggingface_hub writes: the tensors' bytes in
+    `metadata.total_size`, which the config parser turns into an exact
+    parameter count). Returns the file names."""
     os.makedirs(model_dir, exist_ok=True)
     names = list(tensors)
     if shards <= 1:
@@ -567,9 +569,11 @@ def save_checkpoint(model_dir: str, tensors: Dict[str, Any],
         save_safetensors(os.path.join(model_dir, fname), part)
         files.append(fname)
         weight_map.update({n: fname for n in part})
+    total = sum(t.numel() * t.element_size() for t in tensors.values())
     with open(os.path.join(model_dir, "model.safetensors.index.json"),
               "w") as f:
-        json.dump({"metadata": {}, "weight_map": weight_map}, f)
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
     return files
 
 

@@ -84,8 +84,9 @@ launches the kernel or raises — there is no fallback. `LAUNCHES` counts
 the kernel launches of each wrapper (ops/paged.py's included), so a run
 can show that its main path went through the kernels. Inside a
 `count_kernel_flops()` block each launch also reports its FLOPs (the
-program ledger's counted mode, perf/ledger.py: FlopCounterMode does not
-see a ctypes launch), with the formulas chip_smoke's kernel bounds use.
+program ledger's counted mode, perf/ledger.py: its dispatch-mode counter
+does not see a ctypes launch), with the formulas chip_smoke's kernel
+bounds use.
 
 Nothing is built or imported from the CUDA toolchain when this module
 is imported.

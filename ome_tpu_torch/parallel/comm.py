@@ -69,17 +69,19 @@ class Group:
     @classmethod
     def init(cls, address: str, rank: int, size: int, backend: str,
              device: Optional[torch.device] = None,
-             timeout: float = 600.0) -> "Group":
+             timeout: float = 600.0, store=None) -> "Group":
         """Join the group's rendezvous at `address` (host:port; rank 0
         hosts the store there), its world size and rank given explicitly
         (nothing is read from the environment). The process group is
         one of its own, not torch.distributed's default: a process can
         lead one group after another, or several at once (a test's PD
-        pair of tp groups)."""
+        pair of tp groups). `store` is a store rank 0 already hosts
+        (`host_store`), in place of one bound at `address`."""
         import torch.distributed as dist
         host, port = address.rsplit(":", 1)
         td = datetime.timedelta(seconds=timeout)
-        store = dist.TCPStore(host, int(port), size, rank == 0, td)
+        if store is None:
+            store = dist.TCPStore(host, int(port), size, rank == 0, td)
         if backend == "nccl":
             pg = dist.ProcessGroupNCCL(store, rank, size,
                                        dist.ProcessGroupNCCL.Options())
@@ -90,6 +92,17 @@ class Group:
         group = cls(rank, size, pg, backend)
         group.store = store
         return group
+
+    @staticmethod
+    def host_store(host: str, size: int, timeout: float = 600.0):
+        """Rank 0's store on a port the kernel picks as it binds
+        (`.port`), for a caller that hands the port to the other ranks:
+        no other process can take the port between its choice and the
+        bind. The store does not wait for the other ranks here."""
+        import torch.distributed as dist
+        return dist.TCPStore(host, 0, size, True,
+                             datetime.timedelta(seconds=timeout),
+                             wait_for_workers=False)
 
     def close(self) -> None:
         """Leave the group."""

@@ -4,9 +4,10 @@ Port of ome_tpu/perf/ledger.py. The reference asks XLA, ahead of time,
 what each compiled program costs (`cost_analysis`, `memory_analysis`).
 PyTorch has no compiler to ask, so the port's "full" mode measures by
 running: the first dispatch of each program key runs under
-`torch.utils.flop_counter.FlopCounterMode`, and the entry records
+`FlopCounter`, which counts as `torch.utils.flop_counter.FlopCounterMode`
+does, and the entry records
 
-  * `flops` — COUNTED: the products FlopCounterMode sees (matmuls,
+  * `flops` — COUNTED: the products the counter sees (matmuls,
     attention's plain products on the CPU) plus each hand-written CUDA
     kernel's own FLOPs, which its wrapper reports (`ops/flash.py`
     `count_kernel_flops`: a ctypes launch is invisible to the counter),
@@ -38,6 +39,7 @@ on `engine.decode_chunk` spans, and the POST /debug/profile response.
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import threading
 import time
@@ -45,6 +47,7 @@ from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # Per-device HBM bandwidth (GB/s) and bf16 dense peak (TFLOP/s). The
 # TPU rows are the reference's; the H100 row is NVIDIA's data sheet for
@@ -67,6 +70,72 @@ log = logging.getLogger("ome.perf.ledger")
 
 def _default_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+# shape and layout queries, which FlopCounterMode leaves to the tensor
+# (those this torch has: the list grew across versions)
+_QUERY_OPS = ("aten.sym_is_contiguous.default", "aten.is_contiguous.default",
+              "aten.is_contiguous.memory_format",
+              "aten.is_strides_like_format.default",
+              "aten.is_non_overlapping_and_dense.default",
+              "aten.size.default", "aten.sym_size.default",
+              "aten.stride.default", "aten.sym_stride.default",
+              "aten.storage_offset.default",
+              "aten.sym_storage_offset.default", "aten.numel.default",
+              "aten.sym_numel.default", "aten.dim.default",
+              "prim.layout.default")
+
+
+@functools.lru_cache(maxsize=1)
+def _query_ops() -> frozenset:
+    out = set()
+    for name in _QUERY_OPS:
+        ns, packet, overload = name.split(".")
+        op = getattr(getattr(getattr(torch.ops, ns), packet, None),
+                     overload, None)
+        if op is not None:
+            out.add(op)
+    return frozenset(out)
+
+
+class FlopCounter(TorchDispatchMode):
+    """FLOPs of the aten ops dispatched inside it, counted as
+    `torch.utils.flop_counter.FlopCounterMode` counts them: an op is
+    first decomposed where it has a decomposition, then run, and its
+    packet's formula in `flop_registry` (the same formulas) adds its
+    count. Unlike FlopCounterMode, its `__torch_dispatch__` is not
+    wrapped in dynamo's disable (see below), so its first use imports
+    no `torch._dynamo`, which took seconds of every new engine process
+    on the card. The port never compiles, so the wrapper guards
+    nothing here."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils.flop_counter import flop_registry
+        kwargs = kwargs or {}
+        if func in _query_ops():
+            return NotImplemented
+        if func is not torch.ops.prim.device.default:
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        out = func(*args, **kwargs)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out)
+        return out
+
+
+# TorchDispatchMode wraps every subclass's __torch_dispatch__ in
+# torch._disable_dynamo (where this torch does), whose first call
+# imports torch._dynamo; the function it wraps is kept as __wrapped__
+FlopCounter.__torch_dispatch__ = getattr(
+    FlopCounter.__torch_dispatch__, "__wrapped__",
+    FlopCounter.__torch_dispatch__)
 
 
 def device_spec(device=None) -> Dict[str, object]:
@@ -165,9 +234,9 @@ class ProgramLedger:
         # engine's buckets and step plans
         self._g_flops = registry.gauge(
             "ome_engine_program_flops",
-            "FLOPs per dispatch of each engine program, counted under "
-            "FlopCounterMode plus the CUDA kernels' own counts (or the "
-            "analytic model off the card)", labelnames=("program",))
+            "FLOPs per dispatch of each engine program, counted as "
+            "FlopCounterMode counts plus the CUDA kernels' own counts (or "
+            "the analytic model off the card)", labelnames=("program",))
         self._g_bytes = registry.gauge(
             "ome_engine_program_bytes",
             "HBM bytes moved per dispatch of each engine program, from "
@@ -189,15 +258,14 @@ class ProgramLedger:
 
     def prepare(self) -> None:
         """Pay the counter's one-time set-up now, when the engine is
-        built, and not inside a request's first dispatch: the first
-        use of FlopCounterMode imports torch._dynamo, which takes
-        seconds. Does nothing unless the ledger counts."""
+        built, and not inside a request's first dispatch (the formulas'
+        import, and the first products on the device). Does nothing
+        unless the ledger counts."""
         if self._resolved_mode() != "full":
             return
         try:
-            from torch.utils.flop_counter import FlopCounterMode
             x = torch.ones(2, 2, device=self.device or _default_device())
-            with FlopCounterMode(display=False):
+            with FlopCounter():
                 x @ x
         except Exception as e:  # noqa: BLE001 - observability only
             self._warn_once("prepare", "(set-up)", e)
@@ -277,15 +345,13 @@ class ProgramLedger:
         }
 
     def _counted(self, entry, run, args):
-        """Run the first dispatch under FlopCounterMode and the kernel
+        """Run the first dispatch under FlopCounter and the kernel
         FLOP sink; any failure to count leaves the analytic numbers in
         place (never break a dispatch over observability)."""
-        from torch.utils.flop_counter import FlopCounterMode
-
         from ..ops.flash import count_kernel_flops
         stack = contextlib.ExitStack()
         try:
-            counter = stack.enter_context(FlopCounterMode(display=False))
+            counter = stack.enter_context(FlopCounter())
             sink = stack.enter_context(count_kernel_flops())
         except Exception as e:  # noqa: BLE001 - observability only
             stack.close()
@@ -294,7 +360,7 @@ class ProgramLedger:
         with stack:
             out = run()
         try:
-            flops = counter.get_total_flops() + sum(int(c()) for c in sink)
+            flops = counter.flops + sum(int(c()) for c in sink)
             entry["flops"] = float(flops)
             entry["argument_bytes"] = tensor_bytes(args)
             entry["output_bytes"] = tensor_bytes(out)

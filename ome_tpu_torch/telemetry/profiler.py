@@ -14,7 +14,9 @@ recorded for the whole process through CUPTI, so the trace holds the
 kernels the scheduler thread launches in the window; CPU-side operator
 events would cover only the sleeping handler thread and are not
 recorded. The Chrome trace lands in `out_dir` as
-`trace-<pid>-<n>.json`. A capture either writes its trace or raises:
+`trace-<pid>-<n>.json`. A process's first capture also pays
+torch.profiler's start, which imports torch._dynamo (seconds on a
+card's machine): its window opens that much after the request. A capture either writes its trace or raises:
 one that meets another active torch.profiler session of this process
 (`session()`, which the port's other profiling paths enter too, or a
 session the profiler itself refuses) raises ProfileInProgress.

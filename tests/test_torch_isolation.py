@@ -3,9 +3,10 @@
 Every module of `ome_tpu_torch/` and `chip_smoke.py` is parsed and its
 imports checked: nothing of `jax`, `jaxlib` or `ome_tpu` (the package
 `ome_tpu_torch` itself is of course allowed), and `chip_smoke.py`
-imports no `transformers`, which the card's machine lacks. Importing the
-port — the kernel module included — must neither build a kernel nor
-pull in JAX.
+imports no `transformers` and no `cryptography`, which the card's
+machine lacks. Importing the port — the kernel module included — must
+neither build a kernel nor pull in JAX, and importing the weight plane,
+storage, the config parser or the agent loads no torch.
 """
 
 import ast
@@ -79,7 +80,31 @@ def test_port_files_found():
                  "ome_tpu_torch/core/k8s.py",
                  "ome_tpu_torch/core/kubeclient.py",
                  "ome_tpu_torch/cmd/__init__.py",
-                 "ome_tpu_torch/cmd/manager.py", "chip_smoke.py"):
+                 "ome_tpu_torch/cmd/manager.py",
+                 "ome_tpu_torch/apis/__init__.py",
+                 "ome_tpu_torch/apis/v1/__init__.py",
+                 "ome_tpu_torch/apis/v1/model.py",
+                 "ome_tpu_torch/storage/__init__.py",
+                 "ome_tpu_torch/storage/uri.py",
+                 "ome_tpu_torch/storage/base.py",
+                 "ome_tpu_torch/storage/providers.py",
+                 "ome_tpu_torch/storage/signing.py",
+                 "ome_tpu_torch/storage/extra_providers.py",
+                 "ome_tpu_torch/storage/hub.py",
+                 "ome_tpu_torch/storage/xet.py",
+                 "ome_tpu_torch/hfconfig/__init__.py",
+                 "ome_tpu_torch/hfconfig/parser.py",
+                 "ome_tpu_torch/modelagent/__init__.py",
+                 "ome_tpu_torch/modelagent/metrics.py",
+                 "ome_tpu_torch/modelagent/weightplane.py",
+                 "ome_tpu_torch/agent/__init__.py",
+                 "ome_tpu_torch/agent/__main__.py",
+                 "ome_tpu_torch/agent/cli.py",
+                 "ome_tpu_torch/agent/metadata.py",
+                 "ome_tpu_torch/agent/replica.py",
+                 "ome_tpu_torch/agent/serving_agent.py",
+                 "ome_tpu_torch/agent/enigma.py",
+                 "ome_tpu_torch/agent/cloudkms.py", "chip_smoke.py"):
         assert must in names
 
 
@@ -103,6 +128,13 @@ def test_chip_smoke_imports_no_transformers():
     # the card's machine has no transformers: the script types configs in
     bad = [(root, line) for root, line in _imported_roots(
         REPO / "chip_smoke.py") if root == "transformers"]
+    assert not bad, f"chip_smoke.py imports {bad}"
+
+
+def test_chip_smoke_imports_no_cryptography():
+    # nor cryptography, enigma's backend: the script leaves enigma alone
+    bad = [(root, line) for root, line in _imported_roots(
+        REPO / "chip_smoke.py") if root == "cryptography"]
     assert not bad, f"chip_smoke.py imports {bad}"
 
 
@@ -136,6 +168,27 @@ def test_importing_the_port_builds_nothing_and_loads_no_jax():
         "assert not _build._loaded and not _build.build_logs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ome_tpu', 'triton')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_weight_plane_and_agent_import_no_torch():
+    """The weight plane and the agent run in init containers and
+    sidecars: importing them loads neither torch nor JAX nor ome_tpu
+    (nor enigma's cryptography, whose exports resolve lazily)."""
+    code = (
+        "import sys\n"
+        "import ome_tpu_torch.storage, ome_tpu_torch.hfconfig\n"
+        "import ome_tpu_torch.modelagent.weightplane, ome_tpu_torch.agent\n"
+        "import ome_tpu_torch.agent.cli, ome_tpu_torch.agent.serving_agent\n"
+        "import ome_tpu_torch.agent.replica, ome_tpu_torch.agent.metadata\n"
+        "import ome_tpu_torch.apis.v1\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'cryptography') or (m.startswith("
+        "'ome_tpu') and not m.startswith('ome_tpu_torch'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     proc = _run(code)

@@ -9,8 +9,10 @@ mode; the two snapshots list the same program keys in the same order,
 with the same dispatch counts and the same flops, bytes and expected ms
 (1e-9 relative). Two schedulers bind the ledgers and export equal
 `ome_engine_program_{flops,bytes}` families. "full" mode on the CPU
-counts one decode step's products exactly (FlopCounterMode over the
-plain versions).
+counts one decode step's products exactly (the ledger's counter over
+the plain versions); that counter gives every program of the script
+(dense, paged, MoE) the FLOPs torch's FlopCounterMode gives, and
+counting imports no torch._dynamo.
 
 Then the reference's tests/test_perf.py cases, each on the port: ledger
 unit behavior, the /debug/programs surface (403, 404, schema), the HBM
@@ -211,6 +213,78 @@ def test_auto_mode_is_model_on_the_cpu(world):
     eng.decode(eng.new_state(), *GREEDY)
     (entry,) = eng.ledger.snapshot()
     assert entry["source"] == "model" and entry["device"] == "cpu"
+
+
+class _TorchFlopCounterMode:
+    """torch's FlopCounterMode behind the ledger counter's interface."""
+
+    def __enter__(self):
+        from torch.utils.flop_counter import FlopCounterMode
+        self.mode = FlopCounterMode(display=False)
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+    @property
+    def flops(self):
+        return self.mode.get_total_flops()
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged", "moe"])
+def test_ledger_counter_counts_as_flop_counter_mode(world, kind,
+                                                    monkeypatch):
+    """The ledger's own counter (perf/ledger.py::FlopCounter) gives every
+    program of the op script the FLOPs torch's FlopCounterMode gives."""
+    from ome_tpu_torch.perf import ledger as ledger_mod
+    _, _, tcfg, tparams = world
+    kw = {"kv_block": BLOCK} if kind == "paged" else {}
+    if kind == "moe":
+        tcfg = tiny_test(moe=True).replace(dtype=torch.float32,
+                                           num_layers=2)
+        jp = jllama.init_params(jax.random.PRNGKey(1), jax_tiny(
+            moe=True).replace(dtype=jnp.float32, num_layers=2))
+        tparams = from_jax_params(jax.tree.map(np.asarray, jp), "cpu")
+
+    def counted():
+        led = ProgramLedger(mode="full")
+        eng = InferenceEngine(tparams, tcfg, max_slots=SLOTS,
+                              max_seq=MAX_SEQ, prefix_cache_bytes=PC_BYTES,
+                              device="cpu", ledger=led, **kw)
+        _script(eng, paged=kind == "paged")
+        return {e["program"]: (e["source"], e["flops"])
+                for e in led.snapshot()}
+    got = counted()
+    monkeypatch.setattr(ledger_mod, "FlopCounter", _TorchFlopCounterMode)
+    want = counted()
+    assert got == want
+    assert all(src == "counted" and flops > 0
+               for src, flops in got.values())
+
+
+def test_ledger_counting_imports_no_dynamo():
+    """Counting a program imports no torch._dynamo (FlopCounterMode's
+    first use does: seconds of every new engine process on the card)."""
+    import subprocess
+    import sys
+    code = (
+        "import sys, torch\n"
+        "from ome_tpu_torch.perf.ledger import ProgramLedger\n"
+        "led = ProgramLedger(mode='full', device='cpu')\n"
+        "led.prepare()\n"
+        "x = torch.ones(8, 8)\n"
+        "led.capture('mm', '', lambda: x @ x, (x,), "
+        "{'flops': 0.0, 'bytes': 0.0})\n"
+        "assert led.last_dispatch()['flops'] == 2 * 8 ** 3\n"
+        "assert 'torch._dynamo' not in sys.modules\n"
+        "print('ok')\n")
+    import pathlib
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       cwd=str(pathlib.Path(__file__).resolve().parents[1]))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 # -- the reference's ledger unit cases ---------------------------------
